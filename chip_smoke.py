@@ -10,38 +10,52 @@ Phases; any failure exits non-zero before the result lines:
   2. build   -- compile ops/csrc/*.cu (one nvcc per source, in parallel)
                 and print the build seconds and ptxas's resource lines.
   3. kernels -- hold each kernel against its plain PyTorch version on the
-                card at the main path's shapes, with seeded inputs and a
+                card at the main paths' shapes, with seeded inputs and a
                 stated tolerance; time kernel, plain version and, where one
                 PyTorch call computes the same function, that call, as
                 device time (torch.profiler's CUDA trace) and as eager
                 back-to-back time (CUDA events, host issue included).
-  4. slice   -- the main path through its entry points: load_server builds
-                pixel_transformer at its default width and serves requests
-                at serve_bs=64 (warm, n=25, n=64 seed=7 twice, an HTTP
-                /sample and /healthz), then scores a batch through the full
-                forward. Every launch count is reset just before and read
-                just after, and must equal what the path implies. Then the
-                sampled tokens are teacher-forced through the kernel decode
-                chain (must redraw the same tokens), the plain decode chain
-                and the full forward, and a CPU f32 forward checks the card.
-  5. profile -- device time by kernel over one request.
+  4. slice   -- the serving path through its entry points: load_server
+                builds pixel_transformer at its default width and serves
+                requests at serve_bs=64 (warm, n=25, n=64 seed=7 twice, an
+                HTTP /sample and /healthz), then scores a batch through the
+                full forward. Every launch count is reset just before and
+                read just after, and must equal what the path implies. Then
+                the sampled tokens are teacher-forced through the kernel
+                decode chain (must redraw the same tokens), the plain decode
+                chain and the full forward, and a CPU f32 forward checks the
+                card.
+  5. train   -- the training path through its entry point: main.main at the
+                default width, bs=64, on the synthetic set cut to 640/128
+                images (10 steps, 2 eval batches), one epoch with a save
+                each epoch. Exact launch counts of all five kernels; the
+                artifacts; finite metrics; eval/nlogp falling.
+  6. grads   -- one batch's gradients on the card, from the trained
+                model.pt, for every parameter: finite, non-zero, and within
+                a bf16 tolerance of the same batch's gradients from a CPU
+                f32 copy.
+  7. profile -- device time by kernel over one request, one scoring
+                forward and one train step.
 Then the kernels line, the nvidia-smi line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 import json
+import shutil
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_train'
 
 
 def log(*a):
@@ -73,11 +87,18 @@ def eager_ms(fn, iters, warmup=3):
     return e0.elapsed_time(e1) / iters
 
 
+def _on_device(event):
+    """A kernel or copy on the card's timeline; not a user annotation (such
+    as Optimizer.step), whose span covers kernels already counted."""
+    from torch.autograd import DeviceType
+
+    return event.device_type == DeviceType.CUDA and not getattr(event, 'is_user_annotation', False)
+
+
 def device_ms(fn, iters):
     """Mean device ms per call: the summed duration of the kernels (and
     copies) that iters calls ran, from torch.profiler's CUDA trace, so the
     host's issue time between launches is not counted."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -86,7 +107,7 @@ def device_ms(fn, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = [e.time_range.elapsed_us() for e in prof.events() if _on_device(e)]
     if not us:
         raise AssertionError('the profiler saw no device events')
     return sum(us) / 1e3 / iters
@@ -145,7 +166,8 @@ def phase_kernels(dev):
     import torch.nn.functional as F
 
     from generative_models_tpu_torch.ops.attention import (
-        causal_attention_fwd, causal_attention_plain,
+        causal_attention_fwd, causal_attention_plain, flash_bwd_dkv,
+        flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
     )
     from generative_models_tpu_torch.ops.decode_fused import (
         block_tail, block_tail_plain, ln_matmul, ln_matmul_plain,
@@ -154,7 +176,8 @@ def phase_kernels(dev):
     rng = np.random.RandomState(0)
     f32 = lambda *s, scale=1.0: torch.tensor(rng.randn(*s) * scale, dtype=torch.float32, device=dev)
     bf = torch.bfloat16
-    cases = {'ln_matmul': [], 'block_tail': [], 'causal_attention_fwd': []}
+    cases = {'ln_matmul': [], 'block_tail': [], 'causal_attention_fwd': [],
+             'flash_bwd_dq': [], 'flash_bwd_dkv': []}
 
     # Kernels A and B vs plain at the same operand rounding (bf16, f32
     # accumulation). Tolerance atol 1e-2 + rtol 1e-2: the f32 sums differ
@@ -225,11 +248,72 @@ def phase_kernels(dev):
             ),
         ))
         torch.cuda.empty_cache()
+
+    # Kernels E (dQ, delta) and D (dK, dV) vs the dense plain backward on the
+    # same bf16 operands, P and dS in f32 on both sides: rtol 1e-3 / atol
+    # 1e-4, the JAX package's flash-vs-dense gradient tolerance (sums of up
+    # to T terms in another order). library_ms: the backward alone of
+    # scaled_dot_product_attention (dq, dk and dv in one call).
+    tol_bwd = dict(atol=1e-4, rtol=1e-3)
+    for (Bq, Hq, T, D), lines in (((64, 4, 784, 32), (209, 209)), ((1, 4, 2048, 32), (389, 418))):
+        q, k, v, do = (f32(Bq, Hq, T, D).to(bf) for _ in range(4))
+        o, lse = causal_attention_fwd(q, k, v)
+        dq, delta = flash_bwd_dq(q, k, v, o, lse, do)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
+        rdq, rdelta = flash_bwd_dq_plain(q, k, v, o, lse, do, dtype=bf)
+        err_dq = max(compare(f'bwd dq T={T}', dq, rdq, **tol_bwd),
+                     compare(f'bwd delta T={T}', delta, rdelta, **tol_bwd))
+        del rdq
+        rdk, rdv = flash_bwd_dkv_plain(q, k, v, do, lse, rdelta, dtype=bf)
+        err_dkv = max(compare(f'bwd dk T={T}', dk, rdk, **tol_bwd),
+                      compare(f'bwd dv T={T}', dv, rdv, **tol_bwd))
+        del rdk, rdv
+        torch.cuda.empty_cache()
+        qg, kg, vg = (u.detach().clone().requires_grad_() for u in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        sdpa_bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+        BH, pairs = Bq * Hq, Bq * Hq * T * (T + 1) // 2
+        n = BH * T * D
+        shape = f'(B={Bq},H={Hq},T={T},D={D})'
+        # E reads q, k, v, dO (bf16), o, lse and writes dq, delta; three
+        # D-long products a live pair (S, dP, dQ)
+        bms, by = bound(4 * n * 2 + n * 4 + BH * T * 4 + n * 4 + BH * T * 4, 3 * 2 * D * pairs)
+        cases['flash_bwd_dq'].append(dict(
+            shape=shape, replaces_line=lines[0], max_abs_err=err_dq, **tol_bwd,
+            bound_ms=bms, bound_by=by, library_covers='dq, dk and dv', **timings(
+                lambda: flash_bwd_dq(q, k, v, o, lse, do),
+                lambda: flash_bwd_dq_plain(q, k, v, o, lse, do, dtype=bf),
+                sdpa_bwd, iters=10,
+            ),
+        ))
+        # D reads q, k, v, dO (bf16), lse, delta and writes dk, dv; four
+        # D-long products a live pair (S, dP, dK, dV)
+        bms, by = bound(4 * n * 2 + 2 * BH * T * 4 + 2 * n * 4, 4 * 2 * D * pairs)
+        cases['flash_bwd_dkv'].append(dict(
+            shape=shape, replaces_line=lines[1], max_abs_err=err_dkv, **tol_bwd,
+            bound_ms=bms, bound_by=by, library_covers='dq, dk and dv', **timings(
+                lambda: flash_bwd_dkv(q, k, v, do, lse, delta),
+                lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta, dtype=bf),
+                sdpa_bwd, iters=10,
+            ),
+        ))
+        del out, sdpa_bwd, qg, kg, vg
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for name, cs in cases.items():
         for c in cs:
             log(f'[kernels] {name} {json.dumps(c)}')
     return cases
+
+
+def _counters():
+    """Every kernel wrapper; each counts its own launches."""
+    from generative_models_tpu_torch.ops.attention import (
+        causal_attention_fwd, flash_bwd_dkv, flash_bwd_dq,
+    )
+    from generative_models_tpu_torch.ops.decode_fused import block_tail, ln_matmul
+
+    return (ln_matmul, block_tail, causal_attention_fwd, flash_bwd_dq, flash_bwd_dkv)
 
 
 def _get(url):
@@ -239,11 +323,9 @@ def _get(url):
 
 def phase_slice():
     """The main path through its entry points, with exact launch counts."""
-    from generative_models_tpu_torch.ops.attention import causal_attention_fwd
-    from generative_models_tpu_torch.ops.decode_fused import block_tail, ln_matmul
     from generative_models_tpu_torch.serve import _http_serve, load_server
 
-    counters = (ln_matmul, block_tail, causal_attention_fwd)
+    counters = _counters()
     for fn in counters:
         fn.launches = 0
     t0 = time.time()
@@ -278,6 +360,7 @@ def phase_slice():
         'ln_matmul': (L + 1) * T * passes,
         'block_tail': L * T * passes,
         'causal_attention_fwd': L,  # one scoring forward
+        'flash_bwd_dq': 0, 'flash_bwd_dkv': 0,  # serving runs no backward
     }
     if launches != expected:
         raise AssertionError(f'launch counts {launches} != expected {expected}')
@@ -355,10 +438,99 @@ def teacher_force(model, x, nlogp):
     return out
 
 
+def phase_train():
+    """The training path through main.main, with exact launch counts."""
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch.main import main as train_main
+
+    train_n, test_n, bs, L, T = 640, 128, 64, 2, 784
+    mnist.TRAIN_N, mnist.TEST_N = train_n, test_n  # 10 steps, 2 eval batches
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    counters = _counters()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.time()
+    history = train_main([
+        '--model=pixel_transformer', f'--bs={bs}', '--epochs=1', '--save_n=1',
+        '--data_source=synthetic', f'--logdir={TRAIN_DIR}',
+    ])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f'[train] main.main {wall:.2f}s; launches {launches}')
+
+    steps, eval_batches, evals = train_n // bs, test_n // bs, 2  # epochs 0 and 1
+    expected = {
+        'ln_matmul': (L + 1) * T * evals,  # evaluate samples 25 each epoch
+        'block_tail': L * T * evals,
+        'causal_attention_fwd': L * (eval_batches * evals + steps),
+        'flash_bwd_dq': L * steps,
+        'flash_bwd_dkv': L * steps,
+    }
+    if launches != expected:
+        raise AssertionError(f'train launch counts {launches} != expected {expected}')
+    for name in ('model.pt', 'hps.yaml', 'sampling_process_0.gif', 'sampling_process_1.gif'):
+        if not (TRAIN_DIR / name).is_file():
+            raise AssertionError(f'train: {name} was not written')
+    if (TRAIN_DIR / 'sampling_process_0.gif').read_bytes()[:6] != b'GIF89a':
+        raise AssertionError('train: sampling_process_0.gif is not a GIF')
+    for i, h in enumerate(history):
+        bad = {k: v for k, v in h.items() if not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f'train: non-finite metrics at epoch {i}: {bad}')
+    keys = {'eval/nlogp', 'eval/bits_per_dim', 'train/nlogp', 'dt/train', 'dt/eval', 'num_vars'}
+    if not keys <= set(history[1]):
+        raise AssertionError(f'train: epoch 1 logged {sorted(history[1])}, missing {keys - set(history[1])}')
+    nlogp = [h['eval/nlogp'] for h in history]
+    if not nlogp[1] < nlogp[0]:
+        raise AssertionError(f'train: eval/nlogp did not fall: {nlogp}')
+    log(f'[train] eval/nlogp {nlogp}, train/nlogp {history[1]["train/nlogp"]}, '
+        f'dt/train {history[1]["dt/train"]:.3f}s for {steps} steps, dt/eval {history[1]["dt/eval"]:.3f}s')
+    return dict(launches=launches, wall_sec=wall, steps=steps, history=history)
+
+
+def phase_grads():
+    """One batch's gradients on the card against a CPU f32 copy."""
+    from generative_models_tpu_torch.main import load_model_and_data
+
+    model, dataset, G = load_model_and_data([
+        f'--weights_from={TRAIN_DIR / "model.pt"}', '--data_source=synthetic',
+    ])
+    x = dataset.first_test_batch(0)[0][:8]
+    model.backward(x)
+    Gc = type(G)(G)
+    Gc.device = 'cpu'
+    cpu = type(model)(Gc)
+    cpu.net.load_state_dict({k: v.cpu() for k, v in model.net.state_dict().items()})
+    cpu.backward(x.cpu())
+    ref = dict(cpu.net.named_parameters())
+    total = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in ref.values())))
+    # bf16 operands round each product's inputs by up to 2^-8 relative, and
+    # a gradient passes ~10 such products: its relative error sits near
+    # 1e-2, so 5e-2 of its own norm, plus 1e-4 of the whole gradient's norm
+    # for key.bias, whose exact gradient is 0 (softmax is shift-invariant)
+    rel, floor = 5e-2, 1e-4
+    out = {}
+    for name, p in model.net.named_parameters():
+        g = p.grad
+        if g is None or not torch.isfinite(g).all() or not g.any():
+            raise AssertionError(f'grads: {name} has no finite non-zero gradient on the card')
+        gr = ref[name].grad.double()
+        err = float(torch.linalg.vector_norm(g.cpu().double() - gr))
+        ref_norm = float(torch.linalg.vector_norm(gr))
+        if err > rel * ref_norm + floor * total:
+            raise AssertionError(f'grads: {name} |card - cpu| {err:.3g} vs |cpu| {ref_norm:.3g}')
+        out[name] = err / max(ref_norm, 1e-30)
+    worst = max(out, key=out.get)
+    log(f'[grads] {len(out)} parameters finite and non-zero; relative error vs CPU f32 '
+        f'max {out[worst]:.3g} ({worst}), median {sorted(out.values())[len(out) // 2]:.3g}; '
+        f'tolerance {rel} of the norm + {floor} of |all grads| = {total:.4g}')
+    return model, dataset, dict(rel_err=out, rtol_norm=rel, atol_of_total=floor)
+
+
 def _profile(label, fn, top_n):
     """Wall and device time of one call of fn under torch.profiler, and the
     kernels that took the most device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -368,7 +540,7 @@ def _profile(label, fn, top_n):
         wall = time.time() - t0
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if _on_device(e):
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
@@ -380,12 +552,16 @@ def _profile(label, fn, top_n):
     return dict(wall_ms=wall * 1e3, device_ms=busy_ms, launches=launches)
 
 
-def phase_profile(server, x):
-    """Device time by kernel over one seeded request and one (warm) scoring
-    forward."""
+def phase_profile(server, x, model, dataset):
+    """Device time by kernel over one seeded request, one (warm) scoring
+    forward and one (warm) train step at bs=64."""
+    bx = dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
+    model.train_step(bx[0])
+    torch.cuda.synchronize()
     return dict(
         request=_profile('one request', lambda: server.sample(64, seed=11), 15),
         scoring=_profile('one scoring forward', lambda: server.model.eval_loss(x), 10),
+        train_step=_profile('one train step', lambda: model.train_step(bx[1]), 15),
     )
 
 
@@ -404,27 +580,31 @@ def main():
     phase_build()
     cases = phase_kernels(dev)
     sl = phase_slice()
-    prof = phase_profile(sl['server'], sl['x'])
+    tr = phase_train()
+    model, dataset, grads = phase_grads()
+    prof = phase_profile(sl['server'], sl['x'], model, dataset)
 
-    # (source, TPU kernel replaced, passes the launch count spans: sampling
-    # passes for the decode kernels, one scoring forward for attention)
+    # (source, TPU kernel replaced) of each kernel; its launches are those
+    # of the serving path (sampling passes, one scoring forward) and of the
+    # training path
     srcs = {
-        'ln_matmul': ('decode_fused.cu', 'generative_models_tpu/ops/decode_fused.py:46', sl['passes']),
-        'block_tail': ('decode_fused.cu', 'generative_models_tpu/ops/decode_fused.py:71', sl['passes']),
-        'causal_attention_fwd': ('attention.cu', 'generative_models_tpu/ops/attention.py:148', 1),
+        'ln_matmul': ('decode_fused.cu', 'generative_models_tpu/ops/decode_fused.py:46'),
+        'block_tail': ('decode_fused.cu', 'generative_models_tpu/ops/decode_fused.py:71'),
+        'causal_attention_fwd': ('attention.cu', 'generative_models_tpu/ops/attention.py:148'),
+        'flash_bwd_dq': ('attention_bwd.cu', 'generative_models_tpu/ops/attention.py:209'),
+        'flash_bwd_dkv': ('attention_bwd.cu', 'generative_models_tpu/ops/attention.py:209'),
     }
     kernels = []
     for name, cs in cases.items():
-        src, replaces, passes = srcs[name]
+        src, replaces = srcs[name]
         main_case = cs[0]
-        launches = sl['launches'][name]
-        if launches == 0:
-            raise AssertionError(f'{name} was not launched on the main path')
+        by_path = {'serve': sl['launches'][name], 'train': tr['launches'][name]}
+        if sum(by_path.values()) == 0:
+            raise AssertionError(f'{name} was not launched on a main path')
         kernels.append(dict(
             name=name, route='cuda',
             source=f'generative_models_tpu_torch/ops/csrc/{src}',
-            replaces=replaces, launches=launches,
-            launches_per_pass=launches // passes,
+            replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(c['max_abs_err'] for c in cs),
             atol=main_case['atol'], rtol=main_case['rtol'],
             ms=main_case['ms'], kernel_ms=main_case['ms'],
@@ -439,7 +619,11 @@ def main():
             serve_bs=64, warm_sec=sl['warm_sec'], request_sec=lat,
             request_p50_sec=lat[len(lat) // 2], score_ms=sl['score_ms'],
             profile=prof, checks=sl['checks'], power=smi,
-        )
+        ),
+        train=dict(
+            wall_sec=tr['wall_sec'], steps=tr['steps'], history=tr['history'],
+            grads_max_rel_err=max(grads['rel_err'].values()), power=smi,
+        ),
     )))
     log(json.dumps({'kernels': kernels}))
     log(nvidia_smi())

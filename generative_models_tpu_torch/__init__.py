@@ -7,5 +7,7 @@ ported path has a hand-written CUDA kernel under ops/csrc/, built at first
 use into build/torch_kernels/.
 
 Ported so far: pixel_transformer inference (KV-cached serving through
-serve.py and the scoring forward through models/base.py eval_loss).
+serve.py, the scoring forward through models/base.py eval_loss) and
+training (main.py: Adam with the trainer knobs, the data pipeline, the
+logger, checkpoints), with the flash-attention backward on the card.
 """

@@ -2,14 +2,17 @@
 tokens. Counterpart of generative_models_tpu/models/pixel_transformer.py.
 
 Two paths, each through the port's kernels on the card:
-  * scoring: the full forward (loss / eval_loss) runs causal attention
-    through Kernel C (ops/attention.py causal_attention);
+  * scoring and training: the full forward runs causal attention through
+    Kernel C and its backward through Kernels E and D
+    (ops/attention.py causal_attention, an autograd Function); --remat=1
+    recomputes each Block in the backward (torch.utils.checkpoint), which
+    launches Kernel C again;
   * sampling: a KV-cached decode loop, one token per step, whose dense
     chains are Kernels A and B (ops/decode_fused.py ln_matmul and
     block_tail) and whose single-token attention is plain torch.
 
-Not ported yet, and refused when set: --moe_experts, --remat, and the ring
-and pipe paths (which --mesh selects; utils/config.py refuses --mesh).
+Not ported yet, and refused when set: --moe_experts, and the ring and pipe
+paths (which --mesh selects; utils/config.py refuses --mesh).
 """
 
 import functools
@@ -17,6 +20,7 @@ import functools
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from generative_models_tpu_torch.models.base import Autoreg
 from generative_models_tpu_torch.models.heads import BinaryHead, CategoricalHead
@@ -95,16 +99,19 @@ class TransformerNet(nn.Module):
 
     use_fused_decode routes each decode step through Kernels A and B (on CPU
     tensors their wrappers run the plain versions); False runs the plain
-    versions in the operand dtype everywhere, the per-op chain."""
+    versions in the operand dtype everywhere, the per-op chain. remat
+    recomputes each Block in the backward instead of keeping its
+    activations (nn.remat in the JAX package)."""
 
     def __init__(self, in_size, block_size, n_embed, n_head, n_layer,
-                 head='bin', use_fused_decode=True):
+                 head='bin', use_fused_decode=True, remat=False):
         super().__init__()
         self.in_size = in_size
         self.block_size = block_size
         self.n_embed = n_embed
         self.n_head = n_head
         self.use_fused_decode = use_fused_decode
+        self.remat = remat
         self.pos_emb = nn.Parameter(torch.zeros(1, block_size, n_embed))
         self.embed = nn.Linear(in_size, n_embed, bias=False)
         self.blocks = nn.ModuleList(Block(n_embed, n_head) for _ in range(n_layer))
@@ -117,8 +124,9 @@ class TransformerNet(nn.Module):
         B, T, C = x.shape
         x = torch.cat([x.new_zeros(B, 1, C), x[:, :-1]], dim=1)
         h = dense(x, self.embed) + self.pos_emb[:, :T]
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            h = block(h)
+            h = checkpoint(block, h, use_reentrant=False) if remat else block(h)
         return self.head_layer(self.ln_f(h))
 
     def init_cache(self, batch):
@@ -239,8 +247,6 @@ class PixelTransformer(Autoreg):
         G = self.G
         if int(G.get('moe_experts', 0)):
             raise NotImplementedError('--moe_experts is not ported yet')
-        if int(G.get('remat', 0)):
-            raise NotImplementedError('--remat is not ported yet (training slice)')
         return TransformerNet(
             in_size=1,
             block_size=self.block_size,
@@ -249,6 +255,7 @@ class PixelTransformer(Autoreg):
             n_layer=int(G.n_layer),
             head='bin',
             use_fused_decode=bool(G.get('fused_decode', 1)),
+            remat=bool(G.get('remat', 0)),
         )
 
     def loss(self, x, y=None):

@@ -7,6 +7,8 @@ imported only where hps.yaml is read or written.
 
 Differences: --device defaults to 'cuda' (see ops/common.resolve_device),
 and flags this port does not implement yet raise instead of being ignored.
+--jit_epoch and --decode_unroll are accepted for hps.yaml parity and have
+no effect: PyTorch runs eagerly, there is no jitted epoch or scan.
 """
 
 import argparse
@@ -19,6 +21,10 @@ class AttrDict(dict):
 
     __setattr__ = dict.__setitem__
     __getattr__ = dict.__getitem__
+
+
+def prefix_dict(name, d):
+    return {name + key: d[key] for key in d}
 
 
 def args_type(default):
@@ -37,8 +43,7 @@ def args_type(default):
 def global_defaults():
     """Global default config: the JAX package's keys, so hps.yaml
     round-trips. Keys that only the JAX harness reads (jit_epoch,
-    compile_cache, profile, the trainer and streaming knobs) are kept for
-    that round-trip; the training slice gives them meaning here."""
+    compile_cache, the streaming knobs) are kept for that round-trip."""
     DG = AttrDict()
     DG.model = 'vae'
     DG.bs = 64
@@ -83,7 +88,10 @@ def global_defaults():
 
 # flags whose JAX implementation has no counterpart here yet: setting one
 # raises rather than running something other than what was asked for
-NOT_PORTED = ('mesh', 'fsdp', 'quantize', 'export', 'from_export')
+NOT_PORTED = (
+    'mesh', 'fsdp', 'quantize', 'export', 'from_export',
+    'eval_heavy', 'stream_data', 'resume', 'profile',
+)
 
 
 def check_ported(G):
@@ -92,6 +100,11 @@ def check_ported(G):
             raise NotImplementedError(
                 f'--{key}={G[key]} is not ported yet to generative_models_tpu_torch'
             )
+    if G.get('ckpt', 'flax') != 'flax':
+        raise NotImplementedError(
+            f'--ckpt={G.ckpt} is not ported yet to generative_models_tpu_torch '
+            '(model.pt holds the full train state)'
+        )
 
 
 def parse_args(argv=None, discover_models=None, DG=None):

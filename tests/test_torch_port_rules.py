@@ -40,7 +40,8 @@ def test_importing_the_port_loads_no_jax():
         [sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,
         timeout=300, check=True,
     ).stdout.split()
-    assert 'generative_models_tpu_torch.serve' in out
+    for m in ('serve', 'main', 'data.mnist', 'utils.logger'):
+        assert f'generative_models_tpu_torch.{m}' in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -67,6 +68,17 @@ def test_serve_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp_pat
     with pytest.raises(RuntimeError, match='--device=cpu'):
         serve.main(['--model=pixel_transformer', '--n=1', f'--out={out}'])
     assert not out.exists()
+
+
+def test_train_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp_path):
+    from generative_models_tpu_torch import main
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    logdir = tmp_path / 'logs'
+    with pytest.raises(RuntimeError, match='--device=cpu'):
+        main.main(['--model=pixel_transformer', '--data_source=synthetic',
+                   f'--logdir={logdir}'])
+    assert not logdir.exists()
 
 
 def test_device_rule():
