@@ -10,32 +10,42 @@ Phases; any failure exits non-zero before the result lines:
   2. build   -- compile ops/csrc/*.cu (one nvcc per source, in parallel)
                 and print the build seconds and ptxas's resource lines.
   3. kernels -- hold each kernel against its plain PyTorch version on the
-                card at the main paths' shapes, with seeded inputs and a
-                stated tolerance; time kernel, plain version and, where one
-                PyTorch call computes the same function, that call, as
-                device time (torch.profiler's CUDA trace) and as eager
-                back-to-back time (CUDA events, host issue included).
-  4. slice   -- the serving path through its entry points: load_server
-                builds pixel_transformer at its default width and serves
-                requests at serve_bs=64 (warm, n=25, n=64 seed=7 twice, an
-                HTTP /sample and /healthz), then scores a batch through the
-                full forward. Every launch count is reset just before and
-                read just after, and must equal what the path implies. Then
-                the sampled tokens are teacher-forced through the kernel
-                decode chain (must redraw the same tokens), the plain decode
-                chain and the full forward, and a CPU f32 forward checks the
-                card.
-  5. train   -- the training path through its entry point: main.main at the
+                card at the main paths' shapes (pixel_transformer's and
+                vqvae's), with seeded inputs and a stated tolerance; Kernel
+                F's indices must be identical but for ties within rounding.
+                Time kernel, plain version and, where one PyTorch call
+                computes the same function, that call, as device time
+                (torch.profiler's CUDA trace) and as eager back-to-back time
+                (CUDA events, host issue included).
+  4. slice   -- pixel_transformer's serving path through its entry points:
+                load_server at its default width, requests at serve_bs=64
+                (warm, n=25, n=64 seed=7 twice, an HTTP /sample and
+                /healthz), then a batch scored through the full forward.
+                Every launch count is reset just before each path and read
+                just after, and must equal what the path implies. Then the
+                sampled tokens are teacher-forced through the kernel decode
+                chain (must redraw the same tokens), the plain decode chain
+                and the full forward, and a CPU f32 forward checks the card.
+  5. train   -- pixel_transformer's training path: main.main at the
                 default width, bs=64, on the synthetic set cut to 640/128
                 images (10 steps, 2 eval batches), one epoch with a save
-                each epoch. Exact launch counts of all five kernels; the
+                each epoch. Exact launch counts of every kernel; the
                 artifacts; finite metrics; eval/nlogp falling.
   6. grads   -- one batch's gradients on the card, from the trained
                 model.pt, for every parameter: finite, non-zero, and within
                 a bf16 tolerance of the same batch's gradients from a CPU
                 f32 copy.
-  7. profile -- device time by kernel over one request, one scoring
-                forward and one train step.
+  7. vq_serve -- vqvae's serving path at its default width (warm, n=25,
+                seed=7 twice) with exact launch counts; the seed=7 codes
+                redrawn through the kernel decode chain, against the full
+                prior forward and a CPU f32 prior and decoder.
+  8. vq_train -- vqvae's training path through main.main, as phase 5:
+                exact launch counts, artifacts, finite metrics, the test
+                recon_loss falling, the perplexity in [1, vqK].
+  9. vq_grads -- phase 6 for vqvae, every AE and prior parameter, and the
+                count of codes the card and the CPU copy assign apart.
+  10. profile -- device time by kernel over one request and one train step
+                of each model, and one pixel_transformer scoring forward.
 Then the kernels line, the nvidia-smi line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
@@ -55,7 +65,9 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_train'
+VQ_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_vqvae'
 
 
 def log(*a):
@@ -126,11 +138,11 @@ def timings(kernel, plain, library=None, iters=200):
     return out
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=H100_BF16_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the bf16 peak."""
+    operations over the peak of their type (bf16 unless given)."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -162,7 +174,9 @@ def phase_build():
 
 
 def phase_kernels(dev):
-    """Each kernel vs its plain version at the main path's shapes."""
+    """Each kernel vs its plain version at the main paths' shapes:
+    pixel_transformer's (C=128, T=784 and 2048) first, then vqvae's (the
+    prior at C=256, 8 heads, T=49; the codebook search at its batches)."""
     import torch.nn.functional as F
 
     from generative_models_tpu_torch.ops.attention import (
@@ -177,7 +191,7 @@ def phase_kernels(dev):
     f32 = lambda *s, scale=1.0: torch.tensor(rng.randn(*s) * scale, dtype=torch.float32, device=dev)
     bf = torch.bfloat16
     cases = {'ln_matmul': [], 'block_tail': [], 'causal_attention_fwd': [],
-             'flash_bwd_dq': [], 'flash_bwd_dkv': []}
+             'flash_bwd_dq': [], 'flash_bwd_dkv': [], 'vq_one_hot': []}
 
     # Kernels A and B vs plain at the same operand rounding (bf16, f32
     # accumulation). Tolerance atol 1e-2 + rtol 1e-2: the f32 sums differ
@@ -185,52 +199,56 @@ def phase_kernels(dev):
     # f32 ulp of a bf16 rounding boundary rounds the other way in one of the
     # two, moving its products by up to 2^-8 relative.
     tol_dense = dict(atol=1e-2, rtol=1e-2)
-    B, C = 64, 128
-    for N in (3 * C, 1):
+    B = 64
+    for C, N, path in ((128, 384, 'pixel_transformer'), (128, 1, 'pixel_transformer'),
+                       (256, 768, 'vqvae'), (256, 64, 'vqvae')):
         x, s, b = f32(B, C), 1 + f32(C, scale=0.1), f32(C, scale=0.1)
         w, bias = f32(C, N, scale=C ** -0.5).to(bf), f32(N, scale=0.1)
         got = ln_matmul(x, s, b, w, bias)
         ref = ln_matmul_plain(x, s, b, w, bias, dtype=bf)
-        err = compare(f'ln_matmul N={N}', got, ref, **tol_dense)
+        err = compare(f'ln_matmul C={C} N={N}', got, ref, **tol_dense)
         nbytes = B * C * 4 + 2 * C * 4 + C * N * 2 + N * 4 + B * N * 4
         bms, by = bound(nbytes, 2 * B * C * N)
         cases['ln_matmul'].append(dict(
-            shape=f'x ({B},{C}) -> ({B},{N})', max_abs_err=err, **tol_dense,
+            shape=f'x ({B},{C}) -> ({B},{N})', path=path, max_abs_err=err, **tol_dense,
             bound_ms=bms, bound_by=by, **timings(
                 lambda: ln_matmul(x, s, b, w, bias),
                 lambda: ln_matmul_plain(x, s, b, w, bias, dtype=bf),
             ),
         ))
-    lp = dict(
-        wproj=f32(C, C, scale=C ** -0.5).to(bf), bproj=f32(C, scale=0.1),
-        ln2_scale=1 + f32(C, scale=0.1), ln2_bias=f32(C, scale=0.1),
-        wfc1=f32(C, 4 * C, scale=C ** -0.5).to(bf), bfc1=f32(4 * C, scale=0.1),
-        wfc2=f32(4 * C, C, scale=(4 * C) ** -0.5).to(bf), bfc2=f32(C, scale=0.1),
-    )
-    x, y = f32(B, C), f32(B, C)
-    got, ref = block_tail(x, y, lp), block_tail_plain(x, y, lp, dtype=bf)
-    err = compare('block_tail', got, ref, **tol_dense)
-    nbytes = 3 * B * C * 4 + 9 * C * C * 2 + 8 * C * 4
-    bms, by = bound(nbytes, 2 * B * 9 * C * C)
-    cases['block_tail'].append(dict(
-        shape=f'x, y ({B},{C})', max_abs_err=err, **tol_dense,
-        bound_ms=bms, bound_by=by, **timings(
-            lambda: block_tail(x, y, lp),
-            lambda: block_tail_plain(x, y, lp, dtype=bf),
-        ),
-    ))
+    for C, path in ((128, 'pixel_transformer'), (256, 'vqvae')):
+        lp = dict(
+            wproj=f32(C, C, scale=C ** -0.5).to(bf), bproj=f32(C, scale=0.1),
+            ln2_scale=1 + f32(C, scale=0.1), ln2_bias=f32(C, scale=0.1),
+            wfc1=f32(C, 4 * C, scale=C ** -0.5).to(bf), bfc1=f32(4 * C, scale=0.1),
+            wfc2=f32(4 * C, C, scale=(4 * C) ** -0.5).to(bf), bfc2=f32(C, scale=0.1),
+        )
+        x, y = f32(B, C), f32(B, C)
+        got, ref = block_tail(x, y, lp), block_tail_plain(x, y, lp, dtype=bf)
+        err = compare(f'block_tail C={C}', got, ref, **tol_dense)
+        nbytes = 3 * B * C * 4 + 9 * C * C * 2 + 8 * C * 4
+        bms, by = bound(nbytes, 2 * B * 9 * C * C)
+        cases['block_tail'].append(dict(
+            shape=f'x, y ({B},{C})', path=path, max_abs_err=err, **tol_dense,
+            bound_ms=bms, bound_by=by, **timings(
+                lambda: block_tail(x, y, lp),
+                lambda: block_tail_plain(x, y, lp, dtype=bf),
+            ),
+        ))
 
     # Kernel C vs the dense plain version on the same bf16 operands, both in
     # f32: rtol 2e-4 / atol 2e-5, the JAX package's flash-vs-dense
     # tolerance (sums in another order, exp/log implementations differ).
     tol_attn = dict(atol=2e-5, rtol=2e-4)
-    for (Bq, Hq, T, D), replaces in (((64, 4, 784, 32), 148), ((1, 4, 2048, 32), 312)):
+    attn_shapes = (((64, 4, 784, 32), 148, 'pixel_transformer'),
+                   ((1, 4, 2048, 32), 312, 'long T'), ((64, 8, 49, 32), 148, 'vqvae'))
+    for (Bq, Hq, T, D), replaces, path in attn_shapes:
         q, k, v = (f32(Bq, Hq, T, D).to(bf) for _ in range(3))
         o, lse = causal_attention_fwd(q, k, v)
         o_ref, lse_ref = causal_attention_plain(q, k, v, dtype=bf)
         err = max(
-            compare(f'attention o T={T}', o, o_ref, **tol_attn),
-            compare(f'attention lse T={T}', lse, lse_ref, **tol_attn),
+            compare(f'attention o {(Bq, Hq, T, D)}', o, o_ref, **tol_attn),
+            compare(f'attention lse {(Bq, Hq, T, D)}', lse, lse_ref, **tol_attn),
         )
         del o_ref, lse_ref
         BH = Bq * Hq
@@ -238,13 +256,13 @@ def phase_kernels(dev):
         flops = 4 * D * BH * T * (T + 1) // 2  # QK^T and PV over live pairs
         bms, by = bound(nbytes, flops)
         cases['causal_attention_fwd'].append(dict(
-            shape=f'(B={Bq},H={Hq},T={T},D={D})', replaces_line=replaces,
+            shape=f'(B={Bq},H={Hq},T={T},D={D})', path=path, replaces_line=replaces,
             max_abs_err=err, **tol_attn, bound_ms=bms, bound_by=by,
             **timings(
                 lambda: causal_attention_fwd(q, k, v),
                 lambda: causal_attention_plain(q, k, v, dtype=bf),
                 lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-                iters=10,
+                iters=10 if T > 64 else 100,
             ),
         ))
         torch.cuda.empty_cache()
@@ -255,18 +273,22 @@ def phase_kernels(dev):
     # to T terms in another order). library_ms: the backward alone of
     # scaled_dot_product_attention (dq, dk and dv in one call).
     tol_bwd = dict(atol=1e-4, rtol=1e-3)
-    for (Bq, Hq, T, D), lines in (((64, 4, 784, 32), (209, 209)), ((1, 4, 2048, 32), (389, 418))):
+    bwd_shapes = (((64, 4, 784, 32), (209, 209), 'pixel_transformer'),
+                  ((1, 4, 2048, 32), (389, 418), 'long T'),
+                  ((64, 8, 49, 32), (209, 209), 'vqvae'))
+    for (Bq, Hq, T, D), lines, path in bwd_shapes:
         q, k, v, do = (f32(Bq, Hq, T, D).to(bf) for _ in range(4))
         o, lse = causal_attention_fwd(q, k, v)
         dq, delta = flash_bwd_dq(q, k, v, o, lse, do)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
         rdq, rdelta = flash_bwd_dq_plain(q, k, v, o, lse, do, dtype=bf)
-        err_dq = max(compare(f'bwd dq T={T}', dq, rdq, **tol_bwd),
-                     compare(f'bwd delta T={T}', delta, rdelta, **tol_bwd))
+        shape = f'(B={Bq},H={Hq},T={T},D={D})'
+        err_dq = max(compare(f'bwd dq {shape}', dq, rdq, **tol_bwd),
+                     compare(f'bwd delta {shape}', delta, rdelta, **tol_bwd))
         del rdq
         rdk, rdv = flash_bwd_dkv_plain(q, k, v, do, lse, rdelta, dtype=bf)
-        err_dkv = max(compare(f'bwd dk T={T}', dk, rdk, **tol_bwd),
-                      compare(f'bwd dv T={T}', dv, rdv, **tol_bwd))
+        err_dkv = max(compare(f'bwd dk {shape}', dk, rdk, **tol_bwd),
+                      compare(f'bwd dv {shape}', dv, rdv, **tol_bwd))
         del rdk, rdv
         torch.cuda.empty_cache()
         qg, kg, vg = (u.detach().clone().requires_grad_() for u in (q, k, v))
@@ -274,36 +296,83 @@ def phase_kernels(dev):
         sdpa_bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
         BH, pairs = Bq * Hq, Bq * Hq * T * (T + 1) // 2
         n = BH * T * D
-        shape = f'(B={Bq},H={Hq},T={T},D={D})'
+        iters = 10 if T > 64 else 100
         # E reads q, k, v, dO (bf16), o, lse and writes dq, delta; three
         # D-long products a live pair (S, dP, dQ)
         bms, by = bound(4 * n * 2 + n * 4 + BH * T * 4 + n * 4 + BH * T * 4, 3 * 2 * D * pairs)
         cases['flash_bwd_dq'].append(dict(
-            shape=shape, replaces_line=lines[0], max_abs_err=err_dq, **tol_bwd,
+            shape=shape, path=path, replaces_line=lines[0], max_abs_err=err_dq, **tol_bwd,
             bound_ms=bms, bound_by=by, library_covers='dq, dk and dv', **timings(
                 lambda: flash_bwd_dq(q, k, v, o, lse, do),
                 lambda: flash_bwd_dq_plain(q, k, v, o, lse, do, dtype=bf),
-                sdpa_bwd, iters=10,
+                sdpa_bwd, iters=iters,
             ),
         ))
         # D reads q, k, v, dO (bf16), lse, delta and writes dk, dv; four
         # D-long products a live pair (S, dP, dK, dV)
         bms, by = bound(4 * n * 2 + 2 * BH * T * 4 + 2 * n * 4, 4 * 2 * D * pairs)
         cases['flash_bwd_dkv'].append(dict(
-            shape=shape, replaces_line=lines[1], max_abs_err=err_dkv, **tol_bwd,
+            shape=shape, path=path, replaces_line=lines[1], max_abs_err=err_dkv, **tol_bwd,
             bound_ms=bms, bound_by=by, library_covers='dq, dk and dv', **timings(
                 lambda: flash_bwd_dkv(q, k, v, do, lse, delta),
                 lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta, dtype=bf),
-                sdpa_bwd, iters=10,
+                sdpa_bwd, iters=iters,
             ),
         ))
         del out, sdpa_bwd, qg, kg, vg
         torch.cuda.empty_cache()
+
+    cases['vq_one_hot'] = vq_cases(f32)
     torch.cuda.synchronize()
     for name, cs in cases.items():
         for c in cs:
             log(f'[kernels] {name} {json.dumps(c)}')
     return cases
+
+
+def vq_cases(f32):
+    """Kernel F vs its plain version (f32 on both sides) at vqvae's
+    training batch, at evaluate's 8 images, and at a codebook of 16
+    K-tiles. The indices must be identical; where one differs, the plain
+    scores' gap between the best and the second-best code at that row must
+    be under 1e-5 of the row's largest |score| (a tie within rounding,
+    which a sum in another order may break either way)."""
+    from generative_models_tpu_torch.ops.quantize import vq_one_hot, vq_one_hot_plain, vq_scores
+
+    out = []
+    for N, K, D, path in ((3136, 64, 64, 'vqvae train'), (392, 64, 64, 'vqvae evaluate'),
+                          (12544, 1024, 64, 'K-tiles')):
+        z, e = f32(N, D), f32(K, D)
+        oh, idx = vq_one_hot(z, e)
+        roh, ridx = vq_one_hot_plain(z, e)
+        if not torch.equal(oh, torch.nn.functional.one_hot(idx, K).float()):
+            raise AssertionError(f'vq_one_hot ({N},{K},{D}): one-hot disagrees with its index')
+        rows = (idx != ridx).nonzero().flatten()
+        gaps = []
+        if len(rows):
+            sc = vq_scores(z[rows], e)
+            top2 = sc.topk(2, dim=1, largest=False).values
+            gap = top2[:, 1] - top2[:, 0]
+            scale = sc.abs().max(dim=1).values
+            gaps = [dict(row=int(r), gap=float(g), rel_gap=float(g / m))
+                    for r, g, m in zip(rows, gap, scale)]
+            log(f'[kernels] vq_one_hot ({N},{K},{D}): {len(rows)} rows differ: {gaps[:20]}')
+            if (gap >= 1e-5 * scale).any():
+                raise AssertionError(f'vq_one_hot ({N},{K},{D}): indices differ beyond a tie')
+        # bytes: z and the codebook read once, the one-hot and the int32
+        # index written once; operations: the f32 z.e products (FMA on the
+        # CUDA cores, so against the f32 peak)
+        bms, by = bound(4 * (N * D + K * D + N * K + N), 2 * N * K * D, peak=H100_F32_FLOPS)
+        out.append(dict(
+            shape=f'z ({N},{D}) x e ({K},{D})', path=path, rows_differ=len(rows),
+            max_abs_err=float((oh - roh).abs().max()), atol=0.0, rtol=0.0,
+            tie_rel_gap=1e-5, bound_ms=bms, bound_by=by,
+            **timings(lambda: vq_one_hot(z, e), lambda: vq_one_hot_plain(z, e),
+                      iters=100 if N * K < 2 ** 24 else 20),
+        ))
+        del z, e, oh, roh
+        torch.cuda.empty_cache()
+    return out
 
 
 def _counters():
@@ -312,8 +381,19 @@ def _counters():
         causal_attention_fwd, flash_bwd_dkv, flash_bwd_dq,
     )
     from generative_models_tpu_torch.ops.decode_fused import block_tail, ln_matmul
+    from generative_models_tpu_torch.ops.quantize import vq_one_hot
 
-    return (ln_matmul, block_tail, causal_attention_fwd, flash_bwd_dq, flash_bwd_dkv)
+    return (ln_matmul, block_tail, causal_attention_fwd, flash_bwd_dq, flash_bwd_dkv,
+            vq_one_hot)
+
+
+def _reset(counters):
+    for fn in counters:
+        fn.launches = 0
+
+
+def _read(counters):
+    return {fn.__name__: fn.launches for fn in counters}
 
 
 def _get(url):
@@ -326,8 +406,7 @@ def phase_slice():
     from generative_models_tpu_torch.serve import _http_serve, load_server
 
     counters = _counters()
-    for fn in counters:
-        fn.launches = 0
+    _reset(counters)
     t0 = time.time()
     server, G = load_server(['--model=pixel_transformer', '--serve_bs=64'])
     model = server.model
@@ -352,7 +431,7 @@ def phase_slice():
     nlogp = model.eval_loss(x)['nlogp']
     torch.cuda.synchronize()
     score_sec = time.time() - t1
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = _read(counters)
     log(f'[slice] launches {launches}')
 
     T, L, passes = model.block_size, int(G.n_layer), 5  # warm + 4 requests
@@ -361,6 +440,7 @@ def phase_slice():
         'block_tail': L * T * passes,
         'causal_attention_fwd': L,  # one scoring forward
         'flash_bwd_dq': 0, 'flash_bwd_dkv': 0,  # serving runs no backward
+        'vq_one_hot': 0,
     }
     if launches != expected:
         raise AssertionError(f'launch counts {launches} != expected {expected}')
@@ -447,8 +527,7 @@ def phase_train():
     mnist.TRAIN_N, mnist.TEST_N = train_n, test_n  # 10 steps, 2 eval batches
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     counters = _counters()
-    for fn in counters:
-        fn.launches = 0
+    _reset(counters)
     t0 = time.time()
     history = train_main([
         '--model=pixel_transformer', f'--bs={bs}', '--epochs=1', '--save_n=1',
@@ -456,7 +535,7 @@ def phase_train():
     ])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = _read(counters)
     log(f'[train] main.main {wall:.2f}s; launches {launches}')
 
     steps, eval_batches, evals = train_n // bs, test_n // bs, 2  # epochs 0 and 1
@@ -466,6 +545,7 @@ def phase_train():
         'causal_attention_fwd': L * (eval_batches * evals + steps),
         'flash_bwd_dq': L * steps,
         'flash_bwd_dkv': L * steps,
+        'vq_one_hot': 0,
     }
     if launches != expected:
         raise AssertionError(f'train launch counts {launches} != expected {expected}')
@@ -489,20 +569,18 @@ def phase_train():
     return dict(launches=launches, wall_sec=wall, steps=steps, history=history)
 
 
-def phase_grads():
-    """One batch's gradients on the card against a CPU f32 copy."""
-    from generative_models_tpu_torch.main import load_model_and_data
-
-    model, dataset, G = load_model_and_data([
-        f'--weights_from={TRAIN_DIR / "model.pt"}', '--data_source=synthetic',
-    ])
-    x = dataset.first_test_batch(0)[0][:8]
-    model.backward(x)
+def _cpu_copy(model, G):
+    """The same model on the CPU (f32 throughout) with the card's weights."""
     Gc = type(G)(G)
     Gc.device = 'cpu'
     cpu = type(model)(Gc)
     cpu.net.load_state_dict({k: v.cpu() for k, v in model.net.state_dict().items()})
-    cpu.backward(x.cpu())
+    return cpu
+
+
+def grad_check(label, model, cpu):
+    """Every parameter's gradient on the card (already in p.grad) against
+    the CPU copy's: finite, non-zero, and within a bf16 tolerance."""
     ref = dict(cpu.net.named_parameters())
     total = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in ref.values())))
     # bf16 operands round each product's inputs by up to 2^-8 relative, and
@@ -514,18 +592,191 @@ def phase_grads():
     for name, p in model.net.named_parameters():
         g = p.grad
         if g is None or not torch.isfinite(g).all() or not g.any():
-            raise AssertionError(f'grads: {name} has no finite non-zero gradient on the card')
+            raise AssertionError(f'{label}: {name} has no finite non-zero gradient on the card')
         gr = ref[name].grad.double()
         err = float(torch.linalg.vector_norm(g.cpu().double() - gr))
         ref_norm = float(torch.linalg.vector_norm(gr))
         if err > rel * ref_norm + floor * total:
-            raise AssertionError(f'grads: {name} |card - cpu| {err:.3g} vs |cpu| {ref_norm:.3g}')
+            raise AssertionError(f'{label}: {name} |card - cpu| {err:.3g} vs |cpu| {ref_norm:.3g}')
         out[name] = err / max(ref_norm, 1e-30)
     worst = max(out, key=out.get)
-    log(f'[grads] {len(out)} parameters finite and non-zero; relative error vs CPU f32 '
+    log(f'[{label}] {len(out)} parameters finite and non-zero; relative error vs CPU f32 '
         f'max {out[worst]:.3g} ({worst}), median {sorted(out.values())[len(out) // 2]:.3g}; '
         f'tolerance {rel} of the norm + {floor} of |all grads| = {total:.4g}')
-    return model, dataset, dict(rel_err=out, rtol_norm=rel, atol_of_total=floor)
+    return dict(rel_err=out, rtol_norm=rel, atol_of_total=floor)
+
+
+def phase_grads():
+    """One batch's gradients on the card against a CPU f32 copy."""
+    from generative_models_tpu_torch.main import load_model_and_data
+
+    model, dataset, G = load_model_and_data([
+        f'--weights_from={TRAIN_DIR / "model.pt"}', '--data_source=synthetic',
+    ])
+    x = dataset.first_test_batch(0)[0][:8]
+    model.backward(x)
+    cpu = _cpu_copy(model, G)
+    cpu.backward(x.cpu())
+    return model, dataset, grad_check('grads', model, cpu)
+
+
+def phase_vq_serve():
+    """vqvae's serving path through load_server, with exact launch counts:
+    per pass the prior's T=49 decode steps, Kernels A and B only."""
+    from generative_models_tpu_torch.serve import load_server
+
+    counters = _counters()
+    _reset(counters)
+    t0 = time.time()
+    server, G = load_server(['--model=vqvae', '--serve_bs=64'])
+    warm = server.warm()
+    log(f'[vq_serve] load_server + warm {time.time() - t0:.2f}s (warm {warm:.2f}s)')
+    r25 = server.sample(25)
+    a = server.sample(64, seed=7)
+    b = server.sample(64, seed=7)
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    log(f'[vq_serve] launches {launches}')
+    T, L, passes = server.model.n_codes, int(G.n_layer), 4  # warm + 3 requests
+    expected = {
+        'ln_matmul': (L + 1) * T * passes, 'block_tail': L * T * passes,
+        'causal_attention_fwd': 0, 'flash_bwd_dq': 0, 'flash_bwd_dkv': 0, 'vq_one_hot': 0,
+    }
+    if launches != expected:
+        raise AssertionError(f'vqvae serve launch counts {launches} != expected {expected}')
+    for name, s, n in (('n=25', r25, 25), ('seed=7', a, 64)):
+        if s.shape != (n, 28, 28, 1) or not np.isin(s, (0.0, 1.0)).all():
+            raise AssertionError(f'vqvae {name}: shape {s.shape} or values outside {{0, 1}}')
+    if not np.array_equal(a, b):
+        raise AssertionError('vqvae seed=7 twice gave different batches')
+    log(f'[vq_serve] request latencies (s): {[round(v, 4) for v in server.latencies]}')
+    checks = vq_teacher_force(server.model, a)
+    return dict(launches=launches, passes=passes, latencies=list(server.latencies),
+                warm_sec=warm, checks=checks, server=server)
+
+
+def vq_teacher_force(model, batch):
+    """Redraw the seed=7 request's codes and hold them against the other
+    ways of computing the prior's logits."""
+    from generative_models_tpu_torch.models.pixel_transformer import (
+        teacher_forced_logits, transformer_sample_scan,
+    )
+    from generative_models_tpu_torch.utils.dists import Categorical
+
+    prior, T, K, n = model.net.prior, model.n_codes, int(model.G.vqK), 64
+    u = torch.rand((T, n, K), generator=torch.Generator(model.device).manual_seed(7),
+                   device=model.device)
+    with torch.no_grad():
+        tokens = transformer_sample_scan(
+            prior, n, lambda logits, ut: Categorical(logits).sample(uniforms=ut), u)
+        codes = tokens.permute(1, 0, 2).contiguous()  # (n, T, K)
+        imgs = (torch.sigmoid(model.net.ae.decode_codes(codes)) > 0.5).float()
+    # the request is this draw, decoded: the same images
+    if not np.array_equal(imgs.cpu().numpy(), batch):
+        raise AssertionError('vqvae: the seed=7 codes do not decode to the request')
+    out = {}
+    lk = teacher_forced_logits(prior, codes)
+    redrawn = Categorical(lk).sample(uniforms=u.permute(1, 0, 2))
+    flips = int((redrawn != codes).any(-1).sum())
+    if flips:
+        raise AssertionError(f'vqvae: kernel decode redraws {flips} codes differently')
+    # bf16 tolerance, as for pixel_transformer's teacher-forced checks
+    tol = dict(atol=5e-2, rtol=5e-2)
+    with torch.no_grad():
+        lf = prior(codes).logits
+    out['full_forward_vs_kernel_decode'] = compare('vqvae full forward vs kernel decode',
+                                                   lf, lk, **tol)
+    cpu = _cpu_copy(model, model.G)
+    with torch.no_grad():
+        lc = cpu.net.prior(codes[:4].cpu()).logits
+        dc = cpu.net.ae.decode_codes(codes[:4].cpu())
+        dk = model.net.ae.decode_codes(codes[:4])
+    out['card_vs_cpu_f32_prior'] = compare('vqvae card vs CPU prior', lf[:4].cpu(), lc, **tol)
+    # the decoder in f32 on both sides (TF32 off): sums in another order
+    out['card_vs_cpu_f32_decoder'] = compare('vqvae card vs CPU decoder', dk.cpu(), dc,
+                                             atol=1e-4, rtol=1e-4)
+    out.update(tol)
+    log(f'[vq_serve] teacher-forced checks {json.dumps(out)}')
+    return out
+
+
+def phase_vq_train():
+    """vqvae's training path through main.main, with exact launch counts."""
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch.main import main as train_main
+
+    train_n, test_n, bs, L, T = 640, 128, 64, 2, 49
+    mnist.TRAIN_N, mnist.TEST_N = train_n, test_n  # 10 steps, 2 eval batches
+    shutil.rmtree(VQ_TRAIN_DIR, ignore_errors=True)
+    counters = _counters()
+    _reset(counters)
+    t0 = time.time()
+    history = train_main([
+        '--model=vqvae', f'--bs={bs}', '--epochs=1', '--save_n=1',
+        '--data_source=synthetic', f'--logdir={VQ_TRAIN_DIR}',
+    ])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _read(counters)
+    log(f'[vq_train] main.main {wall:.2f}s; launches {launches}')
+
+    steps, eval_batches, evals = train_n // bs, test_n // bs, 2  # epochs 0 and 1
+    expected = {
+        # a train step, an eval batch and evaluate's 8-image reconstruction
+        # each quantize once
+        'vq_one_hot': steps + eval_batches * evals + evals,
+        'causal_attention_fwd': L * (steps + eval_batches * evals),
+        'flash_bwd_dq': L * steps,
+        'flash_bwd_dkv': L * steps,
+        'ln_matmul': (L + 1) * T * evals,  # evaluate samples 25 each epoch
+        'block_tail': L * T * evals,
+    }
+    if launches != expected:
+        raise AssertionError(f'vqvae train launch counts {launches} != expected {expected}')
+    for name in ('model.pt', 'hps.yaml'):
+        if not (VQ_TRAIN_DIR / name).is_file():
+            raise AssertionError(f'vqvae train: {name} was not written')
+    for i, h in enumerate(history):
+        bad = {k: v for k, v in h.items() if not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f'vqvae train: non-finite metrics at epoch {i}: {bad}')
+    keys = {f'vqvae/{split}/{k}' for split in ('train', 'test')
+            for k in ('vq_vae_loss', 'recon_loss', 'embed_loss', 'perplexity', 'prior_loss')}
+    if not keys <= set(history[1]):
+        raise AssertionError(f'vqvae train: epoch 1 is missing {keys - set(history[1])}')
+    recon = [h['vqvae/test/recon_loss'] for h in history]
+    if not recon[1] < recon[0]:
+        raise AssertionError(f'vqvae train: test recon_loss did not fall: {recon}')
+    perp = [h[k] for h in history for k in h if k.endswith('/perplexity')]
+    if not all(1.0 <= p <= 64.0 for p in perp):
+        raise AssertionError(f'vqvae train: perplexity outside [1, 64]: {perp}')
+    log(f'[vq_train] test recon_loss {recon}, perplexity {perp}, prior_loss '
+        f'{[h["vqvae/test/prior_loss"] for h in history]}, dt/train '
+        f'{history[1]["dt/train"]:.3f}s for {steps} steps, dt/eval {history[1]["dt/eval"]:.3f}s')
+    return dict(launches=launches, wall_sec=wall, steps=steps, history=history)
+
+
+def phase_vq_grads():
+    """One batch's gradients on the card, every AE and prior parameter,
+    against a CPU f32 copy; and how many codes the two assign
+    differently."""
+    from generative_models_tpu_torch.main import load_model_and_data
+
+    model, dataset, G = load_model_and_data([
+        f'--weights_from={VQ_TRAIN_DIR / "model.pt"}', '--data_source=synthetic',
+    ])
+    x = dataset.first_test_batch(0)[0]
+    model.backward(x)
+    cpu = _cpu_copy(model, G)
+    cpu.backward(x.cpu())
+    with torch.no_grad():
+        idx, idx_cpu = model.net.ae(x)[3], cpu.net.ae(x.cpu())[3]
+    codes_differ = int((idx.cpu() != idx_cpu).sum())
+    log(f'[vq_grads] codes that differ between the card and the CPU copy: '
+        f'{codes_differ} of {idx.numel()}')
+    out = grad_check('vq_grads', model, cpu)
+    out['codes_differ'] = codes_differ
+    return model, dataset, out
 
 
 def _profile(label, fn, top_n):
@@ -552,16 +803,22 @@ def _profile(label, fn, top_n):
     return dict(wall_ms=wall * 1e3, device_ms=busy_ms, launches=launches)
 
 
-def phase_profile(server, x, model, dataset):
+def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset):
     """Device time by kernel over one seeded request, one (warm) scoring
-    forward and one (warm) train step at bs=64."""
+    forward and one (warm) train step at bs=64, for pixel_transformer and
+    for vqvae."""
     bx = dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
     model.train_step(bx[0])
+    vq_bx = vq_dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
+    vq_model.train_step(vq_bx[0])
     torch.cuda.synchronize()
     return dict(
         request=_profile('one request', lambda: server.sample(64, seed=11), 15),
         scoring=_profile('one scoring forward', lambda: server.model.eval_loss(x), 10),
         train_step=_profile('one train step', lambda: model.train_step(bx[1]), 15),
+        vqvae_request=_profile('one vqvae request', lambda: vq_server.sample(64, seed=11), 15),
+        vqvae_train_step=_profile('one vqvae train step',
+                                  lambda: vq_model.train_step(vq_bx[1]), 15),
     )
 
 
@@ -582,23 +839,29 @@ def main():
     sl = phase_slice()
     tr = phase_train()
     model, dataset, grads = phase_grads()
-    prof = phase_profile(sl['server'], sl['x'], model, dataset)
+    vs = phase_vq_serve()
+    vt = phase_vq_train()
+    vq_model, vq_dataset, vq_grads = phase_vq_grads()
+    prof = phase_profile(sl['server'], sl['x'], model, dataset,
+                         vs['server'], vq_model, vq_dataset)
 
     # (source, TPU kernel replaced) of each kernel; its launches are those
-    # of the serving path (sampling passes, one scoring forward) and of the
-    # training path
+    # of pixel_transformer's serving path (sampling passes, one scoring
+    # forward) and training path, and of vqvae's
     srcs = {
         'ln_matmul': ('decode_fused.cu', 'generative_models_tpu/ops/decode_fused.py:46'),
         'block_tail': ('decode_fused.cu', 'generative_models_tpu/ops/decode_fused.py:71'),
         'causal_attention_fwd': ('attention.cu', 'generative_models_tpu/ops/attention.py:148'),
         'flash_bwd_dq': ('attention_bwd.cu', 'generative_models_tpu/ops/attention.py:209'),
         'flash_bwd_dkv': ('attention_bwd.cu', 'generative_models_tpu/ops/attention.py:209'),
+        'vq_one_hot': ('quantize.cu', 'generative_models_tpu/ops/quantize.py:23'),
     }
     kernels = []
     for name, cs in cases.items():
         src, replaces = srcs[name]
         main_case = cs[0]
-        by_path = {'serve': sl['launches'][name], 'train': tr['launches'][name]}
+        by_path = {'serve': sl['launches'][name], 'train': tr['launches'][name],
+                   'vqvae_serve': vs['launches'][name], 'vqvae_train': vt['launches'][name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f'{name} was not launched on a main path')
         kernels.append(dict(
@@ -623,6 +886,15 @@ def main():
         train=dict(
             wall_sec=tr['wall_sec'], steps=tr['steps'], history=tr['history'],
             grads_max_rel_err=max(grads['rel_err'].values()), power=smi,
+        ),
+        vqvae_serve=dict(
+            serve_bs=64, warm_sec=vs['warm_sec'], request_sec=sorted(vs['latencies']),
+            checks=vs['checks'], power=smi,
+        ),
+        vqvae_train=dict(
+            wall_sec=vt['wall_sec'], steps=vt['steps'], history=vt['history'],
+            grads_max_rel_err=max(vq_grads['rel_err'].values()),
+            codes_differ=vq_grads['codes_differ'], power=smi,
         ),
     )))
     log(json.dumps({'kernels': kernels}))

@@ -9,5 +9,7 @@ use into build/torch_kernels/.
 Ported so far: pixel_transformer inference (KV-cached serving through
 serve.py, the scoring forward through models/base.py eval_loss) and
 training (main.py: Adam with the trainer knobs, the data pipeline, the
-logger, checkpoints), with the flash-attention backward on the card.
+logger, checkpoints), with the flash-attention backward on the card; and
+vqvae training, eval and serving (models/vqvae.py: the codebook search
+kernel, the joint AE and transformer-prior step with two optimizers).
 """

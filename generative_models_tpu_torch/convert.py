@@ -1,12 +1,18 @@
-"""Carry a JAX TransformerNet's params into the port: the one place where
-layouts change. Pure numpy/torch.
+"""Carry a JAX model's params into the port: the one place where layouts
+change. Pure numpy/torch.
 
-The JAX tree (nested dicts of arrays, as flax's params) has the keys
-embed/kernel, pos_emb, block{i}/{ln1,ln2}/{scale,bias},
+The JAX trees are nested dicts of arrays, as flax's params. A TransformerNet
+has the keys embed/kernel, pos_emb, block{i}/{ln1,ln2}/{scale,bias},
 block{i}/attn/{query,key,value,proj}/{kernel,bias},
 block{i}/{fc1,fc2}/{kernel,bias}, ln_f/{scale,bias} and
-head_layer/Dense_0/{kernel,bias}. A flax Dense kernel is (in, out); a torch
-Linear weight is (out, in).
+head_layer/Dense_0/{kernel,bias}. A VQVAE has ae/encoder/Conv_{0..3},
+ae/decoder/ConvTranspose_{0..3}, ae/codebook and prior/<TransformerNet>.
+
+Layouts: a flax Dense kernel is (in, out), a torch Linear weight (out, in);
+a flax Conv kernel is HWIO, a torch Conv2d weight OIHW. A flax
+ConvTranspose kernel (kh, kw, in, out) is not flipped when applied
+(transpose_kernel=False), and torch's ConvTranspose2d flips its (in, out,
+kh, kw) weight, so the kernel is flipped in both spatial axes on the way.
 """
 
 import numpy as np
@@ -44,4 +50,23 @@ def params_from_jax(tree):
         i += 1
     sd.update(_layernorm(tree['ln_f'], 'ln_f'))
     sd.update(_linear(tree['head_layer']['Dense_0'], 'head_layer.dense'))
+    return sd
+
+
+def _conv(p, name, transpose=False):
+    k = np.array(p['kernel'], dtype=np.float32)
+    k = k[::-1, ::-1].transpose(2, 3, 0, 1) if transpose else k.transpose(3, 2, 0, 1)
+    return {f'{name}.weight': _t(k.copy()), f'{name}.bias': _t(p['bias'])}
+
+
+def vqvae_params_from_jax(tree):
+    """JAX VQVAE params {'ae': ..., 'prior': ...} -> state dict of the
+    port's VQVAE net (keys ae.* and prior.*)."""
+    ae = tree['ae']
+    sd = {'ae.codebook': _t(ae['codebook'])}
+    for i in range(4):
+        sd.update(_conv(ae['encoder'][f'Conv_{i}'], f'ae.encoder.convs.{i}'))
+        sd.update(_conv(ae['decoder'][f'ConvTranspose_{i}'], f'ae.decoder.deconvs.{i}',
+                        transpose=True))
+    sd.update({f'prior.{k}': v for k, v in params_from_jax(tree['prior']).items()})
     return sd

@@ -6,8 +6,9 @@ Same two-phase flag parsing, same epoch structure (eval first, evaluate,
 save every --save_n, train, a final eval after the last epoch), same logger
 keys (eval/nlogp, eval/bits_per_dim, train/nlogp, <model>/train/<k>,
 <model>/test/<k>, dt/train, dt/eval, num_vars), same artifacts (model.pt,
-hps.yaml, sampling_process_<epoch>.gif), --weights_from, --keep_best with
-best.json, --nan_guard and --skip_training.
+hps.yaml, sampling_process_<epoch>.gif for the autoregressive models),
+--weights_from, --keep_best with best.json, --nan_guard and
+--skip_training. Models: pixel_transformer and vqvae.
 
 Runs on the card unless given --device=cpu, and raises without CUDA. An
 epoch is a Python loop of train steps whose metrics stay on the device

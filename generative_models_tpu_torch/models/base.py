@@ -17,10 +17,15 @@ bias correction), wrapped as make_optimizer wraps optax.adam:
     schedules, evaluated at the count of optimizer updates made so far.
 self.step counts train_step calls (micro-steps), as TrainState.step does.
 
+A model may own a second optimizer beside self.opt (the VQ-VAE prior's
+Adam): optimizers() names every one whose state a checkpoint keeps, and
+trained_params() the parameters self.opt steps.
+
 Checkpoints are the port's own: model.pt holds the full train state (net,
-Adam state, step) as a torch pickle of tensors, beside an hps.yaml that
-both packages read; load_weights also reads a params-only state dict. A JAX
-checkpoint's params are carried over with convert.params_from_jax.
+every optimizer's state, step counters) as a torch pickle of tensors,
+beside an hps.yaml that both packages read; load_weights also reads a
+params-only state dict. A JAX checkpoint's params are carried over with
+convert.params_from_jax or convert.vqvae_params_from_jax.
 """
 
 import math
@@ -38,21 +43,34 @@ from generative_models_tpu_torch.utils.logger import write_grid, write_gridvid
 _TRUNC_STD = 0.87962566103423978
 
 
+def _lecun_normal_(weight, fan_in, generator):
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
 def flax_init_(module, generator):
     """flax's default initializers: lecun-normal (truncated normal, fan_in)
-    Linear weights, zero biases, LayerNorm scale 1 and bias 0. Parameters
-    of other modules (pos_emb) keep their constructor values."""
+    Linear, Conv and ConvTranspose weights, zero biases, LayerNorm scale 1
+    and bias 0. A module with a flax_init(generator) method draws its own
+    parameters (the VQ codebook); those of other modules (pos_emb) keep
+    their constructor values."""
     with torch.no_grad():
         for m in module.modules():
+            if hasattr(m, 'flax_init'):
+                m.flax_init(generator)
+                continue
             if isinstance(m, nn.Linear):
-                std = math.sqrt(1.0 / m.in_features) / _TRUNC_STD
-                nn.init.trunc_normal_(
-                    m.weight, std=std, a=-2 * std, b=2 * std, generator=generator
-                )
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
+                _lecun_normal_(m.weight, m.in_features, generator)
+            elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                # flax's fan_in of a (kh, kw, in, out) kernel, whichever way
+                # round torch stores it (ConvTranspose2d's dim 1 is out)
+                kh, kw = m.kernel_size
+                _lecun_normal_(m.weight, kh * kw * m.in_channels, generator)
             elif isinstance(m, nn.LayerNorm):
                 nn.init.ones_(m.weight)
+            else:
+                continue
+            if m.bias is not None:
                 nn.init.zeros_(m.bias)
 
 
@@ -72,7 +90,7 @@ class GM:
         self.net.to(self.device).eval()
         self._gen = torch.Generator(self.device).manual_seed(seed)
         self.opt = torch.optim.Adam(
-            self.net.parameters(), lr=self.lr_at(0), betas=(0.9, 0.999), eps=1e-8
+            self.trained_params(), lr=self.lr_at(0), betas=(0.9, 0.999), eps=1e-8
         )
         self.step = 0  # train_step calls, micro-steps included
         self.updates = 0  # optimizer updates: the schedule's count
@@ -83,9 +101,21 @@ class GM:
         """Return the torch module."""
         raise NotImplementedError
 
+    def trained_params(self):
+        """The parameters self.opt (Adam with the trainer knobs) steps."""
+        return self.net.parameters()
+
+    def optimizers(self):
+        """{name: optimizer} of every optimizer whose state save() keeps."""
+        return {'opt': self.opt}
+
     def loss(self, x, y=None):
         """(batch) -> (loss, metrics dict)."""
         raise NotImplementedError
+
+    def train_loss(self, x, y=None):
+        """(batch) -> (the objective a train step differentiates, metrics)."""
+        return self.loss(x, y)
 
     def evaluate(self, writer, x, y, epoch):
         raise NotImplementedError(
@@ -143,7 +173,7 @@ class GM:
         into the --grad_accum window's running mean and, at the window's
         last micro-step (every step without accumulation), clip the mean
         and take one Adam step at the scheduled lr."""
-        params = self.params
+        params = [p for group in self.opt.param_groups for p in group['params']]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         k = int(self.G.get('grad_accum', 1) or 1)
         if k > 1:
@@ -177,7 +207,7 @@ class GM:
         scalars, not synced)."""
         self.net.train()
         self.net.zero_grad(set_to_none=True)
-        loss, metrics = self.loss(self._as_input(x), y)
+        loss, metrics = self.train_loss(self._as_input(x), y)
         loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -212,14 +242,15 @@ class GM:
     # checkpoints: the full train state, as the JAX package's
     # ------------------------------------------------------------------ #
     def save(self, path, tag=''):
-        """model[_tag].pt (net, Adam state, step counters) + hps.yaml into
-        directory path."""
+        """model[_tag].pt (net, every optimizer's state, step counters) +
+        hps.yaml into directory path."""
         path = Path(path)
         path.mkdir(parents=True, exist_ok=True)
         suffix = f'_{tag}' if tag else ''
         state = dict(
-            net=self.net.state_dict(), opt=self.opt.state_dict(), step=self.step,
-            updates=self.updates, mini_step=self.mini_step, acc=self._acc,
+            net=self.net.state_dict(), step=self.step, updates=self.updates,
+            mini_step=self.mini_step, acc=self._acc,
+            **{name: o.state_dict() for name, o in self.optimizers().items()},
         )
         torch.save(state, path / f'model{suffix}.pt')
         dump_hps(self.G, path)
@@ -240,9 +271,49 @@ class GM:
             self.net.load_state_dict(state)
             return
         self.net.load_state_dict(state['net'])
-        self.opt.load_state_dict(state['opt'])
+        for name, o in self.optimizers().items():
+            o.load_state_dict(state[name])
         self.step, self.updates = int(state['step']), int(state['updates'])
         self.mini_step, self._acc = int(state['mini_step']), state['acc']
+
+
+    # ------------------------------------------------------------------ #
+    # sampling and serving
+    # ------------------------------------------------------------------ #
+    def sample_fn(self, n, generator=None, uniforms=None):
+        """n samples from the generator's draws, or from the random numbers
+        given (uniforms), so a test can hand both packages the same draws."""
+        raise NotImplementedError
+
+    def _draw(self, n, generator):
+        """n samples (n, H, W, 1) in [0, 1] and nothing else."""
+        return self.sample_fn(n, generator=generator)
+
+    @torch.no_grad()
+    def sample(self, n):
+        """sample_fn's output from the model's own generator stream."""
+        self.net.eval()
+        return self.sample_fn(n, generator=self._gen)
+
+    @torch.no_grad()
+    def sample_images(self, n, y=None):
+        if y is not None:
+            raise TypeError(f'{type(self).__name__}.sample takes no labels')
+        self.net.eval()
+        return self._draw(n, self._gen)
+
+    def pure_serving_fn(self, n):
+        """(seed) -> (n, H, W, 1) float32 numpy samples in [0, 1]. The seed
+        becomes torch.Generator(device).manual_seed(seed), so the same seed
+        gives the same batch."""
+
+        @torch.no_grad()
+        def fn(seed):
+            gen = torch.Generator(self.device).manual_seed(int(seed))
+            self.net.eval()
+            return self._draw(n, gen).cpu().numpy()
+
+        return fn
 
 
 class Autoreg(GM):
@@ -258,32 +329,5 @@ class Autoreg(GM):
         write_grid(writer, 'samples', samples, epoch)
         write_gridvid(writer, 'sampling_process', frames, epoch, logdir=self.G.logdir)
 
-    def sample_fn(self, n, generator=None, uniforms=None, with_frames=True):
-        raise NotImplementedError
-
-    @torch.no_grad()
-    def sample(self, n):
-        """(samples (n, H, W, 1), frames (T, n, H, W, 1)) from the model's
-        own generator stream."""
-        self.net.eval()
-        return self.sample_fn(n, generator=self._gen)
-
-    @torch.no_grad()
-    def sample_images(self, n, y=None):
-        if y is not None:
-            raise TypeError(f'{type(self).__name__}.sample takes no labels')
-        self.net.eval()
-        return self.sample_fn(n, generator=self._gen, with_frames=False)
-
-    def pure_serving_fn(self, n):
-        """(seed) -> (n, H, W, 1) float32 numpy samples in [0, 1]. The seed
-        becomes torch.Generator(device).manual_seed(seed), so the same seed
-        gives the same batch."""
-
-        @torch.no_grad()
-        def fn(seed):
-            gen = torch.Generator(self.device).manual_seed(int(seed))
-            self.net.eval()
-            return self.sample_fn(n, generator=gen, with_frames=False).cpu().numpy()
-
-        return fn
+    def _draw(self, n, generator):
+        return self.sample_fn(n, generator=generator, with_frames=False)

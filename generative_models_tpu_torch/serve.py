@@ -6,6 +6,7 @@ Counterpart of generative_models_tpu/serve.py:
       --n=25 --out=grid.png                        # one-shot
   python -m generative_models_tpu_torch.serve --model=pixel_transformer \
       --weights_from=logs/model.pt --port=8000     # HTTP server
+  python -m generative_models_tpu_torch.serve --model=vqvae --n=25 --out=vq.png
 
 Serving shape, as in the JAX package:
   * requests are padded up to a fixed --serve_bs and sliced back down, so

@@ -14,6 +14,7 @@ from generative_models_tpu_torch.utils.logger import (  # noqa: F401
     to_numpy,
     write_grid,
     write_gridvid,
+    write_image,
 )
 from generative_models_tpu_torch.utils.registry import (  # noqa: F401
     discover_models,

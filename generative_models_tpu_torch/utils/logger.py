@@ -1,7 +1,9 @@
 """Metrics logging and visualisation sink. Counterpart of
 generative_models_tpu/utils/logger.py, with the same conventions: buffered
 per-epoch scalar lists flushed by dump_logger (mean -> TensorBoard when it
-imports + stdout + hps.yaml), 5x5 sample grids and sampling-process GIFs.
+imports + stdout + hps.yaml), tiled sample grids (grid_image is the JAX
+package's combine_imgs for a batch of images; write_grid, write_image) and
+sampling-process GIFs.
 
 Differences: the GIF encoder is the port's own numpy one (gif_encode_gray;
 no imageio, PIL or native library), and TensorBoard gets a filmstrip of the
@@ -90,6 +92,12 @@ def grid_image(x, n1=5, n2=5):
     if n != n1 * n2:
         raise ValueError(f'grid_image: {n} images do not fill {n1}x{n2}')
     return x.reshape(n1, n2, h, w, c).transpose(0, 2, 1, 3, 4).reshape(n1 * h, n2 * w, c)
+
+
+def write_image(writer, tag, img, epoch):
+    """One (H, W, C) image in [0, 1] to TensorBoard."""
+    if writer is not None:
+        writer.add_image(tag, _to_hwc_uint8(img), epoch, dataformats='HWC')
 
 
 def write_grid(writer, tag, x, epoch):
