@@ -10,9 +10,11 @@ Phases; any failure exits non-zero before the result lines:
   2. build   -- compile ops/csrc/*.cu (one nvcc per source, in parallel)
                 and print the build seconds and ptxas's resource lines.
   3. kernels -- hold each kernel against its plain PyTorch version on the
-                card at the main paths' shapes (pixel_transformer's and
-                vqvae's), with seeded inputs and a stated tolerance; Kernel
-                F's indices must be identical but for ties within rounding.
+                card at the main paths' shapes (pixel_transformer's,
+                vqvae's and made's at hidden_size=2048), with seeded inputs
+                and a stated tolerance; Kernel F's indices must be
+                identical but for ties within rounding, and Kernel H
+                exactly 0 off its mask.
                 Time kernel, plain version and, where one PyTorch call
                 computes the same function, that call, as device time
                 (torch.profiler's CUDA trace) and as eager back-to-back time
@@ -44,7 +46,19 @@ Phases; any failure exits non-zero before the result lines:
                 recon_loss falling, the perplexity in [1, vqK].
   9. vq_grads -- phase 6 for vqvae, every AE and prior parameter, and the
                 count of codes the card and the CPU copy assign apart.
-  10. profile -- device time by kernel over one request and one train step
+  10. made_serve -- made's serving path at hidden_size=2048, the width at
+                which it takes the kernel route (warm, n=25, seed=7 twice):
+                Kernel G 784 * 4 launches a pass and nothing else; the
+                kernel route's causality, bitwise, on a random canvas; its
+                logits against a CPU f32 copy.
+  11. made_default -- one made pass at the default hidden_size=1024: the
+                premasked route, no kernel launched.
+  12. made_train -- made's training path through main.main at 2048, as
+                phase 5: G 6358 and H 40 launches, artifacts, finite
+                metrics, eval/nlogp falling.
+  13. made_grads -- phase 6 for made, against a CPU copy on the
+                fold-the-mask route; dW exactly 0 off the mask on both.
+  14. profile -- device time by kernel over one request and one train step
                 of each model, and one pixel_transformer scoring forward.
 Then the kernels line, the nvidia-smi line and, last, the device line.
 
@@ -68,6 +82,8 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_train'
 VQ_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_vqvae'
+MADE_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_made'
+MADE_FLAGS = ['--model=made', '--hidden_size=2048']  # the kernel route's width
 
 
 def log(*a):
@@ -123,6 +139,26 @@ def device_ms(fn, iters):
     if not us:
         raise AssertionError('the profiler saw no device events')
     return sum(us) / 1e3 / iters
+
+
+def l2_cold_ms(fn, kernel_name, flush, iters=50):
+    """Mean device ms of the kernel named kernel_name when each call follows
+    a write of flush (larger than the 50 MB L2), so its operands come from
+    HBM: the events of that kernel alone, from torch.profiler's trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if _on_device(e) and kernel_name in e.name]
+    if not us:
+        raise AssertionError(f'the profiler saw no {kernel_name} events')
+    return sum(us) / 1e3 / len(us)
 
 
 def timings(kernel, plain, library=None, iters=200):
@@ -323,6 +359,7 @@ def phase_kernels(dev):
         torch.cuda.empty_cache()
 
     cases['vq_one_hot'] = vq_cases(f32)
+    cases['masked_matmul'], cases['mask_out_matmul'] = made_cases(f32, dev)
     torch.cuda.synchronize()
     for name, cs in cases.items():
         for c in cs:
@@ -375,16 +412,96 @@ def vq_cases(f32):
     return out
 
 
+def made_cases(f32, dev):
+    """Kernels G and H vs their plain versions at made's shapes at
+    hidden_size=2048 and bs=64, with made's own masks
+    (create_made_masks(784, (2048,) * 3, 42)): G at the four forward
+    products, the widest first, and at the dX product of a hidden layer
+    with w and its mask read as (N, K); H at the weight gradients of a
+    hidden layer and of the input layer, x read as (K, M). Tolerance atol
+    1e-3 + rtol 1e-3: the same bf16-rounded operands on both sides, f32
+    sums of up to 2048 products in another order (~1e-6 relative). H must
+    be exactly 0 wherever its mask is 0. library_ms: torch.matmul on bf16
+    operands with the weight already masked (for H, the unmasked x^T g), the
+    product the premasked route pays for instead. ms_l2_cold: the kernel's
+    device time with L2 flushed before each launch, as in a made request,
+    whose four layers' weights and masks do not fit in L2 together, against
+    ms, where the one layer's operands stay in L2 across the iterations."""
+    from generative_models_tpu_torch.models.made import create_made_masks
+    from generative_models_tpu_torch.ops.masked_dense import (
+        mask_out_matmul, mask_out_matmul_plain, masked_matmul, masked_matmul_plain,
+    )
+
+    masks = [torch.tensor(m, device=dev).to(torch.uint8)
+             for m in create_made_masks(784, (2048,) * 3, 42)]
+    tol = dict(atol=1e-3, rtol=1e-3)
+    bf, B = torch.bfloat16, 64
+    library_covers = 'torch.matmul, bf16 operands, the weight already masked'
+    g_cases, h_cases = [], []
+    flush = torch.empty(64 << 20, device=dev)  # 256 MB of f32
+    for layer, trans_b in ((1, False), (0, False), (2, False), (3, False), (1, True)):
+        m = masks[layer]
+        K, N = m.shape
+        w = f32(K, N, scale=K ** -0.5)
+        wmb = (w * m).to(bf)
+        if trans_b:  # dX = g @ (w * m)^T: g (B, N), output (B, K)
+            x = f32(B, N)
+            kern = lambda: masked_matmul(x, w, m, trans_b=True)
+            plain = lambda: masked_matmul_plain(x, w.t(), m.t())
+            xb = x.to(bf)
+            lib = lambda: torch.matmul(xb, wmb.t())
+            dims, shape = (B, N, K), f'dX g ({B},{N}) x (w*m)^T, w ({K},{N}) read as (N, K)'
+        else:
+            x = f32(B, K)
+            kern = lambda: masked_matmul(x, w, m)
+            plain = lambda: masked_matmul_plain(x, w, m)
+            xb = x.to(bf)
+            lib = lambda: torch.matmul(xb, wmb)
+            dims, shape = (B, K, N), f'x ({B},{K}) x w ({K},{N})'
+        err = compare(f'masked_matmul {shape}', kern(), plain(), **tol)
+        M_, K_, N_ = dims
+        # f32 x and w read once, the uint8 mask once, the f32 output written
+        bms, by = bound(4 * M_ * K_ + 5 * K_ * N_ + 4 * M_ * N_, 2 * M_ * K_ * N_)
+        g_cases.append(dict(shape=shape, path='made', layer=layer, max_abs_err=err, **tol,
+                            bound_ms=bms, bound_by=by, library_covers=library_covers,
+                            ms_l2_cold=l2_cold_ms(kern, 'masked_matmul_kernel', flush),
+                            **timings(kern, plain, lib)))
+    for layer in (1, 0):
+        m = masks[layer]
+        K, N = m.shape
+        x, g = f32(B, K), f32(B, N)
+        got = mask_out_matmul(x, g, m)
+        err = compare(f'mask_out_matmul layer {layer}', got, mask_out_matmul_plain(x.t(), g, m),
+                      **tol)
+        if got[m == 0].any():
+            raise AssertionError(f'mask_out_matmul layer {layer}: non-zero off the mask')
+        xb, gb = x.to(bf), g.to(bf)
+        bms, by = bound(4 * B * K + 4 * B * N + 5 * K * N, 2 * K * B * N)
+        kern = lambda: mask_out_matmul(x, g, m)
+        h_cases.append(dict(
+            shape=f'dW x^T ({K},{B}) x g ({B},{N}), x read as (K, M)', path='made',
+            layer=layer, max_abs_err=err, **tol, exact_zero_off_mask=True,
+            bound_ms=bms, bound_by=by, library_covers='torch.matmul, bf16 operands, unmasked',
+            ms_l2_cold=l2_cold_ms(kern, 'mask_out_matmul_kernel', flush),
+            **timings(kern, lambda: mask_out_matmul_plain(x.t(), g, m),
+                      lambda: torch.matmul(xb.t(), gb)),
+        ))
+    del flush
+    torch.cuda.empty_cache()
+    return g_cases, h_cases
+
+
 def _counters():
     """Every kernel wrapper; each counts its own launches."""
     from generative_models_tpu_torch.ops.attention import (
         causal_attention_fwd, flash_bwd_dkv, flash_bwd_dq,
     )
     from generative_models_tpu_torch.ops.decode_fused import block_tail, ln_matmul
+    from generative_models_tpu_torch.ops.masked_dense import mask_out_matmul, masked_matmul
     from generative_models_tpu_torch.ops.quantize import vq_one_hot
 
     return (ln_matmul, block_tail, causal_attention_fwd, flash_bwd_dq, flash_bwd_dkv,
-            vq_one_hot)
+            vq_one_hot, masked_matmul, mask_out_matmul)
 
 
 def _reset(counters):
@@ -440,7 +557,7 @@ def phase_slice():
         'block_tail': L * T * passes,
         'causal_attention_fwd': L,  # one scoring forward
         'flash_bwd_dq': 0, 'flash_bwd_dkv': 0,  # serving runs no backward
-        'vq_one_hot': 0,
+        'vq_one_hot': 0, 'masked_matmul': 0, 'mask_out_matmul': 0,
     }
     if launches != expected:
         raise AssertionError(f'launch counts {launches} != expected {expected}')
@@ -545,7 +662,7 @@ def phase_train():
         'causal_attention_fwd': L * (eval_batches * evals + steps),
         'flash_bwd_dq': L * steps,
         'flash_bwd_dkv': L * steps,
-        'vq_one_hot': 0,
+        'vq_one_hot': 0, 'masked_matmul': 0, 'mask_out_matmul': 0,
     }
     if launches != expected:
         raise AssertionError(f'train launch counts {launches} != expected {expected}')
@@ -569,10 +686,12 @@ def phase_train():
     return dict(launches=launches, wall_sec=wall, steps=steps, history=history)
 
 
-def _cpu_copy(model, G):
-    """The same model on the CPU (f32 throughout) with the card's weights."""
+def _cpu_copy(model, G, **over):
+    """The same model on the CPU (f32 throughout) with the card's weights;
+    over sets flags of the copy."""
     Gc = type(G)(G)
     Gc.device = 'cpu'
+    Gc.update(over)
     cpu = type(model)(Gc)
     cpu.net.load_state_dict({k: v.cpu() for k, v in model.net.state_dict().items()})
     return cpu
@@ -641,6 +760,7 @@ def phase_vq_serve():
     expected = {
         'ln_matmul': (L + 1) * T * passes, 'block_tail': L * T * passes,
         'causal_attention_fwd': 0, 'flash_bwd_dq': 0, 'flash_bwd_dkv': 0, 'vq_one_hot': 0,
+        'masked_matmul': 0, 'mask_out_matmul': 0,
     }
     if launches != expected:
         raise AssertionError(f'vqvae serve launch counts {launches} != expected {expected}')
@@ -730,6 +850,7 @@ def phase_vq_train():
         'flash_bwd_dkv': L * steps,
         'ln_matmul': (L + 1) * T * evals,  # evaluate samples 25 each epoch
         'block_tail': L * T * evals,
+        'masked_matmul': 0, 'mask_out_matmul': 0,
     }
     if launches != expected:
         raise AssertionError(f'vqvae train launch counts {launches} != expected {expected}')
@@ -779,6 +900,170 @@ def phase_vq_grads():
     return model, dataset, out
 
 
+def phase_made_serve():
+    """made's serving path at hidden_size=2048 through load_server, with
+    exact launch counts: per pass 784 steps of one full forward, Kernel G
+    once a layer, and nothing else."""
+    from generative_models_tpu_torch.serve import load_server
+
+    counters = _counters()
+    _reset(counters)
+    t0 = time.time()
+    server, G = load_server(MADE_FLAGS + ['--serve_bs=64'])
+    if not server.model.net.use_kernel:
+        raise AssertionError('made at hidden_size=2048 did not take the kernel route')
+    warm = server.warm()
+    log(f'[made_serve] load_server + warm {time.time() - t0:.2f}s (warm {warm:.2f}s)')
+    r25 = server.sample(25)
+    a = server.sample(64, seed=7)
+    b = server.sample(64, seed=7)
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    log(f'[made_serve] launches {launches}')
+    nin, layers, passes = server.model.nin, server.model.net.n_layers, 4  # warm + 3 requests
+    expected = dict.fromkeys(launches, 0)
+    expected['masked_matmul'] = nin * layers * passes
+    if launches != expected:
+        raise AssertionError(f'made serve launch counts {launches} != expected {expected}')
+    for name, s, n in (('n=25', r25, 25), ('seed=7', a, 64)):
+        if s.shape != (n, 28, 28, 1) or not np.isin(s, (0.0, 1.0)).all():
+            raise AssertionError(f'made {name}: shape {s.shape} or values outside {{0, 1}}')
+    if not np.array_equal(a, b):
+        raise AssertionError('made seed=7 twice gave different batches')
+    log(f'[made_serve] request latencies (s): {[round(v, 4) for v in server.latencies]}')
+    checks = made_checks(server.model, a)
+    return dict(launches=launches, passes=passes, per_pass=launches['masked_matmul'] // passes,
+                latencies=list(server.latencies), warm_sec=warm, checks=checks, server=server)
+
+
+def made_checks(model, batch):
+    """Causality of the kernel route on the card, bitwise: changing inputs
+    j >= i leaves logit i unchanged (the masks inside Kernel G, and its
+    fixed summation order). Then the card's logits against a CPU f32 copy on
+    the fold-the-mask route (the same function) on the seed=7 batch."""
+    x = torch.as_tensor(batch, device=model.device).reshape(-1, model.nin)
+    canvas = (torch.rand(x.shape, generator=torch.Generator(model.device).manual_seed(3),
+                         device=model.device) < 0.5).float()
+    out = {'causal_bitwise_at': [0, 1, 2, 100, 400, 600, 782, 783]}
+    with torch.no_grad():
+        ref = model.net(canvas)
+        for i in out['causal_bitwise_at']:
+            changed = canvas.clone()
+            changed[:, i:] = 1 - changed[:, i:]
+            logits = model.net(changed)
+            if not torch.equal(logits[:, :i + 1], ref[:, :i + 1]):
+                raise AssertionError(f'made: logits up to {i} moved when inputs >= {i} changed')
+            # (near the end a flip may reach no later logit through a live unit)
+            if i <= 600 and torch.equal(logits[:, i + 1:], ref[:, i + 1:]):
+                raise AssertionError(f'made: logits past {i} did not move')
+        cpu = _cpu_copy(model, model.G, premasked=0)
+        lk = model.net(x[:8])
+        lc = cpu.net(x[:8].cpu())
+    # bf16 operands at four layers (2^-8 relative each), f32 sums
+    tol = dict(atol=5e-2, rtol=5e-2)
+    out['card_vs_cpu_f32_logits'] = compare('made card vs CPU logits', lk.cpu(), lc, **tol)
+    out.update(tol)
+    log(f'[made_serve] checks {json.dumps(out)}')
+    return out
+
+
+def phase_made_default():
+    """One made serving pass at the default width, hidden_size=1024: the
+    gate keeps the reference's premasked route there, so neither Kernel G
+    nor H launches."""
+    from generative_models_tpu_torch.serve import load_server
+
+    counters = _counters()
+    _reset(counters)
+    server, _ = load_server(['--model=made', '--serve_bs=64'])
+    if server.model.net.use_kernel or not server.model.net.premasked:
+        raise AssertionError('made at hidden_size=1024 left the premasked route')
+    s = server.sample(64, seed=7)
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    if any(launches.values()):
+        raise AssertionError(f'made at hidden_size=1024 launched kernels: {launches}')
+    if s.shape != (64, 28, 28, 1) or not np.isin(s, (0.0, 1.0)).all():
+        raise AssertionError(f'made hidden_size=1024: shape {s.shape} or values outside {{0, 1}}')
+    log(f'[made_default] hidden_size=1024: launches {launches}, request {server.latencies[-1]:.4f}s')
+    return dict(launches=launches, request_sec=server.latencies[-1])
+
+
+def phase_made_train():
+    """made's training path through main.main at hidden_size=2048, with
+    exact launch counts."""
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch.main import main as train_main
+
+    train_n, test_n, bs, layers, nin = 640, 128, 64, 4, 784
+    mnist.TRAIN_N, mnist.TEST_N = train_n, test_n  # 10 steps, 2 eval batches
+    shutil.rmtree(MADE_TRAIN_DIR, ignore_errors=True)
+    counters = _counters()
+    _reset(counters)
+    t0 = time.time()
+    history = train_main(MADE_FLAGS + [
+        f'--bs={bs}', '--epochs=1', '--save_n=1', '--data_source=synthetic',
+        f'--logdir={MADE_TRAIN_DIR}',
+    ])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _read(counters)
+    log(f'[made_train] main.main {wall:.2f}s; launches {launches}')
+
+    steps, eval_batches, evals = train_n // bs, test_n // bs, 2  # epochs 0 and 1
+    expected = dict.fromkeys(launches, 0)
+    # a train step: G for each layer's forward and for the dX of every layer
+    # but the first (its input is the data); H for each layer's dW. An eval
+    # batch: the forward. evaluate: 25 samples, 784 forwards, each epoch.
+    expected['masked_matmul'] = (steps * (2 * layers - 1) + eval_batches * evals * layers
+                                 + evals * nin * layers)
+    expected['mask_out_matmul'] = steps * layers
+    if launches != expected:
+        raise AssertionError(f'made train launch counts {launches} != expected {expected}')
+    for name in ('model.pt', 'hps.yaml', 'sampling_process_0.gif', 'sampling_process_1.gif'):
+        if not (MADE_TRAIN_DIR / name).is_file():
+            raise AssertionError(f'made train: {name} was not written')
+    if (MADE_TRAIN_DIR / 'sampling_process_1.gif').read_bytes()[:6] != b'GIF89a':
+        raise AssertionError('made train: sampling_process_1.gif is not a GIF')
+    for i, h in enumerate(history):
+        bad = {k: v for k, v in h.items() if not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f'made train: non-finite metrics at epoch {i}: {bad}')
+    keys = {'eval/nlogp', 'eval/bits_per_dim', 'train/nlogp', 'dt/train', 'dt/eval', 'num_vars'}
+    if not keys <= set(history[1]):
+        raise AssertionError(f'made train: epoch 1 is missing {keys - set(history[1])}')
+    nlogp = [h['eval/nlogp'] for h in history]
+    if not nlogp[1] < nlogp[0]:
+        raise AssertionError(f'made train: eval/nlogp did not fall: {nlogp}')
+    log(f'[made_train] eval/nlogp {nlogp}, train/nlogp {history[1]["train/nlogp"]}, '
+        f'dt/train {history[1]["dt/train"]:.3f}s for {steps} steps, '
+        f'dt/eval {history[1]["dt/eval"]:.3f}s')
+    return dict(launches=launches, wall_sec=wall, steps=steps, history=history)
+
+
+def phase_made_grads():
+    """One batch's gradients on the card (the kernel route: Kernels G and
+    H) from the trained model.pt, against a CPU f32 copy on the
+    fold-the-mask route (autograd through x @ (w * m)): finite, non-zero,
+    within the bf16 tolerance, and dW exactly 0 off the mask on both."""
+    from generative_models_tpu_torch.main import load_model_and_data
+
+    model, dataset, G = load_model_and_data([
+        f'--weights_from={MADE_TRAIN_DIR / "model.pt"}', '--data_source=synthetic',
+    ])
+    if not model.net.use_kernel:
+        raise AssertionError('made grads: the reloaded model left the kernel route')
+    x = dataset.first_test_batch(0)[0]
+    model.backward(x)
+    cpu = _cpu_copy(model, G, premasked=0)
+    cpu.backward(x.cpu())
+    for net, where in ((model.net, 'card'), (cpu.net, 'CPU copy')):
+        for w, _, m in net.layers():
+            if w.grad[m == 0].any():
+                raise AssertionError(f'made grads: dW off the mask on the {where}')
+    return model, dataset, grad_check('made_grads', model, cpu)
+
+
 def _profile(label, fn, top_n):
     """Wall and device time of one call of fn under torch.profiler, and the
     kernels that took the most device time."""
@@ -803,14 +1088,17 @@ def _profile(label, fn, top_n):
     return dict(wall_ms=wall * 1e3, device_ms=busy_ms, launches=launches)
 
 
-def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset):
+def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
+                  made_server, made_model, made_dataset):
     """Device time by kernel over one seeded request, one (warm) scoring
-    forward and one (warm) train step at bs=64, for pixel_transformer and
-    for vqvae."""
+    forward and one (warm) train step at bs=64, for pixel_transformer, for
+    vqvae and for made at hidden_size=2048."""
     bx = dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
     model.train_step(bx[0])
     vq_bx = vq_dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
     vq_model.train_step(vq_bx[0])
+    made_bx = made_dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
+    made_model.train_step(made_bx[0])
     torch.cuda.synchronize()
     return dict(
         request=_profile('one request', lambda: server.sample(64, seed=11), 15),
@@ -819,6 +1107,9 @@ def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset):
         vqvae_request=_profile('one vqvae request', lambda: vq_server.sample(64, seed=11), 15),
         vqvae_train_step=_profile('one vqvae train step',
                                   lambda: vq_model.train_step(vq_bx[1]), 15),
+        made_request=_profile('one made request', lambda: made_server.sample(64, seed=11), 10),
+        made_train_step=_profile('one made train step',
+                                 lambda: made_model.train_step(made_bx[1]), 15),
     )
 
 
@@ -842,12 +1133,17 @@ def main():
     vs = phase_vq_serve()
     vt = phase_vq_train()
     vq_model, vq_dataset, vq_grads = phase_vq_grads()
+    ms = phase_made_serve()
+    md = phase_made_default()
+    mt = phase_made_train()
+    made_model, made_dataset, made_grads = phase_made_grads()
     prof = phase_profile(sl['server'], sl['x'], model, dataset,
-                         vs['server'], vq_model, vq_dataset)
+                         vs['server'], vq_model, vq_dataset,
+                         ms['server'], made_model, made_dataset)
 
     # (source, TPU kernel replaced) of each kernel; its launches are those
     # of pixel_transformer's serving path (sampling passes, one scoring
-    # forward) and training path, and of vqvae's
+    # forward) and training path, and of vqvae's and made's
     srcs = {
         'ln_matmul': ('decode_fused.cu', 'generative_models_tpu/ops/decode_fused.py:46'),
         'block_tail': ('decode_fused.cu', 'generative_models_tpu/ops/decode_fused.py:71'),
@@ -855,13 +1151,16 @@ def main():
         'flash_bwd_dq': ('attention_bwd.cu', 'generative_models_tpu/ops/attention.py:209'),
         'flash_bwd_dkv': ('attention_bwd.cu', 'generative_models_tpu/ops/attention.py:209'),
         'vq_one_hot': ('quantize.cu', 'generative_models_tpu/ops/quantize.py:23'),
+        'masked_matmul': ('masked_dense.cu', 'generative_models_tpu/ops/masked_dense.py:24'),
+        'mask_out_matmul': ('masked_dense.cu', 'generative_models_tpu/ops/masked_dense.py:35'),
     }
     kernels = []
     for name, cs in cases.items():
         src, replaces = srcs[name]
         main_case = cs[0]
         by_path = {'serve': sl['launches'][name], 'train': tr['launches'][name],
-                   'vqvae_serve': vs['launches'][name], 'vqvae_train': vt['launches'][name]}
+                   'vqvae_serve': vs['launches'][name], 'vqvae_train': vt['launches'][name],
+                   'made_serve': ms['launches'][name], 'made_train': mt['launches'][name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f'{name} was not launched on a main path')
         kernels.append(dict(
@@ -895,6 +1194,15 @@ def main():
             wall_sec=vt['wall_sec'], steps=vt['steps'], history=vt['history'],
             grads_max_rel_err=max(vq_grads['rel_err'].values()),
             codes_differ=vq_grads['codes_differ'], power=smi,
+        ),
+        made_serve=dict(
+            hidden_size=2048, serve_bs=64, warm_sec=ms['warm_sec'],
+            request_sec=sorted(ms['latencies']), launches_per_pass=ms['per_pass'],
+            checks=ms['checks'], default_width=md, power=smi,
+        ),
+        made_train=dict(
+            hidden_size=2048, wall_sec=mt['wall_sec'], steps=mt['steps'], history=mt['history'],
+            grads_max_rel_err=max(made_grads['rel_err'].values()), power=smi,
         ),
     )))
     log(json.dumps({'kernels': kernels}))

@@ -6,7 +6,8 @@ has the keys embed/kernel, pos_emb, block{i}/{ln1,ln2}/{scale,bias},
 block{i}/attn/{query,key,value,proj}/{kernel,bias},
 block{i}/{fc1,fc2}/{kernel,bias}, ln_f/{scale,bias} and
 head_layer/Dense_0/{kernel,bias}. A VQVAE has ae/encoder/Conv_{0..3},
-ae/decoder/ConvTranspose_{0..3}, ae/codebook and prior/<TransformerNet>.
+ae/decoder/ConvTranspose_{0..3}, ae/codebook and prior/<TransformerNet>. A
+MADE has w0..w3 (in, out) and b0..b3, which the port keeps as they are.
 
 Layouts: a flax Dense kernel is (in, out), a torch Linear weight (out, in);
 a flax Conv kernel is HWIO, a torch Conv2d weight OIHW. A flax
@@ -70,3 +71,9 @@ def vqvae_params_from_jax(tree):
                         transpose=True))
     sd.update({f'prior.{k}': v for k, v in params_from_jax(tree['prior']).items()})
     return sd
+
+
+def made_params_from_jax(tree):
+    """JAX MADE params {'w0'.., 'b0'..} -> state dict of the port's
+    MaskedMLP, in the same (in, out) layout (the layout Kernel G reads)."""
+    return {k: _t(v) for k, v in tree.items()}

@@ -25,7 +25,8 @@ Checkpoints are the port's own: model.pt holds the full train state (net,
 every optimizer's state, step counters) as a torch pickle of tensors,
 beside an hps.yaml that both packages read; load_weights also reads a
 params-only state dict. A JAX checkpoint's params are carried over with
-convert.params_from_jax or convert.vqvae_params_from_jax.
+convert.params_from_jax, convert.vqvae_params_from_jax or
+convert.made_params_from_jax.
 """
 
 import math
@@ -168,11 +169,18 @@ class GM:
         scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
         torch._foreach_mul_(grads, scale)
 
+    def transform_grads(self):
+        """Hook between the backward and the optimizer, acting on p.grad in
+        place (default: nothing). MADE masks its weight gradients here on
+        its premasked route."""
+
     def apply_grads(self):
-        """One optimizer micro-step on the gradients in p.grad: fold them
-        into the --grad_accum window's running mean and, at the window's
-        last micro-step (every step without accumulation), clip the mean
-        and take one Adam step at the scheduled lr."""
+        """One optimizer micro-step on the gradients in p.grad: transform
+        them (transform_grads), fold them into the --grad_accum window's
+        running mean and, at the window's last micro-step (every step
+        without accumulation), clip the mean and take one Adam step at the
+        scheduled lr."""
+        self.transform_grads()
         params = [p for group in self.opt.param_groups for p in group['params']]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         k = int(self.G.get('grad_accum', 1) or 1)

@@ -32,7 +32,7 @@ NVCC_FLAGS = [
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
 ]
-KERNEL_SOURCES = ('decode_fused', 'attention', 'attention_bwd', 'quantize')
+KERNEL_SOURCES = ('decode_fused', 'attention', 'attention_bwd', 'quantize', 'masked_dense')
 
 _LIBS = {}
 _LIBS_LOCK = threading.Lock()

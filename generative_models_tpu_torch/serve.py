@@ -7,6 +7,8 @@ Counterpart of generative_models_tpu/serve.py:
   python -m generative_models_tpu_torch.serve --model=pixel_transformer \
       --weights_from=logs/model.pt --port=8000     # HTTP server
   python -m generative_models_tpu_torch.serve --model=vqvae --n=25 --out=vq.png
+  python -m generative_models_tpu_torch.serve --model=made --hidden_size=2048 \
+      --n=25 --out=made.png                        # Kernel G, 784 forwards
 
 Serving shape, as in the JAX package:
   * requests are padded up to a fixed --serve_bs and sliced back down, so

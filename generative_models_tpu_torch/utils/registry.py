@@ -7,11 +7,10 @@ import re
 
 _REGISTRY = {}
 
-# every name the JAX package registers
+# the names the JAX package registers that are not ported yet
 JAX_MODELS = (
-    'made', 'rnn', 'wavenet', 'pixel_cnn', 'gated_pixel_cnn',
-    'pixel_transformer', 'vae', 'vqvae', 'gan', 'diffusion_model',
-    'autoencoder', 'classifier',
+    'rnn', 'wavenet', 'pixel_cnn', 'gated_pixel_cnn', 'vae', 'gan',
+    'diffusion_model', 'autoencoder', 'classifier',
 )
 
 

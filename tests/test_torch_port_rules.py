@@ -81,6 +81,23 @@ def test_train_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp_pat
     assert not logdir.exists()
 
 
+@pytest.mark.parametrize('entry', ['serve', 'main'])
+def test_made_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp_path, entry):
+    """made at the kernel route's width: the gate reads the model's device,
+    and without CUDA there is no device to read but the CPU, which is
+    refused."""
+    from generative_models_tpu_torch import main, serve
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    flags = ['--model=made', '--hidden_size=2048']
+    with pytest.raises(RuntimeError, match='--device=cpu'):
+        if entry == 'serve':
+            serve.main(flags + ['--n=1', f'--out={tmp_path / "s.png"}'])
+        else:
+            main.main(flags + ['--data_source=synthetic', f'--logdir={tmp_path / "logs"}'])
+    assert list(tmp_path.iterdir()) == []
+
+
 def test_device_rule():
     from generative_models_tpu_torch.ops.common import resolve_device
 
