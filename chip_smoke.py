@@ -13,8 +13,10 @@ Phases; any failure exits non-zero before the result lines:
                 card at the main paths' shapes (pixel_transformer's,
                 vqvae's and made's at hidden_size=2048), with seeded inputs
                 and a stated tolerance; Kernel F's indices must be
-                identical but for ties within rounding, and Kernel H
-                exactly 0 off its mask.
+                identical but for ties within rounding, Kernel H exactly 0
+                off its mask, and Kernel I (int8 x int8 -> int32) bitwise
+                equal; I and J (the dequantizing product) at every product
+                of the quantized serving paths and at two ragged shapes.
                 Time kernel, plain version and, where one PyTorch call
                 computes the same function, that call, as device time
                 (torch.profiler's CUDA trace) and as eager back-to-back time
@@ -58,8 +60,22 @@ Phases; any failure exits non-zero before the result lines:
                 metrics, eval/nlogp falling.
   13. made_grads -- phase 6 for made, against a CPU copy on the
                 fold-the-mask route; dW exactly 0 off the mask on both.
-  14. profile -- device time by kernel over one request and one train step
-                of each model, and one pixel_transformer scoring forward.
+  14. quant_serve -- --quantize serving of each model at its default width
+                (pixel_transformer, vqvae, made at hidden_size=1024), w8a8
+                and w8a16, through load_server (warm, n=25, seed=7 twice):
+                Kernel I (w8a8) or J (w8a16) once a quantized Linear or
+                masked layer a step, nothing else; the /healthz fields; the
+                request redrawn through the quantized chain; the card's
+                int8 table bitwise equal to a CPU copy's; its teacher-forced
+                logits against a CPU f32 copy of the unquantized chain
+                (relative error < 0.05), against the card's unquantized
+                chain (reported) and against a CPU copy of the same
+                quantized chain; made's causality under w8a16, bitwise,
+                and under w8a8 the logits that move (one absmax scale a
+                row sees every unit).
+  15. profile -- device time by kernel over one request and one train step
+                of each model, one pixel_transformer scoring forward, and
+                one quantized request of each model in each mode.
 Then the kernels line, the nvidia-smi line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
@@ -80,10 +96,13 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
 TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_train'
 VQ_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_vqvae'
 MADE_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_made'
 MADE_FLAGS = ['--model=made', '--hidden_size=2048']  # the kernel route's width
+QUANT_MODES = ('w8a8', 'w8a16')
+QUANT_KERNEL = {'w8a8': 'int8_gemm', 'w8a16': 'dequant_gemm'}
 
 
 def log(*a):
@@ -360,6 +379,7 @@ def phase_kernels(dev):
 
     cases['vq_one_hot'] = vq_cases(f32)
     cases['masked_matmul'], cases['mask_out_matmul'] = made_cases(f32, dev)
+    cases['int8_gemm'], cases['dequant_gemm'] = int8_cases(rng, dev)
     torch.cuda.synchronize()
     for name, cs in cases.items():
         for c in cs:
@@ -491,17 +511,72 @@ def made_cases(f32, dev):
     return g_cases, h_cases
 
 
+def int8_cases(rng, dev):
+    """Kernels I and J vs their plain versions at every product of the
+    quantized serving paths at serve_bs=64 (pixel_transformer's, the vqvae
+    prior's, made's at hidden_size=1024) and at two ragged shapes, the
+    ragged ones untimed. I must be bitwise equal (integer sums; the plain
+    version in float64 is exact); J within atol 1e-3 + rtol 1e-3 (the same
+    bf16 x and int8 q on both sides, f32 sums of up to 1024 products in
+    another order). Bound: I reads int8 x and q and writes int32, J reads
+    f32 x (it rounds x to bf16 itself) and int8 q and writes f32; their
+    operations at the int8 and the bf16 peak. library_ms: torch._int_mm for
+    I (it takes M > 16 and K, N multiples of 8: the path shapes only), and
+    for J torch.matmul on bf16 x and a bf16 weight widened ahead of time,
+    the weight traffic w8a16 avoids."""
+    from generative_models_tpu_torch.ops.int8 import (
+        dequant_gemm, dequant_gemm_plain, int8_gemm, int8_gemm_plain,
+    )
+
+    shapes = (((64, 128, 128), 'pixel_transformer query/key/value/proj'),
+              ((64, 128, 512), 'pixel_transformer fc1'), ((64, 512, 128), 'pixel_transformer fc2'),
+              ((64, 64, 256), 'vqvae prior embed'),
+              ((64, 256, 256), 'vqvae prior query/key/value/proj'),
+              ((64, 256, 1024), 'vqvae prior fc1'), ((64, 1024, 256), 'vqvae prior fc2'),
+              ((64, 256, 64), 'vqvae prior head'), ((64, 784, 1024), 'made layer 0'),
+              ((64, 1024, 1024), 'made layers 1, 2'), ((64, 1024, 784), 'made layer 3'),
+              ((10, 72, 136), 'ragged'), ((6, 130, 70), 'ragged'))
+    i8 = lambda *s: torch.tensor(rng.randint(-127, 128, s), dtype=torch.int8, device=dev)
+    tol_j = dict(atol=1e-3, rtol=1e-3)
+    i_cases, j_cases = [], []
+    for (M, K, N), path in shapes:
+        x8, q = i8(M, K), i8(K, N)
+        xf = torch.tensor(rng.randn(M, K), dtype=torch.float32, device=dev)
+        shape = f'x ({M},{K}) x q ({K},{N})'
+        if not torch.equal(int8_gemm(x8, q), int8_gemm_plain(x8, q)):
+            raise AssertionError(f'int8_gemm {shape}: not bitwise equal to its plain version')
+        err = compare(f'dequant_gemm {shape}', dequant_gemm(xf, q), dequant_gemm_plain(xf, q),
+                      **tol_j)
+        ci = dict(shape=shape, path=path, max_abs_err=0.0, atol=0.0, rtol=0.0, bitwise=True)
+        cj = dict(shape=shape, path=path, max_abs_err=err, **tol_j)
+        if path != 'ragged':
+            xb, wb = xf.to(torch.bfloat16), q.to(torch.bfloat16)
+            bms, by = bound(M * K + K * N + 4 * M * N, 2 * M * K * N, peak=H100_INT8_OPS)
+            ci.update(bound_ms=bms, bound_by=by, library_covers='torch._int_mm', **timings(
+                lambda: int8_gemm(x8, q), lambda: int8_gemm_plain(x8, q),
+                lambda: torch._int_mm(x8, q), iters=50))
+            bms, by = bound(4 * M * K + K * N + 4 * M * N, 2 * M * K * N)
+            cj.update(bound_ms=bms, bound_by=by,
+                      library_covers='torch.matmul, bf16 x and a bf16 weight widened ahead',
+                      **timings(lambda: dequant_gemm(xf, q), lambda: dequant_gemm_plain(xf, q),
+                                lambda: torch.matmul(xb, wb), iters=50))
+        i_cases.append(ci)
+        j_cases.append(cj)
+    return i_cases, j_cases
+
+
 def _counters():
     """Every kernel wrapper; each counts its own launches."""
     from generative_models_tpu_torch.ops.attention import (
         causal_attention_fwd, flash_bwd_dkv, flash_bwd_dq,
     )
     from generative_models_tpu_torch.ops.decode_fused import block_tail, ln_matmul
+    from generative_models_tpu_torch.ops.int8 import dequant_gemm, int8_gemm
     from generative_models_tpu_torch.ops.masked_dense import mask_out_matmul, masked_matmul
     from generative_models_tpu_torch.ops.quantize import vq_one_hot
 
     return (ln_matmul, block_tail, causal_attention_fwd, flash_bwd_dq, flash_bwd_dkv,
-            vq_one_hot, masked_matmul, mask_out_matmul)
+            vq_one_hot, masked_matmul, mask_out_matmul, int8_gemm, dequant_gemm)
 
 
 def _reset(counters):
@@ -558,6 +633,7 @@ def phase_slice():
         'causal_attention_fwd': L,  # one scoring forward
         'flash_bwd_dq': 0, 'flash_bwd_dkv': 0,  # serving runs no backward
         'vq_one_hot': 0, 'masked_matmul': 0, 'mask_out_matmul': 0,
+        'int8_gemm': 0, 'dequant_gemm': 0,
     }
     if launches != expected:
         raise AssertionError(f'launch counts {launches} != expected {expected}')
@@ -663,6 +739,7 @@ def phase_train():
         'flash_bwd_dq': L * steps,
         'flash_bwd_dkv': L * steps,
         'vq_one_hot': 0, 'masked_matmul': 0, 'mask_out_matmul': 0,
+        'int8_gemm': 0, 'dequant_gemm': 0,
     }
     if launches != expected:
         raise AssertionError(f'train launch counts {launches} != expected {expected}')
@@ -760,7 +837,7 @@ def phase_vq_serve():
     expected = {
         'ln_matmul': (L + 1) * T * passes, 'block_tail': L * T * passes,
         'causal_attention_fwd': 0, 'flash_bwd_dq': 0, 'flash_bwd_dkv': 0, 'vq_one_hot': 0,
-        'masked_matmul': 0, 'mask_out_matmul': 0,
+        'masked_matmul': 0, 'mask_out_matmul': 0, 'int8_gemm': 0, 'dequant_gemm': 0,
     }
     if launches != expected:
         raise AssertionError(f'vqvae serve launch counts {launches} != expected {expected}')
@@ -850,7 +927,7 @@ def phase_vq_train():
         'flash_bwd_dkv': L * steps,
         'ln_matmul': (L + 1) * T * evals,  # evaluate samples 25 each epoch
         'block_tail': L * T * evals,
-        'masked_matmul': 0, 'mask_out_matmul': 0,
+        'masked_matmul': 0, 'mask_out_matmul': 0, 'int8_gemm': 0, 'dequant_gemm': 0,
     }
     if launches != expected:
         raise AssertionError(f'vqvae train launch counts {launches} != expected {expected}')
@@ -1064,6 +1141,191 @@ def phase_made_grads():
     return model, dataset, grad_check('made_grads', model, cpu)
 
 
+def _healthz(server):
+    """GET /healthz from the server's HTTP front, started and stopped here."""
+    from generative_models_tpu_torch.serve import _http_serve
+
+    httpd = _http_serve(server, 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        st, body = _get(f'http://127.0.0.1:{httpd.server_address[1]}/healthz')
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=60)
+    if st != 200 or th.is_alive():
+        raise AssertionError(f'/healthz {st}, server thread alive {th.is_alive()}')
+    return json.loads(body)
+
+
+def phase_quant_serve():
+    """--quantize serving of each model at its default width in both modes;
+    returns {'<model>_<mode>': result}."""
+    return {f'{name}_{mode}': quant_serve_one(name, mode)
+            for name in ('pixel_transformer', 'vqvae', 'made') for mode in QUANT_MODES}
+
+
+def quant_serve_one(name, mode):
+    """One model in one mode through load_server, with exact launch
+    counts: the mode's kernel once a quantized weight a step (a decode step,
+    or a made forward), every other kernel 0 times: no Kernel A or B in the
+    decode steps, no G in made's forwards."""
+    from generative_models_tpu_torch.serve import load_server
+
+    label = f'quant_serve {name} {mode}'
+    counters = _counters()
+    _reset(counters)
+    t0 = time.time()
+    server, G = load_server([f'--model={name}', '--serve_bs=64', f'--quantize={mode}'])
+    model = server.model
+    warm = server.warm()
+    r25 = server.sample(25)
+    a = server.sample(64, seed=7)
+    b = server.sample(64, seed=7)
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    log(f'[{label}] load_server + warm {time.time() - t0:.2f}s (warm {warm:.2f}s); '
+        f'launches {launches}')
+    steps = {'pixel_transformer': 784, 'vqvae': 49, 'made': 784}[name]
+    n_q = {'pixel_transformer': 12, 'vqvae': 14, 'made': 4}[name]
+    passes = 4  # warm + 3 requests
+    if server.quant_kernels != n_q or server.quant_mode != mode:
+        raise AssertionError(f'{label}: {server.quant_kernels} quantized weights in mode '
+                             f'{server.quant_mode}, expected {n_q} in {mode}')
+    expected = dict.fromkeys(launches, 0)
+    expected[QUANT_KERNEL[mode]] = n_q * steps * passes
+    if launches != expected:
+        raise AssertionError(f'{label} launch counts {launches} != expected {expected}')
+    stats = _healthz(server)
+    if (stats['quantize'], stats['quantized_kernels'], stats['requests']) != (mode, n_q, 3):
+        raise AssertionError(f'{label}: /healthz {stats}')
+    for what, smp, n in (('n=25', r25, 25), ('seed=7', a, 64)):
+        if smp.shape != (n, 28, 28, 1) or not np.isin(smp, (0.0, 1.0)).all():
+            raise AssertionError(f'{label} {what}: shape {smp.shape} or values outside {{0, 1}}')
+    if not np.array_equal(a, b):
+        raise AssertionError(f'{label}: seed=7 twice gave different batches')
+    log(f'[{label}] request latencies (s): {[round(v, 4) for v in server.latencies]}')
+    checks = quant_checks(name, mode, server, G, a)
+    return dict(launches=launches, passes=passes, per_pass=n_q * steps,
+                latencies=list(server.latencies), warm_sec=warm, checks=checks, server=server)
+
+
+def quant_checks(name, mode, server, G, batch):
+    """The seed=7 request redrawn through the quantized chain from its
+    uniforms (the same tokens); the card's table bitwise equal to a CPU
+    copy's (the weights copied, quantized there again); then the request's
+    teacher-forced logits, quantized on the card:
+      * against the unquantized chain on a CPU f32 copy, on 8 samples: the
+        relative error (Frobenius) < 0.05, the JAX package's bound for its
+        quantized forward against the exact f32 one (tests/test_int8.py);
+      * against the unquantized chain on the card (bf16 operands, so its
+        own rounding adds in), on all 64: reported, not bounded;
+      * against the same quantized chain on the CPU copy, on 8 samples, at
+        the bf16 tolerance of the other teacher-forced checks: the card
+        rounds the KV cache (and under w8a16 the activations) to bf16. Under
+        w8a8 that rounding can also move an activation across a
+        quantization level, which moves its products by sx * scale * |q| and
+        every logit downstream: those logits are counted, and at most 0.5 %
+        of them may lie outside the tolerance (none under w8a16).
+    made: causality under w8a16 bitwise, and under w8a8 the count of logits
+    <= i that move when inputs >= i change."""
+    from generative_models_tpu_torch.models.pixel_transformer import (
+        teacher_forced_logits, transformer_sample_scan,
+    )
+    from generative_models_tpu_torch.ops.int8 import build_quant_table
+    from generative_models_tpu_torch.utils.dists import Bernoulli, Categorical
+
+    model, quant = server.model, server.quant
+    dev, gen = model.device, torch.Generator(model.device).manual_seed(7)
+    cpu = _cpu_copy(model, G)
+    cquant, _ = build_quant_table(cpu, mode)
+    if (quant.dense.keys(), quant.masked.keys()) != (cquant.dense.keys(), cquant.masked.keys()):
+        raise AssertionError(f'{name} {mode}: the card and the CPU quantize other layers')
+    pairs = [(k, quant.dense[k], cquant.dense[k]) for k in quant.dense] + [
+        (f'{k} layer {i}', a, b) for k in quant.masked
+        for i, (a, b) in enumerate(zip(quant.masked[k], cquant.masked[k]))]
+    for key, (q, sc), (cq, csc) in pairs:
+        if not (torch.equal(q.cpu(), cq) and torch.equal(sc.cpu(), csc)):
+            raise AssertionError(f'{name} {mode}: {key} quantized apart on the card and the CPU')
+    tol = dict(atol=5e-2, rtol=5e-2)
+    out = {}
+    with torch.no_grad():
+        if name == 'pixel_transformer':
+            T = model.block_size
+            x = torch.as_tensor(batch, device=dev).reshape(64, T, 1)
+            u = torch.rand((T, 64, 1), generator=gen, device=dev)
+            lq = teacher_forced_logits(model.net, x, 4, quant)
+            redrawn = Bernoulli(logits=lq).sample(uniforms=u.permute(1, 0, 2))
+            flips = int((redrawn != x).sum())
+            lu = teacher_forced_logits(model.net, x, 4)
+            xc = x[:8].cpu()
+            lc, lf = teacher_forced_logits(cpu.net, xc, 1, cquant), teacher_forced_logits(cpu.net, xc)
+        elif name == 'vqvae':
+            prior, pq, T, K = model.net.prior, quant.sub('prior'), model.n_codes, int(G.vqK)
+            u = torch.rand((T, 64, K), generator=gen, device=dev)
+            tokens = transformer_sample_scan(
+                prior, 64, lambda logits, ut: Categorical(logits).sample(uniforms=ut), u, quant=pq)
+            x = tokens.permute(1, 0, 2).contiguous()
+            imgs = (torch.sigmoid(model.net.ae.decode_codes(x)) > 0.5).float()
+            if not np.array_equal(imgs.cpu().numpy(), batch):
+                raise AssertionError(f'vqvae {mode}: the seed=7 codes do not decode to the request')
+            lq = teacher_forced_logits(prior, x, 1, pq)
+            flips = int((Categorical(lq).sample(uniforms=u.permute(1, 0, 2)) != x).any(-1).sum())
+            lu = teacher_forced_logits(prior, x)
+            xc, cprior = x[:8].cpu(), cpu.net.prior
+            lc = teacher_forced_logits(cprior, xc, 1, cquant.sub('prior'))
+            lf = teacher_forced_logits(cprior, xc)
+        else:
+            x = torch.as_tensor(batch, device=dev).reshape(64, model.nin)
+            lq, lu = model.net(x, quant=quant), model.net(x)
+            lc, lf = cpu.net(x[:8].cpu(), quant=cquant), cpu.net(x[:8].cpu())
+            flips = 0  # each forward is one step of sampling: nothing to redraw
+            out['causality'] = made_quant_causality(model, quant, mode)
+    if flips:
+        raise AssertionError(f'{name} {mode}: the quantized chain redraws {flips} tokens differently')
+    rel = lambda a, b: float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+    out['rel_err_vs_cpu_f32_unquantized'] = rel(lq[:8].cpu(), lf)
+    out['rel_err_vs_card_unquantized'] = rel(lq, lu)
+    out['rel_err_cpu_quantized_vs_cpu_f32'] = rel(lc, lf)
+    if not out['rel_err_vs_cpu_f32_unquantized'] < 0.05:
+        raise AssertionError(f'{name} {mode}: relative error {out["rel_err_vs_cpu_f32_unquantized"]:.4g}'
+                             ' vs the unquantized f32 chain')
+    got = lq[:8].cpu()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f'{name} {mode}: non-finite quantized logits')
+    err = (got - lc).abs()
+    outside = int((err > tol['atol'] + tol['rtol'] * lc.abs()).sum())
+    out.update(card_vs_cpu_quantized=float(err.max()), outside_tolerance=outside,
+               compared=err.numel(), max_share_outside=0.005 if mode == 'w8a8' else 0.0, **tol)
+    if outside > out['max_share_outside'] * err.numel():
+        raise AssertionError(f'{name} {mode} card vs CPU quantized: {outside} of {err.numel()} '
+                             f'logits outside atol {tol["atol"]} + rtol {tol["rtol"]}; '
+                             f'max abs err {out["card_vs_cpu_quantized"]:.3g}')
+    log(f'[quant_serve {name} {mode}] checks {json.dumps(out)}')
+    return out
+
+
+def made_quant_causality(model, quant, mode):
+    """made's quantized forward on a random canvas with the inputs >= i
+    flipped: under w8a16 logits <= i bitwise unchanged (the folded int8
+    weights are exactly 0 off the masks, and Kernel J sums in a fixed
+    order); under w8a8 the number of them that move (the row's absmax
+    scale sees every unit)."""
+    canvas = (torch.rand((64, model.nin), generator=torch.Generator(model.device).manual_seed(3),
+                         device=model.device) < 0.5).float()
+    ref = model.net(canvas, quant=quant)
+    moved = {}
+    for i in (0, 1, 2, 100, 400, 600, 782, 783):
+        changed = canvas.clone()
+        changed[:, i:] = 1 - changed[:, i:]
+        logits = model.net(changed, quant=quant)
+        moved[i] = int((logits[:, :i + 1] != ref[:, :i + 1]).sum())
+        if mode == 'w8a16' and moved[i]:
+            raise AssertionError(f'made w8a16: logits up to {i} moved when inputs >= {i} changed')
+    return dict(logits_moved_at_or_before_i=moved, bitwise=mode == 'w8a16')
+
+
 def _profile(label, fn, top_n):
     """Wall and device time of one call of fn under torch.profiler, and the
     kernels that took the most device time."""
@@ -1089,10 +1351,11 @@ def _profile(label, fn, top_n):
 
 
 def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
-                  made_server, made_model, made_dataset):
+                  made_server, made_model, made_dataset, quant):
     """Device time by kernel over one seeded request, one (warm) scoring
     forward and one (warm) train step at bs=64, for pixel_transformer, for
-    vqvae and for made at hidden_size=2048."""
+    vqvae and for made at hidden_size=2048; and one seeded quantized
+    request of each model in each mode."""
     bx = dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
     model.train_step(bx[0])
     vq_bx = vq_dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
@@ -1110,6 +1373,9 @@ def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
         made_request=_profile('one made request', lambda: made_server.sample(64, seed=11), 10),
         made_train_step=_profile('one made train step',
                                  lambda: made_model.train_step(made_bx[1]), 15),
+        **{f'{key}_request': _profile(f'one {key} request',
+                                      lambda srv=q['server']: srv.sample(64, seed=11), 12)
+           for key, q in quant.items()},
     )
 
 
@@ -1137,9 +1403,10 @@ def main():
     md = phase_made_default()
     mt = phase_made_train()
     made_model, made_dataset, made_grads = phase_made_grads()
+    qs = phase_quant_serve()
     prof = phase_profile(sl['server'], sl['x'], model, dataset,
                          vs['server'], vq_model, vq_dataset,
-                         ms['server'], made_model, made_dataset)
+                         ms['server'], made_model, made_dataset, qs)
 
     # (source, TPU kernel replaced) of each kernel; its launches are those
     # of pixel_transformer's serving path (sampling passes, one scoring
@@ -1153,6 +1420,8 @@ def main():
         'vq_one_hot': ('quantize.cu', 'generative_models_tpu/ops/quantize.py:23'),
         'masked_matmul': ('masked_dense.cu', 'generative_models_tpu/ops/masked_dense.py:24'),
         'mask_out_matmul': ('masked_dense.cu', 'generative_models_tpu/ops/masked_dense.py:35'),
+        'int8_gemm': ('int8.cu', 'generative_models_tpu/ops/int8.py:49'),
+        'dequant_gemm': ('int8.cu', 'generative_models_tpu/ops/int8.py:60'),
     }
     kernels = []
     for name, cs in cases.items():
@@ -1160,7 +1429,8 @@ def main():
         main_case = cs[0]
         by_path = {'serve': sl['launches'][name], 'train': tr['launches'][name],
                    'vqvae_serve': vs['launches'][name], 'vqvae_train': vt['launches'][name],
-                   'made_serve': ms['launches'][name], 'made_train': mt['launches'][name]}
+                   'made_serve': ms['launches'][name], 'made_train': mt['launches'][name],
+                   **{f'{key}_serve': q['launches'][name] for key, q in qs.items()}}
         if sum(by_path.values()) == 0:
             raise AssertionError(f'{name} was not launched on a main path')
         kernels.append(dict(
@@ -1204,6 +1474,10 @@ def main():
             hidden_size=2048, wall_sec=mt['wall_sec'], steps=mt['steps'], history=mt['history'],
             grads_max_rel_err=max(made_grads['rel_err'].values()), power=smi,
         ),
+        quant_serve={key: dict(
+            serve_bs=64, warm_sec=q['warm_sec'], request_sec=sorted(q['latencies']),
+            launches_per_pass=q['per_pass'], checks=q['checks'], power=smi,
+        ) for key, q in qs.items()},
     )))
     log(json.dumps({'kernels': kernels}))
     log(nvidia_smi())

@@ -16,6 +16,8 @@ ConvTranspose kernel (kh, kw, in, out) is not flipped when applied
 kh, kw) weight, so the kernel is flipped in both spatial axes on the way.
 """
 
+import re
+
 import numpy as np
 import torch
 
@@ -77,3 +79,25 @@ def made_params_from_jax(tree):
     """JAX MADE params {'w0'.., 'b0'..} -> state dict of the port's
     MaskedMLP, in the same (in, out) layout (the layout Kernel G reads)."""
     return {k: _t(v) for k, v in tree.items()}
+
+
+def _module_name(path):
+    """A flax module path tuple -> the port's qualified module name:
+    block{i} -> blocks.{i}, a head's Dense_0 -> dense; () -> ''."""
+    parts = []
+    for p in path:
+        m = re.fullmatch(r'block(\d+)', p)
+        parts += ['blocks', m.group(1)] if m else ['dense' if p == 'Dense_0' else p]
+    return '.'.join(parts)
+
+
+def quant_table_from_jax(table):
+    """A JAX int8 table ({module path tuple: (q, scale)} of
+    quantize_dense_tree, or {(): ((q, scale), ...)} of
+    quantize_masked_mlp) -> the same table keyed by the port's qualified
+    module names, as torch tensors (q int8 (in, out), scale f32)."""
+    conv = lambda qs: (torch.from_numpy(np.array(qs[0])), torch.from_numpy(np.array(qs[1])))
+    out = {}
+    for path, v in table.items():
+        out[_module_name(path)] = conv(v) if not isinstance(v[0], tuple) else tuple(map(conv, v))
+    return out

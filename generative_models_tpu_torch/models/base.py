@@ -288,14 +288,16 @@ class GM:
     # ------------------------------------------------------------------ #
     # sampling and serving
     # ------------------------------------------------------------------ #
-    def sample_fn(self, n, generator=None, uniforms=None):
+    def sample_fn(self, n, generator=None, uniforms=None, quant=None):
         """n samples from the generator's draws, or from the random numbers
-        given (uniforms), so a test can hand both packages the same draws."""
+        given (uniforms), so a test can hand both packages the same draws.
+        quant: a QuantTable over self.net (ops/int8.py) for quantized
+        serving."""
         raise NotImplementedError
 
-    def _draw(self, n, generator):
+    def _draw(self, n, generator, quant=None):
         """n samples (n, H, W, 1) in [0, 1] and nothing else."""
-        return self.sample_fn(n, generator=generator)
+        return self.sample_fn(n, generator=generator, quant=quant)
 
     @torch.no_grad()
     def sample(self, n):
@@ -310,16 +312,17 @@ class GM:
         self.net.eval()
         return self._draw(n, self._gen)
 
-    def pure_serving_fn(self, n):
+    def pure_serving_fn(self, n, quant=None):
         """(seed) -> (n, H, W, 1) float32 numpy samples in [0, 1]. The seed
         becomes torch.Generator(device).manual_seed(seed), so the same seed
-        gives the same batch."""
+        gives the same batch. quant: a QuantTable over self.net (serve.py
+        --quantize), which every pass applies."""
 
         @torch.no_grad()
         def fn(seed):
             gen = torch.Generator(self.device).manual_seed(int(seed))
             self.net.eval()
-            return self._draw(n, gen).cpu().numpy()
+            return self._draw(n, gen, quant).cpu().numpy()
 
         return fn
 
@@ -337,5 +340,5 @@ class Autoreg(GM):
         write_grid(writer, 'samples', samples, epoch)
         write_gridvid(writer, 'sampling_process', frames, epoch, logdir=self.G.logdir)
 
-    def _draw(self, n, generator):
-        return self.sample_fn(n, generator=generator, with_frames=False)
+    def _draw(self, n, generator, quant=None):
+        return self.sample_fn(n, generator=generator, with_frames=False, quant=quant)

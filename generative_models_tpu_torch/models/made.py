@@ -13,6 +13,10 @@ Three routes, chosen as the JAX package chooses them (MADE.build):
     masked params and Adam moments on load), and each layer is a plain
     matmul;
   * the fold route (--premasked=0): x @ (w * m) + b, a plain matmul.
+Quantized serving (serve.py --quantize) passes forward a QuantTable
+(ops/int8.py) whose layers fold each mask into an int8 weight: every layer
+is then int8_matmul (Kernel I or J) + b, with no masked-dense kernel at any
+width, as the JAX package's interceptor replaces MaskedMLP.__call__.
 The plain matmuls stay torch.matmul under the operand policy (bf16
 operands, f32 sums on the card), as the JAX package left them to XLA.
 """
@@ -26,6 +30,7 @@ from torch import nn
 
 from generative_models_tpu_torch.models.base import Autoreg, _lecun_normal_
 from generative_models_tpu_torch.ops.common import matmul_dtype
+from generative_models_tpu_torch.ops.int8 import int8_matmul
 from generative_models_tpu_torch.ops.masked_dense import masked_dense, prefer_kernel
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
@@ -79,7 +84,11 @@ class MaskedMLP(nn.Module):
                 w.mul_(m)
             b.zero_()
 
-    def forward(self, x):
+    def forward(self, x, quant=None):
+        """quant: a QuantTable keyed from this net, whose masked[''] holds
+        each layer's folded (q, scale)."""
+        if quant is not None:
+            return self._quant_forward(x, quant)
         dt = matmul_dtype(x.device)
         for i, (w, b, m) in enumerate(self.layers()):
             if self.premasked:
@@ -87,6 +96,14 @@ class MaskedMLP(nn.Module):
             else:
                 x = masked_dense(x, w, b, m, self.use_kernel)
             if i < self.n_layers - 1:
+                x = F.relu(x)
+        return x
+
+    def _quant_forward(self, x, quant):
+        layers = quant.masked['']
+        for i, ((q, scale), (_, b, _)) in enumerate(zip(layers, self.layers())):
+            x = int8_matmul(x, q, scale, act_quant=quant.act_quant) + b
+            if i < len(layers) - 1:
                 x = F.relu(x)
         return x
 
@@ -150,18 +167,18 @@ class MADE(Autoreg):
         loss = -dists.Bernoulli(logits=logits).log_prob(x).mean()
         return loss, {'nlogp': loss}
 
-    def sample_fn(self, n, generator=None, uniforms=None, with_frames=True):
+    def sample_fn(self, n, generator=None, uniforms=None, with_frames=True, quant=None):
         """Raster-order sampling: nin steps of one full forward each, pixel i
         set to u_i < sigmoid(logit_i). uniforms (nin, n), the draws of step
-        i in row i, replace the generator's. Returns the samples (n, H, W,
-        1) and, with with_frames, the (nin, n, H, W, 1) canvas after each
-        step."""
+        i in row i, replace the generator's; quant: a QuantTable over
+        self.net. Returns the samples (n, H, W, 1) and, with with_frames,
+        the (nin, n, H, W, 1) canvas after each step."""
         side = math.isqrt(self.nin)
         if uniforms is None:
             uniforms = torch.rand((self.nin, n), generator=generator, device=self.device)
         samples = torch.zeros((n, self.nin), device=self.device)
         for i in range(self.nin):
-            logits = self.net(samples)
+            logits = self.net(samples, quant=quant)
             samples[:, i] = dists.Bernoulli(logits=logits[:, i]).sample(uniforms=uniforms[i])
         out = samples.reshape(n, side, side, 1)
         if not with_frames:

@@ -9,7 +9,12 @@ Two paths, each through the port's kernels on the card:
     launches Kernel C again;
   * sampling: a KV-cached decode loop, one token per step, whose dense
     chains are Kernels A and B (ops/decode_fused.py ln_matmul and
-    block_tail) and whose single-token attention is plain torch.
+    block_tail) and whose single-token attention is plain torch;
+  * quantized sampling (serve.py --quantize): the same loop given a
+    QuantTable (ops/int8.py) as quant=, each step run module by module, as
+    the JAX package's Block.step does under its interceptor, every Linear
+    in the table through int8_matmul (Kernel I or J) and Kernels A and B
+    not at all: their fused weights are the unquantized ones.
 
 Not ported yet, and refused when set: --moe_experts, and the ring and pipe
 paths (which --mesh selects; utils/config.py refuses --mesh).
@@ -29,7 +34,7 @@ from generative_models_tpu_torch.ops.attention import (
 )
 from generative_models_tpu_torch.ops.common import dense, matmul_dtype
 from generative_models_tpu_torch.ops.decode_fused import (
-    LN_EPS, block_tail, block_tail_plain, ln_matmul, ln_matmul_plain,
+    LN_EPS, _ln, block_tail, block_tail_plain, ln_matmul, ln_matmul_plain,
 )
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
@@ -148,10 +153,13 @@ class TransformerNet(nn.Module):
             whead=_kernel_weight(hd, dtype=dt), bhead=hd.bias,
         )
 
-    def decode_step(self, prev_token, caches, t, params=None):
+    def decode_step(self, prev_token, caches, t, params=None, quant=None):
         """prev_token: (B, in_size) (zeros at t=0); caches from init_cache
         (or leading-row views of them), updated in place at row t. Returns
-        the logits (B, in_size)."""
+        the logits (B, in_size). quant: a QuantTable keyed from this net,
+        which takes the quantized per-module step instead."""
+        if quant is not None:
+            return self._quant_step(prev_token, caches, t, quant)
         if params is None:
             params = self.decode_params()
         if self.use_fused_decode:
@@ -170,11 +178,34 @@ class TransformerNet(nn.Module):
         return lm(h, params['ln_f_scale'], params['ln_f_bias'],
                   params['whead'], params['bhead'])
 
+    def _quant_step(self, prev_token, caches, t, quant):
+        """One decode step module by module (the JAX package's
+        CausalSelfAttention.step, Block.step and decode_step under its
+        quantization interceptor): LayerNorm, query, key and value, the cache
+        write, attention, proj, fc1, gelu(tanh), fc2, ln_f, the head. Each
+        Linear goes through quant.linear: int8_matmul + bias where the table
+        holds it, the plain dense product elsewhere."""
+        lin = quant.linear
+        h = lin(prev_token, 'embed', self.embed) + self.pos_emb[0, t]
+        for i, (blk, cache) in enumerate(zip(self.blocks, caches)):
+            pre, a = f'blocks.{i}.', blk.attn
+            x = _ln(h, blk.ln1.weight, blk.ln1.bias)
+            q = lin(x, pre + 'attn.query', a.query)
+            cache[t] = torch.stack([lin(x, pre + 'attn.key', a.key),
+                                    lin(x, pre + 'attn.value', a.value)], 1)
+            y = decode_step_attention(q, cache, t, self.n_head)
+            h = h + lin(y, pre + 'attn.proj', a.proj)
+            g = lin(_ln(h, blk.ln2.weight, blk.ln2.bias), pre + 'fc1', blk.fc1)
+            h = h + lin(F.gelu(g, approximate='tanh'), pre + 'fc2', blk.fc2)
+        hf = _ln(h, self.ln_f.weight, self.ln_f.bias)
+        return lin(hf, 'head_layer.dense', self.head_layer.dense)
+
 
 @torch.no_grad()
-def decode_loop(net, n, next_token, segments=1):
+def decode_loop(net, n, next_token, segments=1, quant=None):
     """Run the T-step KV-cached decode chain on a batch of n. next_token(t,
-    logits_t) returns the (n, in_size) token that step t+1 is fed.
+    logits_t) returns the (n, in_size) token that step t+1 is fed. quant: a
+    QuantTable keyed from net (the quantized per-module step).
 
     segments > 1 splits the T steps into S runs where run k attends over
     only the first (k+1)*T/S cache rows, so the attention read per step
@@ -183,42 +214,42 @@ def decode_loop(net, n, next_token, segments=1):
     this bitwise)."""
     T = net.block_size
     caches = net.init_cache(n)
-    params = net.decode_params()
+    params = None if quant is not None else net.decode_params()
     prev = torch.zeros((n, net.in_size), device=net.pos_emb.device)
     seg = T // segments if segments > 1 and T % segments == 0 else T
     for start in range(0, T, seg):
         # leading-row views: decode_step's in-place writes land in caches
         view = [c[: start + seg] for c in caches]
         for t in range(start, start + seg):
-            prev = next_token(t, net.decode_step(prev, view, t, params))
+            prev = next_token(t, net.decode_step(prev, view, t, params, quant))
 
 
-def transformer_sample_scan(net, n, sample_token, uniforms, segments=1):
+def transformer_sample_scan(net, n, sample_token, uniforms, segments=1, quant=None):
     """KV-cached AR sampling. sample_token(logits, u_t) -> (n, in_size)
-    token; uniforms: (T, n, in_size), the draws of step t in row t. Returns
-    the tokens (T, n, in_size)."""
+    token; uniforms: (T, n, in_size), the draws of step t in row t; quant as
+    decode_loop. Returns the tokens (T, n, in_size)."""
     tokens = torch.empty((net.block_size, n, net.in_size), device=uniforms.device)
 
     def next_token(t, logits):
         tokens[t] = sample_token(logits, uniforms[t])
         return tokens[t]
 
-    decode_loop(net, n, next_token, segments)
+    decode_loop(net, n, next_token, segments, quant)
     return tokens
 
 
-def teacher_forced_logits(net, x, segments=1):
+def teacher_forced_logits(net, x, segments=1, quant=None):
     """Logits (B, T, in_size) of the decode chain fed the tokens x (B, T,
     in_size) shifted right: what sampling computed at each position when it
-    drew x (bitwise, at the same segments). Equals net(x).logits up to
-    rounding."""
+    drew x (bitwise, at the same segments and quant). Unquantized, equals
+    net(x).logits up to rounding."""
     logits = []
 
     def next_token(t, logits_t):
         logits.append(logits_t)
         return x[:, t].contiguous()
 
-    decode_loop(net, x.shape[0], next_token, segments)
+    decode_loop(net, x.shape[0], next_token, segments, quant)
     return torch.stack(logits, dim=1)
 
 
@@ -263,10 +294,10 @@ class PixelTransformer(Autoreg):
         loss = -self.net(x).log_prob(x).mean()
         return loss, {'nlogp': loss}
 
-    def sample_fn(self, n, generator=None, uniforms=None, with_frames=True):
+    def sample_fn(self, n, generator=None, uniforms=None, with_frames=True, quant=None):
         """n samples (n, H, W, 1); uniforms (T, n, 1) replace the draws from
-        generator. With with_frames, also the (T, n, H, W, 1) frames of the
-        sampling process."""
+        generator; quant: a QuantTable over self.net. With with_frames, also
+        the (T, n, H, W, 1) frames of the sampling process."""
         segments = int(self.G.get('decode_segments', -1))
         if segments < 0:
             segments = 4 if self.device.type == 'cuda' else 1
@@ -274,7 +305,7 @@ class PixelTransformer(Autoreg):
         if uniforms is None:
             uniforms = torch.rand((T, n, 1), generator=generator, device=self.device)
         sample_token = lambda logits, u: dists.Bernoulli(logits=logits).sample(uniforms=u)
-        tokens = transformer_sample_scan(self.net, n, sample_token, uniforms, segments)
+        tokens = transformer_sample_scan(self.net, n, sample_token, uniforms, segments, quant)
         samples = tokens.permute(1, 0, 2).reshape(n, self.side, self.side, 1)
         if not with_frames:
             return samples

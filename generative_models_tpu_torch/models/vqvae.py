@@ -184,15 +184,22 @@ class VQVAE(GM):
         super().apply_grads()
         self.prior_opt.step()
 
-    def sample_fn(self, n, generator=None, uniforms=None):
+    def sample_fn(self, n, generator=None, uniforms=None, quant=None):
         """n samples (n, H, W, 1) in {0, 1}: a Gumbel-max categorical code
         at each of the prior's T decode steps, from uniforms (T, n, K) or
-        the generator's draws, then decode_codes and sigmoid > 0.5."""
+        the generator's draws, then decode_codes and sigmoid > 0.5. quant: a
+        QuantTable over self.net; the prior's decode steps take its entries
+        under 'prior', keyed from the prior's own root, so every quantized
+        Linear of the prior applies (the JAX package's table keeps the
+        'prior' prefix that the prior's modules do not see, and so
+        quantizes none of them; ROADMAP.md queue 3)."""
         T, K = self.n_codes, int(self.G.vqK)
         if uniforms is None:
             uniforms = torch.rand((T, n, K), generator=generator, device=self.device)
         sample_token = lambda logits, u: dists.Categorical(logits).sample(uniforms=u)
-        tokens = transformer_sample_scan(self.net.prior, n, sample_token, uniforms)
+        prior_quant = quant.sub('prior') if quant is not None else None
+        tokens = transformer_sample_scan(self.net.prior, n, sample_token, uniforms,
+                                         quant=prior_quant)
         decoded = self.net.ae.decode_codes(tokens.permute(1, 0, 2))
         return (torch.sigmoid(decoded) > 0.5).float()
 

@@ -9,6 +9,8 @@ Counterpart of generative_models_tpu/serve.py:
   python -m generative_models_tpu_torch.serve --model=vqvae --n=25 --out=vq.png
   python -m generative_models_tpu_torch.serve --model=made --hidden_size=2048 \
       --n=25 --out=made.png                        # Kernel G, 784 forwards
+  python -m generative_models_tpu_torch.serve --model=made --quantize=int8 \
+      --n=25 --out=made8.png                       # w8a8 through Kernel I
 
 Serving shape, as in the JAX package:
   * requests are padded up to a fixed --serve_bs and sliced back down, so
@@ -21,9 +23,18 @@ Serving shape, as in the JAX package:
   * /healthz reports rolling latency stats; /sample?n=16&seed=3 returns a
     PNG grid (stdlib zlib PNG encoder).
 
+Post-training quantization: --quantize=int8 (= w8a8) or w8a16 quantizes
+every nn.Linear with both dims >= 64 and >= 16384 elements, and MADE's
+masked layers with each mask folded in, once at startup (ops/int8.py
+build_quant_table); every pass then runs those products through Kernel I
+(w8a8: int8 activations and weights, int32 sums) or Kernel J (w8a16: bf16
+activations, int8 weights widened on chip). The table is passed to the
+model's serving fn as quant=; pixel_transformer's and the vqvae prior's
+decode steps then run module by module, without Kernels A and B.
+
 A seed becomes torch.Generator(device).manual_seed(seed): the same seed
-gives the same batch on the same card. Not ported yet: --export,
---from_export and --quantize (utils/config.py refuses them).
+gives the same batch on the same card. Not ported yet: --export and
+--from_export (utils/config.py refuses them).
 """
 
 import json
@@ -89,6 +100,8 @@ class _ServerBase:
 
     def _init_serving(self, serve_bs):
         self.serve_bs = int(serve_bs)
+        self.quant_mode = ''  # '' | 'w8a8' | 'w8a16' (ops/int8.py)
+        self.quant_kernels = 0
         self._lock = threading.Lock()
         self._requests = 0
         # unseeded requests draw from a urandom-salted stream so restarts
@@ -237,6 +250,8 @@ class _ServerBase:
             'warm_sec': self.warm_sec,
             'latency_p50_sec': pick(0.50),
             'latency_p90_sec': pick(0.90),
+            'quantize': self.quant_mode or None,
+            'quantized_kernels': self.quant_kernels,
             'coalesce_ms': self.coalesce_ms or None,
             'coalesced_batches': self.coalesced_batches,
             'coalesced_requests': self.coalesced_requests,
@@ -245,14 +260,29 @@ class _ServerBase:
 
 class SampleServer(_ServerBase):
     """Owns the model and its serving fn. Every request pads to serve_bs,
-    runs the same pass, and slices to n."""
+    runs the same pass, and slices to n. quantize: '' | 'int8' (= 'w8a8') |
+    'w8a8' | 'w8a16'; the weights are quantized once, here."""
 
-    def __init__(self, model, serve_bs=64):
+    def __init__(self, model, serve_bs=64, quantize=''):
         if model.G.get('class_cond', 0):
             raise NotImplementedError('class-conditional serving is not ported yet')
         self.model = model
         self._init_serving(serve_bs)
-        self._call = model.pure_serving_fn(self.serve_bs)
+        quantize = quantize or ''
+        self.quant_mode = {'int8': 'w8a8'}.get(quantize, quantize)
+        if self.quant_mode not in ('', 'w8a8', 'w8a16'):
+            raise SystemExit(f'--quantize={quantize}: choose int8|w8a8|w8a16')
+        self.quant = None  # the QuantTable every pass applies
+        if self.quant_mode:
+            from generative_models_tpu_torch.ops.int8 import build_quant_table
+
+            self.quant, self.quant_kernels = build_quant_table(model, self.quant_mode)
+            if not self.quant_kernels:
+                raise SystemExit(
+                    f'--quantize: {model.G.model} has no Linear or masked layers '
+                    'large enough to quantize (ops/int8.py thresholds)'
+                )
+        self._call = model.pure_serving_fn(self.serve_bs, quant=self.quant)
 
     def _model_name(self):
         return self.model.G.model
@@ -317,7 +347,7 @@ def serve_defaults():
     DG.out = Path('samples.png')
     DG.export = ''  # not ported yet
     DG.from_export = ''  # not ported yet
-    DG.quantize = ''  # not ported yet
+    DG.quantize = ''  # int8 post-training quant: int8|w8a8|w8a16 (ops/int8.py)
     DG.coalesce_ms = 0.0  # >0: micro-batch concurrent requests (window, ms)
     return DG
 
@@ -331,7 +361,7 @@ def load_server(argv=None):
     model = Model(G=G)
     if G.weights_from != Path('.'):
         model.load_weights(G.weights_from)
-    return SampleServer(model, serve_bs=G.serve_bs), G
+    return SampleServer(model, serve_bs=G.serve_bs, quantize=G.quantize), G
 
 
 def main(argv=None):

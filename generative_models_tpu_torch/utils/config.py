@@ -89,7 +89,7 @@ def global_defaults():
 # flags whose JAX implementation has no counterpart here yet: setting one
 # raises rather than running something other than what was asked for
 NOT_PORTED = (
-    'mesh', 'fsdp', 'quantize', 'export', 'from_export',
+    'mesh', 'fsdp', 'export', 'from_export',
     'eval_heavy', 'stream_data', 'resume', 'profile',
 )
 

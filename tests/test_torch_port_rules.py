@@ -98,6 +98,21 @@ def test_made_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp_path
     assert list(tmp_path.iterdir()) == []
 
 
+@pytest.mark.parametrize('model', ['pixel_transformer', 'made'])
+def test_quantize_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp_path, model):
+    """--quantize serves on the card like every entry point: without CUDA
+    it raises unless --device=cpu, before any weight is quantized."""
+    from generative_models_tpu_torch import serve
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='--device=cpu'):
+        serve.main([f'--model={model}', '--quantize=int8', '--n=1', f'--out={tmp_path / "q.png"}'])
+    assert list(tmp_path.iterdir()) == []
+    server, _ = serve.load_server([f'--model={model}', '--quantize=w8a16', '--device=cpu',
+                                   '--serve_bs=1'])
+    assert server.quant_mode == 'w8a16' and server.model.device.type == 'cpu'
+
+
 def test_device_rule():
     from generative_models_tpu_torch.ops.common import resolve_device
 
@@ -114,8 +129,7 @@ def test_unported_models_and_flags_raise():
         parse_args(['--model=diffusion_model', '--device=cpu'])
     with pytest.raises(KeyError):
         parse_args(['--model=no_such_model', '--device=cpu'])
-    for flag in ('--mesh=data:2', '--fsdp=1', '--quantize=int8',
-                 '--export=a.bin', '--from_export=a.bin'):
+    for flag in ('--mesh=data:2', '--fsdp=1', '--export=a.bin', '--from_export=a.bin'):
         with pytest.raises(NotImplementedError, match='not ported yet'):
             parse_args(['--model=pixel_transformer', '--device=cpu', flag],
                        DG=serve_defaults())
