@@ -4,7 +4,8 @@ NVIDIA GPU. Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Phases; any failure exits non-zero before the result lines:
+Phases, each timed ([time] lines, and phase_sec in the summary); any
+failure exits non-zero before the result lines:
   1. device  -- require CUDA (no fallback); print nvidia-smi's name and
                 power limit.
   2. build   -- compile ops/csrc/*.cu (one nvcc per source, in parallel)
@@ -16,7 +17,10 @@ Phases; any failure exits non-zero before the result lines:
                 identical but for ties within rounding, Kernel H exactly 0
                 off its mask, and Kernel I (int8 x int8 -> int32) bitwise
                 equal; I and J (the dequantizing product) at every product
-                of the quantized serving paths and at two ragged shapes.
+                of the quantized serving paths and at two ragged shapes;
+                the ring's hop Kernels K, L and M on rings of 2, 4 and 8 at
+                their first hop and at a carry hop, and the whole ring at 4
+                and 8 against Kernels C, E and D on the full sequence.
                 Time kernel, plain version and, where one PyTorch call
                 computes the same function, that call, as device time
                 (torch.profiler's CUDA trace) and as eager back-to-back time
@@ -39,43 +43,50 @@ Phases; any failure exits non-zero before the result lines:
                 model.pt, for every parameter: finite, non-zero, and within
                 a bf16 tolerance of the same batch's gradients from a CPU
                 f32 copy.
-  7. vq_serve -- vqvae's serving path at its default width (warm, n=25,
+  7. seq_train -- phase 5 under --mesh=seq:4: attention through a ring of 4
+                on the card, K 112, L and M 80 launches and no other kernel
+                (sampling takes the per-op chain).
+  8. seq_grads -- phase 6 for the seq_train model, the card's ring against
+                an unsharded CPU f32 copy.
+  9. vq_serve -- vqvae's serving path at its default width (warm, n=25,
                 seed=7 twice) with exact launch counts; the seed=7 codes
                 redrawn through the kernel decode chain, against the full
                 prior forward and a CPU f32 prior and decoder.
-  8. vq_train -- vqvae's training path through main.main, as phase 5:
+  10. vq_train -- vqvae's training path through main.main, as phase 5:
                 exact launch counts, artifacts, finite metrics, the test
                 recon_loss falling, the perplexity in [1, vqK].
-  9. vq_grads -- phase 6 for vqvae, every AE and prior parameter, and the
+  11. vq_grads -- phase 6 for vqvae, every AE and prior parameter, and the
                 count of codes the card and the CPU copy assign apart.
-  10. made_serve -- made's serving path at hidden_size=2048, the width at
+  12. made_serve -- made's serving path at hidden_size=2048, the width at
                 which it takes the kernel route (warm, n=25, seed=7 twice):
                 Kernel G 784 * 4 launches a pass and nothing else; the
                 kernel route's causality, bitwise, on a random canvas; its
                 logits against a CPU f32 copy.
-  11. made_default -- one made pass at the default hidden_size=1024: the
+  13. made_default -- one made pass at the default hidden_size=1024: the
                 premasked route, no kernel launched.
-  12. made_train -- made's training path through main.main at 2048, as
+  14. made_train -- made's training path through main.main at 2048, as
                 phase 5: G 6358 and H 40 launches, artifacts, finite
                 metrics, eval/nlogp falling.
-  13. made_grads -- phase 6 for made, against a CPU copy on the
+  15. made_grads -- phase 6 for made, against a CPU copy on the
                 fold-the-mask route; dW exactly 0 off the mask on both.
-  14. quant_serve -- --quantize serving of each model at its default width
+  16. quant_serve -- --quantize serving of each model at its default width
                 (pixel_transformer, vqvae, made at hidden_size=1024), w8a8
-                and w8a16, through load_server (warm, n=25, seed=7 twice):
+                and w8a16, through load_server (warm, seed=7 twice):
                 Kernel I (w8a8) or J (w8a16) once a quantized Linear or
                 masked layer a step, nothing else; the /healthz fields; the
                 request redrawn through the quantized chain; the card's
-                int8 table bitwise equal to a CPU copy's; its teacher-forced
-                logits against a CPU f32 copy of the unquantized chain
-                (relative error < 0.05), against the card's unquantized
-                chain (reported) and against a CPU copy of the same
-                quantized chain; made's causality under w8a16, bitwise,
-                and under w8a8 the logits that move (one absmax scale a
-                row sees every unit).
-  15. profile -- device time by kernel over one request and one train step
-                of each model, one pixel_transformer scoring forward, and
-                one quantized request of each model in each mode.
+                int8 table bitwise equal to a CPU copy's; teacher-forced
+                quantized logits against a CPU f32 copy of the unquantized
+                chain (relative error < 0.05), against the card's
+                unquantized chain (reported), that chain against the CPU f32
+                one (reported), and against a CPU copy of the same quantized
+                chain; made's causality under w8a16, bitwise, and under
+                w8a8 the logits that move (one absmax scale a row sees
+                every unit).
+  17. profile -- device time by kernel over one request and one train step
+                of each model, one pixel_transformer scoring forward, one
+                seq:4 train step, and one quantized request of each model
+                in each mode.
 Then the kernels line, the nvidia-smi line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
@@ -103,6 +114,10 @@ MADE_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_made'
 MADE_FLAGS = ['--model=made', '--hidden_size=2048']  # the kernel route's width
 QUANT_MODES = ('w8a8', 'w8a16')
 QUANT_KERNEL = {'w8a8': 'int8_gemm', 'w8a16': 'dequant_gemm'}
+RING_KERNELS = ('ring_chunk_fwd', 'ring_chunk_bwd_dq', 'ring_chunk_bwd_dkv')
+NO_RING = dict.fromkeys(RING_KERNELS, 0)  # the ring's kernels run only under --mesh=seq:N
+SEQ_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_seq'
+SEQ = 4  # the seq_train phase's ring: --mesh=seq:4
 
 
 def log(*a):
@@ -142,39 +157,42 @@ def _on_device(event):
     return event.device_type == DeviceType.CUDA and not getattr(event, 'is_user_annotation', False)
 
 
-def device_ms(fn, iters):
-    """Mean device ms per call: the summed duration of the kernels (and
-    copies) that iters calls ran, from torch.profiler's CUDA trace, so the
-    host's issue time between launches is not counted."""
+def _device_events(fn, iters, flush=None, tries=3):
+    """The card's events over iters calls of fn (each after a write of
+    flush, where given) under torch.profiler's CUDA trace. A trace with no
+    device event at all is taken again, up to tries times: the trace now
+    and then comes back empty (it also loses a window's first events)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events() if _on_device(e)]
-    if not us:
-        raise AssertionError('the profiler saw no device events')
-    return sum(us) / 1e3 / iters
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if _on_device(e)]
+        if events:
+            return events
+        log(f'[profile] the trace has no device event; taking it again ({attempt + 1} of {tries})')
+    raise AssertionError('the profiler saw no device events')
+
+
+def device_ms(fn, iters):
+    """Mean device ms per call: the summed duration of the kernels (and
+    copies) that iters calls ran, from torch.profiler's CUDA trace, so the
+    host's issue time between launches is not counted."""
+    return sum(e.time_range.elapsed_us() for e in _device_events(fn, iters)) / 1e3 / iters
 
 
 def l2_cold_ms(fn, kernel_name, flush, iters=50):
     """Mean device ms of the kernel named kernel_name when each call follows
     a write of flush (larger than the 50 MB L2), so its operands come from
     HBM: the events of that kernel alone, from torch.profiler's trace."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if _on_device(e) and kernel_name in e.name]
+    us = [e.time_range.elapsed_us() for e in _device_events(fn, iters, flush)
+          if kernel_name in e.name]
     if not us:
         raise AssertionError(f'the profiler saw no {kernel_name} events')
     return sum(us) / 1e3 / len(us)
@@ -380,11 +398,164 @@ def phase_kernels(dev):
     cases['vq_one_hot'] = vq_cases(f32)
     cases['masked_matmul'], cases['mask_out_matmul'] = made_cases(f32, dev)
     cases['int8_gemm'], cases['dequant_gemm'] = int8_cases(rng, dev)
+    ring = ring_cases(f32)
+    cases.update(ring.pop('cases'))
     torch.cuda.synchronize()
     for name, cs in cases.items():
         for c in cs:
             log(f'[kernels] {name} {json.dumps(c)}')
-    return cases
+    return cases, ring
+
+
+def _live_pairs(n, Tl, hop):
+    """(query, key) pairs with a live causal pair at one hop of a ring of n,
+    over the real rows of every position: the diagonal's triangle, a past
+    chunk's square, a future chunk's nothing."""
+    pairs = 0
+    for p in range(n):
+        c = (p - hop) % n
+        pairs += Tl * (Tl + 1) // 2 if c == p else (Tl * Tl if c < p else 0)
+    return pairs
+
+
+def _live_positions(n, hop):
+    """Ring positions with any live pair at one hop of a ring of n: those
+    whose visiting chunk is the diagonal or a past one. A hop's bound
+    counts the bytes of these positions' real rows only."""
+    return sum((p - hop) % n <= p for p in range(n))
+
+
+def ring_cases(f32, shape=(64, 4, 784, 32)):
+    """Kernels K, L and M vs their plain versions at pixel_transformer's
+    shapes (B=64, H=4, T=784, D=32: BH=256) on rings of 4 (the seq_train
+    phase's), 2 and 8, at the first hop (the init variant) and at hop 1
+    (the carry from hop 0). Inputs: one seeded (64,4,784,32) q, k, v and dO
+    in bf16, cut into the ring's chunks as the ring cuts them (dO zero on
+    padded rows); L and M get lse and delta from the full forward ring.
+    Tolerances are Kernel C's for K (atol 2e-5 + rtol 2e-4) and E/D's for
+    L and M (atol 1e-4 + rtol 1e-3): the same bf16 operands on both sides,
+    f32 sums in another order. No single PyTorch call computes a hop's
+    carry: library_ms is null. Then the whole ring at n = 4 and 8 through
+    ring_causal_attention (its autograd Function) against Kernels C, E and
+    D on the full sequence, o and the three gradients, and its forward and
+    backward timed beside scaled_dot_product_attention's."""
+    import torch.nn.functional as F
+
+    from generative_models_tpu_torch.ops import attention as att
+    from generative_models_tpu_torch.parallel.ring_attention import (
+        _chunks, ring_causal_attention, ring_forward,
+    )
+
+    B, H, T, D = shape
+    BH, bf = B * H, torch.bfloat16
+    q, k, v, do = (f32(B, H, T, D).to(bf) for _ in range(4))
+    tol_k, tol_lm = dict(atol=2e-5, rtol=2e-4), dict(atol=1e-4, rtol=1e-3)
+    out = {'ring_chunk_fwd': [], 'ring_chunk_bwd_dq': [], 'ring_chunk_bwd_dkv': []}
+    clone = lambda xs: None if xs is None else tuple(x.clone() for x in xs)
+    for n in (4, 2, 8):
+        Tl = T // n
+        Tp = att._pick_chunk_blk(Tl)[1]
+        qc, kc, vc, doc = (_chunks(u, n, Tp, bf) for u in (q, k, v, do))
+        o, lse = ring_forward(qc, kc, vc, Tl)
+        delta = (doc.float() * o).sum(-1)
+        carry = att.ring_chunk_fwd(qc, kc, vc, None, 0, Tl)  # hop 0's carry for hop 1
+        dq0 = att.ring_chunk_bwd_dq(qc, kc, vc, doc, lse, delta, None, 0, Tl)
+        dkv0 = att.ring_chunk_bwd_dkv(qc, kc, vc, doc, lse, delta, None, 0, Tl)
+        for hop, init in ((1, False), (0, True)):
+            shape = f'ring of {n}: (n={n},BH={BH},Tp={Tp},D={D}), t_valid {Tl}, hop {hop}'
+            variant = 'init' if init else 'carry'
+            pairs = BH * _live_pairs(n, Tl, hop)
+            # bytes over the live positions' real rows only: rows is one f32
+            # a row (m, l, lse or delta), full one element a row and channel
+            live_rows = BH * _live_positions(n, hop) * Tl
+            rows, full = live_rows * 4, live_rows * D
+            common = dict(shape=shape, path='seq_train' if n == 4 else f'seq:{n}', variant=variant,
+                          live_pairs=pairs, library_covers=None)
+            c_in = None if init else carry
+            dq_in = None if init else dq0
+            dkv_in = None if init else dkv0
+            # K: q and the visited k, v read, the carry read (not at init)
+            # and written
+            got = att.ring_chunk_fwd(qc, kc, vc, clone(c_in), hop, Tl)
+            ref = att.ring_hop_fwd_plain(qc, kc, vc, c_in, hop, Tl, dtype=bf)
+            err = max(compare(f'ring_chunk_fwd {x} {shape}', g, r, **tol_k)
+                      for x, g, r in zip(('acc', 'm', 'l'), got, ref))
+            bms, by = bound(3 * full * 2 + (1 if init else 2) * (full * 4 + 2 * rows),
+                            4 * D * pairs)
+            scratch = clone(carry)
+            out['ring_chunk_fwd'].append(dict(
+                **common, max_abs_err=err, **tol_k, bound_ms=bms, bound_by=by, **timings(
+                    lambda: att.ring_chunk_fwd(qc, kc, vc, None if init else scratch, hop, Tl),
+                    lambda: att.ring_hop_fwd_plain(qc, kc, vc, c_in, hop, Tl, dtype=bf),
+                    iters=10)))
+            # L: q, k, v, dO, lse, delta read, dq read (not at init) and written
+            got = att.ring_chunk_bwd_dq(qc, kc, vc, doc, lse, delta,
+                                        None if init else dq0.clone(), hop, Tl)
+            ref = att.ring_hop_bwd_dq_plain(qc, kc, vc, doc, lse, delta, dq_in, hop, Tl, dtype=bf)
+            err = compare(f'ring_chunk_bwd_dq {shape}', got, ref, **tol_lm)
+            bms, by = bound(4 * full * 2 + 2 * rows + (1 if init else 2) * full * 4,
+                            3 * 2 * D * pairs)
+            dq_s = dq0.clone()
+            out['ring_chunk_bwd_dq'].append(dict(
+                **common, max_abs_err=err, **tol_lm, bound_ms=bms, bound_by=by, **timings(
+                    lambda: att.ring_chunk_bwd_dq(qc, kc, vc, doc, lse, delta,
+                                                  None if init else dq_s, hop, Tl),
+                    lambda: att.ring_hop_bwd_dq_plain(qc, kc, vc, doc, lse, delta, dq_in, hop,
+                                                      Tl, dtype=bf),
+                    iters=10)))
+            # M: q, k, v, dO, lse, delta read, the visited chunk's dk and dv
+            # read (not at init) and written
+            got = att.ring_chunk_bwd_dkv(qc, kc, vc, doc, lse, delta, clone(dkv_in), hop, Tl)
+            ref = att.ring_hop_bwd_dkv_plain(qc, kc, vc, doc, lse, delta, dkv_in, hop, Tl,
+                                             dtype=bf)
+            err = max(compare(f'ring_chunk_bwd_dkv {x} {shape}', g, r, **tol_lm)
+                      for x, g, r in zip(('dk', 'dv'), got, ref))
+            bms, by = bound(4 * full * 2 + 2 * rows + (1 if init else 2) * 2 * full * 4,
+                            4 * 2 * D * pairs)
+            dkv_s = clone(dkv0)
+            out['ring_chunk_bwd_dkv'].append(dict(
+                **common, max_abs_err=err, **tol_lm, bound_ms=bms, bound_by=by, **timings(
+                    lambda: att.ring_chunk_bwd_dkv(qc, kc, vc, doc, lse, delta,
+                                                   None if init else dkv_s, hop, Tl),
+                    lambda: att.ring_hop_bwd_dkv_plain(qc, kc, vc, doc, lse, delta, dkv_in,
+                                                       hop, Tl, dtype=bf),
+                    iters=10)))
+            del got, ref
+        del qc, kc, vc, doc, o, lse, delta, carry, dq0, dkv0
+        torch.cuda.empty_cache()
+
+    # the whole ring against Kernels C, E and D on the full sequence; f32
+    # inputs holding bf16 values, so the ring's gradients come back in f32
+    oc, lsec = att.causal_attention_fwd(q, k, v)
+    refs = (oc, *att.causal_attention_bwd(q, k, v, oc, lsec, do))
+    whole = {}
+    for n in (4, 8):
+        qg, kg, vg = (u.float().requires_grad_() for u in (q, k, v))
+        o = ring_causal_attention(qg, kg, vg, n)
+        grads = torch.autograd.grad(o, (qg, kg, vg), do.float(), retain_graph=True)
+        errs = {x: compare(f'ring of {n} vs C/E/D {x}', g, r, **(tol_k if x == 'o' else tol_lm))
+                for x, g, r in zip(('o', 'dq', 'dk', 'dv'), (o.detach(), *grads), refs)}
+        with torch.no_grad():
+            fwd = lambda: ring_causal_attention(qg, kg, vg, n)
+            whole[f'ring_{n}'] = dict(
+                max_abs_err=errs, fwd_ms=device_ms(fwd, 10), fwd_eager_ms=eager_ms(fwd, 10))
+        bwd = lambda: torch.autograd.grad(o, (qg, kg, vg), do.float(), retain_graph=True)
+        whole[f'ring_{n}'].update(bwd_ms=device_ms(bwd, 10), bwd_eager_ms=eager_ms(bwd, 10))
+        del o, grads, qg, kg, vg
+        torch.cuda.empty_cache()
+    qs, ks, vs = (u.detach().clone().requires_grad_() for u in (q, k, v))
+    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    whole['sdpa'] = dict(
+        fwd_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 10),
+        bwd_ms=device_ms(lambda: torch.autograd.grad(so, (qs, ks, vs), do, retain_graph=True), 10))
+    whole['c_e_d'] = dict(
+        fwd_ms=device_ms(lambda: att.causal_attention_fwd(q, k, v), 10),
+        bwd_ms=device_ms(lambda: att.causal_attention_bwd(q, k, v, oc, lsec, do), 10))
+    whole.update(shape=f'(B={B},H={H},T={T},D={D})', tol_o=tol_k, tol_grads=tol_lm)
+    log(f'[kernels] whole ring {json.dumps(whole)}')
+    del so, qs, ks, vs, oc, lsec, refs
+    torch.cuda.empty_cache()
+    return dict(cases=out, whole=whole)
 
 
 def vq_cases(f32):
@@ -568,7 +739,8 @@ def int8_cases(rng, dev):
 def _counters():
     """Every kernel wrapper; each counts its own launches."""
     from generative_models_tpu_torch.ops.attention import (
-        causal_attention_fwd, flash_bwd_dkv, flash_bwd_dq,
+        causal_attention_fwd, flash_bwd_dkv, flash_bwd_dq, ring_chunk_bwd_dkv, ring_chunk_bwd_dq,
+        ring_chunk_fwd,
     )
     from generative_models_tpu_torch.ops.decode_fused import block_tail, ln_matmul
     from generative_models_tpu_torch.ops.int8 import dequant_gemm, int8_gemm
@@ -576,7 +748,8 @@ def _counters():
     from generative_models_tpu_torch.ops.quantize import vq_one_hot
 
     return (ln_matmul, block_tail, causal_attention_fwd, flash_bwd_dq, flash_bwd_dkv,
-            vq_one_hot, masked_matmul, mask_out_matmul, int8_gemm, dequant_gemm)
+            vq_one_hot, masked_matmul, mask_out_matmul, int8_gemm, dequant_gemm,
+            ring_chunk_fwd, ring_chunk_bwd_dq, ring_chunk_bwd_dkv)
 
 
 def _reset(counters):
@@ -633,7 +806,7 @@ def phase_slice():
         'causal_attention_fwd': L,  # one scoring forward
         'flash_bwd_dq': 0, 'flash_bwd_dkv': 0,  # serving runs no backward
         'vq_one_hot': 0, 'masked_matmul': 0, 'mask_out_matmul': 0,
-        'int8_gemm': 0, 'dequant_gemm': 0,
+        'int8_gemm': 0, 'dequant_gemm': 0, **NO_RING,
     }
     if launches != expected:
         raise AssertionError(f'launch counts {launches} != expected {expected}')
@@ -711,54 +884,65 @@ def teacher_force(model, x, nlogp):
     return out
 
 
-def phase_train():
-    """The training path through main.main, with exact launch counts."""
+def phase_train(seq=1):
+    """The training path through main.main, with exact launch counts;
+    seq > 1 runs it under --mesh=seq:<seq> (the seq_train phase), attention
+    through the ring: Kernel K once a hop of every forward, L and M once a
+    hop of every backward, and sampling on the per-op chain (no A or B)."""
     import generative_models_tpu_torch.data.mnist as mnist
     from generative_models_tpu_torch.main import main as train_main
 
+    label, logdir = ('train', TRAIN_DIR) if seq == 1 else ('seq_train', SEQ_TRAIN_DIR)
     train_n, test_n, bs, L, T = 640, 128, 64, 2, 784
     mnist.TRAIN_N, mnist.TEST_N = train_n, test_n  # 10 steps, 2 eval batches
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    shutil.rmtree(logdir, ignore_errors=True)
     counters = _counters()
     _reset(counters)
     t0 = time.time()
     history = train_main([
         '--model=pixel_transformer', f'--bs={bs}', '--epochs=1', '--save_n=1',
-        '--data_source=synthetic', f'--logdir={TRAIN_DIR}',
-    ])
+        '--data_source=synthetic', f'--logdir={logdir}',
+    ] + ([f'--mesh=seq:{seq}'] if seq > 1 else []))
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = _read(counters)
-    log(f'[train] main.main {wall:.2f}s; launches {launches}')
+    log(f'[{label}] main.main {wall:.2f}s; launches {launches}')
 
     steps, eval_batches, evals = train_n // bs, test_n // bs, 2  # epochs 0 and 1
-    expected = {
-        'ln_matmul': (L + 1) * T * evals,  # evaluate samples 25 each epoch
-        'block_tail': L * T * evals,
-        'causal_attention_fwd': L * (eval_batches * evals + steps),
-        'flash_bwd_dq': L * steps,
-        'flash_bwd_dkv': L * steps,
-        'vq_one_hot': 0, 'masked_matmul': 0, 'mask_out_matmul': 0,
-        'int8_gemm': 0, 'dequant_gemm': 0,
-    }
+    expected = dict.fromkeys(launches, 0)
+    if seq == 1:
+        expected.update({
+            'ln_matmul': (L + 1) * T * evals,  # evaluate samples 25 each epoch
+            'block_tail': L * T * evals,
+            'causal_attention_fwd': L * (eval_batches * evals + steps),
+            'flash_bwd_dq': L * steps,
+            'flash_bwd_dkv': L * steps,
+        })
+    else:
+        expected.update({
+            'ring_chunk_fwd': L * seq * (steps + eval_batches * evals),
+            'ring_chunk_bwd_dq': L * seq * steps,
+            'ring_chunk_bwd_dkv': L * seq * steps,
+        })
     if launches != expected:
-        raise AssertionError(f'train launch counts {launches} != expected {expected}')
+        raise AssertionError(f'{label} launch counts {launches} != expected {expected}')
     for name in ('model.pt', 'hps.yaml', 'sampling_process_0.gif', 'sampling_process_1.gif'):
-        if not (TRAIN_DIR / name).is_file():
-            raise AssertionError(f'train: {name} was not written')
-    if (TRAIN_DIR / 'sampling_process_0.gif').read_bytes()[:6] != b'GIF89a':
-        raise AssertionError('train: sampling_process_0.gif is not a GIF')
+        if not (logdir / name).is_file():
+            raise AssertionError(f'{label}: {name} was not written')
+    if (logdir / 'sampling_process_0.gif').read_bytes()[:6] != b'GIF89a':
+        raise AssertionError(f'{label}: sampling_process_0.gif is not a GIF')
     for i, h in enumerate(history):
         bad = {k: v for k, v in h.items() if not np.isfinite(v)}
         if bad:
-            raise AssertionError(f'train: non-finite metrics at epoch {i}: {bad}')
+            raise AssertionError(f'{label}: non-finite metrics at epoch {i}: {bad}')
     keys = {'eval/nlogp', 'eval/bits_per_dim', 'train/nlogp', 'dt/train', 'dt/eval', 'num_vars'}
     if not keys <= set(history[1]):
-        raise AssertionError(f'train: epoch 1 logged {sorted(history[1])}, missing {keys - set(history[1])}')
+        raise AssertionError(f'{label}: epoch 1 logged {sorted(history[1])}, '
+                             f'missing {keys - set(history[1])}')
     nlogp = [h['eval/nlogp'] for h in history]
     if not nlogp[1] < nlogp[0]:
-        raise AssertionError(f'train: eval/nlogp did not fall: {nlogp}')
-    log(f'[train] eval/nlogp {nlogp}, train/nlogp {history[1]["train/nlogp"]}, '
+        raise AssertionError(f'{label}: eval/nlogp did not fall: {nlogp}')
+    log(f'[{label}] eval/nlogp {nlogp}, train/nlogp {history[1]["train/nlogp"]}, '
         f'dt/train {history[1]["dt/train"]:.3f}s for {steps} steps, dt/eval {history[1]["dt/eval"]:.3f}s')
     return dict(launches=launches, wall_sec=wall, steps=steps, history=history)
 
@@ -802,18 +986,24 @@ def grad_check(label, model, cpu):
     return dict(rel_err=out, rtol_norm=rel, atol_of_total=floor)
 
 
-def phase_grads():
-    """One batch's gradients on the card against a CPU f32 copy."""
+def phase_grads(seq=1):
+    """One batch's gradients on the card against a CPU f32 copy; seq > 1
+    (the seq_grads phase) from the seq_train phase's model.pt, whose
+    hps.yaml keeps --mesh=seq:<seq>: the card's gradients through the ring
+    against an unsharded CPU copy (the normal path, dense attention)."""
     from generative_models_tpu_torch.main import load_model_and_data
 
+    logdir = TRAIN_DIR if seq == 1 else SEQ_TRAIN_DIR
     model, dataset, G = load_model_and_data([
-        f'--weights_from={TRAIN_DIR / "model.pt"}', '--data_source=synthetic',
+        f'--weights_from={logdir / "model.pt"}', '--data_source=synthetic',
     ])
+    if model.net.ring != seq:
+        raise AssertionError(f'grads: the reloaded model runs a ring of {model.net.ring}, not {seq}')
     x = dataset.first_test_batch(0)[0][:8]
     model.backward(x)
-    cpu = _cpu_copy(model, G)
+    cpu = _cpu_copy(model, G, mesh='')
     cpu.backward(x.cpu())
-    return model, dataset, grad_check('grads', model, cpu)
+    return model, dataset, grad_check('grads' if seq == 1 else 'seq_grads', model, cpu)
 
 
 def phase_vq_serve():
@@ -837,7 +1027,7 @@ def phase_vq_serve():
     expected = {
         'ln_matmul': (L + 1) * T * passes, 'block_tail': L * T * passes,
         'causal_attention_fwd': 0, 'flash_bwd_dq': 0, 'flash_bwd_dkv': 0, 'vq_one_hot': 0,
-        'masked_matmul': 0, 'mask_out_matmul': 0, 'int8_gemm': 0, 'dequant_gemm': 0,
+        'masked_matmul': 0, 'mask_out_matmul': 0, 'int8_gemm': 0, 'dequant_gemm': 0, **NO_RING,
     }
     if launches != expected:
         raise AssertionError(f'vqvae serve launch counts {launches} != expected {expected}')
@@ -927,7 +1117,7 @@ def phase_vq_train():
         'flash_bwd_dkv': L * steps,
         'ln_matmul': (L + 1) * T * evals,  # evaluate samples 25 each epoch
         'block_tail': L * T * evals,
-        'masked_matmul': 0, 'mask_out_matmul': 0, 'int8_gemm': 0, 'dequant_gemm': 0,
+        'masked_matmul': 0, 'mask_out_matmul': 0, 'int8_gemm': 0, 'dequant_gemm': 0, **NO_RING,
     }
     if launches != expected:
         raise AssertionError(f'vqvae train launch counts {launches} != expected {expected}')
@@ -1161,16 +1351,23 @@ def _healthz(server):
 
 def phase_quant_serve():
     """--quantize serving of each model at its default width in both modes;
-    returns {'<model>_<mode>': result}."""
-    return {f'{name}_{mode}': quant_serve_one(name, mode)
-            for name in ('pixel_transformer', 'vqvae', 'made') for mode in QUANT_MODES}
+    returns {'<model>_<mode>': result}. The unquantized chains each mode is
+    held against do not depend on the mode: they are computed once a model,
+    on the first mode's request, and shared."""
+    out = {}
+    for name in ('pixel_transformer', 'vqvae', 'made'):
+        ref = {}
+        for mode in QUANT_MODES:
+            out[f'{name}_{mode}'] = quant_serve_one(name, mode, ref)
+    return out
 
 
-def quant_serve_one(name, mode):
-    """One model in one mode through load_server, with exact launch
-    counts: the mode's kernel once a quantized weight a step (a decode step,
-    or a made forward), every other kernel 0 times: no Kernel A or B in the
-    decode steps, no G in made's forwards."""
+def quant_serve_one(name, mode, ref):
+    """One model in one mode through load_server (warm and seed=7 twice),
+    with exact launch counts: the mode's kernel once a quantized weight a
+    step (a decode step, or a made forward), every other kernel 0 times: no
+    Kernel A or B in the decode steps, no G in made's forwards. ref: the
+    model's unquantized chains, shared between its modes (quant_checks)."""
     from generative_models_tpu_torch.serve import load_server
 
     label = f'quant_serve {name} {mode}'
@@ -1178,9 +1375,7 @@ def quant_serve_one(name, mode):
     _reset(counters)
     t0 = time.time()
     server, G = load_server([f'--model={name}', '--serve_bs=64', f'--quantize={mode}'])
-    model = server.model
     warm = server.warm()
-    r25 = server.sample(25)
     a = server.sample(64, seed=7)
     b = server.sample(64, seed=7)
     torch.cuda.synchronize()
@@ -1189,7 +1384,7 @@ def quant_serve_one(name, mode):
         f'launches {launches}')
     steps = {'pixel_transformer': 784, 'vqvae': 49, 'made': 784}[name]
     n_q = {'pixel_transformer': 12, 'vqvae': 14, 'made': 4}[name]
-    passes = 4  # warm + 3 requests
+    passes = 3  # warm + 2 requests
     if server.quant_kernels != n_q or server.quant_mode != mode:
         raise AssertionError(f'{label}: {server.quant_kernels} quantized weights in mode '
                              f'{server.quant_mode}, expected {n_q} in {mode}')
@@ -1198,29 +1393,33 @@ def quant_serve_one(name, mode):
     if launches != expected:
         raise AssertionError(f'{label} launch counts {launches} != expected {expected}')
     stats = _healthz(server)
-    if (stats['quantize'], stats['quantized_kernels'], stats['requests']) != (mode, n_q, 3):
+    if (stats['quantize'], stats['quantized_kernels'], stats['requests']) != (mode, n_q, 2):
         raise AssertionError(f'{label}: /healthz {stats}')
-    for what, smp, n in (('n=25', r25, 25), ('seed=7', a, 64)):
-        if smp.shape != (n, 28, 28, 1) or not np.isin(smp, (0.0, 1.0)).all():
-            raise AssertionError(f'{label} {what}: shape {smp.shape} or values outside {{0, 1}}')
+    if a.shape != (64, 28, 28, 1) or not np.isin(a, (0.0, 1.0)).all():
+        raise AssertionError(f'{label} seed=7: shape {a.shape} or values outside {{0, 1}}')
     if not np.array_equal(a, b):
         raise AssertionError(f'{label}: seed=7 twice gave different batches')
     log(f'[{label}] request latencies (s): {[round(v, 4) for v in server.latencies]}')
-    checks = quant_checks(name, mode, server, G, a)
+    checks = quant_checks(name, mode, server, G, a, ref)
     return dict(launches=launches, passes=passes, per_pass=n_q * steps,
                 latencies=list(server.latencies), warm_sec=warm, checks=checks, server=server)
 
 
-def quant_checks(name, mode, server, G, batch):
+def quant_checks(name, mode, server, G, batch, ref):
     """The seed=7 request redrawn through the quantized chain from its
     uniforms (the same tokens); the card's table bitwise equal to a CPU
-    copy's (the weights copied, quantized there again); then the request's
-    teacher-forced logits, quantized on the card:
+    copy's (the weights copied, quantized there again); then teacher-forced
+    logits, quantized on the card, on the model's first mode's request
+    (ref['x']: the unquantized chains on it, ref['lu'] on the card and
+    ref['lf'] on a CPU f32 copy, are computed at the first mode and reused
+    at the second):
       * against the unquantized chain on a CPU f32 copy, on 8 samples: the
         relative error (Frobenius) < 0.05, the JAX package's bound for its
         quantized forward against the exact f32 one (tests/test_int8.py);
       * against the unquantized chain on the card (bf16 operands, so its
-        own rounding adds in), on all 64: reported, not bounded;
+        own rounding adds in), on all 64: reported, not bounded; and that
+        chain itself against the CPU f32 one (reported: the card's own
+        bf16 rounding, once a model);
       * against the same quantized chain on the CPU copy, on 8 samples, at
         the bf16 tolerance of the other teacher-forced checks: the card
         rounds the KV cache (and under w8a16 the activations) to bf16. Under
@@ -1258,9 +1457,12 @@ def quant_checks(name, mode, server, G, batch):
             lq = teacher_forced_logits(model.net, x, 4, quant)
             redrawn = Bernoulli(logits=lq).sample(uniforms=u.permute(1, 0, 2))
             flips = int((redrawn != x).sum())
-            lu = teacher_forced_logits(model.net, x, 4)
-            xc = x[:8].cpu()
-            lc, lf = teacher_forced_logits(cpu.net, xc, 1, cquant), teacher_forced_logits(cpu.net, xc)
+            if not ref:
+                ref.update(x=x, lu=teacher_forced_logits(model.net, x, 4),
+                           lf=teacher_forced_logits(cpu.net, x[:8].cpu()))
+            else:
+                lq = teacher_forced_logits(model.net, ref['x'], 4, quant)
+            lc = teacher_forced_logits(cpu.net, ref['x'][:8].cpu(), 1, cquant)
         elif name == 'vqvae':
             prior, pq, T, K = model.net.prior, quant.sub('prior'), model.n_codes, int(G.vqK)
             u = torch.rand((T, 64, K), generator=gen, device=dev)
@@ -1272,22 +1474,28 @@ def quant_checks(name, mode, server, G, batch):
                 raise AssertionError(f'vqvae {mode}: the seed=7 codes do not decode to the request')
             lq = teacher_forced_logits(prior, x, 1, pq)
             flips = int((Categorical(lq).sample(uniforms=u.permute(1, 0, 2)) != x).any(-1).sum())
-            lu = teacher_forced_logits(prior, x)
-            xc, cprior = x[:8].cpu(), cpu.net.prior
-            lc = teacher_forced_logits(cprior, xc, 1, cquant.sub('prior'))
-            lf = teacher_forced_logits(cprior, xc)
+            if not ref:
+                ref.update(x=x, lu=teacher_forced_logits(prior, x),
+                           lf=teacher_forced_logits(cpu.net.prior, x[:8].cpu()))
+            else:
+                lq = teacher_forced_logits(prior, ref['x'], 1, pq)
+            lc = teacher_forced_logits(cpu.net.prior, ref['x'][:8].cpu(), 1, cquant.sub('prior'))
         else:
             x = torch.as_tensor(batch, device=dev).reshape(64, model.nin)
-            lq, lu = model.net(x, quant=quant), model.net(x)
-            lc, lf = cpu.net(x[:8].cpu(), quant=cquant), cpu.net(x[:8].cpu())
+            if not ref:
+                ref.update(x=x, lu=model.net(x), lf=cpu.net(x[:8].cpu()))
+            lq = model.net(ref['x'], quant=quant)
+            lc = cpu.net(ref['x'][:8].cpu(), quant=cquant)
             flips = 0  # each forward is one step of sampling: nothing to redraw
             out['causality'] = made_quant_causality(model, quant, mode)
     if flips:
         raise AssertionError(f'{name} {mode}: the quantized chain redraws {flips} tokens differently')
+    lu, lf = ref['lu'], ref['lf']
     rel = lambda a, b: float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
     out['rel_err_vs_cpu_f32_unquantized'] = rel(lq[:8].cpu(), lf)
     out['rel_err_vs_card_unquantized'] = rel(lq, lu)
     out['rel_err_cpu_quantized_vs_cpu_f32'] = rel(lc, lf)
+    out['rel_err_card_unquantized_vs_cpu_f32'] = rel(lu[:8].cpu(), lf)
     if not out['rel_err_vs_cpu_f32_unquantized'] < 0.05:
         raise AssertionError(f'{name} {mode}: relative error {out["rel_err_vs_cpu_f32_unquantized"]:.4g}'
                              ' vs the unquantized f32 chain')
@@ -1328,9 +1536,11 @@ def made_quant_causality(model, quant, mode):
 
 def _profile(label, fn, top_n):
     """Wall and device time of one call of fn under torch.profiler, and the
-    kernels that took the most device time."""
+    kernels that took the most device time; traced_sec is the whole cost,
+    the trace's processing included."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_trace = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         fn()
@@ -1343,21 +1553,26 @@ def _profile(label, fn, top_n):
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     launches = sum(n for n, _ in by_name.values())
+    traced = time.time() - t_trace
     log(f'[profile] {label}: wall {wall * 1e3:.1f} ms, device kernels '
-        f'{busy_ms:.1f} ms ({launches} launches), busy share {busy_ms / (wall * 1e3):.3f}')
+        f'{busy_ms:.1f} ms ({launches} launches), busy share {busy_ms / (wall * 1e3):.3f}; '
+        f'traced in {traced:.1f}s')
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]:
         log(f'[profile]   {us / 1e3:9.2f} ms  {n:6d}x  {name[:110]}')
-    return dict(wall_ms=wall * 1e3, device_ms=busy_ms, launches=launches)
+    return dict(wall_ms=wall * 1e3, device_ms=busy_ms, launches=launches, traced_sec=traced)
 
 
 def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
-                  made_server, made_model, made_dataset, quant):
+                  made_server, made_model, made_dataset, quant, seq_model, seq_dataset):
     """Device time by kernel over one seeded request, one (warm) scoring
     forward and one (warm) train step at bs=64, for pixel_transformer, for
-    vqvae and for made at hidden_size=2048; and one seeded quantized
-    request of each model in each mode."""
+    vqvae and for made at hidden_size=2048; one (warm) pixel_transformer
+    train step under --mesh=seq:4; and one seeded quantized request of each
+    model in each mode."""
     bx = dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
     model.train_step(bx[0])
+    seq_bx = seq_dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
+    seq_model.train_step(seq_bx[0])
     vq_bx = vq_dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
     vq_model.train_step(vq_bx[0])
     made_bx = made_dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
@@ -1367,6 +1582,8 @@ def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
         request=_profile('one request', lambda: server.sample(64, seed=11), 15),
         scoring=_profile('one scoring forward', lambda: server.model.eval_loss(x), 10),
         train_step=_profile('one train step', lambda: model.train_step(bx[1]), 15),
+        seq_train_step=_profile(f'one seq:{SEQ} train step',
+                                lambda: seq_model.train_step(seq_bx[1]), 15),
         vqvae_request=_profile('one vqvae request', lambda: vq_server.sample(64, seed=11), 15),
         vqvae_train_step=_profile('one vqvae train step',
                                   lambda: vq_model.train_step(vq_bx[1]), 15),
@@ -1391,26 +1608,42 @@ def main():
     smi = nvidia_smi()
     log(f'[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; '
         f'{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}')
-    phase_build()
-    cases = phase_kernels(dev)
-    sl = phase_slice()
-    tr = phase_train()
-    model, dataset, grads = phase_grads()
-    vs = phase_vq_serve()
-    vt = phase_vq_train()
-    vq_model, vq_dataset, vq_grads = phase_vq_grads()
-    ms = phase_made_serve()
-    md = phase_made_default()
-    mt = phase_made_train()
-    made_model, made_dataset, made_grads = phase_made_grads()
-    qs = phase_quant_serve()
-    prof = phase_profile(sl['server'], sl['x'], model, dataset,
-                         vs['server'], vq_model, vq_dataset,
-                         ms['server'], made_model, made_dataset, qs)
+    t_start = time.time()
+    phase_sec = {}
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        phase_sec[name] = time.time() - t0
+        log(f'[time] {name} {phase_sec[name]:.1f}s')
+        return out
+
+    timed('build', phase_build)
+    cases, ring = timed('kernels', phase_kernels, dev)
+    sl = timed('slice', phase_slice)
+    tr = timed('train', phase_train)
+    model, dataset, grads = timed('grads', phase_grads)
+    st = timed('seq_train', phase_train, SEQ)
+    seq_model, seq_dataset, seq_grads = timed('seq_grads', phase_grads, SEQ)
+    vs = timed('vq_serve', phase_vq_serve)
+    vt = timed('vq_train', phase_vq_train)
+    vq_model, vq_dataset, vq_grads = timed('vq_grads', phase_vq_grads)
+    ms = timed('made_serve', phase_made_serve)
+    md = timed('made_default', phase_made_default)
+    mt = timed('made_train', phase_made_train)
+    made_model, made_dataset, made_grads = timed('made_grads', phase_made_grads)
+    qs = timed('quant_serve', phase_quant_serve)
+    prof = timed('profile', phase_profile, sl['server'], sl['x'], model, dataset,
+                 vs['server'], vq_model, vq_dataset, ms['server'], made_model, made_dataset, qs,
+                 seq_model, seq_dataset)
+    phase_sec['total'] = time.time() - t_start
+    log(f'[time] phases {json.dumps(phase_sec)}')
 
     # (source, TPU kernel replaced) of each kernel; its launches are those
     # of pixel_transformer's serving path (sampling passes, one scoring
-    # forward) and training path, and of vqvae's and made's
+    # forward), training path and training path under --mesh=seq:4, and of
+    # vqvae's and made's
     srcs = {
         'ln_matmul': ('decode_fused.cu', 'generative_models_tpu/ops/decode_fused.py:46'),
         'block_tail': ('decode_fused.cu', 'generative_models_tpu/ops/decode_fused.py:71'),
@@ -1422,13 +1655,16 @@ def main():
         'mask_out_matmul': ('masked_dense.cu', 'generative_models_tpu/ops/masked_dense.py:35'),
         'int8_gemm': ('int8.cu', 'generative_models_tpu/ops/int8.py:49'),
         'dequant_gemm': ('int8.cu', 'generative_models_tpu/ops/int8.py:60'),
+        'ring_chunk_fwd': ('ring_attention.cu', 'generative_models_tpu/ops/attention.py:565'),
+        'ring_chunk_bwd_dq': ('ring_attention.cu', 'generative_models_tpu/ops/attention.py:675'),
+        'ring_chunk_bwd_dkv': ('ring_attention.cu', 'generative_models_tpu/ops/attention.py:675'),
     }
     kernels = []
     for name, cs in cases.items():
         src, replaces = srcs[name]
         main_case = cs[0]
         by_path = {'serve': sl['launches'][name], 'train': tr['launches'][name],
-                   'vqvae_serve': vs['launches'][name], 'vqvae_train': vt['launches'][name],
+                   'seq_train': st['launches'][name], 'vqvae_serve': vs['launches'][name], 'vqvae_train': vt['launches'][name],
                    'made_serve': ms['launches'][name], 'made_train': mt['launches'][name],
                    **{f'{key}_serve': q['launches'][name] for key, q in qs.items()}}
         if sum(by_path.values()) == 0:
@@ -1456,6 +1692,10 @@ def main():
             wall_sec=tr['wall_sec'], steps=tr['steps'], history=tr['history'],
             grads_max_rel_err=max(grads['rel_err'].values()), power=smi,
         ),
+        seq_train=dict(
+            mesh=f'seq:{SEQ}', wall_sec=st['wall_sec'], steps=st['steps'], history=st['history'],
+            grads_max_rel_err=max(seq_grads['rel_err'].values()), ring=ring['whole'], power=smi,
+        ),
         vqvae_serve=dict(
             serve_bs=64, warm_sec=vs['warm_sec'], request_sec=sorted(vs['latencies']),
             checks=vs['checks'], power=smi,
@@ -1478,6 +1718,7 @@ def main():
             serve_bs=64, warm_sec=q['warm_sec'], request_sec=sorted(q['latencies']),
             launches_per_pass=q['per_pass'], checks=q['checks'], power=smi,
         ) for key, q in qs.items()},
+        phase_sec=phase_sec,
     )))
     log(json.dumps({'kernels': kernels}))
     log(nvidia_smi())

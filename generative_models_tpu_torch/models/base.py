@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from generative_models_tpu_torch.ops.common import resolve_device
+from generative_models_tpu_torch.parallel.mesh import seq_size
 from generative_models_tpu_torch.utils.config import AttrDict, dump_hps
 from generative_models_tpu_torch.utils.logger import write_grid, write_gridvid
 
@@ -79,9 +80,16 @@ class GM:
     """GenerativeModel base."""
 
     DG = AttrDict()  # model-specific config defaults
+    supports_ring = False  # whether --mesh=seq:N (N > 1) is ported
 
     def __init__(self, G):
         self.G = G
+        mesh = str(G.get('mesh', '') or '')
+        if seq_size(mesh) > 1 and not self.supports_ring:
+            raise NotImplementedError(
+                f'--mesh={mesh} is not ported yet for {type(self).__name__}: '
+                'it has no ring attention'
+            )
         self.device = resolve_device(G.get('device', ''))
         seed = int(G.get('seed', 0))
         self.net = self.build()

@@ -6,7 +6,12 @@ Two paths, each through the port's kernels on the card:
     Kernel C and its backward through Kernels E and D
     (ops/attention.py causal_attention, an autograd Function); --remat=1
     recomputes each Block in the backward (torch.utils.checkpoint), which
-    launches Kernel C again;
+    launches Kernel C again. Under --mesh=seq:N, with N > 1 dividing the
+    sequence, attention goes through a ring of N chunks instead
+    (parallel/ring_attention.py: Kernel K a hop forward, L and M a hop
+    backward), all N ring positions on one card (parallel/mesh.py's
+    one-card rule); seq:1 and an N that does not divide take the normal
+    path, as in the JAX package;
   * sampling: a KV-cached decode loop, one token per step, whose dense
     chains are Kernels A and B (ops/decode_fused.py ln_matmul and
     block_tail) and whose single-token attention is plain torch;
@@ -15,9 +20,13 @@ Two paths, each through the port's kernels on the card:
     the JAX package's Block.step does under its interceptor, every Linear
     in the table through int8_matmul (Kernel I or J) and Kernels A and B
     not at all: their fused weights are the unquantized ones.
+Under the ring sampling takes the per-op chain, as the JAX package turns
+its fused decode off there: Kernels A and B are not launched.
 
-Not ported yet, and refused when set: --moe_experts, and the ring and pipe
-paths (which --mesh selects; utils/config.py refuses --mesh).
+Not ported yet, and refused when set: --moe_experts, and the pipe path
+(--mesh=pipe:N; utils/config.py refuses every --mesh axis but seq). It is
+the only model that sets supports_ring: the others refuse seq:N above 1
+(models/base.py).
 """
 
 import functools
@@ -36,6 +45,8 @@ from generative_models_tpu_torch.ops.common import dense, matmul_dtype
 from generative_models_tpu_torch.ops.decode_fused import (
     LN_EPS, _ln, block_tail, block_tail_plain, ln_matmul, ln_matmul_plain,
 )
+from generative_models_tpu_torch.parallel import ring_size
+from generative_models_tpu_torch.parallel.ring_attention import ring_causal_attention
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
 
@@ -48,9 +59,13 @@ def _kernel_weight(*layers, dtype):
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, n_embed, n_head):
+    """ring > 1: attention through a ring of that many chunks, all on this
+    device (sequence parallelism, --mesh=seq:N)."""
+
+    def __init__(self, n_embed, n_head, ring=1):
         super().__init__()
         self.n_head = n_head
+        self.ring = ring
         self.query = nn.Linear(n_embed, n_embed)
         self.key = nn.Linear(n_embed, n_embed)
         self.value = nn.Linear(n_embed, n_embed)
@@ -62,7 +77,10 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x):
         q, k, v = (self._heads(dense(x, m)) for m in (self.query, self.key, self.value))
-        y, _ = causal_attention(q, k, v)
+        if self.ring > 1:
+            y = ring_causal_attention(q, k, v, self.ring)
+        else:
+            y, _ = causal_attention(q, k, v)
         B, H, T, D = y.shape
         return dense(y.transpose(1, 2).reshape(B, T, H * D), self.proj)
 
@@ -70,11 +88,11 @@ class CausalSelfAttention(nn.Module):
 class Block(nn.Module):
     """pre-LN attention + MLP."""
 
-    def __init__(self, n_embed, n_head):
+    def __init__(self, n_embed, n_head, ring=1):
         super().__init__()
         self.ln1 = nn.LayerNorm(n_embed, eps=LN_EPS)
         self.ln2 = nn.LayerNorm(n_embed, eps=LN_EPS)
-        self.attn = CausalSelfAttention(n_embed, n_head)
+        self.attn = CausalSelfAttention(n_embed, n_head, ring)
         self.fc1 = nn.Linear(n_embed, 4 * n_embed)
         self.fc2 = nn.Linear(4 * n_embed, n_embed)
 
@@ -106,10 +124,11 @@ class TransformerNet(nn.Module):
     tensors their wrappers run the plain versions); False runs the plain
     versions in the operand dtype everywhere, the per-op chain. remat
     recomputes each Block in the backward instead of keeping its
-    activations (nn.remat in the JAX package)."""
+    activations (nn.remat in the JAX package). ring > 1 runs the full
+    forward's attention through a ring of that many chunks (use_ring)."""
 
     def __init__(self, in_size, block_size, n_embed, n_head, n_layer,
-                 head='bin', use_fused_decode=True, remat=False):
+                 head='bin', use_fused_decode=True, remat=False, ring=1):
         super().__init__()
         self.in_size = in_size
         self.block_size = block_size
@@ -117,12 +136,17 @@ class TransformerNet(nn.Module):
         self.n_head = n_head
         self.use_fused_decode = use_fused_decode
         self.remat = remat
+        self.ring = ring
         self.pos_emb = nn.Parameter(torch.zeros(1, block_size, n_embed))
         self.embed = nn.Linear(in_size, n_embed, bias=False)
-        self.blocks = nn.ModuleList(Block(n_embed, n_head) for _ in range(n_layer))
+        self.blocks = nn.ModuleList(Block(n_embed, n_head, ring) for _ in range(n_layer))
         self.ln_f = nn.LayerNorm(n_embed, eps=LN_EPS)
         head_cls = BinaryHead if head == 'bin' else CategoricalHead
         self.head_layer = head_cls(n_embed, in_size)
+
+    @property
+    def use_ring(self):
+        return self.ring > 1
 
     def forward(self, x):
         """x: (B, T, in_size) unshifted targets; returns the dist over x."""
@@ -268,6 +292,7 @@ class PixelTransformer(Autoreg):
     DG.moe_experts = 0  # not ported yet: > 0 raises
     DG.moe_cap = 2.0
     DG.moe_aux = 0.01
+    supports_ring = True
 
     def __init__(self, G):
         self.side = 32 if G.get('pad32', 0) else 28
@@ -278,6 +303,10 @@ class PixelTransformer(Autoreg):
         G = self.G
         if int(G.get('moe_experts', 0)):
             raise NotImplementedError('--moe_experts is not ported yet')
+        # sequence parallelism: --mesh=seq:N routes attention through a ring
+        # of N chunks when N > 1 divides the sequence; the decode chain then
+        # takes the per-op path, as in the JAX package
+        ring = ring_size(str(G.get('mesh', '') or ''), self.block_size)
         return TransformerNet(
             in_size=1,
             block_size=self.block_size,
@@ -285,8 +314,9 @@ class PixelTransformer(Autoreg):
             n_head=int(G.n_head),
             n_layer=int(G.n_layer),
             head='bin',
-            use_fused_decode=bool(G.get('fused_decode', 1)),
+            use_fused_decode=bool(G.get('fused_decode', 1)) and ring == 1,
             remat=bool(G.get('remat', 0)),
+            ring=ring,
         )
 
     def loss(self, x, y=None):

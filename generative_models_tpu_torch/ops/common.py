@@ -33,7 +33,7 @@ NVCC_FLAGS = [
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
 ]
 KERNEL_SOURCES = ('decode_fused', 'attention', 'attention_bwd', 'quantize', 'masked_dense',
-                  'int8')
+                  'int8', 'ring_attention')
 
 _LIBS = {}
 _LIBS_LOCK = threading.Lock()

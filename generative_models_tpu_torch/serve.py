@@ -33,8 +33,11 @@ model's serving fn as quant=; pixel_transformer's and the vqvae prior's
 decode steps then run module by module, without Kernels A and B.
 
 A seed becomes torch.Generator(device).manual_seed(seed): the same seed
-gives the same batch on the same card. Not ported yet: --export and
---from_export (utils/config.py refuses them).
+gives the same batch on the same card. --mesh=seq:N serves
+pixel_transformer with its scoring forward through the ring (sampling
+takes the per-op decode chain) and refuses --quantize, as the JAX package
+does. Not ported yet: --export and --from_export (utils/config.py refuses
+them).
 """
 
 import json
@@ -275,7 +278,17 @@ class SampleServer(_ServerBase):
         self.quant = None  # the QuantTable every pass applies
         if self.quant_mode:
             from generative_models_tpu_torch.ops.int8 import build_quant_table
+            from generative_models_tpu_torch.parallel import DATA_AXIS, parse_mesh_spec
 
+            mesh = parse_mesh_spec(str(model.G.get('mesh', '') or ''))
+            non_data = {a: n for a, n in mesh if a != DATA_AXIS and n > 1}
+            if non_data:
+                # as the JAX package's serve.py: the quantized weights do not
+                # compose with a sharded mesh; refuse rather than mislead
+                raise SystemExit(
+                    f'--quantize does not compose with a {non_data}-sharded mesh; serve '
+                    'quantized models on a single chip or a data-only mesh'
+                )
             self.quant, self.quant_kernels = build_quant_table(model, self.quant_mode)
             if not self.quant_kernels:
                 raise SystemExit(

@@ -7,6 +7,9 @@ imported only where hps.yaml is read or written.
 
 Differences: --device defaults to 'cuda' (see ops/common.resolve_device),
 and flags this port does not implement yet raise instead of being ignored.
+--mesh takes '', seq:N (ring attention, on one card: parallel/mesh.py;
+a model without it refuses N > 1, models/base.py) and axes of size 1; any
+other axis raises.
 --jit_epoch and --decode_unroll are accepted for hps.yaml parity and have
 no effect: PyTorch runs eagerly, there is no jitted epoch or scan.
 """
@@ -89,7 +92,7 @@ def global_defaults():
 # flags whose JAX implementation has no counterpart here yet: setting one
 # raises rather than running something other than what was asked for
 NOT_PORTED = (
-    'mesh', 'fsdp', 'export', 'from_export',
+    'fsdp', 'export', 'from_export',
     'eval_heavy', 'stream_data', 'resume', 'profile',
 )
 
@@ -99,6 +102,15 @@ def check_ported(G):
         if G.get(key):
             raise NotImplementedError(
                 f'--{key}={G[key]} is not ported yet to generative_models_tpu_torch'
+            )
+    mesh = str(G.get('mesh', '') or '')
+    if mesh:
+        from generative_models_tpu_torch.parallel.mesh import SEQ_AXIS, parse_mesh_spec
+
+        if any(a != SEQ_AXIS and n > 1 for a, n in parse_mesh_spec(mesh)):
+            raise NotImplementedError(
+                f'--mesh={mesh} is not ported yet to generative_models_tpu_torch '
+                '(only seq:N, on a model with ring attention)'
             )
     if G.get('ckpt', 'flax') != 'flax':
         raise NotImplementedError(

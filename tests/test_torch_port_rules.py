@@ -137,3 +137,36 @@ def test_unported_models_and_flags_raise():
                            '--moe_experts=2', '--n_embed=16'])
     with pytest.raises(NotImplementedError, match='moe_experts'):
         Model(G)
+
+
+def test_mesh_rules():
+    """--mesh: seq:N on pixel_transformer (its ring attention) and axes of
+    size 1 pass; any axis but seq above size 1 raises as not ported when the
+    flags are parsed, and seq:N above 1 when a model without ring attention
+    is built; --quantize with a seq axis above 1 is refused, as the JAX
+    package's serve.py refuses a non-data sharded mesh."""
+    from generative_models_tpu_torch.serve import load_server
+    from generative_models_tpu_torch.utils.config import parse_args
+
+    for mesh in ('seq:4', 'seq:1', 'data:1,seq:8', 'model:1', 'seq:5'):
+        G, Model = parse_args(['--model=pixel_transformer', '--device=cpu', f'--mesh={mesh}',
+                               '--n_embed=16', '--n_layer=1'])
+        assert G.mesh == mesh and Model.supports_ring
+        Model(G)
+    for mesh in ('model:2', 'seq:4,data:2'):
+        with pytest.raises(NotImplementedError, match='not ported yet'):
+            parse_args(['--model=pixel_transformer', '--device=cpu', f'--mesh={mesh}'])
+    for model, mesh in (('made', 'seq:4'), ('vqvae', 'seq:7'), ('made', 'seq:1')):
+        G, Model = parse_args([f'--model={model}', '--device=cpu', f'--mesh={mesh}'])
+        assert not Model.supports_ring
+        if mesh == 'seq:1':
+            Model(G)
+            continue
+        with pytest.raises(NotImplementedError, match='not ported yet'):
+            Model(G)
+    with pytest.raises(SystemExit, match='--quantize does not compose'):
+        load_server(['--model=pixel_transformer', '--device=cpu', '--mesh=seq:4',
+                     '--quantize=int8', '--serve_bs=1'])
+    server, _ = load_server(['--model=pixel_transformer', '--device=cpu', '--mesh=seq:1',
+                             '--quantize=w8a16', '--serve_bs=1'])
+    assert server.quant_mode == 'w8a16' and not server.model.net.use_ring
