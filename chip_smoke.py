@@ -17,7 +17,9 @@ failure exits non-zero before the result lines:
                 identical but for ties within rounding, Kernel H exactly 0
                 off its mask, and Kernel I (int8 x int8 -> int32) bitwise
                 equal; I and J (the dequantizing product) at every product
-                of the quantized serving paths and at two ragged shapes;
+                of the quantized serving paths and at four ragged shapes,
+                G at six ragged ones (both layouts), G and J launched twice
+                and bitwise equal;
                 the ring's hop Kernels K, L and M on rings of 2, 4 and 8 at
                 their first hop and at a carry hop, and the whole ring at 4
                 and 8 against Kernels C, E and D on the full sequence.
@@ -85,13 +87,15 @@ failure exits non-zero before the result lines:
                 every unit).
   17. profile -- device time by kernel over one request and one train step
                 of each model, one pixel_transformer scoring forward, one
-                seq:4 train step, and one quantized request of each model
-                in each mode.
+                seq:4 train step, one quantized request of vqvae and of made
+                in each mode, and 32 decode steps of a quantized
+                pixel_transformer request in each mode.
 Then the kernels line, the nvidia-smi line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
+import itertools
 import json
 import shutil
 import subprocess
@@ -118,6 +122,7 @@ RING_KERNELS = ('ring_chunk_fwd', 'ring_chunk_bwd_dq', 'ring_chunk_bwd_dkv')
 NO_RING = dict.fromkeys(RING_KERNELS, 0)  # the ring's kernels run only under --mesh=seq:N
 SEQ_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_seq'
 SEQ = 4  # the seq_train phase's ring: --mesh=seq:4
+PT_DECODE_WINDOW = range(392, 424)  # the profiled steps of a quantized pixel_transformer request
 
 
 def log(*a):
@@ -217,6 +222,15 @@ def bound(nbytes, flops, peak=H100_BF16_FLOPS):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _twice_bitwise(name, fn):
+    """fn() twice on the same inputs; raises unless the two are bitwise
+    equal. Returns the first."""
+    a, b = fn(), fn()
+    if not torch.equal(a, b):
+        raise AssertionError(f'{name}: two launches on the same inputs differ')
+    return a
 
 
 def compare(name, got, ref, atol, rtol):
@@ -612,7 +626,12 @@ def made_cases(f32, dev):
     hidden layer and of the input layer, x read as (K, M). Tolerance atol
     1e-3 + rtol 1e-3: the same bf16-rounded operands on both sides, f32
     sums of up to 2048 products in another order (~1e-6 relative). H must
-    be exactly 0 wherever its mask is 0. library_ms: torch.matmul on bf16
+    be exactly 0 wherever its mask is 0. G's two launches on the same inputs
+    must be bitwise equal (its K splits are summed in a fixed order). Then G
+    untimed at ragged shapes in both layouts, with random {0, 1} masks: M
+    past 64 and not a multiple of 64, K shorter than one split's share, N
+    not a multiple of 16 (plain loads instead of 16-byte cp.async).
+    library_ms: torch.matmul on bf16
     operands with the weight already masked (for H, the unmasked x^T g), the
     product the premasked route pays for instead. ms_l2_cold: the kernel's
     device time with L2 flushed before each launch, as in a made request,
@@ -649,7 +668,8 @@ def made_cases(f32, dev):
             xb = x.to(bf)
             lib = lambda: torch.matmul(xb, wmb)
             dims, shape = (B, K, N), f'x ({B},{K}) x w ({K},{N})'
-        err = compare(f'masked_matmul {shape}', kern(), plain(), **tol)
+        err = compare(f'masked_matmul {shape}', _twice_bitwise(f'masked_matmul {shape}', kern),
+                      plain(), **tol)
         M_, K_, N_ = dims
         # f32 x and w read once, the uint8 mask once, the f32 output written
         bms, by = bound(4 * M_ * K_ + 5 * K_ * N_ + 4 * M_ * N_, 2 * M_ * K_ * N_)
@@ -657,6 +677,17 @@ def made_cases(f32, dev):
                             bound_ms=bms, bound_by=by, library_covers=library_covers,
                             ms_l2_cold=l2_cold_ms(kern, 'masked_matmul_kernel', flush),
                             **timings(kern, plain, lib)))
+    rng = np.random.RandomState(1)
+    for (M, K, N), trans_b in itertools.product(((10, 72, 136), (80, 40, 136), (200, 784, 130)),
+                                                (False, True)):
+        x, m = f32(M, K), torch.tensor(rng.rand(K, N) < 0.5, device=dev).to(torch.uint8)
+        w = f32(K, N, scale=K ** -0.5)
+        wl, ml = (w.t().contiguous(), m.t().contiguous()) if trans_b else (w, m)
+        shape = f'ragged x ({M},{K}) x w ({K},{N}){" read as (N, K)" if trans_b else ""}'
+        got = _twice_bitwise(f'masked_matmul {shape}',
+                             lambda: masked_matmul(x, wl, ml, trans_b=trans_b))
+        err = compare(f'masked_matmul {shape}', got, masked_matmul_plain(x, w, m), **tol)
+        g_cases.append(dict(shape=shape, path='ragged', max_abs_err=err, **tol))
     for layer in (1, 0):
         m = masks[layer]
         K, N = m.shape
@@ -685,11 +716,13 @@ def made_cases(f32, dev):
 def int8_cases(rng, dev):
     """Kernels I and J vs their plain versions at every product of the
     quantized serving paths at serve_bs=64 (pixel_transformer's, the vqvae
-    prior's, made's at hidden_size=1024) and at two ragged shapes, the
+    prior's, made's at hidden_size=1024) and at four ragged shapes, the
     ragged ones untimed. I must be bitwise equal (integer sums; the plain
     version in float64 is exact); J within atol 1e-3 + rtol 1e-3 (the same
     bf16 x and int8 q on both sides, f32 sums of up to 1024 products in
-    another order). Bound: I reads int8 x and q and writes int32, J reads
+    another order), and J's two launches on the same inputs bitwise equal
+    (its K splits are summed in a fixed order). Bound: I reads int8 x and q
+    and writes int32, J reads
     f32 x (it rounds x to bf16 itself) and int8 q and writes f32; their
     operations at the int8 and the bf16 peak. library_ms: torch._int_mm for
     I (it takes M > 16 and K, N multiples of 8: the path shapes only), and
@@ -706,7 +739,8 @@ def int8_cases(rng, dev):
               ((64, 256, 1024), 'vqvae prior fc1'), ((64, 1024, 256), 'vqvae prior fc2'),
               ((64, 256, 64), 'vqvae prior head'), ((64, 784, 1024), 'made layer 0'),
               ((64, 1024, 1024), 'made layers 1, 2'), ((64, 1024, 784), 'made layer 3'),
-              ((10, 72, 136), 'ragged'), ((6, 130, 70), 'ragged'))
+              ((10, 72, 136), 'ragged'), ((6, 130, 70), 'ragged'), ((80, 130, 70), 'ragged'),
+              ((72, 40, 130), 'ragged'))
     i8 = lambda *s: torch.tensor(rng.randint(-127, 128, s), dtype=torch.int8, device=dev)
     tol_j = dict(atol=1e-3, rtol=1e-3)
     i_cases, j_cases = [], []
@@ -716,8 +750,8 @@ def int8_cases(rng, dev):
         shape = f'x ({M},{K}) x q ({K},{N})'
         if not torch.equal(int8_gemm(x8, q), int8_gemm_plain(x8, q)):
             raise AssertionError(f'int8_gemm {shape}: not bitwise equal to its plain version')
-        err = compare(f'dequant_gemm {shape}', dequant_gemm(xf, q), dequant_gemm_plain(xf, q),
-                      **tol_j)
+        got = _twice_bitwise(f'dequant_gemm {shape}', lambda: dequant_gemm(xf, q))
+        err = compare(f'dequant_gemm {shape}', got, dequant_gemm_plain(xf, q), **tol_j)
         ci = dict(shape=shape, path=path, max_abs_err=0.0, atol=0.0, rtol=0.0, bitwise=True)
         cj = dict(shape=shape, path=path, max_abs_err=err, **tol_j)
         if path != 'ragged':
@@ -1562,13 +1596,30 @@ def _profile(label, fn, top_n):
     return dict(wall_ms=wall * 1e3, device_ms=busy_ms, launches=launches, traced_sec=traced)
 
 
+def _decode_window(server, steps):
+    """A call running the quantized decode steps `steps` of a request at
+    serve_bs=64 (server.model.net with server.quant, on a fresh KV cache),
+    as sampling runs them, without the rest of the request."""
+    net, quant = server.model.net, server.quant
+    caches = net.init_cache(64)
+    prev = torch.zeros((64, net.in_size), device=net.pos_emb.device)
+
+    @torch.no_grad()
+    def run():
+        for t in steps:
+            net.decode_step(prev, caches, t, None, quant)
+    return run
+
+
 def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
                   made_server, made_model, made_dataset, quant, seq_model, seq_dataset):
     """Device time by kernel over one seeded request, one (warm) scoring
     forward and one (warm) train step at bs=64, for pixel_transformer, for
     vqvae and for made at hidden_size=2048; one (warm) pixel_transformer
-    train step under --mesh=seq:4; and one seeded quantized request of each
-    model in each mode."""
+    train step under --mesh=seq:4; one seeded quantized request of vqvae and
+    made in each mode; and a window of PT_DECODE_WINDOW decode steps of a
+    quantized pixel_transformer request in each mode (a whole request's
+    trace, 100k-200k launches, took 60-100 s to process)."""
     bx = dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
     model.train_step(bx[0])
     seq_bx = seq_dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
@@ -1592,7 +1643,12 @@ def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
                                  lambda: made_model.train_step(made_bx[1]), 15),
         **{f'{key}_request': _profile(f'one {key} request',
                                       lambda srv=q['server']: srv.sample(64, seed=11), 12)
-           for key, q in quant.items()},
+           for key, q in quant.items() if not key.startswith('pixel_transformer')},
+        **{f'{key}_decode_window': dict(
+            steps=[PT_DECODE_WINDOW.start, PT_DECODE_WINDOW.stop],
+            **_profile(f'{len(PT_DECODE_WINDOW)} decode steps of a {key} request',
+                       _decode_window(q['server'], PT_DECODE_WINDOW), 12))
+           for key, q in quant.items() if key.startswith('pixel_transformer')},
     )
 
 

@@ -8,7 +8,8 @@ Counterpart of generative_models_tpu/ops/int8.py:
                       row, xq int8 and sx f32 (M, 1).
   int8_gemm        -- Kernel I (ops/csrc/int8.cu): xq (M, K) int8 @ q (K, N)
                       int8 -> int32, exact.
-  dequant_gemm     -- Kernel J (same file): bf16(x) (M, K) @ q (K, N) int8
+  dequant_gemm     -- Kernel J (same file, on the tensor cores, K split as
+                      plan_split_k says): bf16(x) (M, K) @ q (K, N) int8
                       -> f32, the weight widened on chip.
   int8_matmul      -- y = x @ dequant(q): w8a8 (quantize_rows, I, then
                       acc * sx * scale) or w8a16 (J, then y * scale).
@@ -31,8 +32,10 @@ kernels, as the JAX package leaves it to XLA.
 import torch
 
 from generative_models_tpu_torch.ops.common import (
-    c_function, check_cuda, dense, launch, matmul_dtype,
+    c_function, check_cuda, dense, launch, matmul_dtype, plan_split_k, sm_count,
 )
+
+DEQUANT_GEMM_BN = 32  # Kernel J's output columns a block (DQ_BN in the source)
 
 _ONE27 = {}  # device -> a 0-dim 127.0 on it
 
@@ -112,8 +115,9 @@ def dequant_gemm(x, q):
     check_cuda('dequant_gemm q', q, torch.int8, (K, N))
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M and N:
-        fn = c_function('int8', 'gmt_dequant_gemm', 3, 3)
-        launch('int8', fn, x.data_ptr(), q.data_ptr(), out.data_ptr(), M, K, N)
+        splits, kper = plan_split_k(M, K, N, DEQUANT_GEMM_BN, sm_count(x.device.index))
+        fn = c_function('int8', 'gmt_dequant_gemm', 3, 5)
+        launch('int8', fn, x.data_ptr(), q.data_ptr(), out.data_ptr(), M, K, N, splits, kper)
         dequant_gemm.launches += 1
     return out
 

@@ -2,8 +2,9 @@
 
 Counterpart of generative_models_tpu/ops/masked_dense.py:
 
-  masked_matmul    -- Kernel G (ops/csrc/masked_dense.cu): x @ (w * m), the
-                      mask applied to each w tile inside the K loop. With
+  masked_matmul    -- Kernel G (ops/csrc/masked_dense.cu on the tensor cores,
+                      K split as plan_split_k says): x @ (w * m), the mask
+                      applied to each w tile inside the K loop. With
                       trans_b, w and m are read as (N, K): dX = g @ (w * m)^T
                       without a transposed copy of either.
   mask_out_matmul  -- Kernel H (same file): m * (a^T @ b), the mask applied
@@ -27,8 +28,10 @@ mask. Outputs are f32; the bias stays outside the kernels.
 import torch
 
 from generative_models_tpu_torch.ops.common import (
-    c_function, check_cuda, launch, matmul_dtype,
+    c_function, check_cuda, launch, matmul_dtype, plan_split_k, sm_count,
 )
+
+MASKED_MATMUL_BN = 64  # Kernel G's output columns a block (MM_BN in the source)
 
 
 def masked_matmul_plain(x, w, m):
@@ -60,9 +63,10 @@ def masked_matmul(x, w, m, trans_b=False):
     check_cuda('masked_matmul mask', m, torch.uint8, wshape)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M and N:
-        fn = c_function('masked_dense', 'gmt_masked_matmul', 4, 4)
+        splits, kper = plan_split_k(M, K, N, MASKED_MATMUL_BN, sm_count(x.device.index))
+        fn = c_function('masked_dense', 'gmt_masked_matmul', 4, 6)
         launch('masked_dense', fn, x.data_ptr(), w.data_ptr(), m.data_ptr(),
-               out.data_ptr(), M, K, N, int(trans_b))
+               out.data_ptr(), M, K, N, int(trans_b), splits, kper)
         masked_matmul.launches += 1
     return out
 

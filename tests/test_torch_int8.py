@@ -18,8 +18,11 @@ from generative_models_tpu_torch.ops.int8 import (
 
 torch.set_num_threads(1)
 
-# the ragged shapes of tests/test_int8.py, and made's widest serving product
-SHAPES = [(10, 72, 136), (6, 130, 70), (64, 1024, 784)]
+# the ragged shapes of tests/test_int8.py, and made's widest serving product;
+# then the ragged edges of Kernel J's tiling (64-row strips, 32-deep K
+# tiles, 64-column strips): M past 64 and not a multiple of 16, K under 64,
+# N not a multiple of 64 (nor 16)
+SHAPES = [(10, 72, 136), (6, 130, 70), (64, 1024, 784), (72, 40, 130), (200, 784, 130)]
 
 
 def _xw(M, K, N, seed):

@@ -19,8 +19,10 @@ from generative_models_tpu_torch.ops import masked_dense as tmd
 torch.set_num_threads(1)
 
 # (B, K, N): tests/test_masked_dense.py's shapes; K=1300 spans three of the
-# reference's 512-deep K tiles
-SHAPES = [(8, 20, 12), (16, 1300, 256)]
+# reference's 512-deep K tiles; then the ragged edges of Kernel G's tiling
+# (64-row strips, 32-deep K tiles, 128-column strips): M past 64 and not a
+# multiple of 16, K under one tile pair, N not a multiple of 64 (nor 16)
+SHAPES = [(8, 20, 12), (16, 1300, 256), (72, 40, 130), (200, 784, 130)]
 
 
 def _data(B, K, N, seed=0):

@@ -60,6 +60,25 @@ def test_no_source_file_imports_jax():
     assert bad == []
 
 
+def test_kernel_sources_call_no_library_gemm():
+    """Every kernel is written by hand: no source under ops/csrc/ includes
+    or calls cuBLAS, cuDNN or a CUTLASS device-level GEMM. Kernels G and J
+    multiply on the tensor cores, through mma.cuh's mma.sync."""
+    csrc = PORT / 'ops' / 'csrc'
+    files = sorted(csrc.glob('*.cu')) + sorted(csrc.glob('*.cuh'))
+    assert len(files) >= 9
+    banned = ('cublas', 'cudnn', 'cutlass/gemm/device', 'gemm::device', 'gemmuniversal',
+              'collectivebuilder', 'cutlass/gemm/kernel', 'gemm::kernel')
+    bad = [f'{p.name}: {b}' for p in files for b in banned if b in p.read_text().lower()]
+    assert bad == []
+    assert 'mma.sync.aligned.m16n8k16' in (csrc / 'mma.cuh').read_text()
+    assert 'gmt_mma_bf16' in (csrc / 'stream_gemm.cuh').read_text()
+    for name, kernel in (('masked_dense.cu', 'masked_matmul_kernel'),
+                         ('int8.cu', 'dequant_gemm_kernel')):
+        src = (csrc / name).read_text()
+        assert '#include "stream_gemm.cuh"' in src and 'sg_gemm<' in src and kernel in src
+
+
 def test_serve_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp_path):
     from generative_models_tpu_torch import serve
 
