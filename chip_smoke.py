@@ -9,7 +9,9 @@ failure exits non-zero before the result lines:
   1. device  -- require CUDA (no fallback); print nvidia-smi's name and
                 power limit.
   2. build   -- compile ops/csrc/*.cu (one nvcc per source, in parallel)
-                and print the build seconds and ptxas's resource lines.
+                and print the build seconds and ptxas's registers and
+                spills of every entry function (Kernels E and D's by D
+                bucket also in the kernels line).
   3. kernels -- hold each kernel against its plain PyTorch version on the
                 card at the main paths' shapes (pixel_transformer's,
                 vqvae's and made's at hidden_size=2048), with seeded inputs
@@ -19,7 +21,9 @@ failure exits non-zero before the result lines:
                 equal; I and J (the dequantizing product) at every product
                 of the quantized serving paths and at four ragged shapes,
                 G at six ragged ones (both layouts), G and J launched twice
-                and bitwise equal;
+                and bitwise equal; E and D (the flash backward) at the
+                three attention shapes and nine edge cases of their tiling,
+                each launched twice and bitwise equal;
                 the ring's hop Kernels K, L and M on rings of 2, 4 and 8 at
                 their first hop and at a carry hop, and the whole ring at 4
                 and 8 against Kernels C, E and D on the full sequence.
@@ -97,6 +101,7 @@ Imports nothing of JAX or of the JAX package.
 
 import itertools
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -225,10 +230,11 @@ def bound(nbytes, flops, peak=H100_BF16_FLOPS):
 
 
 def _twice_bitwise(name, fn):
-    """fn() twice on the same inputs; raises unless the two are bitwise
-    equal. Returns the first."""
+    """fn() twice on the same inputs; raises unless the two (a tensor or a
+    tuple of tensors) are bitwise equal. Returns the first."""
     a, b = fn(), fn()
-    if not torch.equal(a, b):
+    pairs = zip(a, b) if isinstance(a, tuple) else ((a, b),)
+    if not all(torch.equal(x, y) for x, y in pairs):
         raise AssertionError(f'{name}: two launches on the same inputs differ')
     return a
 
@@ -248,16 +254,46 @@ def compare(name, got, ref, atol, rtol):
     return max_err
 
 
+def ptxas_report(text):
+    """{entry function: {registers, spill_stores, spill_loads}} from
+    `nvcc -Xptxas -v` output, in the order ptxas compiled them."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name:
+            out[name]['registers'] = int(m.group(1))
+    return out
+
+
 def phase_build():
+    """Builds every kernel source; logs ptxas's registers and spills of
+    each entry function. Returns Kernels E and D's reports by bucket, as
+    {'flash_bwd_dq': {'DP=32': {...}, ...}, 'flash_bwd_dkv': {...}}, and
+    raises if either spills at D=32."""
     from generative_models_tpu_torch.ops.common import BUILD_DIR, KERNEL_SOURCES, build_kernels
 
     t0 = time.time()
     build_kernels()
     log(f'[build] {len(KERNEL_SOURCES)} sources in {time.time() - t0:.1f}s -> {BUILD_DIR}')
+    bwd = {'flash_bwd_dq': {}, 'flash_bwd_dkv': {}}
     for p in sorted(BUILD_DIR.glob('*.log')):
-        for line in p.read_text().splitlines():
-            if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
-                log(f'[build] {p.stem}: {line.strip()}')
+        for fn, rep in ptxas_report(p.read_text()).items():
+            log(f'[build] {p.stem}: {fn}: {json.dumps(rep)}')
+            m = re.match(r'_Z\d+(flash_bwd_dq|flash_bwd_dkv)_kernelILi(\d+)E', fn)
+            if m and p.stem.startswith('libattention_bwd-'):
+                bwd[m.group(1)][f'DP={m.group(2)}'] = rep
+    for name, reps in bwd.items():
+        log(f'[build] {name} ptxas {json.dumps(reps)}')
+        if reps['DP=32'].get('spill_stores', 0):  # every path's width
+            raise AssertionError(f'{name} spills at D=32: {reps["DP=32"]}')
+    return bwd
 
 
 def phase_kernels(dev):
@@ -355,21 +391,29 @@ def phase_kernels(dev):
         torch.cuda.empty_cache()
 
     # Kernels E (dQ, delta) and D (dK, dV) vs the dense plain backward on the
-    # same bf16 operands, P and dS in f32 on both sides: rtol 1e-3 / atol
-    # 1e-4, the JAX package's flash-vs-dense gradient tolerance (sums of up
-    # to T terms in another order). library_ms: the backward alone of
-    # scaled_dot_product_attention (dq, dk and dv in one call).
+    # same bf16 operands, P and dS in f32 in the plain version (the kernels
+    # carry each as a bf16 hi/lo pair): rtol 1e-3 / atol 1e-4, the JAX
+    # package's flash-vs-dense gradient tolerance (sums of up to T terms in
+    # another order). Each launches twice on the same inputs, and the two
+    # must be bitwise equal (no atomics, fixed sum order). library_ms: the
+    # backward alone of scaled_dot_product_attention (dq, dk and dv in one
+    # call); ms_l2_cold at the path shape: each kernel with L2 flushed
+    # before it. Then untimed edge cases of the tiling (64-row blocks,
+    # 16-row chunks, D padded to 16, 32, 64 or 128) at a small B*H.
     tol_bwd = dict(atol=1e-4, rtol=1e-3)
     bwd_shapes = (((64, 4, 784, 32), (209, 209), 'pixel_transformer'),
                   ((1, 4, 2048, 32), (389, 418), 'long T'),
                   ((64, 8, 49, 32), (209, 209), 'vqvae'))
+    flush = torch.empty(64 << 20, device=dev)  # 256 MB of f32
     for (Bq, Hq, T, D), lines, path in bwd_shapes:
         q, k, v, do = (f32(Bq, Hq, T, D).to(bf) for _ in range(4))
         o, lse = causal_attention_fwd(q, k, v)
-        dq, delta = flash_bwd_dq(q, k, v, o, lse, do)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
-        rdq, rdelta = flash_bwd_dq_plain(q, k, v, o, lse, do, dtype=bf)
         shape = f'(B={Bq},H={Hq},T={T},D={D})'
+        dq, delta = _twice_bitwise(f'flash_bwd_dq {shape}',
+                                   lambda: flash_bwd_dq(q, k, v, o, lse, do))
+        dk, dv = _twice_bitwise(f'flash_bwd_dkv {shape}',
+                                lambda: flash_bwd_dkv(q, k, v, do, lse, delta))
+        rdq, rdelta = flash_bwd_dq_plain(q, k, v, o, lse, do, dtype=bf)
         err_dq = max(compare(f'bwd dq {shape}', dq, rdq, **tol_bwd),
                      compare(f'bwd delta {shape}', delta, rdelta, **tol_bwd))
         del rdq
@@ -384,12 +428,20 @@ def phase_kernels(dev):
         BH, pairs = Bq * Hq, Bq * Hq * T * (T + 1) // 2
         n = BH * T * D
         iters = 10 if T > 64 else 100
+        cold = {}
+        if path == 'pixel_transformer':
+            cold = dict(
+                dq=l2_cold_ms(lambda: flash_bwd_dq(q, k, v, o, lse, do), 'flash_bwd_dq_kernel',
+                              flush),
+                dkv=l2_cold_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta),
+                               'flash_bwd_dkv_kernel', flush))
         # E reads q, k, v, dO (bf16), o, lse and writes dq, delta; three
         # D-long products a live pair (S, dP, dQ)
         bms, by = bound(4 * n * 2 + n * 4 + BH * T * 4 + n * 4 + BH * T * 4, 3 * 2 * D * pairs)
         cases['flash_bwd_dq'].append(dict(
             shape=shape, path=path, replaces_line=lines[0], max_abs_err=err_dq, **tol_bwd,
-            bound_ms=bms, bound_by=by, library_covers='dq, dk and dv', **timings(
+            bound_ms=bms, bound_by=by, library_covers='dq, dk and dv', bitwise_twice=True,
+            **({'ms_l2_cold': cold['dq']} if cold else {}), **timings(
                 lambda: flash_bwd_dq(q, k, v, o, lse, do),
                 lambda: flash_bwd_dq_plain(q, k, v, o, lse, do, dtype=bf),
                 sdpa_bwd, iters=iters,
@@ -400,7 +452,8 @@ def phase_kernels(dev):
         bms, by = bound(4 * n * 2 + 2 * BH * T * 4 + 2 * n * 4, 4 * 2 * D * pairs)
         cases['flash_bwd_dkv'].append(dict(
             shape=shape, path=path, replaces_line=lines[1], max_abs_err=err_dkv, **tol_bwd,
-            bound_ms=bms, bound_by=by, library_covers='dq, dk and dv', **timings(
+            bound_ms=bms, bound_by=by, library_covers='dq, dk and dv', bitwise_twice=True,
+            **({'ms_l2_cold': cold['dkv']} if cold else {}), **timings(
                 lambda: flash_bwd_dkv(q, k, v, do, lse, delta),
                 lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta, dtype=bf),
                 sdpa_bwd, iters=iters,
@@ -408,6 +461,26 @@ def phase_kernels(dev):
         ))
         del out, sdpa_bwd, qg, kg, vg
         torch.cuda.empty_cache()
+    del flush
+    edge_shapes = ([(2, 3, T, 32) for T in (1, 63, 65, 130)]
+                   + [(2, 3, 200, D) for D in (8, 16, 24, 64, 128)])
+    for Bq, Hq, T, D in edge_shapes:
+        q, k, v, do = (f32(Bq, Hq, T, D).to(bf) for _ in range(4))
+        o, lse = causal_attention_fwd(q, k, v)
+        shape = f'(B={Bq},H={Hq},T={T},D={D})'
+        dq, delta = _twice_bitwise(f'flash_bwd_dq {shape}',
+                                   lambda: flash_bwd_dq(q, k, v, o, lse, do))
+        dk, dv = _twice_bitwise(f'flash_bwd_dkv {shape}',
+                                lambda: flash_bwd_dkv(q, k, v, do, lse, delta))
+        rdq, rdelta = flash_bwd_dq_plain(q, k, v, o, lse, do, dtype=bf)
+        rdk, rdv = flash_bwd_dkv_plain(q, k, v, do, lse, rdelta, dtype=bf)
+        err_dq = max(compare(f'bwd dq {shape}', dq, rdq, **tol_bwd),
+                     compare(f'bwd delta {shape}', delta, rdelta, **tol_bwd))
+        err_dkv = max(compare(f'bwd dk {shape}', dk, rdk, **tol_bwd),
+                      compare(f'bwd dv {shape}', dv, rdv, **tol_bwd))
+        for name, err in (('flash_bwd_dq', err_dq), ('flash_bwd_dkv', err_dkv)):
+            cases[name].append(dict(shape=shape, path='edge', max_abs_err=err, **tol_bwd,
+                                    bitwise_twice=True))
 
     cases['vq_one_hot'] = vq_cases(f32)
     cases['masked_matmul'], cases['mask_out_matmul'] = made_cases(f32, dev)
@@ -1675,7 +1748,7 @@ def main():
         log(f'[time] {name} {phase_sec[name]:.1f}s')
         return out
 
-    timed('build', phase_build)
+    ptxas = timed('build', phase_build)
     cases, ring = timed('kernels', phase_kernels, dev)
     sl = timed('slice', phase_slice)
     tr = timed('train', phase_train)
@@ -1735,7 +1808,7 @@ def main():
             eager_ms=main_case['eager_ms'],
             plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
             bound_by=main_case['bound_by'], library_ms=main_case['library_ms'],
-            cases=cs,
+            **({'ptxas': ptxas[name]} if name in ptxas else {}), cases=cs,
         ))
     lat = sorted(sl['latencies'])
     log(json.dumps(dict(

@@ -9,9 +9,10 @@ Counterpart of generative_models_tpu/ops/attention.py:
                             split (_plan) came from its VMEM budget.
   flash_bwd_dq           -- Kernel E (ops/csrc/attention_bwd.cu): dQ, and
                             delta = rowsum(dO * o), one block per (bh, query
-                            tile).
+                            tile), on the tensor cores (mma.sync) with P and
+                            dS carried as bf16 hi/lo pairs.
   flash_bwd_dkv          -- Kernel D (same file): dK and dV, one block per
-                            (bh, key tile), from E's delta.
+                            (bh, key tile), from E's delta, the same way.
   causal_attention_bwd   -- the backward: E then D (their plain versions
                             on the CPU).
   causal_attention       -- the model's entry: a torch.autograd.Function
@@ -117,7 +118,8 @@ def causal_attention_bwd_plain(q, k, v, o, lse, do, dtype=torch.float32):
     """Dense recompute of the flash backward: P = exp(S - lse),
     dV = P^T dO, dP = dO V^T, dS = P * (dP - delta), dQ = dS K * scale,
     dK = dS^T Q * scale, with q/k/v/dO rounded to dtype and every product
-    in f32 (P and dS are not rounded, as in Kernels D and E)."""
+    in f32. P and dS are not rounded: Kernels D and E carry each as a bf16
+    pair hi + lo (about 2^-16 relative), which holds them to this."""
     dq, delta = flash_bwd_dq_plain(q, k, v, o, lse, do, dtype)
     dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, dtype)
     return dq, dk, dv
@@ -134,6 +136,12 @@ def _check_bwd(name, q, k, v, do, lse):
         raise ValueError(f'{name}: B*H={B * H} exceeds the grid limit 65535')
 
 
+def _aligned16(u):
+    """u, or a copy of it where its data does not start on 16 bytes (a view
+    at an odd offset): Kernels D and E read rows 16 bytes at a time."""
+    return u if u.data_ptr() % 16 == 0 else u.clone()
+
+
 def flash_bwd_dq(q, k, v, o, lse, do):
     """Kernel E. q, k, v, do: (B, H, T, D) bf16, o f32, lse (B, H, T) f32,
     contiguous on the card -> (dq (B, H, T, D) f32, delta (B, H, T) f32).
@@ -143,6 +151,7 @@ def flash_bwd_dq(q, k, v, o, lse, do):
     _check_bwd('flash_bwd_dq', q, k, v, do, lse)
     check_cuda('flash_bwd_dq o', o, torch.float32, q.shape)
     B, H, T, D = q.shape
+    q, k, v, o, do = map(_aligned16, (q, k, v, o, do))
     dq = torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if B * H and T:
@@ -166,6 +175,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta):
     _check_bwd('flash_bwd_dkv', q, k, v, do, lse)
     check_cuda('flash_bwd_dkv delta', delta, torch.float32, lse.shape)
     B, H, T, D = q.shape
+    q, k, v, do = map(_aligned16, (q, k, v, do))
     dk = torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
     dv = torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
     if B * H and T:

@@ -1,4 +1,5 @@
-// Kernels D and E: causal flash-attention backward, for sm_90a.
+// Kernels D and E: causal flash-attention backward on the tensor cores, for
+// sm_90a.
 //
 // Replaces: generative_models_tpu/ops/attention.py _flash_bwd_kernel (:209,
 // called by _flash_backward :244), _flash_bwd_dq_streamed (:389) and
@@ -6,224 +7,407 @@
 // :454). The TPU kernel carried dK/dV from one grid step to the next in
 // VMEM; Hopper runs blocks in no order, so this is the FlashAttention-2
 // split: one kernel owns the query rows (dQ), the other the key rows (dK,
-// dV). Neither needs atomics, and every sum runs in a fixed order, so the
-// gradients are deterministic. One plan covers every T.
+// dV). Neither needs atomics, and every sum runs in a fixed order, so two
+// launches on the same inputs give bitwise the same gradients. One plan
+// covers every T.
 //
 // Inputs: q, k, v, dO (BH, T, D) bf16 (dO rounded to the operand type, as
 // the JAX package rounds it), o (BH, T, D) f32 and lse (BH, T) f32 from
 // Kernel C. P = exp(q k^T * scale - lse), recomputed; dP = dO v^T;
 // dS = P * (dP - delta) with delta = rowsum(dO * o); dQ = dS k * scale,
-// dK = dS^T q * scale, dV = P^T dO, all f32. P and dS stay f32 (the TPU
-// kernel rounds them to bf16 before its products; Kernel C keeps P in f32
-// too): only q, k, v and dO are bf16 operands, and the plain version
-// (ops/attention.py causal_attention_bwd_plain) rounds at the same places.
+// dK = dS^T q * scale, dV = P^T dO, all f32.
+//
+// P and dS as bf16 pairs: a tensor-core product takes bf16 operands, and
+// the TPU kernel rounds P and dS to bf16 once before its dQ/dK/dV
+// products. That moves the gradients by up to ~6e-3 at T=784, far past the
+// port's contract (atol 1e-4 + rtol 1e-3 against the plain version, which
+// keeps P and dS in f32; tests/test_torch_attention_bwd.py pins it). So
+// each is split in registers into hi = bf16(x) and lo = bf16(x - hi), and
+// both products are summed in f32: one extra product for E (four in all)
+// and two for D (six), and P and dS stay good to ~2^-16 relative.
 //
 // What bounds it on an H100: at the pixel_transformer training shape
 // (BH=256, T=784, D=32) each kernel moves ~104 MB (each input read once,
-// each output written once; ~0.031 ms at 3.35 TB/s) against 15 GFLOP (E:
-// three products) or 20 GFLOP (D: four) over the ~79M live (query, key)
-// pairs (~0.015 and ~0.020 ms at the bf16 tensor-core peak): bound by bytes.
-// The split recomputes S and dP in both kernels, seven products where the
-// fused TPU kernel had five. On FMA units the products are what bounds
-// them: each is a D-long chain of one shared-memory broadcast read and one
-// FMA per element. The design:
-//   * E (flash_bwd_dq_kernel) runs first: one block per (bh, 64-row query
-//     tile), one thread per query row, q, dO and the dQ accumulator in
-//     registers. Its prologue forms delta from the thread's own dO and o
-//     row and writes it out for D. It walks K/V tiles of 32 keys, staged in
-//     shared memory as f32, from 0 to the diagonal; tiles are issued
-//     longest-first, as in Kernel C.
-//   * D (flash_bwd_dkv_kernel): one block per (bh, 64-key tile), one thread
-//     per key row, k, v and the dK, dV accumulators in registers. It walks
-//     Q/dO tiles of 32 queries (with their lse and delta) from the diagonal
-//     to T; key tiles near the start see the most queries and go first.
-//   * Only tiles that cross the diagonal apply the causal mask. Rows and
-//     keys past T load as zeros: a query row past T has q = dO = 0 and adds
-//     exactly 0 to dK and dV, and a key past T is masked by causality, so T
-//     needs no padding and no copies.
-//   * D is padded in registers to a bucket (8, 16, 32, 64, 128), so every
-//     register array is indexed at compile time. D holds four D-long rows a
-//     thread and E three, so both spill past D=32 (ptxas reports it at the
-//     build); there the loop over a tile's rows is not unrolled.
-// Plain FMA on f32, not mma/wgmma: a simple, correct first kernel; PERF.md
-// records its time against the bound.
+// each output written once; ~0.031 ms at 3.35 TB/s) against 20 GFLOP (E:
+// four products) or 30 GFLOP (D: six) over the ~79M live (query, key)
+// pairs (~0.020 and ~0.031 ms at the bf16 tensor-core peak), and ~95M exp
+// a kernel on the special-function units. mma.sync does not reach that
+// peak on Hopper (wgmma does), and each 16 x 16 chunk of a warp is one
+// dependent chain (fragments, S and dP, exp, split, products), so in
+// practice the products' issue rate and the chain's latency set the pace
+// (PERF.md). The design:
+//   * E (flash_bwd_dq_kernel) runs first: one block of four warps per (bh,
+//     64-row query tile), tiles issued longest-first as in Kernel C. Each
+//     warp owns 16 query rows, q and dO as mma A fragments in registers.
+//     While its first copies fly, the prologue forms delta = rowsum(dO * o)
+//     from the f32 o (two threads a row, every load issued at once) and
+//     writes it out for D. K and V tiles of 64 keys (32 at D > 64, where
+//     the accumulators take the registers) stream from key 0 to the
+//     diagonal.
+//   * D (flash_bwd_dkv_kernel): one block of four warps per (bh, 64-key
+//     tile), first tiles first (they see the most queries); each warp owns
+//     16 keys, k and v as A fragments (at D > 64 re-read from shared memory
+//     each chunk). Q and dO tiles of 64 queries (32 at D > 64), with their
+//     lse and delta, stream from the diagonal to T. It forms the transposed
+//     tiles directly, S^T = k Q^T and dP^T = v dO^T, so that P^T and dS^T
+//     are A fragments of dV += P^T dO and dK += dS^T Q: nothing is
+//     transposed through memory.
+//   * The streamed tiles come in by 16-byte cp.async into a double-buffered
+//     ring, one barrier a tile: the next tile's copies fly while the warps
+//     multiply this one. flash_tiles.cuh holds the warp-level routines.
+//   * Only a tile that reaches the block's diagonal (or T) takes the
+//     tests: there a warp skips a 16-row chunk that lies wholly past the
+//     diagonal (or past T) and masks the rest; every other tile runs its
+//     chunks as one straight, unmasked run of code. Rows and keys past T and
+//     the columns from D to the next multiple of 16 load as zeros: a query
+//     row past T has q = dO = 0 and lse = delta = 0, so P = 1 and dS = 0
+//     there and it adds exactly 0 to dV and dK; a key past T is masked by
+//     causality. T needs no padding and no copies.
+//   * D is padded to a bucket (16, 32, 64, 128) at compile time.
 
 #include "common.cuh"
+#include "flash_tiles.cuh"
 
-constexpr int BQ_ROWS = 64;  // E: query rows per block, one per thread
-constexpr int BQ_KEYS = 32;  // E: keys per shared-memory tile
-constexpr int BK_ROWS = 64;  // D: key rows per block, one per thread
-constexpr int BK_QRYS = 32;  // D: queries per shared-memory tile
-// The loop over a shared tile's rows is unrolled whole up to D=32 only:
-// past it the rows' registers spill anyway, and a whole unroll of 32 rows of
-// 64- or 128-wide products takes ptxas minutes to build.
+constexpr int BWD_ROWS = 64;      // query rows (E) or keys (D) a block, 16 a warp
+constexpr int BWD_THREADS = 128;  // four warps
+constexpr float BWD_LOG2E = 1.4426950408889634f;
+
+// The tiling of one D bucket: the streamed tiles hold SROWS keys (E) or
+// queries (D), 32 at DP = 128 where the accumulators take the registers.
+// At DP = 32, every path's width, each kernel is held to the registers
+// that let MINB blocks share an SM (E 6, D 5, so 80 and 102 registers):
+// a block's chunks run as one dependent chain, and more warps to switch
+// between hide its latency better than more registers help one warp
+// (PERF.md section 6). The other buckets take what ptxas gives them.
+template <int DP>
+struct BwdPlan {
+  static constexpr int SROWS = DP > 64 ? 32 : 64;
+  static constexpr int LD = DP + 8, KD = DP / 16, STILE = SROWS * LD;
+  static constexpr int MINB_E = DP == 32 ? 6 : 1, MINB_D = DP == 32 ? 5 : 1;
+  // E: its own q and dO tiles, two stages of (K, V), then delta of its rows
+  static constexpr size_t DQ_SMEM = (size_t)(2 * BWD_ROWS * LD + 4 * STILE) * 2 + BWD_ROWS * 4;
+  // D: its own k and v tiles, two stages of (Q, dO), then two of (lse, delta)
+  static constexpr size_t DKV_SMEM =
+      (size_t)(2 * BWD_ROWS * LD + 4 * STILE) * 2 + 4 * SROWS * 4;
+};
+
+// E's work for one warp on one K/V tile (keys k0 ..): over each 16-key
+// chunk, P and dS of the warp's rows row0 .. row0 + 15, then acc += dS k.
+// EDGE: the tile reaches past the block's first row (or T), so a chunk
+// wholly past the warp's rows is skipped and the rest are masked; an inner
+// tile takes neither test, so its chunks are one straight run of code.
+template <int DP, bool EDGE>
+__device__ __forceinline__ void dq_tile(float (&acc)[DP / 8][4], const unsigned (&qa)[DP / 16][4],
+                                        const unsigned (&doa)[DP / 16][4],
+                                        const __nv_bfloat16* ks, const __nv_bfloat16* vs, int k0,
+                                        int row0, int T, float sl2, const float (&lg)[2],
+                                        const float (&dl)[2]) {
+  using P = BwdPlan<DP>;
+  const int lane = threadIdx.x % 32, g = lane / 4, c = 2 * (lane % 4);
+#pragma unroll
+  for (int cc = 0; cc < P::SROWS / 16; ++cc) {
+    const int kc0 = k0 + 16 * cc;  // the chunk's first key
+    if (EDGE && (kc0 > row0 + 15 || kc0 >= T)) continue;
+    float s[2][4], dp[2][4];
+    ft_scores<P::KD, P::LD>(s, qa, ks, 16 * cc);
+    ft_scores<P::KD, P::LD>(dp, doa, vs, 16 * cc);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        float p = ft_exp2(fmaf(s[j][e], sl2, -lg[h]));
+        if (EDGE && kc0 + 8 * j + c + (e & 1) > row0 + g + 8 * h) p = 0.f;
+        s[j][e] = p * (dp[j][e] - dl[h]);  // dS
+      }
+    unsigned hi[4], lo[4];
+    ft_split(s, hi, lo);
+    ft_accum<DP, P::LD>(acc, hi, lo, ks, 16 * cc);
+  }
+}
 
 template <int DP>
-__global__ void __launch_bounds__(BQ_ROWS) flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(BWD_THREADS, BwdPlan<DP>::MINB_E) flash_bwd_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ o,
     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
     float* __restrict__ delta, float* __restrict__ dq, int T, int D, float scale) {
-  __shared__ __align__(16) float ks[BQ_KEYS][DP];
-  __shared__ __align__(16) float vs[BQ_KEYS][DP];
+  using P = BwdPlan<DP>;
+  constexpr int LD = P::LD, BKV = P::SROWS, TILE = P::STILE;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
+  __nv_bfloat16* dos = qs + BWD_ROWS * LD;
+  __nv_bfloat16* ring = dos + BWD_ROWS * LD;  // stage s: K at ring + 2 s TILE, V after it
+  float* dls = reinterpret_cast<float*>(ring + 4 * TILE);
   const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ_ROWS;  // longest tiles first
-  const int row = q0 + threadIdx.x;
-  const bool live = row < T;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_ROWS;  // longest tiles first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = 2 * (lane % 4);
+  const int wr0 = q0 + 16 * warp;  // the warp's first query row
   const size_t base = (size_t)bh * T * D;
+  const __nv_bfloat16* kb = k + base;
+  const __nv_bfloat16* vb = v + base;
+  const int n_tiles = (min(T, q0 + BWD_ROWS) + BKV - 1) / BKV;
 
-  float qr[DP], dor[DP], acc[DP];
-  float dl = 0.f;  // delta = rowsum(dO * o)
+  ft_load_tile<BWD_ROWS, DP, BWD_THREADS>(qs, q + base, q0, T, D);
+  ft_load_tile<BWD_ROWS, DP, BWD_THREADS>(dos, dout + base, q0, T, D);
+  ft_load_tile<BKV, DP, BWD_THREADS>(ring, kb, 0, T, D);
+  ft_load_tile<BKV, DP, BWD_THREADS>(ring + TILE, vb, 0, T, D);
+  gmt_cp_async_commit();
+
+  // while the copies fly: delta = rowsum(dO * o), two threads a row, each
+  // over half of D (a multiple of 4), all loads issued together
+  {
+    const int r = threadIdx.x / 2, row = q0 + r, d0 = (threadIdx.x % 2) * (D / 2);
+    float s = 0.f;
+    if (row < T) {
+      const float* orow = o + base + (size_t)row * D + d0;
+      const __nv_bfloat16* drow = dout + base + (size_t)row * D + d0;
 #pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    const bool in = live && d < D;
-    const size_t off = base + (size_t)row * D + d;
-    qr[d] = in ? __bfloat162float(q[off]) : 0.f;
-    dor[d] = in ? __bfloat162float(dout[off]) : 0.f;
-    dl = fmaf(dor[d], in ? o[off] : 0.f, dl);
-    acc[d] = 0.f;
-  }
-  const float l = live ? lse[(size_t)bh * T + row] : 0.f;
-  if (live) delta[(size_t)bh * T + row] = dl;
-
-  const int kv_end = min(T, q0 + BQ_ROWS);
-  for (int k0 = 0; k0 < kv_end; k0 += BQ_KEYS) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < BQ_KEYS * DP; i += BQ_ROWS) {
-      const int r = i / DP, c = i % DP;
-      const bool in = k0 + r < T && c < D;
-      const size_t off = base + (size_t)(k0 + r) * D + c;
-      ks[r][c] = in ? __bfloat162float(k[off]) : 0.f;
-      vs[r][c] = in ? __bfloat162float(v[off]) : 0.f;
+      for (int j = 0; j < DP / 8; ++j)
+        if (4 * j < D / 2) {
+          const float4 ov = *reinterpret_cast<const float4*>(orow + 4 * j);
+          const uint2 dv2 = *reinterpret_cast<const uint2*>(drow + 4 * j);
+          const float2 d01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dv2.x));
+          const float2 d23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dv2.y));
+          s = fmaf(d01.x, ov.x, s);
+          s = fmaf(d01.y, ov.y, s);
+          s = fmaf(d23.x, ov.z, s);
+          s = fmaf(d23.y, ov.w, s);
+        }
     }
-    __syncthreads();
-
-    const bool diag = k0 + BQ_KEYS - 1 > q0;  // some key here lies past some row
-#pragma unroll(DP <= 32 ? BQ_KEYS : 1)
-    for (int j = 0; j < BQ_KEYS; ++j) {
-      float s = 0.f, dp = 0.f;
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    if (threadIdx.x % 2 == 0) {
+      dls[r] = s;
+      if (row < T) delta[(size_t)bh * T + row] = s;
+    }
+  }
+  // lse * log2(e) of this thread's rows g and g + 8 (0 past T)
+  float lg[2];
 #pragma unroll
-      for (int d = 0; d < DP; ++d) {
-        s = fmaf(qr[d], ks[j][d], s);
-        dp = fmaf(dor[d], vs[j][d], dp);
+  for (int h = 0; h < 2; ++h) {
+    const int row = wr0 + g + 8 * h;
+    lg[h] = row < T ? lse[(size_t)bh * T + row] * BWD_LOG2E : 0.f;
+  }
+  gmt_cp_async_wait<0>();
+  __syncthreads();
+
+  unsigned qa[P::KD][4], doa[P::KD][4];
+  ft_a_frags<P::KD, LD>(qa, qs, 16 * warp);
+  ft_a_frags<P::KD, LD>(doa, dos, 16 * warp);
+  const float dl[2] = {dls[16 * warp + g], dls[16 * warp + g + 8]};
+  const float sl2 = scale * BWD_LOG2E;
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t > 0) {
+      gmt_cp_async_wait<0>();
+      // tile t has landed for every thread, and every warp is past tile
+      // t - 1, whose stage the next copies refill
+      __syncthreads();
+    }
+    if (t + 1 < n_tiles) {
+      __nv_bfloat16* st = ring + ((t + 1) % 2) * 2 * TILE;
+      ft_load_tile<BKV, DP, BWD_THREADS>(st, kb, (t + 1) * BKV, T, D);
+      ft_load_tile<BKV, DP, BWD_THREADS>(st + TILE, vb, (t + 1) * BKV, T, D);
+      gmt_cp_async_commit();
+    }
+    const __nv_bfloat16* ks = ring + (t % 2) * 2 * TILE;
+    if ((t + 1) * BKV - 1 > q0)  // some key here lies past the block's first row
+      dq_tile<DP, true>(acc, qa, doa, ks, ks + TILE, t * BKV, wr0, T, sl2, lg, dl);
+    else
+      dq_tile<DP, false>(acc, qa, doa, ks, ks + TILE, t * BKV, wr0, T, sl2, lg, dl);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wr0 + g + 8 * h;
+    if (row >= T) continue;
+    float* dst = dq + base + (size_t)row * D + c;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      if (8 * n < D)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+  }
+}
+
+// D's work for one warp on one Q/dO tile (queries q0 ..): over each 16-query
+// chunk, P^T and dS^T of the warp's keys key0 .. key0 + 15 (rows kr0 of
+// the block's k and v tiles), then dV += P^T dO and dK += dS^T Q. EDGE: the
+// tile reaches before the block's last key (or past T), as in dq_tile.
+template <int DP, bool EDGE>
+__device__ __forceinline__ void dkv_tile(float (&dka)[DP / 8][4], float (&dva)[DP / 8][4],
+                                         unsigned (&ka)[DP / 16][4], unsigned (&va)[DP / 16][4],
+                                         const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                                         const __nv_bfloat16* qs, const __nv_bfloat16* dos,
+                                         const float* ls, const float* dls, int q0, int key0,
+                                         int kr0, int T, float sl2) {
+  using P = BwdPlan<DP>;
+  constexpr int KD = P::KD, LD = P::LD;
+  const int lane = threadIdx.x % 32, g = lane / 4, c = 2 * (lane % 4);
+#pragma unroll
+  for (int cc = 0; cc < P::SROWS / 16; ++cc) {
+    const int qc0 = q0 + 16 * cc;  // the chunk's first query
+    if (EDGE && (qc0 + 15 < key0 || qc0 >= T)) continue;
+    float s[2][4], dp[2][4];  // S^T and dP^T: (key, query)
+    if constexpr (DP > 64) ft_a_frags<KD, LD>(ka, ks, kr0);
+    ft_scores<KD, LD>(s, ka, qs, 16 * cc);
+    if constexpr (DP > 64) ft_a_frags<KD, LD>(va, vs, kr0);
+    ft_scores<KD, LD>(dp, va, dos, 16 * cc);
+    float p[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int qi = 16 * cc + 8 * j + c;  // the thread's first query of the half, in the tile
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + qi);
+      const float2 d2 = *reinterpret_cast<const float2*>(dls + qi);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float l = (e & 1) ? l2.y : l2.x, dl = (e & 1) ? d2.y : d2.x;
+        float pe = ft_exp2(fmaf(s[j][e], sl2, -l * BWD_LOG2E));
+        if (EDGE && q0 + qi + (e & 1) < key0 + g + 8 * (e / 2)) pe = 0.f;
+        p[j][e] = pe;
+        s[j][e] = pe * (dp[j][e] - dl);  // dS^T
       }
-      float p = expf(s * scale - l);
-      if (diag && k0 + j > row) p = 0.f;  // also masks keys >= T
-      const float ds = p * (dp - dl);
-#pragma unroll
-      for (int d = 0; d < DP; ++d) acc[d] = fmaf(ds, ks[j][d], acc[d]);
     }
-  }
-
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < DP; ++d)
-      if (d < D) dq[base + (size_t)row * D + d] = acc[d] * scale;
+    unsigned hi[4], lo[4];
+    ft_split(p, hi, lo);
+    ft_accum<DP, LD>(dva, hi, lo, dos, 16 * cc);
+    ft_split(s, hi, lo);
+    ft_accum<DP, LD>(dka, hi, lo, qs, 16 * cc);
   }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(BK_ROWS) flash_bwd_dkv_kernel(
+__global__ void __launch_bounds__(BWD_THREADS, BwdPlan<DP>::MINB_D) flash_bwd_dkv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int T, int D, float scale) {
-  __shared__ __align__(16) float qs[BK_QRYS][DP];
-  __shared__ __align__(16) float dos[BK_QRYS][DP];
-  __shared__ float ls[BK_QRYS];
-  __shared__ float dls[BK_QRYS];
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int T, int D, float scale) {
+  using P = BwdPlan<DP>;
+  constexpr int KD = P::KD, LD = P::LD, BQ = P::SROWS, TILE = P::STILE;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
+  __nv_bfloat16* vs = ks + BWD_ROWS * LD;
+  __nv_bfloat16* ring = vs + BWD_ROWS * LD;  // stage s: Q at ring + 2 s TILE, dO after it
+  float* rows = reinterpret_cast<float*>(ring + 4 * TILE);  // stage s: lse at rows + 2 s BQ, delta after
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK_ROWS;  // the first key tiles see the most queries
-  const int key = k0 + threadIdx.x;
-  const bool live = key < T;
+  const int k0 = blockIdx.x * BWD_ROWS;  // the first key tiles see the most queries
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = 2 * (lane % 4);
+  const int wk0 = k0 + 16 * warp;  // the warp's first key
   const size_t base = (size_t)bh * T * D;
+  const __nv_bfloat16* qb = q + base;
+  const __nv_bfloat16* dob = dout + base;
+  const float* lb = lse + (size_t)bh * T;
+  const float* db = delta + (size_t)bh * T;
+  const int n_tiles = (T - k0 + BQ - 1) / BQ;  // queries before k0 see none of these keys
 
-  float kr[DP], vr[DP], dka[DP], dva[DP];
+  ft_load_tile<BWD_ROWS, DP, BWD_THREADS>(ks, k + base, k0, T, D);
+  ft_load_tile<BWD_ROWS, DP, BWD_THREADS>(vs, v + base, k0, T, D);
+  ft_load_tile<BQ, DP, BWD_THREADS>(ring, qb, k0, T, D);
+  ft_load_tile<BQ, DP, BWD_THREADS>(ring + TILE, dob, k0, T, D);
+  ft_load_row<BQ, BWD_THREADS>(rows, lb, k0, T);
+  ft_load_row<BQ, BWD_THREADS>(rows + BQ, db, k0, T);
+  gmt_cp_async_commit();
+  gmt_cp_async_wait<0>();
+  __syncthreads();
+
+  unsigned ka[KD][4], va[KD][4];  // at DP > 64 re-read each chunk (registers)
+  if constexpr (DP <= 64) {
+    ft_a_frags<KD, LD>(ka, ks, 16 * warp);
+    ft_a_frags<KD, LD>(va, vs, 16 * warp);
+  }
+  const float sl2 = scale * BWD_LOG2E;
+  float dka[DP / 8][4], dva[DP / 8][4];
 #pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    const bool in = live && d < D;
-    const size_t off = base + (size_t)key * D + d;
-    kr[d] = in ? __bfloat162float(k[off]) : 0.f;
-    vr[d] = in ? __bfloat162float(v[off]) : 0.f;
-    dka[d] = 0.f;
-    dva[d] = 0.f;
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t > 0) {
+      gmt_cp_async_wait<0>();
+      __syncthreads();  // as in E
+    }
+    if (t + 1 < n_tiles) {
+      const int nq0 = k0 + (t + 1) * BQ;
+      __nv_bfloat16* st = ring + ((t + 1) % 2) * 2 * TILE;
+      float* sr = rows + ((t + 1) % 2) * 2 * BQ;
+      ft_load_tile<BQ, DP, BWD_THREADS>(st, qb, nq0, T, D);
+      ft_load_tile<BQ, DP, BWD_THREADS>(st + TILE, dob, nq0, T, D);
+      ft_load_row<BQ, BWD_THREADS>(sr, lb, nq0, T);
+      ft_load_row<BQ, BWD_THREADS>(sr + BQ, db, nq0, T);
+      gmt_cp_async_commit();
+    }
+    const int q0 = k0 + t * BQ;
+    const __nv_bfloat16* qs = ring + (t % 2) * 2 * TILE;
+    const float* ls = rows + (t % 2) * 2 * BQ;
+    // some query here precedes the block's last key, or lies past T
+    if (q0 < k0 + BWD_ROWS - 1 || q0 + BQ > T)
+      dkv_tile<DP, true>(dka, dva, ka, va, ks, vs, qs, qs + TILE, ls, ls + BQ, q0, wk0,
+                         16 * warp, T, sl2);
+    else
+      dkv_tile<DP, false>(dka, dva, ka, va, ks, vs, qs, qs + TILE, ls, ls + BQ, q0, wk0,
+                          16 * warp, T, sl2);
   }
 
-  // queries before k0 see none of this block's keys
-  for (int q0 = k0; q0 < T; q0 += BK_QRYS) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < BK_QRYS * DP; i += BK_ROWS) {
-      const int r = i / DP, c = i % DP;
-      const bool in = q0 + r < T && c < D;
-      const size_t off = base + (size_t)(q0 + r) * D + c;
-      qs[r][c] = in ? __bfloat162float(q[off]) : 0.f;
-      dos[r][c] = in ? __bfloat162float(dout[off]) : 0.f;
-    }
-    if (threadIdx.x < BK_QRYS) {
-      const bool in = q0 + threadIdx.x < T;
-      ls[threadIdx.x] = in ? lse[(size_t)bh * T + q0 + threadIdx.x] : 0.f;
-      dls[threadIdx.x] = in ? delta[(size_t)bh * T + q0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-
-    const bool diag = q0 < k0 + BK_ROWS - 1;  // some query here precedes some key
-#pragma unroll(DP <= 32 ? BK_QRYS : 1)
-    for (int j = 0; j < BK_QRYS; ++j) {
-      float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < DP; ++d) {
-        s = fmaf(kr[d], qs[j][d], s);
-        dp = fmaf(vr[d], dos[j][d], dp);
-      }
-      float p = expf(s * scale - ls[j]);
-      if (diag && q0 + j < key) p = 0.f;
-      // a query row past T has qs = dos = 0 (and ls = dls = 0): p = 1 and
-      // ds = 0 there, so it adds exactly 0 below
-      const float ds = p * (dp - dls[j]);
+  for (int h = 0; h < 2; ++h) {
+    const int key = wk0 + g + 8 * h;
+    if (key >= T) continue;
+    float* dkr = dk + base + (size_t)key * D + c;
+    float* dvr = dv + base + (size_t)key * D + c;
 #pragma unroll
-      for (int d = 0; d < DP; ++d) {
-        dva[d] = fmaf(p, dos[j][d], dva[d]);
-        dka[d] = fmaf(ds, qs[j][d], dka[d]);
+    for (int n = 0; n < DP / 8; ++n)
+      if (8 * n < D) {
+        *reinterpret_cast<float2*>(dkr + 8 * n) =
+            make_float2(dka[n][2 * h] * scale, dka[n][2 * h + 1] * scale);
+        *reinterpret_cast<float2*>(dvr + 8 * n) = make_float2(dva[n][2 * h], dva[n][2 * h + 1]);
       }
-    }
-  }
-
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < DP; ++d) {
-      if (d < D) {
-        dk[base + (size_t)key * D + d] = dka[d] * scale;
-        dv[base + (size_t)key * D + d] = dva[d];
-      }
-    }
   }
 }
 
-// launch KERNEL<DP> for the smallest bucket DP >= D
-#define GMT_DISPATCH_D(KERNEL, GRID, BLOCK, STREAM, ...)                     \
-  do {                                                                       \
-    if (D <= 8)                                                              \
-      KERNEL<8><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__);                    \
-    else if (D <= 16)                                                        \
-      KERNEL<16><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__);                   \
-    else if (D <= 32)                                                        \
-      KERNEL<32><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__);                   \
-    else if (D <= 64)                                                        \
-      KERNEL<64><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__);                   \
-    else                                                                     \
-      KERNEL<128><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__);                  \
-  } while (0)
+template <int DP>
+int launch_dq(int BH, cudaStream_t stream, const __nv_bfloat16* q, const __nv_bfloat16* k,
+              const __nv_bfloat16* v, const float* o, const __nv_bfloat16* dout, const float* lse,
+              float* delta, float* dq, int T, int D, float scale) {
+  constexpr size_t smem = BwdPlan<DP>::DQ_SMEM;
+  const cudaError_t e = gmt_allow_smem(flash_bwd_dq_kernel<DP>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((T + BWD_ROWS - 1) / BWD_ROWS, BH);
+  flash_bwd_dq_kernel<DP><<<grid, BWD_THREADS, smem, stream>>>(q, k, v, o, dout, lse, delta, dq,
+                                                               T, D, scale);
+  return cudaGetLastError();
+}
 
-// E: dq (BH, T, D) and delta (BH, T), both f32. Launch before D.
+template <int DP>
+int launch_dkv(int BH, cudaStream_t stream, const __nv_bfloat16* q, const __nv_bfloat16* k,
+               const __nv_bfloat16* v, const __nv_bfloat16* dout, const float* lse,
+               const float* delta, float* dk, float* dv, int T, int D, float scale) {
+  constexpr size_t smem = BwdPlan<DP>::DKV_SMEM;
+  const cudaError_t e = gmt_allow_smem(flash_bwd_dkv_kernel<DP>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((T + BWD_ROWS - 1) / BWD_ROWS, BH);
+  flash_bwd_dkv_kernel<DP><<<grid, BWD_THREADS, smem, stream>>>(q, k, v, dout, lse, delta, dk,
+                                                                dv, T, D, scale);
+  return cudaGetLastError();
+}
+
+// E: dq (BH, T, D) and delta (BH, T), both f32. Launch before D. D is padded
+// to the smallest bucket >= D.
 extern "C" int gmt_flash_bwd_dq(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                 const __nv_bfloat16* v, const float* o,
                                 const __nv_bfloat16* dout, const float* lse,
                                 float* delta, float* dq, int BH, int T, int D,
                                 float scale, cudaStream_t stream) {
-  const dim3 grid((T + BQ_ROWS - 1) / BQ_ROWS, BH);
-  GMT_DISPATCH_D(flash_bwd_dq_kernel, grid, BQ_ROWS, stream, q, k, v, o, dout, lse,
-                 delta, dq, T, D, scale);
-  return cudaGetLastError();
+  auto go = D <= 16 ? launch_dq<16> : D <= 32 ? launch_dq<32> : D <= 64 ? launch_dq<64>
+                                                                         : launch_dq<128>;
+  return go(BH, stream, q, k, v, o, dout, lse, delta, dq, T, D, scale);
 }
 
 // D: dk, dv (BH, T, D) f32, from the delta that E wrote.
@@ -232,8 +416,7 @@ extern "C" int gmt_flash_bwd_dkv(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                  const float* lse, const float* delta, float* dk,
                                  float* dv, int BH, int T, int D, float scale,
                                  cudaStream_t stream) {
-  const dim3 grid((T + BK_ROWS - 1) / BK_ROWS, BH);
-  GMT_DISPATCH_D(flash_bwd_dkv_kernel, grid, BK_ROWS, stream, q, k, v, dout, lse,
-                 delta, dk, dv, T, D, scale);
-  return cudaGetLastError();
+  auto go = D <= 16 ? launch_dkv<16> : D <= 32 ? launch_dkv<32> : D <= 64 ? launch_dkv<64>
+                                                                           : launch_dkv<128>;
+  return go(BH, stream, q, k, v, dout, lse, delta, dk, dv, T, D, scale);
 }

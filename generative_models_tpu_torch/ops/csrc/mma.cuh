@@ -1,5 +1,5 @@
 // Tensor-core and copy helpers shared by the port's kernels, for sm_90a:
-// cp.async (global -> shared, 16 bytes, zero-filled when out of range),
+// cp.async (global -> shared, 16 or 4 bytes, zero-filled when out of range),
 // ldmatrix (8x8 bf16 tiles from shared memory into mma fragments) and
 // mma.sync m16n8k16 on bf16 with f32 accumulation.
 //
@@ -26,6 +26,14 @@ __device__ __forceinline__ unsigned gmt_smem_addr(const void* p) {
 __device__ __forceinline__ void gmt_cp_async16(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(gmt_smem_addr(dst)),
                "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously, zero-filled when !pred (for
+// f32 rows that are not 16-byte aligned)
+__device__ __forceinline__ void gmt_cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(gmt_smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
                : "memory");
 }
 

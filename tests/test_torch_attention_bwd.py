@@ -96,6 +96,18 @@ def test_function_keeps_input_dtypes_and_lse_has_no_grad():
     assert qt.grad.dtype == kt.grad.dtype == vt.grad.dtype == torch.float64
 
 
+def test_backward_wrappers_copy_a_view_off_16_bytes():
+    """Kernels D and E read rows 16 bytes at a time: their wrappers hand
+    them a copy of an operand whose data starts off a 16-byte boundary (a
+    view at an odd offset) and the operand itself otherwise."""
+    u = torch.arange(65, dtype=torch.float32).to(torch.bfloat16)[1:].view(1, 1, 8, 8)
+    assert u.is_contiguous() and u.data_ptr() % 16 == 2
+    a = tat._aligned16(u)
+    assert a.data_ptr() % 16 == 0 and torch.equal(a, u)
+    w = torch.zeros((1, 1, 8, 8), dtype=torch.bfloat16)
+    assert w.data_ptr() % 16 == 0 and tat._aligned16(w) is w
+
+
 @pytest.mark.parametrize('fn', ['flash_bwd_dq', 'flash_bwd_dkv'])
 def test_backward_kernel_wrappers_refuse_tensors_off_the_cpu(fn):
     u = torch.zeros((1, 1, 8, 8), device='meta')
@@ -103,3 +115,42 @@ def test_backward_kernel_wrappers_refuse_tensors_off_the_cpu(fn):
     args = (u, u, u, u, row, u) if fn == 'flash_bwd_dq' else (u, u, u, u, row, row)
     with pytest.raises(ValueError, match='CUDA tensor'):
         getattr(tat, fn)(*args)
+
+
+def _pair_or_once_bwd(q, k, v, o, lse, do, pair):
+    """The plain backward (through _bwd_scores) with P and dS rounded to
+    bf16 before the dQ/dK/dV products: once (pair=False, the TPU kernel's
+    rounding) or carried as hi = bf16(x), lo = bf16(x - hi) with both
+    products summed in f32 (pair=True, Kernels D and E)."""
+    bf = torch.bfloat16
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    delta = (do.to(bf).float() * o).sum(-1)
+    p, ds, qf, kf, dof = tat._bwd_scores(q, k, v, lse, do, delta, bf)
+
+    def times(x, y):
+        hi = x.to(bf).float()
+        return hi @ y + (x - hi).to(bf).float() @ y if pair else hi @ y
+
+    pt, dst = p.transpose(-1, -2), ds.transpose(-1, -2)
+    return times(ds, kf) * scale, times(dst, qf) * scale, times(pt, dof)
+
+
+@pytest.mark.parametrize('pair', [True, False])
+def test_p_and_ds_as_bf16_pairs_hold_the_plain_backward(pair):
+    """Why Kernels D and E split P and dS: at pixel_transformer's T=784 and
+    D=32, with bf16-valued inputs, the hi/lo pair keeps every gradient
+    within the chip check's atol 1e-4 + rtol 1e-3 of the plain backward
+    (P and dS in f32), and rounding P and dS to bf16 once does not."""
+    bf = torch.bfloat16
+    rng = np.random.RandomState(5)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 4, 784, 32).astype(np.float32)).to(bf).float()
+                   for _ in range(4))
+    o, lse = tat.causal_attention_plain(q, k, v, dtype=bf)
+    ref = tat.causal_attention_bwd_plain(q, k, v, o, lse, do, dtype=bf)
+    got = _pair_or_once_bwd(q, k, v, o, lse, do, pair)
+    outside = [int(((g - r).abs() > GRAD_TOL['atol'] + GRAD_TOL['rtol'] * r.abs()).sum())
+               for g, r in zip(got, ref)]
+    if pair:
+        assert outside == [0, 0, 0]
+    else:
+        assert min(outside) > 1000, outside

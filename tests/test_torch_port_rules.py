@@ -79,6 +79,44 @@ def test_kernel_sources_call_no_library_gemm():
         assert '#include "stream_gemm.cuh"' in src and 'sg_gemm<' in src and kernel in src
 
 
+def test_flash_backward_multiplies_on_the_tensor_cores():
+    """Kernels E and D (attention_bwd.cu) compute every product with
+    mma.sync on bf16 fragments through flash_tiles.cuh's warp routines
+    (S and dP by ft_scores, dQ, dV and dK by ft_accum with P and dS split
+    into hi/lo pairs); no f32 tile is staged for an FMA product loop."""
+    csrc = PORT / 'ops' / 'csrc'
+    src = (csrc / 'attention_bwd.cu').read_text()
+    tiles = (csrc / 'flash_tiles.cuh').read_text()
+    assert '#include "flash_tiles.cuh"' in src and '#include "mma.cuh"' in tiles
+    assert src.count('ft_scores<') == 4 and src.count('ft_accum<') == 3
+    assert src.count('ft_split(') == 3 and 'gmt_mma_bf16' not in src
+    assert tiles.count('gmt_mma_bf16(') == 6 and 'gmt_ldmatrix_x4_trans' in tiles
+    assert '__shared__ __align__(16) float' not in src
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    """chip_smoke.py's build phase reads each entry function's registers
+    and spills from nvcc -Xptxas -v (and fails where E or D spill at
+    D=32)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    log = (
+        "ptxas info    : Compiling entry function '_Z19flash_bwd_dq_kernelILi32EEvPKf' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z19flash_bwd_dq_kernelILi32EEvPKf\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 80 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z3fooILi128EEv' for 'sm_90a'\n"
+        "    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers, 8 bytes cumulative stack size\n"
+    )
+    assert chip_smoke.ptxas_report(log) == {
+        '_Z19flash_bwd_dq_kernelILi32EEvPKf': dict(registers=80, spill_stores=0, spill_loads=0),
+        '_Z3fooILi128EEv': dict(registers=255, spill_stores=8, spill_loads=12),
+    }
+
+
 def test_serve_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp_path):
     from generative_models_tpu_torch import serve
 
