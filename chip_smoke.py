@@ -10,8 +10,9 @@ failure exits non-zero before the result lines:
                 power limit.
   2. build   -- compile ops/csrc/*.cu (one nvcc per source, in parallel)
                 and print the build seconds and ptxas's registers and
-                spills of every entry function (Kernels E and D's by D
-                bucket also in the kernels line).
+                spills of every entry function (Kernels C, E and D's by D
+                bucket and H's by its VEC flag also in the kernels line;
+                fails where C, E or D spill at D=32 or H spills).
   3. kernels -- hold each kernel against its plain PyTorch version on the
                 card at the main paths' shapes (pixel_transformer's,
                 vqvae's and made's at hidden_size=2048), with seeded inputs
@@ -20,10 +21,12 @@ failure exits non-zero before the result lines:
                 off its mask, and Kernel I (int8 x int8 -> int32) bitwise
                 equal; I and J (the dequantizing product) at every product
                 of the quantized serving paths and at four ragged shapes,
-                G at six ragged ones (both layouts), G and J launched twice
-                and bitwise equal; E and D (the flash backward) at the
-                three attention shapes and nine edge cases of their tiling,
-                each launched twice and bitwise equal;
+                G at six ragged ones (both layouts), H at five (K 1 to 200,
+                an x at an odd offset), G, H and J launched twice and
+                bitwise equal; C (the flash forward) and E and D (the
+                backward) at the three attention shapes and nine edge
+                cases of their tiling, each launched twice and bitwise
+                equal;
                 the ring's hop Kernels K, L and M on rings of 2, 4 and 8 at
                 their first hop and at a carry hop, and the whole ring at 4
                 and 8 against Kernels C, E and D on the full sequence.
@@ -274,26 +277,39 @@ def ptxas_report(text):
 
 def phase_build():
     """Builds every kernel source; logs ptxas's registers and spills of
-    each entry function. Returns Kernels E and D's reports by bucket, as
-    {'flash_bwd_dq': {'DP=32': {...}, ...}, 'flash_bwd_dkv': {...}}, and
-    raises if either spills at D=32."""
+    each entry function. Returns the reports of the kernels redesigned for
+    the tensor cores, Kernels C, E and D by D bucket and H by its VEC flag,
+    as {'causal_attention_fwd': {'DP=32': {...}, ...}, 'flash_bwd_dq': ...,
+    'flash_bwd_dkv': ..., 'mask_out_matmul': {'VEC=1': {...}, 'VEC=0':
+    {...}}}, and raises if C, E or D spill at D=32 (every path's width) or
+    H spills at all."""
     from generative_models_tpu_torch.ops.common import BUILD_DIR, KERNEL_SOURCES, build_kernels
 
     t0 = time.time()
     build_kernels()
     log(f'[build] {len(KERNEL_SOURCES)} sources in {time.time() - t0:.1f}s -> {BUILD_DIR}')
-    bwd = {'flash_bwd_dq': {}, 'flash_bwd_dkv': {}}
+    # (library, mangled kernel name, wrapper): the template argument is the
+    # D bucket (C, E, D) or the VEC flag (H)
+    watched = (('attention', 'flash_fwd_kernelILi', 'causal_attention_fwd'),
+               ('attention_bwd', 'flash_bwd_dq_kernelILi', 'flash_bwd_dq'),
+               ('attention_bwd', 'flash_bwd_dkv_kernelILi', 'flash_bwd_dkv'),
+               ('masked_dense', 'mask_out_matmul_kernelILb', 'mask_out_matmul'))
+    reps = {name: {} for _, _, name in watched}
     for p in sorted(BUILD_DIR.glob('*.log')):
         for fn, rep in ptxas_report(p.read_text()).items():
             log(f'[build] {p.stem}: {fn}: {json.dumps(rep)}')
-            m = re.match(r'_Z\d+(flash_bwd_dq|flash_bwd_dkv)_kernelILi(\d+)E', fn)
-            if m and p.stem.startswith('libattention_bwd-'):
-                bwd[m.group(1)][f'DP={m.group(2)}'] = rep
-    for name, reps in bwd.items():
-        log(f'[build] {name} ptxas {json.dumps(reps)}')
-        if reps['DP=32'].get('spill_stores', 0):  # every path's width
-            raise AssertionError(f'{name} spills at D=32: {reps["DP=32"]}')
-    return bwd
+            for lib, mangled, name in watched:
+                m = re.match(rf'_Z\d+{mangled}(\d+)E', fn)
+                if m and p.stem.startswith(f'lib{lib}-'):
+                    key = 'VEC' if name == 'mask_out_matmul' else 'DP'
+                    reps[name][f'{key}={m.group(1)}'] = rep
+    for name, rep in reps.items():
+        log(f'[build] {name} ptxas {json.dumps(rep)}')
+        held = rep.items() if name == 'mask_out_matmul' else [('DP=32', rep['DP=32'])]
+        for key, r in held:
+            if r.get('spill_stores', 0):
+                raise AssertionError(f'{name} spills at {key}: {r}')
+    return reps
 
 
 def phase_kernels(dev):
@@ -303,8 +319,8 @@ def phase_kernels(dev):
     import torch.nn.functional as F
 
     from generative_models_tpu_torch.ops.attention import (
-        causal_attention_fwd, causal_attention_plain, flash_bwd_dkv,
-        flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
+        causal_attention_fwd, flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq,
+        flash_bwd_dq_plain,
     )
     from generative_models_tpu_torch.ops.decode_fused import (
         block_tail, block_tail_plain, ln_matmul, ln_matmul_plain,
@@ -359,36 +375,7 @@ def phase_kernels(dev):
             ),
         ))
 
-    # Kernel C vs the dense plain version on the same bf16 operands, both in
-    # f32: rtol 2e-4 / atol 2e-5, the JAX package's flash-vs-dense
-    # tolerance (sums in another order, exp/log implementations differ).
-    tol_attn = dict(atol=2e-5, rtol=2e-4)
-    attn_shapes = (((64, 4, 784, 32), 148, 'pixel_transformer'),
-                   ((1, 4, 2048, 32), 312, 'long T'), ((64, 8, 49, 32), 148, 'vqvae'))
-    for (Bq, Hq, T, D), replaces, path in attn_shapes:
-        q, k, v = (f32(Bq, Hq, T, D).to(bf) for _ in range(3))
-        o, lse = causal_attention_fwd(q, k, v)
-        o_ref, lse_ref = causal_attention_plain(q, k, v, dtype=bf)
-        err = max(
-            compare(f'attention o {(Bq, Hq, T, D)}', o, o_ref, **tol_attn),
-            compare(f'attention lse {(Bq, Hq, T, D)}', lse, lse_ref, **tol_attn),
-        )
-        del o_ref, lse_ref
-        BH = Bq * Hq
-        nbytes = 3 * BH * T * D * 2 + BH * T * D * 4 + BH * T * 4
-        flops = 4 * D * BH * T * (T + 1) // 2  # QK^T and PV over live pairs
-        bms, by = bound(nbytes, flops)
-        cases['causal_attention_fwd'].append(dict(
-            shape=f'(B={Bq},H={Hq},T={T},D={D})', path=path, replaces_line=replaces,
-            max_abs_err=err, **tol_attn, bound_ms=bms, bound_by=by,
-            **timings(
-                lambda: causal_attention_fwd(q, k, v),
-                lambda: causal_attention_plain(q, k, v, dtype=bf),
-                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-                iters=10 if T > 64 else 100,
-            ),
-        ))
-        torch.cuda.empty_cache()
+    cases['causal_attention_fwd'] = flash_fwd_cases(f32, dev)
 
     # Kernels E (dQ, delta) and D (dK, dV) vs the dense plain backward on the
     # same bf16 operands, P and dS in f32 in the plain version (the kernels
@@ -492,6 +479,59 @@ def phase_kernels(dev):
         for c in cs:
             log(f'[kernels] {name} {json.dumps(c)}')
     return cases, ring
+
+
+def flash_fwd_cases(f32, dev):
+    """Kernel C vs the dense plain version on the same bf16 operands, both
+    in f32: atol 2e-5 + rtol 2e-4, the JAX package's flash-vs-dense
+    tolerance (sums in another order, exp/log implementations differ; C
+    carries P into P v as a bf16 hi/lo pair, the plain version keeps it in
+    f32). At the three attention shapes of the main paths, timed, and at
+    untimed edge cases of the tiling (64-row blocks, 16-key chunks, D
+    padded to 16, 32, 64 or 128) at a small B*H. Every case launches C
+    twice on the same inputs, and the two must be bitwise equal (no
+    atomics, fixed sum order). library_ms: scaled_dot_product_attention's
+    forward; ms_l2_cold at the path shape: C with L2 flushed before it."""
+    import torch.nn.functional as F
+
+    from generative_models_tpu_torch.ops.attention import (
+        causal_attention_fwd, causal_attention_plain,
+    )
+
+    tol = dict(atol=2e-5, rtol=2e-4)
+    bf, out = torch.bfloat16, []
+    flush = torch.empty(64 << 20, device=dev)  # 256 MB of f32
+    shapes = ([((64, 4, 784, 32), 148, 'pixel_transformer'), ((1, 4, 2048, 32), 312, 'long T'),
+               ((64, 8, 49, 32), 148, 'vqvae')]
+              + [((2, 3, T, 32), None, 'edge') for T in (1, 63, 65, 130)]
+              + [((2, 3, 200, D), None, 'edge') for D in (8, 16, 24, 64, 128)])
+    for (Bq, Hq, T, D), replaces, path in shapes:
+        q, k, v = (f32(Bq, Hq, T, D).to(bf) for _ in range(3))
+        shape = f'(B={Bq},H={Hq},T={T},D={D})'
+        o, lse = _twice_bitwise(f'causal_attention_fwd {shape}',
+                                lambda: causal_attention_fwd(q, k, v))
+        o_ref, lse_ref = causal_attention_plain(q, k, v, dtype=bf)
+        err = max(compare(f'attention o {shape}', o, o_ref, **tol),
+                  compare(f'attention lse {shape}', lse, lse_ref, **tol))
+        del o_ref, lse_ref
+        case = dict(shape=shape, path=path, max_abs_err=err, **tol, bitwise_twice=True)
+        if path != 'edge':
+            BH = Bq * Hq
+            nbytes = 3 * BH * T * D * 2 + BH * T * D * 4 + BH * T * 4
+            flops = 4 * D * BH * T * (T + 1) // 2  # QK^T and PV over live pairs
+            bms, by = bound(nbytes, flops)
+            kern = lambda: causal_attention_fwd(q, k, v)
+            if path == 'pixel_transformer':
+                case['ms_l2_cold'] = l2_cold_ms(kern, 'flash_fwd_kernel', flush)
+            case.update(replaces_line=replaces, bound_ms=bms, bound_by=by, **timings(
+                kern, lambda: causal_attention_plain(q, k, v, dtype=bf),
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                iters=10 if T > 64 else 100,
+            ))
+        out.append(case)
+        torch.cuda.empty_cache()
+    del flush
+    return out
 
 
 def _live_pairs(n, Tl, hop):
@@ -709,7 +749,11 @@ def made_cases(f32, dev):
     product the premasked route pays for instead. ms_l2_cold: the kernel's
     device time with L2 flushed before each launch, as in a made request,
     whose four layers' weights and masks do not fit in L2 together, against
-    ms, where the one layer's operands stay in L2 across the iterations."""
+    ms, where the one layer's operands stay in L2 across the iterations.
+    H launches twice on the same inputs and must be bitwise equal too, and
+    is checked untimed at ragged shapes and odd K. library_f32_out_ms for
+    H: torch.mm with an f32 result, where this PyTorch offers it
+    (torch.matmul on bf16 writes a bf16 dW, half of H's bytes)."""
     from generative_models_tpu_torch.models.made import create_made_masks
     from generative_models_tpu_torch.ops.masked_dense import (
         mask_out_matmul, mask_out_matmul_plain, masked_matmul, masked_matmul_plain,
@@ -765,25 +809,55 @@ def made_cases(f32, dev):
         m = masks[layer]
         K, N = m.shape
         x, g = f32(B, K), f32(B, N)
-        got = mask_out_matmul(x, g, m)
-        err = compare(f'mask_out_matmul layer {layer}', got, mask_out_matmul_plain(x.t(), g, m),
-                      **tol)
+        shape = f'dW x^T ({K},{B}) x g ({B},{N}), x read as (K, M)'
+        kern = lambda: mask_out_matmul(x, g, m)
+        got = _twice_bitwise(f'mask_out_matmul {shape}', kern)
+        err = compare(f'mask_out_matmul {shape}', got, mask_out_matmul_plain(x.t(), g, m), **tol)
         if got[m == 0].any():
-            raise AssertionError(f'mask_out_matmul layer {layer}: non-zero off the mask')
+            raise AssertionError(f'mask_out_matmul {shape}: non-zero off the mask')
         xb, gb = x.to(bf), g.to(bf)
         bms, by = bound(4 * B * K + 4 * B * N + 5 * K * N, 2 * K * B * N)
-        kern = lambda: mask_out_matmul(x, g, m)
         h_cases.append(dict(
-            shape=f'dW x^T ({K},{B}) x g ({B},{N}), x read as (K, M)', path='made',
-            layer=layer, max_abs_err=err, **tol, exact_zero_off_mask=True,
-            bound_ms=bms, bound_by=by, library_covers='torch.matmul, bf16 operands, unmasked',
+            shape=shape, path='made', layer=layer, max_abs_err=err, **tol,
+            exact_zero_off_mask=True, bitwise_twice=True, bound_ms=bms, bound_by=by,
+            library_covers='torch.matmul, bf16 operands, unmasked, a bf16 result',
             ms_l2_cold=l2_cold_ms(kern, 'mask_out_matmul_kernel', flush),
+            library_f32_out_ms=_f32_out_mm_ms(xb, gb),
             **timings(kern, lambda: mask_out_matmul_plain(x.t(), g, m),
                       lambda: torch.matmul(xb.t(), gb)),
         ))
+    # H untimed where the tile is ragged (M not a multiple of 64, N of 128),
+    # at K = 1, 10, 37 and 200 (one and four 64-deep chunks), with random
+    # {0, 1} masks; M not a multiple of 4 or N of 16, and x a view at an odd
+    # offset (4 bytes past a 16-byte boundary), take the plain-load route
+    for M, K, N, odd in ((200, 37, 130, False), (784, 10, 784, False), (64, 1, 2048, False),
+                         (300, 200, 272, False), (784, 64, 2048, True)):
+        m = torch.tensor(rng.rand(M, N) < 0.5, device=dev).to(torch.uint8)
+        x = f32(K * M + 1)[1:].view(K, M) if odd else f32(K, M)
+        g = f32(K, N)
+        shape = f'ragged dW x^T ({M},{K}) x g ({K},{N}){", x at an odd offset" if odd else ""}'
+        got = _twice_bitwise(f'mask_out_matmul {shape}', lambda: mask_out_matmul(x, g, m))
+        err = compare(f'mask_out_matmul {shape}', got, mask_out_matmul_plain(x.t(), g, m), **tol)
+        if got[m == 0].any():
+            raise AssertionError(f'mask_out_matmul {shape}: non-zero off the mask')
+        h_cases.append(dict(shape=shape, path='ragged', max_abs_err=err, **tol,
+                            exact_zero_off_mask=True, bitwise_twice=True))
     del flush
     torch.cuda.empty_cache()
     return g_cases, h_cases
+
+
+def _f32_out_mm_ms(xb, gb):
+    """Device ms of torch.mm(xb^T, gb, out_dtype=torch.float32): bf16
+    operands and the f32 result that H writes, the library's own product
+    with H's output bytes, where this PyTorch's mm takes out_dtype (it is
+    timed, never used by the port); else None."""
+    try:
+        torch.mm(xb.t(), gb, out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as e:
+        log(f'[kernels] torch.mm(..., out_dtype=torch.float32) is not available here: {e}')
+        return None
+    return device_ms(lambda: torch.mm(xb.t(), gb, out_dtype=torch.float32), 200)
 
 
 def int8_cases(rng, dev):
@@ -1808,6 +1882,8 @@ def main():
             eager_ms=main_case['eager_ms'],
             plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
             bound_by=main_case['bound_by'], library_ms=main_case['library_ms'],
+            **{key: main_case[key] for key in ('ms_l2_cold', 'library_f32_out_ms')
+               if key in main_case},
             **({'ptxas': ptxas[name]} if name in ptxas else {}), cases=cs,
         ))
     lat = sorted(sl['latencies'])

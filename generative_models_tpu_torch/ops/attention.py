@@ -3,10 +3,15 @@
 Counterpart of generative_models_tpu/ops/attention.py:
 
   causal_attention_fwd   -- Kernel C (ops/csrc/attention.cu), the causal
-                            flash-attention forward: one block per (bh, query
-                            tile), online softmax, o and the row logsumexp.
-                            One kernel for every T: the TPU's static/streamed
-                            split (_plan) came from its VMEM budget.
+                            flash-attention forward: o and the row logsumexp,
+                            one block per (bh, query tile), on the tensor
+                            cores (mma.sync) with the online softmax in log2
+                            units and P carried into P v as a bf16 hi/lo
+                            pair, built like E from ops/csrc/flash_tiles.cuh
+                            (0.097 ms at (64,4,784,32) on an H100, 1.1x SDPA's
+                            forward: PERF.md section 6). One kernel for every
+                            T: the TPU's static/streamed split (_plan) came
+                            from its VMEM budget.
   flash_bwd_dq           -- Kernel E (ops/csrc/attention_bwd.cu): dQ, and
                             delta = rowsum(dO * o), one block per (bh, query
                             tile), on the tensor cores (mma.sync) with P and
@@ -62,8 +67,9 @@ def causal_attention_plain(q, k, v, dtype=torch.float32):
 
 def causal_attention_fwd(q, k, v):
     """Kernel C. q, k, v: (B, H, T, D), bf16 and contiguous on the card ->
-    (o (B, H, T, D) f32, lse (B, H, T) f32). D must be a multiple of 8 up to
-    128. CPU tensors take causal_attention_plain in f32."""
+    (o (B, H, T, D) f32, lse (B, H, T) f32, lse in natural units). D must
+    be a multiple of 8 up to 128. CPU tensors take causal_attention_plain
+    in f32."""
     if q.device.type == 'cpu':
         return causal_attention_plain(q, k, v)
     B, H, T, D = q.shape
@@ -73,6 +79,7 @@ def causal_attention_fwd(q, k, v):
         raise ValueError(f'causal_attention_fwd: D={D} must be a multiple of 8 in [8, 128]')
     if B * H > 65535:
         raise ValueError(f'causal_attention_fwd: B*H={B * H} exceeds the grid limit 65535')
+    q, k, v = map(_aligned16, (q, k, v))
     o = torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if B * H and T:
@@ -138,7 +145,7 @@ def _check_bwd(name, q, k, v, do, lse):
 
 def _aligned16(u):
     """u, or a copy of it where its data does not start on 16 bytes (a view
-    at an odd offset): Kernels D and E read rows 16 bytes at a time."""
+    at an odd offset): Kernels C, D and E read rows 16 bytes at a time."""
     return u if u.data_ptr() % 16 == 0 else u.clone()
 
 

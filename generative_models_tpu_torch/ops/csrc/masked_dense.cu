@@ -44,171 +44,47 @@
 // (64,2048)x(2048,2048) with L2 warm, 178.0 us with it flushed, 40.21 us at
 // 784->2048, 99.37 us at 2048->784, 95.37 us for dX.
 //
-// H (unchanged, the first design; f32 FMA from shared memory): at (2048, 64)
-// x (64, 2048) it writes a 16.8 MB f32 dW and reads the 4.2 MB mask.
-//   * one block owns a 32 x 32 output tile, so at M=64 a (64, 2048) output
-//     is 128 blocks on the 132 SMs; its 256 threads are four K-groups of 64,
-//     each thread holding a 4 x 4 sub-tile of the group's partial sums over
-//     a quarter of every K chunk;
-//   * K streams through shared memory in 64-deep chunks; the next chunk's
-//     global loads are issued into registers before the current chunk's
-//     FMAs, so their latency overlaps the arithmetic;
-//   * at the end the four groups' partial sums meet in shared memory and
-//     are added in a fixed order (group 0 + 1 + 2 + 3): no atomics, and the
-//     result is bitwise the same from run to run;
-//   * consecutive threads load consecutive addresses in every layout
-//     (along K for row-major A and for B read as (N, K), along M or N
-//     otherwise), and the output is stored a row of 32 floats at a time.
-// Rows past M, columns past N and depth past K are masked in the kernels;
-// nothing is padded.
+// What bounds H on an H100: bytes written. At (2048, 64) x (64, 2048) it
+// writes a 16.8 MB f32 dW and reads the 4.2 MB mask and 1 MB of f32 x and g:
+// 6.57 us at 3.35 TB/s, against 0.54 GFLOP (0.54 us at the bf16 tensor-core
+// peak, but 8.0 us at the f32 CUDA-core rate). H is an output-tile kernel
+// (stream_gemm.cuh streams a long K against few rows; H is the opposite
+// shape, a short K against a wide output):
+//   * a block owns a 64 x 128 tile of dW (512 blocks at 2048x2048, 208 at
+//     784x2048), eight warps of 32 x 32 accumulator fragments each;
+//   * the tile's mask comes in by 16-byte cp.async as soon as the block
+//     starts and lands while the products run;
+//   * K is staged 64 deep at a time (the whole of it at made's batch of
+//     64): each thread issues all of its 16-byte loads of a and b at once,
+//     then rounds them to bf16 into padded shared-memory tiles (row stride
+//     + 8 elements, so ldmatrix rows fall on distinct banks) stored as
+//     they are, (k, m) and (k, n); ldmatrix.trans gives both the A
+//     fragments of a^T and the B fragments of b, and mma.sync m16n8k16
+//     multiplies them; depth past K loads as zeros;
+//   * the epilogue multiplies each f32 sum by its mask byte, as the plain
+//     version's m * (a^T b), so dW is exactly 0 off the mask, and stores
+//     it straight from the fragments, 8 bytes a lane: a warp's store
+//     covers whole 32-byte sectors (four lanes a row segment). Rows staged
+//     through shared memory, 16 bytes a lane, were measured slower with L2
+//     flushed (PERF.md section 6);
+//   * each tile's K is summed by one warp in a fixed order, with no split
+//     and no atomics, so the result is bitwise the same run to run;
+//   * rows past M, columns past N and depth past K are masked in the
+//     kernel; where a pointer is not 16-byte aligned, or M is not a
+//     multiple of 4 or N of 16, the template flag VEC is off and every
+//     load and store is a plain one (G's VEC does the same).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6, row
+// 10): 10.45 us at (2048, 64) x (64, 2048) with L2 warm and 12.07 us with
+// it flushed (1.8x the byte bound: a block loads, multiplies and only then
+// stores, so its stores do not overlap the next wave's loads), 4.89 and
+// 6.06 us at (784, 64) x (64, 2048). The first design (32 x 32 tiles, four
+// K-groups of f32 FMA on the CUDA cores, summed through shared memory) took
+// 60.98, 83.38, 25.84 and 36.02 us.
 
 #include "common.cuh"
 #include "stream_gemm.cuh"
 
 #include <cstdint>
-
-// ---------------------------------------------------------------- Kernel H
-
-constexpr int MD_BM = 32;                                    // output rows a block
-constexpr int MD_BN = 32;                                    // output columns a block
-constexpr int MD_KC = 64;                                    // K chunk in shared memory
-constexpr int MD_KG = 4;                                     // K-groups a block
-constexpr int MD_TM = 4;                                     // rows a thread
-constexpr int MD_TN = 4;                                     // columns a thread
-constexpr int MD_GROUP = (MD_BM / MD_TM) * (MD_BN / MD_TN);  // 64 threads a group
-constexpr int MD_THREADS = MD_KG * MD_GROUP;                 // 256
-constexpr int MD_A_PER = MD_BM * MD_KC / MD_THREADS;         // A values a thread stages
-constexpr int MD_B_PER = MD_KC * MD_BN / MD_THREADS;         // B values a thread stages
-constexpr int MD_PAD = 4;                                    // keeps float4 rows aligned
-
-// A(m, k) of this chunk into registers, rounded to bf16. Row-major A (M, K)
-// (G): consecutive threads take consecutive k; TA, A stored (K, M) (H):
-// consecutive m.
-template <bool TA>
-__device__ __forceinline__ void md_load_a(const float* __restrict__ A, int M, int K, int m0,
-                                          int k0, float (&r)[MD_A_PER]) {
-#pragma unroll
-  for (int j = 0; j < MD_A_PER; ++j) {
-    const int i = threadIdx.x + j * MD_THREADS;
-    const int mm = TA ? i % MD_BM : i / MD_KC;
-    const int kk = TA ? i / MD_BM : i % MD_KC;
-    const int m = m0 + mm, k = k0 + kk;
-    r[j] = (m < M && k < K)
-               ? gmt_round_bf16(TA ? A[(size_t)k * M + m] : A[(size_t)m * K + k])
-               : 0.f;
-  }
-}
-
-template <bool TA>
-__device__ __forceinline__ void md_store_a(float (*as)[MD_BM + MD_PAD],
-                                           const float (&r)[MD_A_PER]) {
-#pragma unroll
-  for (int j = 0; j < MD_A_PER; ++j) {
-    const int i = threadIdx.x + j * MD_THREADS;
-    as[TA ? i / MD_BM : i % MD_KC][TA ? i % MD_BM : i / MD_KC] = r[j];
-  }
-}
-
-// B(k, n) of this chunk into registers, rounded to bf16 and, for G, times
-// the mask, which shares B's layout. Row-major B (K, N): consecutive n;
-// trans_b, B stored (N, K): consecutive k.
-template <bool TB, bool MASK_B>
-__device__ __forceinline__ void md_load_b(const float* __restrict__ B,
-                                          const uint8_t* __restrict__ mask, int K, int N,
-                                          int k0, int n0, float (&r)[MD_B_PER]) {
-#pragma unroll
-  for (int j = 0; j < MD_B_PER; ++j) {
-    const int i = threadIdx.x + j * MD_THREADS;
-    const int nn = TB ? i / MD_KC : i % MD_BN;
-    const int kk = TB ? i % MD_KC : i / MD_BN;
-    const int k = k0 + kk, n = n0 + nn;
-    float v = 0.f;
-    if (k < K && n < N) {
-      const size_t at = TB ? (size_t)n * K + k : (size_t)k * N + n;
-      v = gmt_round_bf16(B[at]);
-      if (MASK_B) v *= (float)mask[at];
-    }
-    r[j] = v;
-  }
-}
-
-template <bool TB>
-__device__ __forceinline__ void md_store_b(float (*bs)[MD_BN + MD_PAD],
-                                           const float (&r)[MD_B_PER]) {
-#pragma unroll
-  for (int j = 0; j < MD_B_PER; ++j) {
-    const int i = threadIdx.x + j * MD_THREADS;
-    bs[TB ? i % MD_KC : i / MD_BN][TB ? i / MD_KC : i % MD_BN] = r[j];
-  }
-}
-
-// The body of H (MASK_OUT), the first design's shared body of G and H.
-// G now runs on stream_gemm.cuh; the layout and mask flags it used stay,
-// so that H's instantiation is unchanged until H is redesigned.
-template <bool TA, bool TB, bool MASK_B, bool MASK_OUT>
-__device__ __forceinline__ void md_gemm(const float* __restrict__ A, const float* __restrict__ B,
-                                        const uint8_t* __restrict__ mask,
-                                        float* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) float as[MD_KC][MD_BM + MD_PAD];  // (k, m)
-  __shared__ __align__(16) float bs[MD_KC][MD_BN + MD_PAD];  // (k, n)
-  __shared__ __align__(16) float red[MD_KG][MD_BM][MD_BN];   // each group's partial sums
-
-  const int tid = threadIdx.x;
-  const int g = tid / MD_GROUP, t = tid % MD_GROUP;
-  const int ty = t / (MD_BN / MD_TN), tx = t % (MD_BN / MD_TN);
-  const int m0 = blockIdx.y * MD_BM, n0 = blockIdx.x * MD_BN;
-
-  float acc[MD_TM][MD_TN];
-#pragma unroll
-  for (int i = 0; i < MD_TM; ++i)
-#pragma unroll
-    for (int j = 0; j < MD_TN; ++j) acc[i][j] = 0.f;
-
-  float ra[MD_A_PER], rb[MD_B_PER];
-  md_load_a<TA>(A, M, K, m0, 0, ra);
-  md_load_b<TB, MASK_B>(B, mask, K, N, 0, n0, rb);
-  for (int k0 = 0; k0 < K; k0 += MD_KC) {
-    md_store_a<TA>(as, ra);
-    md_store_b<TB>(bs, rb);
-    __syncthreads();
-    if (k0 + MD_KC < K) {  // the next chunk's loads fly during these FMAs
-      md_load_a<TA>(A, M, K, m0, k0 + MD_KC, ra);
-      md_load_b<TB, MASK_B>(B, mask, K, N, k0 + MD_KC, n0, rb);
-    }
-    const int kb = g * (MD_KC / MD_KG);
-#pragma unroll
-    for (int u = 0; u < MD_KC / MD_KG; ++u) {
-      const float4 a = *reinterpret_cast<const float4*>(&as[kb + u][ty * MD_TM]);
-      const float4 b = *reinterpret_cast<const float4*>(&bs[kb + u][tx * MD_TN]);
-      const float av[MD_TM] = {a.x, a.y, a.z, a.w};
-      const float bv[MD_TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < MD_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < MD_TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();  // as and bs are rewritten by the next chunk
-  }
-
-#pragma unroll
-  for (int i = 0; i < MD_TM; ++i)
-    *reinterpret_cast<float4*>(&red[g][ty * MD_TM + i][tx * MD_TN]) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  __syncthreads();
-
-  // every thread finishes some outputs: the groups' sums in a fixed order,
-  // a row of 32 consecutive columns a warp
-  for (int i = tid; i < MD_BM * MD_BN; i += MD_THREADS) {
-    const int r = i / MD_BN, c = i % MD_BN;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    float v = red[0][r][c];
-#pragma unroll
-    for (int q = 1; q < MD_KG; ++q) v += red[q][r][c];
-    if (MASK_OUT) v *= (float)mask[(size_t)m * N + n];
-    out[(size_t)m * N + n] = v;
-  }
-}
 
 // ---------------------------------------------------------------- Kernel G
 
@@ -300,23 +176,159 @@ __global__ void __launch_bounds__(MM_BN / 16 * 32)
   sg_gemm<MmMaskedW<TB>, VEC, MM_STAGES>(x, w, mask, out, M, K, N, kper);
 }
 
-__global__ void __launch_bounds__(MD_THREADS)
-    mask_out_matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                           const uint8_t* __restrict__ mask, float* __restrict__ out, int M,
-                           int K, int N) {
-  md_gemm<true, false, false, true>(a, b, mask, out, M, K, N);
-}
-
-static dim3 md_grid(int M, int N) {
-  return dim3((N + MD_BN - 1) / MD_BN, (M + MD_BM - 1) / MD_BM);
-}
-
 template <bool TB, bool VEC>
 static cudaError_t mm_launch(const float* x, const float* w, const uint8_t* mask, float* out,
                              int M, int K, int N, int splits, int kper, cudaStream_t stream) {
   return sg_launch(masked_matmul_kernel<TB, VEC>, MM_BN, M, N, splits,
                    sg_smem_bytes<MmMaskedW<TB>, MM_STAGES>(), stream, x, w, mask, out, M, K,
                    N, kper);
+}
+
+// ---------------------------------------------------------------- Kernel H
+
+constexpr int HM_BM = 64, HM_BN = 128;  // dW rows (a's columns) and columns a block
+constexpr int HM_WM = 32, HM_WN = 32;   // a warp's patch: 2 x 4 m16n8 fragments
+constexpr int HM_KC = 64;               // depth of a staged chunk of a and b
+constexpr int HM_THREADS = HM_BM / HM_WM * (HM_BN / HM_WN) * 32;  // 256: 2 x 4 warps
+// blocks an SM on the 16-byte route; the plain-load route's scalar loads
+// take more registers, and it keeps 3 so as not to spill. The tile, the
+// warp patch and the caps were chosen by ops/knob_sweep.py (PERF.md
+// section 6).
+constexpr int HM_MINB = 2, HM_MINB_PLAIN = 3;
+constexpr int HM_LDA = HM_BM + 8, HM_LDB = HM_BN + 8;  // bf16 tile row strides
+constexpr int HM_LDM = HM_BN + 16;                     // mask tile row stride (bytes)
+constexpr int HM_AB_BYTES = HM_KC * (HM_LDA + HM_LDB) * 2;
+
+// rows k0 .. k0 + HM_KC - 1, columns c0 .. c0 + COLS - 1 of an f32 (K, R)
+// matrix (a or b as stored) -> a bf16 tile [HM_KC][COLS + 8]; zero past K
+// and R. Every load of the thread is issued before the first is used.
+template <int COLS, bool VEC>
+__device__ __forceinline__ void hm_stage(__nv_bfloat16* tile, const float* __restrict__ src,
+                                         int K, int R, int k0, int c0) {
+  constexpr int C4 = COLS / 4, LD = COLS + 8, PER = HM_KC * C4 / HM_THREADS;
+  static_assert(HM_KC * C4 % HM_THREADS == 0, "whole loads a thread");
+  float4 v[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = threadIdx.x + j * HM_THREADS;
+    const int k = k0 + i / C4, col = c0 + (i % C4) * 4;
+    const float* p = src + (size_t)k * R + col;
+    if (VEC) {
+      v[j] = k < K && col < R ? *reinterpret_cast<const float4*>(p)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      v[j].x = k < K && col < R ? p[0] : 0.f;
+      v[j].y = k < K && col + 1 < R ? p[1] : 0.f;
+      v[j].z = k < K && col + 2 < R ? p[2] : 0.f;
+      v[j].w = k < K && col + 3 < R ? p[3] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = threadIdx.x + j * HM_THREADS;
+    *reinterpret_cast<uint2*>(tile + (i / C4) * LD + (i % C4) * 4) =
+        make_uint2(gmt_pack_bf16(v[j].x, v[j].y), gmt_pack_bf16(v[j].z, v[j].w));
+  }
+}
+
+// the (HM_BM, HM_BN) mask tile at (m0, n0) -> ms[HM_BM][HM_LDM], zero past M
+// and N: 16-byte cp.async (VEC; the caller commits) or byte loads
+template <bool VEC>
+__device__ __forceinline__ void hm_load_mask(uint8_t* ms, const uint8_t* __restrict__ mask,
+                                             int M, int N, int m0, int n0) {
+  constexpr int CH = HM_BN / 16;
+#pragma unroll
+  for (int j = 0; j < HM_BM * CH / HM_THREADS; ++j) {
+    const int i = threadIdx.x + j * HM_THREADS;
+    const int r = i / CH, c = (i % CH) * 16;
+    const int m = m0 + r, n = n0 + c;
+    const uint8_t* src = mask + (size_t)m * N + n;
+    if (VEC) {
+      const bool ok = m < M && n < N;
+      gmt_cp_async16(ms + r * HM_LDM + c, ok ? src : mask, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) ms[r * HM_LDM + c + e] = m < M && n + e < N ? src[e] : 0;
+    }
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(HM_THREADS, VEC ? HM_MINB : HM_MINB_PLAIN)
+    mask_out_matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                           const uint8_t* __restrict__ mask, float* __restrict__ out, int M,
+                           int K, int N) {
+  __shared__ __align__(16) unsigned char hm_smem[HM_AB_BYTES + HM_BM * HM_LDM];
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(hm_smem);  // (k, m)
+  __nv_bfloat16* bs = as + HM_KC * HM_LDA;                         // (k, n)
+  uint8_t* ms = hm_smem + HM_AB_BYTES;
+  const int m0 = blockIdx.y * HM_BM, n0 = blockIdx.x * HM_BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = 2 * (lane % 4);
+  const int wm0 = (warp / (HM_BN / HM_WN)) * HM_WM, wn0 = (warp % (HM_BN / HM_WN)) * HM_WN;
+
+  hm_load_mask<VEC>(ms, mask, M, N, m0, n0);
+  if (VEC) gmt_cp_async_commit();
+
+  float acc[HM_WM / 16][HM_WN / 8][4];
+#pragma unroll
+  for (int mi = 0; mi < HM_WM / 16; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < HM_WN / 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += HM_KC) {
+    if (k0 > 0) __syncthreads();  // every warp is past the previous chunk
+    hm_stage<HM_BM, VEC>(as, a, K, M, k0, m0);
+    hm_stage<HM_BN, VEC>(bs, b, K, N, k0, n0);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < HM_KC / 16; ++kk) {
+      if (k0 + 16 * kk >= K) break;  // all zeros from here
+      // a^T's A fragments from the (k, m) tile and b's B fragments from the
+      // (k, n) tile, both by ldmatrix.trans (fragment maps: mma.cuh)
+      unsigned af[HM_WM / 16][4], bf[HM_WN / 16][4];
+#pragma unroll
+      for (int mi = 0; mi < HM_WM / 16; ++mi)
+        gmt_ldmatrix_x4_trans(af[mi], as + (16 * kk + (lane / 16) * 8 + lane % 8) * HM_LDA +
+                                          wm0 + 16 * mi + ((lane / 8) % 2) * 8);
+#pragma unroll
+      for (int np = 0; np < HM_WN / 16; ++np)
+        gmt_ldmatrix_x4_trans(bf[np], bs + (16 * kk + lane % 8 + ((lane / 8) % 2) * 8) * HM_LDB +
+                                          wn0 + 16 * np + (lane / 16) * 8);
+#pragma unroll
+      for (int mi = 0; mi < HM_WM / 16; ++mi)
+#pragma unroll
+        for (int np = 0; np < HM_WN / 16; ++np) {
+          gmt_mma_bf16(acc[mi][2 * np], af[mi], bf[np][0], bf[np][1]);
+          gmt_mma_bf16(acc[mi][2 * np + 1], af[mi], bf[np][2], bf[np][3]);
+        }
+    }
+  }
+
+  if (VEC) gmt_cp_async_wait<0>();
+  __syncthreads();  // the mask tile is in for every thread
+#pragma unroll
+  for (int mi = 0; mi < HM_WM / 16; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < HM_WN / 8; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm0 + 16 * mi + g + 8 * h, cl = wn0 + 8 * ni + c;
+        const int m = m0 + r, n = n0 + cl;
+        if (m >= M) continue;
+        const uint8_t* mk = ms + r * HM_LDM + cl;
+        const float x0 = acc[mi][ni][2 * h] * (float)mk[0];
+        const float x1 = acc[mi][ni][2 * h + 1] * (float)mk[1];
+        float* dst = out + (size_t)m * N + n;
+        if (VEC) {
+          if (n < N) *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+        } else {
+          if (n < N) dst[0] = x0;
+          if (n + 1 < N) dst[1] = x1;
+        }
+      }
 }
 
 // G: out (M, N) = x (M, K) @ (w * mask), w and mask (K, N), or (N, K) with
@@ -338,8 +350,13 @@ extern "C" int gmt_masked_matmul(const float* x, const float* w, const uint8_t* 
 // H: out (M, N) = mask (M, N) * (a^T @ b (K, N)), a stored (K, M).
 extern "C" int gmt_mask_out_matmul(const float* a, const float* b, const uint8_t* mask,
                                    float* out, int M, int K, int N, cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K < 0 || (M + MD_BM - 1) / MD_BM > 65535)
-    return cudaErrorInvalidValue;
-  mask_out_matmul_kernel<<<md_grid(M, N), MD_THREADS, 0, stream>>>(a, b, mask, out, M, K, N);
+  if (M <= 0 || N <= 0 || K < 0 || (M + HM_BM - 1) / HM_BM > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((N + HM_BN - 1) / HM_BN, (M + HM_BM - 1) / HM_BM);
+  const bool vec = sg_aligned16(a) && sg_aligned16(b) && sg_aligned16(mask) &&
+                   sg_aligned16(out) && M % 4 == 0 && N % 16 == 0;
+  if (vec)
+    mask_out_matmul_kernel<true><<<grid, HM_THREADS, 0, stream>>>(a, b, mask, out, M, K, N);
+  else
+    mask_out_matmul_kernel<false><<<grid, HM_THREADS, 0, stream>>>(a, b, mask, out, M, K, N);
   return cudaGetLastError();
 }

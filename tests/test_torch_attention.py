@@ -3,6 +3,8 @@ against the JAX package on the CPU: the flash forward in interpret mode, the
 dense XLA path at the long-T plan's length, the saved row logsumexp, and the
 KV-cached decode step. Same numpy-seeded inputs through both, f32."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -76,3 +78,52 @@ def test_kernel_wrapper_refuses_tensors_off_the_cpu():
     q = torch.zeros((1, 1, 8, 8), device='meta')
     with pytest.raises(ValueError, match='CUDA tensor'):
         tat.causal_attention_fwd(q, q, q)
+
+
+def _kernel_c_arithmetic(q, k, v, pair):
+    """Kernel C's arithmetic in torch: 64-key tiles, the online softmax in
+    log2 units (the row max over a tile, one rescale of acc and l a tile,
+    P = exp2(S * scale * log2(e) - m), l += P in f32), and P into P v as a
+    bf16 pair hi = bf16(P), lo = bf16(P - hi), both products summed in f32
+    (pair=True), or rounded to bf16 once (pair=False, the TPU kernel's
+    rounding). q, k, v hold bf16 values in f32 -> (o, lse in natural
+    units)."""
+    bf = torch.bfloat16
+    T, D = q.shape[-2:]
+    sl2 = math.log2(math.e) / math.sqrt(D)
+    rows = torch.arange(T)[:, None]
+    m = torch.full(q.shape[:-1] + (1,), tat.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, T, 64):
+        kt, vt = k[..., k0:k0 + 64, :], v[..., k0:k0 + 64, :]
+        s = q @ kt.transpose(-1, -2)
+        s = s.masked_fill(torch.arange(k0, k0 + kt.shape[-2])[None, :] > rows, tat.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sl2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * sl2 - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(bf).float()
+        pv = hi @ vt + (p - hi).to(bf).float() @ vt if pair else hi @ vt
+        acc, m = acc * alpha + pv, m_new
+    return acc / l, (m * math.log(2) + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize('pair', [True, False])
+def test_p_as_a_bf16_pair_holds_the_plain_forward(pair):
+    """Why Kernel C splits P: at pixel_transformer's T=784 and D=32, with
+    bf16-valued inputs, the hi/lo pair keeps o and lse within the chip
+    check's atol 2e-5 + rtol 2e-4 of the plain forward (P in f32), and
+    rounding P to bf16 once does not."""
+    bf = torch.bfloat16
+    rng = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rng.randn(2, 4, 784, 32).astype(np.float32)).to(bf).float()
+               for _ in range(3))
+    o_ref, lse_ref = tat.causal_attention_plain(q, k, v, dtype=bf)
+    o, lse = _kernel_c_arithmetic(q, k, v, pair)
+    outside = lambda g, r: int(((g - r).abs() > 2e-5 + 2e-4 * r.abs()).sum())
+    assert outside(lse, lse_ref) == 0
+    if pair:
+        assert outside(o, o_ref) == 0
+    else:
+        assert outside(o, o_ref) > 1000

@@ -94,10 +94,50 @@ def test_flash_backward_multiplies_on_the_tensor_cores():
     assert '__shared__ __align__(16) float' not in src
 
 
+def test_flash_forward_multiplies_on_the_tensor_cores():
+    """Kernel C (attention.cu) is built from flash_tiles.cuh's warp routines:
+    S by ft_scores, P split into a bf16 hi/lo pair by ft_split and P v by
+    ft_accum, every product an mma.sync; no f32 K/V tile is staged in shared
+    memory for an FMA product loop, as the first design did."""
+    csrc = PORT / 'ops' / 'csrc'
+    src = (csrc / 'attention.cu').read_text()
+    assert '#include "flash_tiles.cuh"' in src
+    assert src.count('ft_scores<') == 1 and src.count('ft_accum<') == 1
+    assert src.count('ft_split(') == 1 and 'ft_exp2(' in src and 'ft_a_frags<' in src
+    assert 'gmt_mma_bf16' not in src and 'expf(' not in src
+    assert '__shared__ __align__(16) float' not in src and 'float ks[' not in src
+
+
+def test_mask_out_matmul_multiplies_on_the_tensor_cores():
+    """Kernel H (masked_dense.cu) multiplies with mma.cuh's gmt_mma_bf16 on
+    ldmatrix.trans fragments; the first design's f32 FMA body (md_gemm and
+    its md_* helpers) is gone."""
+    src = (PORT / 'ops' / 'csrc' / 'masked_dense.cu').read_text()
+    h = src[src.index('-- Kernel H'):src.index('// G: out (M, N) = x (M, K) @ (w * mask)')]
+    assert 'mask_out_matmul_kernel(' in h and h.count('gmt_mma_bf16(') == 2
+    assert h.count('gmt_ldmatrix_x4_trans(') == 2 and 'gmt_cp_async16(' in h
+    assert 'fmaf(' not in h and 'md_gemm' not in src and 'md_' not in src
+
+
+@pytest.mark.parametrize('src', ['attention', 'masked_dense'])
+def test_knob_sweep_rewrites_one_line_a_knob(src):
+    """ops/knob_sweep.py (run on the card) finds each of its knobs' lines
+    exactly once in the source, and its first variant of each source is the
+    source as shipped, so the sweep times the shipped kernel beside the
+    others."""
+    from generative_models_tpu_torch.ops import knob_sweep
+
+    variants = [knobs for s, knobs in knob_sweep.VARIANTS if s == src]
+    assert len(variants) > 3
+    shipped = (PORT / 'ops' / 'csrc' / f'{src}.cu').read_text()
+    assert knob_sweep.patched_source(src, variants[0]) == shipped
+    assert all(knob_sweep.patched_source(src, k) != shipped for k in variants[1:])
+
+
 def test_ptxas_report_reads_registers_and_spills():
     """chip_smoke.py's build phase reads each entry function's registers
-    and spills from nvcc -Xptxas -v (and fails where E or D spill at
-    D=32)."""
+    and spills from nvcc -Xptxas -v (and fails where C, E or D spill at
+    D=32 or H spills)."""
     sys.path.insert(0, str(REPO))
     import chip_smoke
 
