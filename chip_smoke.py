@@ -11,8 +11,9 @@ failure exits non-zero before the result lines:
   2. build   -- compile ops/csrc/*.cu (one nvcc per source, in parallel)
                 and print the build seconds and ptxas's registers and
                 spills of every entry function (Kernels C, E and D's by D
-                bucket and H's by its VEC flag also in the kernels line;
-                fails where C, E or D spill at D=32 or H spills).
+                bucket, H's and I's by their VEC flag and B's by VEC flag
+                and LN width also in the kernels line; fails where C, E or
+                D spill at D=32 or H, I or B spills).
   3. kernels -- hold each kernel against its plain PyTorch version on the
                 card at the main paths' shapes (pixel_transformer's,
                 vqvae's and made's at hidden_size=2048), with seeded inputs
@@ -20,10 +21,13 @@ failure exits non-zero before the result lines:
                 identical but for ties within rounding, Kernel H exactly 0
                 off its mask, and Kernel I (int8 x int8 -> int32) bitwise
                 equal; I and J (the dequantizing product) at every product
-                of the quantized serving paths and at four ragged shapes,
-                G at six ragged ones (both layouts), H at five (K 1 to 200,
-                an x at an odd offset), G, H and J launched twice and
-                bitwise equal; C (the flash forward) and E and D (the
+                of the quantized serving paths and at four ragged shapes, I
+                also at K=100000; G at six ragged ones (both layouts), H at
+                five (K 1 to 200, an x at an odd offset); B (the decode
+                step's second half) at both path widths, three ragged row
+                counts and three ragged widths (both load routes); B, G, H,
+                I and J launched twice and bitwise equal; C (the flash
+                forward) and E and D (the
                 backward) at the three attention shapes and nine edge
                 cases of their tiling, each launched twice and bitwise
                 equal;
@@ -278,34 +282,40 @@ def ptxas_report(text):
 def phase_build():
     """Builds every kernel source; logs ptxas's registers and spills of
     each entry function. Returns the reports of the kernels redesigned for
-    the tensor cores, Kernels C, E and D by D bucket and H by its VEC flag,
-    as {'causal_attention_fwd': {'DP=32': {...}, ...}, 'flash_bwd_dq': ...,
-    'flash_bwd_dkv': ..., 'mask_out_matmul': {'VEC=1': {...}, 'VEC=0':
-    {...}}}, and raises if C, E or D spill at D=32 (every path's width) or
-    H spills at all."""
+    the tensor cores, Kernels C, E and D by D bucket, H and I by their VEC
+    flag and B by VEC flag and LN width, as {'causal_attention_fwd':
+    {'DP=32': {...}, ...}, 'flash_bwd_dq': ..., 'flash_bwd_dkv': ...,
+    'mask_out_matmul': {'VEC=1': {...}, 'VEC=0': {...}}, 'int8_gemm': ...,
+    'block_tail': {'VEC=1,VPL=4': {...}, ...}}, and raises if C, E or D
+    spill at D=32 (every path's width) or H, I or B spill at all."""
     from generative_models_tpu_torch.ops.common import BUILD_DIR, KERNEL_SOURCES, build_kernels
 
     t0 = time.time()
     build_kernels()
     log(f'[build] {len(KERNEL_SOURCES)} sources in {time.time() - t0:.1f}s -> {BUILD_DIR}')
-    # (library, mangled kernel name, wrapper): the template argument is the
-    # D bucket (C, E, D) or the VEC flag (H)
-    watched = (('attention', 'flash_fwd_kernelILi', 'causal_attention_fwd'),
-               ('attention_bwd', 'flash_bwd_dq_kernelILi', 'flash_bwd_dq'),
-               ('attention_bwd', 'flash_bwd_dkv_kernelILi', 'flash_bwd_dkv'),
-               ('masked_dense', 'mask_out_matmul_kernelILb', 'mask_out_matmul'))
-    reps = {name: {} for _, _, name in watched}
+    # (library, mangled kernel name with its template arguments, wrapper,
+    # key): the D bucket (C, E, D), the VEC flag (H, I), VEC and the LN
+    # width (B)
+    watched = (('attention', r'flash_fwd_kernelILi(\d+)E', 'causal_attention_fwd', 'DP={}'),
+               ('attention_bwd', r'flash_bwd_dq_kernelILi(\d+)E', 'flash_bwd_dq', 'DP={}'),
+               ('attention_bwd', r'flash_bwd_dkv_kernelILi(\d+)E', 'flash_bwd_dkv', 'DP={}'),
+               ('masked_dense', r'mask_out_matmul_kernelILb(\d+)E', 'mask_out_matmul', 'VEC={}'),
+               ('int8', r'int8_gemm_kernelILb(\d+)E', 'int8_gemm', 'VEC={}'),
+               ('decode_fused', r'block_tail_kernelILb(\d+)ELi(\d+)E', 'block_tail',
+                'VEC={},VPL={}'))
+    reps = {name: {} for _, _, name, _ in watched}
     for p in sorted(BUILD_DIR.glob('*.log')):
         for fn, rep in ptxas_report(p.read_text()).items():
             log(f'[build] {p.stem}: {fn}: {json.dumps(rep)}')
-            for lib, mangled, name in watched:
-                m = re.match(rf'_Z\d+{mangled}(\d+)E', fn)
+            for lib, mangled, name, key in watched:
+                m = re.match(rf'_Z\d+{mangled}', fn)
                 if m and p.stem.startswith(f'lib{lib}-'):
-                    key = 'VEC' if name == 'mask_out_matmul' else 'DP'
-                    reps[name][f'{key}={m.group(1)}'] = rep
+                    reps[name][key.format(*m.groups())] = rep
     for name, rep in reps.items():
         log(f'[build] {name} ptxas {json.dumps(rep)}')
-        held = rep.items() if name == 'mask_out_matmul' else [('DP=32', rep['DP=32'])]
+        if not rep:
+            raise AssertionError(f'{name}: no ptxas report')
+        held = [('DP=32', rep['DP=32'])] if 'DP=32' in rep else rep.items()
         for key, r in held:
             if r.get('spill_stores', 0):
                 raise AssertionError(f'{name} spills at {key}: {r}')
@@ -323,7 +333,7 @@ def phase_kernels(dev):
         flash_bwd_dq_plain,
     )
     from generative_models_tpu_torch.ops.decode_fused import (
-        block_tail, block_tail_plain, ln_matmul, ln_matmul_plain,
+        block_tail, block_tail_plain, ln_matmul, ln_matmul_plain, plan_block_tail,
     )
 
     rng = np.random.RandomState(0)
@@ -355,25 +365,54 @@ def phase_kernels(dev):
                 lambda: ln_matmul_plain(x, s, b, w, bias, dtype=bf),
             ),
         ))
-    for C, path in ((128, 'pixel_transformer'), (256, 'vqvae')):
-        lp = dict(
+    # Kernel B launched twice on the same inputs must be bitwise equal (its
+    # cluster's partial sums meet in rank order); ms_l2_cold: with L2
+    # flushed before each launch. Then untimed: ragged rows (B = 1, 25, 70:
+    # a part-filled 16-row strip) and ragged C, C=144 on the 16-byte route
+    # (P=32 slices over 8 blocks, the last rank's 16 wide, ranks 5-7 empty)
+    # and on the plain-load route (x, y at an odd offset), and C=100 (not a
+    # multiple of 16: plain loads)
+    flush = torch.empty(64 << 20, device=dev)  # 256 MB of f32
+
+    def block_tail_params(C):
+        return dict(
             wproj=f32(C, C, scale=C ** -0.5).to(bf), bproj=f32(C, scale=0.1),
             ln2_scale=1 + f32(C, scale=0.1), ln2_bias=f32(C, scale=0.1),
             wfc1=f32(C, 4 * C, scale=C ** -0.5).to(bf), bfc1=f32(4 * C, scale=0.1),
             wfc2=f32(4 * C, C, scale=(4 * C) ** -0.5).to(bf), bfc2=f32(C, scale=0.1),
         )
+
+    for C, path in ((128, 'pixel_transformer'), (256, 'vqvae')):
+        lp = block_tail_params(C)
         x, y = f32(B, C), f32(B, C)
-        got, ref = block_tail(x, y, lp), block_tail_plain(x, y, lp, dtype=bf)
-        err = compare(f'block_tail C={C}', got, ref, **tol_dense)
+        got = _twice_bitwise(f'block_tail C={C}', lambda: block_tail(x, y, lp))
+        err = compare(f'block_tail C={C}', got, block_tail_plain(x, y, lp, dtype=bf), **tol_dense)
         nbytes = 3 * B * C * 4 + 9 * C * C * 2 + 8 * C * 4
         bms, by = bound(nbytes, 2 * B * 9 * C * C)
         cases['block_tail'].append(dict(
             shape=f'x, y ({B},{C})', path=path, max_abs_err=err, **tol_dense,
-            bound_ms=bms, bound_by=by, **timings(
+            bound_ms=bms, bound_by=by, bitwise_twice=True,
+            plan=plan_block_tail(C)._asdict(),
+            ms_l2_cold=l2_cold_ms(lambda: block_tail(x, y, lp), 'block_tail_kernel', flush),
+            **timings(
                 lambda: block_tail(x, y, lp),
                 lambda: block_tail_plain(x, y, lp, dtype=bf),
             ),
         ))
+    del flush
+    for rows, C, odd in ((1, 128, False), (25, 128, False), (70, 256, False), (64, 144, False),
+                         (64, 144, True), (25, 100, False)):
+        lp = block_tail_params(C)
+        if odd:  # 4 bytes past a 16-byte boundary: the plain-load route
+            x, y = (f32(rows * C + 1)[1:].view(rows, C) for _ in range(2))
+        else:
+            x, y = f32(rows, C), f32(rows, C)
+        shape = f'ragged x, y ({rows},{C}){", at an odd offset" if odd else ""}'
+        got = _twice_bitwise(f'block_tail {shape}', lambda: block_tail(x, y, lp))
+        err = compare(f'block_tail {shape}', got, block_tail_plain(x, y, lp, dtype=bf),
+                      **tol_dense)
+        cases['block_tail'].append(dict(shape=shape, path='ragged', max_abs_err=err, **tol_dense,
+                                        bitwise_twice=True, plan=plan_block_tail(C)._asdict()))
 
     cases['causal_attention_fwd'] = flash_fwd_cases(f32, dev)
 
@@ -864,12 +903,15 @@ def int8_cases(rng, dev):
     """Kernels I and J vs their plain versions at every product of the
     quantized serving paths at serve_bs=64 (pixel_transformer's, the vqvae
     prior's, made's at hidden_size=1024) and at four ragged shapes, the
-    ragged ones untimed. I must be bitwise equal (integer sums; the plain
-    version in float64 is exact); J within atol 1e-3 + rtol 1e-3 (the same
-    bf16 x and int8 q on both sides, f32 sums of up to 1024 products in
-    another order), and J's two launches on the same inputs bitwise equal
-    (its K splits are summed in a fixed order). Bound: I reads int8 x and q
-    and writes int32, J reads
+    ragged ones untimed, and I alone at K=100000 (a deep split, sums of
+    1.6e9 near int32's limit). I must be bitwise equal (integer sums; the
+    plain version in float64 is exact); J within atol 1e-3 + rtol 1e-3 (the
+    same bf16 x and int8 q on both sides, f32 sums of up to 1024 products
+    in another order); both launched twice on the same inputs bitwise equal
+    (their K splits are summed in a fixed order). ms_l2_cold for I at made's
+    three products: with L2 flushed before each launch, as in a made
+    request, whose layers' weights pass through L2 in turn. Bound: I reads
+    int8 x and q and writes int32, J reads
     f32 x (it rounds x to bf16 itself) and int8 q and writes f32; their
     operations at the int8 and the bf16 peak. library_ms: torch._int_mm for
     I (it takes M > 16 and K, N multiples of 8: the path shapes only), and
@@ -891,19 +933,24 @@ def int8_cases(rng, dev):
     i8 = lambda *s: torch.tensor(rng.randint(-127, 128, s), dtype=torch.int8, device=dev)
     tol_j = dict(atol=1e-3, rtol=1e-3)
     i_cases, j_cases = [], []
+    flush = torch.empty(64 << 20, device=dev)  # 256 MB of f32
     for (M, K, N), path in shapes:
         x8, q = i8(M, K), i8(K, N)
         xf = torch.tensor(rng.randn(M, K), dtype=torch.float32, device=dev)
         shape = f'x ({M},{K}) x q ({K},{N})'
-        if not torch.equal(int8_gemm(x8, q), int8_gemm_plain(x8, q)):
+        if not torch.equal(_twice_bitwise(f'int8_gemm {shape}', lambda: int8_gemm(x8, q)),
+                           int8_gemm_plain(x8, q)):
             raise AssertionError(f'int8_gemm {shape}: not bitwise equal to its plain version')
         got = _twice_bitwise(f'dequant_gemm {shape}', lambda: dequant_gemm(xf, q))
         err = compare(f'dequant_gemm {shape}', got, dequant_gemm_plain(xf, q), **tol_j)
-        ci = dict(shape=shape, path=path, max_abs_err=0.0, atol=0.0, rtol=0.0, bitwise=True)
-        cj = dict(shape=shape, path=path, max_abs_err=err, **tol_j)
+        ci = dict(shape=shape, path=path, max_abs_err=0.0, atol=0.0, rtol=0.0, bitwise=True,
+                  bitwise_twice=True)
+        cj = dict(shape=shape, path=path, max_abs_err=err, **tol_j, bitwise_twice=True)
         if path != 'ragged':
             xb, wb = xf.to(torch.bfloat16), q.to(torch.bfloat16)
             bms, by = bound(M * K + K * N + 4 * M * N, 2 * M * K * N, peak=H100_INT8_OPS)
+            if path.startswith('made'):
+                ci['ms_l2_cold'] = l2_cold_ms(lambda: int8_gemm(x8, q), 'int8_gemm_kernel', flush)
             ci.update(bound_ms=bms, bound_by=by, library_covers='torch._int_mm', **timings(
                 lambda: int8_gemm(x8, q), lambda: int8_gemm_plain(x8, q),
                 lambda: torch._int_mm(x8, q), iters=50))
@@ -914,6 +961,18 @@ def int8_cases(rng, dev):
                                 lambda: torch.matmul(xb, wb), iters=50))
         i_cases.append(ci)
         j_cases.append(cj)
+    del flush
+    M, K, N = 3, 100000, 16  # a deep K: 8 splits of 196 stages
+    x8 = torch.full((M, K), -127, dtype=torch.int8, device=dev)
+    x8[1] = i8(K)
+    q = torch.full((K, N), 127, dtype=torch.int8, device=dev)
+    q[:, 1:] = i8(K, N - 1)
+    shape = f'x ({M},{K}) x q ({K},{N})'
+    got = _twice_bitwise(f'int8_gemm {shape}', lambda: int8_gemm(x8, q))
+    if not torch.equal(got, int8_gemm_plain(x8, q)):
+        raise AssertionError(f'int8_gemm {shape}: not bitwise equal to its plain version')
+    i_cases.append(dict(shape=shape, path='deep K', max_abs_err=0.0, atol=0.0, rtol=0.0,
+                        bitwise=True, bitwise_twice=True, extreme=int(got.abs().max())))
     return i_cases, j_cases
 
 

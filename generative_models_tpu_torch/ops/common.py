@@ -73,22 +73,23 @@ def round_up(x, m):
     return ((x + m - 1) // m) * m
 
 
-# the tiling of ops/csrc/stream_gemm.cuh (Kernels G and J): 64 rows a
-# block, 32-deep K tiles, at most 8 K splits (one cluster); H100_SMS is the
-# card the split aims to fill when no device is given
+# the tiling of ops/csrc/stream_gemm.cuh (Kernels G and J, and I's s8
+# sibling): 64 rows a block, 32-deep K tiles (64-deep for I), at most 8 K
+# splits (one cluster); H100_SMS is the card the split aims to fill when no
+# device is given
 SPLIT_K_BM, SPLIT_K_KT, SPLIT_K_MAX = 64, 32, 8
 H100_SMS = 132
 
 
-def plan_split_k(M, K, N, bn, sms=H100_SMS):
-    """(splits, kper) for stream_gemm.cuh: K's 32-deep tiles cut into
+def plan_split_k(M, K, N, bn, sms=H100_SMS, kt=SPLIT_K_KT):
+    """(splits, kper) for stream_gemm.cuh: K's kt-deep tiles cut into
     `splits` runs of `kper` tiles, one block each, so that the (M/64) x
     (N/bn) output strips times the splits reach about two blocks on each
     of `sms` SMs (a block's tile chain is latency-bound: a second block
     hides it). At most SPLIT_K_MAX splits and no more than there are tiles;
     every tile in exactly one split and no split empty (the kernel refuses
     anything else). K=0 is one split of one (empty) tile."""
-    k_tiles = max(1, -(-K // SPLIT_K_KT))
+    k_tiles = max(1, -(-K // kt))
     strips = -(-M // SPLIT_K_BM) * -(-N // bn)
     splits = max(1, min(SPLIT_K_MAX, k_tiles, -(-2 * sms // strips)))
     kper = -(-k_tiles // splits)

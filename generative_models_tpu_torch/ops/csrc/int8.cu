@@ -42,140 +42,41 @@
 // blocks walking all of K; NVIDIA H100 80GB HBM3, 700 W) took 68.22 us at
 // (64,1024)x(1024,1024), 9.03 us at 128->128, 33.46 us at 512->128.
 //
-// I (the first design): on the CUDA cores from shared memory (tensor cores,
-// mma.sync s8, are a later step):
-//   * a block owns a 64 x 32 output tile with 256 threads, each holding 4
-//     rows x 2 columns strided by 16, so that neighbouring threads read
-//     neighbouring shared-memory words and store neighbouring outputs;
-//   * K streams through shared memory in 64-deep chunks; each thread
-//     packs four consecutive k of x, and of q, into one 32-bit word as it
-//     stages them (q's tile stored (n, k), k-contiguous), and __dp4a
-//     multiplies and adds four int8 pairs into an int32 at a time;
-//   * the next chunk's global loads are issued into registers before the
-//     current chunk's arithmetic, so their latency overlaps it.
-// Rows past M, columns past N and depth past K are masked in the kernels
-// (masked bytes and values are 0); nothing is padded.
+// I is the s8 sibling of the same skeleton (stream_gemm.cuh sg_gemm_s8): a
+// block owns 64 rows x 32 columns, K split over up to 8 blocks of a cluster
+// summed in rank order through distributed shared memory, x and q streaming
+// through I8_STAGES cp.async stages of 64 K bytes (9.5 KB a stage), the
+// products on the int8 tensor cores (mma.sync m16n8k32, s32 sums). x's
+// bytes land straight in the A operand's tile; each thread transposes the
+// 4 x 16 block of q it copied into an (n, k) tile (__byte_perm) that
+// ldmatrix reads as the B operand. Depth is refused past K = 133144, where
+// K * 127^2 could overflow int32.
+// The first design (64x32 output tiles, __dp4a on the CUDA cores over
+// bytes gathered one at a time, N/32 blocks walking all of K; NVIDIA H100
+// 80GB HBM3, 700 W) took 41.02 us at (64,1024)x(1024,1024), 5.35 us at
+// 128->128, 19.70 us at 512->128, slower than torch._int_mm at 6 of the 11
+// serving shapes.
+// Rows past M, columns past N and depth past K are zero-filled on chip;
+// nothing is padded in device memory. Where K or N is not a multiple of 16
+// or an operand is not 16-byte aligned (VEC false), plain loads fill the
+// same rings.
 
 #include "common.cuh"
 #include "stream_gemm.cuh"
 
 #include <cstdint>
 
-constexpr int QG_BM = 64;                   // output rows a block
-constexpr int QG_BN = 32;                   // output columns a block
-constexpr int QG_THREADS = 256;
-constexpr int QG_TX = 16;                   // threads across N
-constexpr int QG_TY = QG_THREADS / QG_TX;   // threads across M
-constexpr int QG_RM = QG_BM / QG_TY;        // 4 rows a thread
-constexpr int QG_RN = QG_BN / QG_TX;        // 2 columns a thread
-
-constexpr int I8_KC = 64;                                 // K bytes a chunk
-constexpr int I8_KW = I8_KC / 4;                          // packed words a row
-constexpr int I8_X_PER = QG_BM * I8_KW / QG_THREADS;      // x words a thread stages
-constexpr int I8_Q_PER = QG_BN * I8_KW / QG_THREADS;      // q words a thread stages
-
-static dim3 qg_grid(int M, int N) {
-  return dim3((N + QG_BN - 1) / QG_BN, (M + QG_BM - 1) / QG_BM);
-}
-
 // ---------------------------------------------------------------- Kernel I
 
-// x words of this chunk: word i is row i / I8_KW, bytes k0 + 4 (i % I8_KW)
-// .. +3, byte b in bits 8b.. (consecutive threads: consecutive words of a row)
-__device__ __forceinline__ void i8_load_x(const int8_t* __restrict__ x, int M, int K, int m0,
-                                          int k0, int (&r)[I8_X_PER]) {
-#pragma unroll
-  for (int j = 0; j < I8_X_PER; ++j) {
-    const int i = threadIdx.x + j * QG_THREADS;
-    const int m = m0 + i / I8_KW, k = k0 + 4 * (i % I8_KW);
-    unsigned v = 0;
-    if (m < M) {
-      const int8_t* row = x + (size_t)m * K;
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if (k + b < K) v |= (unsigned)(uint8_t)row[k + b] << (8 * b);
-    }
-    r[j] = (int)v;
-  }
-}
+constexpr int I8_BN = 32;       // output columns a block: 2 warps
+constexpr int I8_STAGES = 4;    // cp.async stages in flight
+constexpr int I8_MAX_K = 133144;  // K * 127^2 <= 2^31 - 1
 
-// q words of this chunk: word i is column i % QG_BN, rows k0 + 4 (i / QG_BN)
-// .. +3 of that column (consecutive threads: consecutive columns)
-__device__ __forceinline__ void i8_load_q(const int8_t* __restrict__ q, int K, int N, int k0,
-                                          int n0, int (&r)[I8_Q_PER]) {
-#pragma unroll
-  for (int j = 0; j < I8_Q_PER; ++j) {
-    const int i = threadIdx.x + j * QG_THREADS;
-    const int n = n0 + i % QG_BN, k = k0 + 4 * (i / QG_BN);
-    unsigned v = 0;
-    if (n < N) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if (k + b < K) v |= (unsigned)(uint8_t)q[(size_t)(k + b) * N + n] << (8 * b);
-    }
-    r[j] = (int)v;
-  }
-}
-
-__global__ void __launch_bounds__(QG_THREADS)
+template <bool VEC>
+__global__ void __launch_bounds__(I8_BN / 16 * 32)
     int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
-                     int32_t* __restrict__ out, int M, int K, int N) {
-  __shared__ int xs[QG_BM][I8_KW + 1];  // (m, k/4)
-  __shared__ int qs[QG_BN][I8_KW + 1];  // (n, k/4): k-contiguous
-
-  const int tx = threadIdx.x % QG_TX, ty = threadIdx.x / QG_TX;
-  const int m0 = blockIdx.y * QG_BM, n0 = blockIdx.x * QG_BN;
-
-  int acc[QG_RM][QG_RN];
-#pragma unroll
-  for (int i = 0; i < QG_RM; ++i)
-#pragma unroll
-    for (int j = 0; j < QG_RN; ++j) acc[i][j] = 0;
-
-  int rx[I8_X_PER], rq[I8_Q_PER];
-  i8_load_x(x, M, K, m0, 0, rx);
-  i8_load_q(q, K, N, 0, n0, rq);
-  for (int k0 = 0; k0 < K; k0 += I8_KC) {
-#pragma unroll
-    for (int j = 0; j < I8_X_PER; ++j) {
-      const int i = threadIdx.x + j * QG_THREADS;
-      xs[i / I8_KW][i % I8_KW] = rx[j];
-    }
-#pragma unroll
-    for (int j = 0; j < I8_Q_PER; ++j) {
-      const int i = threadIdx.x + j * QG_THREADS;
-      qs[i % QG_BN][i / QG_BN] = rq[j];
-    }
-    __syncthreads();
-    if (k0 + I8_KC < K) {  // the next chunk's loads fly during these dp4a
-      i8_load_x(x, M, K, m0, k0 + I8_KC, rx);
-      i8_load_q(q, K, N, k0 + I8_KC, n0, rq);
-    }
-#pragma unroll
-    for (int w = 0; w < I8_KW; ++w) {
-      int a[QG_RM], b[QG_RN];
-#pragma unroll
-      for (int i = 0; i < QG_RM; ++i) a[i] = xs[ty + QG_TY * i][w];
-#pragma unroll
-      for (int j = 0; j < QG_RN; ++j) b[j] = qs[tx + QG_TX * j][w];
-#pragma unroll
-      for (int i = 0; i < QG_RM; ++i)
-#pragma unroll
-        for (int j = 0; j < QG_RN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();  // xs and qs are rewritten by the next chunk
-  }
-
-#pragma unroll
-  for (int i = 0; i < QG_RM; ++i) {
-    const int m = m0 + ty + QG_TY * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < QG_RN; ++j) {
-      const int n = n0 + tx + QG_TX * j;
-      if (n < N) out[(size_t)m * N + n] = acc[i][j];
-    }
-  }
+                     int32_t* __restrict__ out, int M, int K, int N, int kper) {
+  sg_gemm_s8<I8_BN, VEC, I8_STAGES>(x, q, out, M, K, N, kper);
 }
 
 // ---------------------------------------------------------------- Kernel J
@@ -244,13 +145,19 @@ __global__ void __launch_bounds__(DQ_BN / 16 * 32)
   sg_gemm<DqInt8Q, VEC, DQ_STAGES>(x, q, nullptr, out, M, K, N, kper);
 }
 
-// I: out (M, N) int32 = x (M, K) int8 @ q (K, N) int8.
+// I: out (M, N) int32 = x (M, K) int8 @ q (K, N) int8; K split over
+// `splits` blocks of `kper` 64-deep stages each (plan_split_k in
+// ops/common.py, kt=64).
 extern "C" int gmt_int8_gemm(const int8_t* x, const int8_t* q, int32_t* out, int M, int K,
-                             int N, cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K < 0 || (M + QG_BM - 1) / QG_BM > 65535)
+                             int N, int splits, int kper, cudaStream_t stream) {
+  if (K > I8_MAX_K || !sg_plan_ok(M, K, N, I8_BN, splits, kper, SG8_KT))
     return cudaErrorInvalidValue;
-  int8_gemm_kernel<<<qg_grid(M, N), QG_THREADS, 0, stream>>>(x, q, out, M, K, N);
-  return cudaGetLastError();
+  const size_t smem = sg8_smem_bytes<I8_BN, I8_STAGES>();
+  if (sg_aligned16(x) && sg_aligned16(q) && K % 16 == 0 && N % 16 == 0)
+    return sg_launch(int8_gemm_kernel<true>, I8_BN, M, N, splits, smem, stream, x, q, out, M, K,
+                     N, kper);
+  return sg_launch(int8_gemm_kernel<false>, I8_BN, M, N, splits, smem, stream, x, q, out, M, K,
+                   N, kper);
 }
 
 // J: out (M, N) f32 = bf16(x (M, K) f32) @ q (K, N) int8; K split over

@@ -1,7 +1,8 @@
 // Tensor-core and copy helpers shared by the port's kernels, for sm_90a:
 // cp.async (global -> shared, 16 or 4 bytes, zero-filled when out of range),
-// ldmatrix (8x8 bf16 tiles from shared memory into mma fragments) and
-// mma.sync m16n8k16 on bf16 with f32 accumulation.
+// ldmatrix (8x8 b16 tiles from shared memory into mma fragments),
+// mma.sync m16n8k16 on bf16 with f32 accumulation and mma.sync m16n8k32 on
+// s8 with s32 accumulation.
 //
 // Fragments of mma.m16n8k16.row.col (lane l of the warp, g = l / 4,
 // c = 2 * (l % 4)):
@@ -11,6 +12,15 @@
 //   C, D (16 x 8, f32)      d[0..1]: (g, c..c+1)   d[2..3]: (g+8, c..c+1)
 // Each 32-bit register holds two bf16, the lower k (or column) in the low
 // half.
+//
+// Fragments of mma.m16n8k32.row.col s8 (g, t = l % 4): each register holds
+// four s8 of consecutive k, the lowest k in the low byte:
+//   A (16 x 32, row-major)  a[0]: (g, 4t..4t+3)   a[1]: (g+8, 4t..)
+//                           a[2]: (g, 16+4t..)    a[3]: (g+8, 16+4t..)
+//   B (32 x 8, k x n)       b[0]: (k 4t..4t+3, n g)  b[1]: (k 16+4t.., n g)
+//   C, D (16 x 8, s32)      as the f32 accumulator above
+// so ldmatrix (non-.trans) gives A from an (m, k) byte tile and B from an
+// (n, k) byte tile, an 8x8 b16 matrix being 8 rows of 16 k.
 #pragma once
 
 #include <cstdint>
@@ -70,6 +80,17 @@ __device__ __forceinline__ void gmt_mma_bf16(float (&d)[4], const unsigned (&a)[
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16 x 32 s8) @ b (32 x 8 s8), s32 sums (exact: the caller keeps
+// K * 127^2 within int32)
+__device__ __forceinline__ void gmt_mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                           unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -1,5 +1,6 @@
 // The weight-streaming split-K GEMM for few rows on the tensor cores: the
-// shared skeleton of Kernels G (masked_dense.cu) and J (int8.cu).
+// shared skeleton of Kernels G (masked_dense.cu) and J (int8.cu), and its
+// s8 sibling for Kernel I (int8.cu; sg_gemm_s8, at the end).
 //
 //   out (M, N) f32 = bf16(x (M, K) f32) @ B (K, N), B staged to bf16 on chip
 //
@@ -244,12 +245,242 @@ __device__ __forceinline__ void sg_gemm(const float* __restrict__ x,
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
+// ---------------------------------------------------- the s8 sibling (Kernel I)
+//
+//   out (M, N) s32 = x (M, K) s8 @ q (K, N) s8
+//
+// The same grid, split, cluster reduction and cp.async ring as sg_gemm, on
+// the int8 tensor cores (mma.sync m16n8k32 s8, s32 sums): a stage is 64 deep
+// in K (64 bytes of a row, the bytes of sg_gemm's 32-deep f32 x stage
+// quartered), two m16n8k32 steps. x's (m, k) bytes are already the A
+// operand's layout: they land by cp.async straight in a padded tile that
+// ldmatrix reads. q is stored (K, N) row-major, but the B fragment wants four
+// consecutive k of one column in a register, so each thread stages a 4 (k)
+// x 16 (n) block of q raw, transposes it in registers (__byte_perm, four
+// 4 x 4 byte transposes a 16-byte row) and stores it into an (n, k) tile of
+// the same stage, which ldmatrix (non-.trans) reads. Integer sums are exact,
+// so the result equals any other order's bitwise.
+constexpr int SG8_KT = 64;            // K bytes a stage
+constexpr int SG8_LD = SG8_KT + 16;   // row stride of the x and q^T tiles: 80 bytes,
+                                      // ldmatrix rows on distinct banks
+
+template <int BN>
+struct Sg8Stage {  // byte offsets of one stage
+  static constexpr int X = 0;                      // x (m, k): [SG_BM][SG8_LD]
+  static constexpr int Q_RAW = SG_BM * SG8_LD;     // q (k, n) as copied: [SG8_KT][BN]
+  static constexpr int QT = Q_RAW + SG8_KT * BN;   // q^T (n, k): [BN][SG8_LD]
+  static constexpr int BYTES = QT + BN * SG8_LD;
+  static constexpr int QBLOCKS = SG8_KT / 4 * (BN / 16);  // 4 x 16 blocks of q a stage
+};
+
+template <int BN, int STAGES>
+constexpr size_t sg8_smem_bytes() {
+  static_assert(SG_BM * (BN + 4) * 4 <= STAGES * Sg8Stage<BN>::BYTES,
+                "the partial sums must fit in the ring");
+  return (size_t)STAGES * Sg8Stage<BN>::BYTES;
+}
+
+// One stage's copies: x rows m0.., bytes k0.. (16-byte items, THREADS
+// apart), and q's 4 x 16 blocks, block i owned by thread i * (THREADS /
+// QBLOCKS); zero past M, K and N.
+template <int BN, bool VEC, int THREADS>
+__device__ __forceinline__ void sg8_load(unsigned char* st, const int8_t* __restrict__ x,
+                                         const int8_t* __restrict__ q, int M, int K, int N,
+                                         int m0, int k0, int n0) {
+  using S = Sg8Stage<BN>;
+  constexpr int CH = SG8_KT / 16;
+#pragma unroll
+  for (int j = 0; j < SG_BM * CH / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int r = i / CH, kc = (i % CH) * 16;
+    const int m = m0 + r, k = k0 + kc;
+    unsigned char* dst = st + S::X + r * SG8_LD + kc;
+    if (VEC) {
+      const bool ok = m < M && k < K;
+      gmt_cp_async16(dst, ok ? x + (size_t)m * K + k : x, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        dst[e] = (m < M && k + e < K) ? (unsigned char)x[(size_t)m * K + k + e] : 0;
+    }
+  }
+  static_assert(THREADS % S::QBLOCKS == 0, "whole q blocks a thread");
+  if (threadIdx.x % (THREADS / S::QBLOCKS)) return;
+  const int b = threadIdx.x / (THREADS / S::QBLOCKS);
+  const int kg = b / (BN / 16), c = (b % (BN / 16)) * 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * kg + i, k = k0 + r, n = n0 + c;
+    unsigned char* dst = st + S::Q_RAW + r * BN + c;
+    if (VEC) {
+      const bool ok = k < K && n < N;
+      gmt_cp_async16(dst, ok ? q + (size_t)k * N + n : q, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        dst[e] = (k < K && n + e < N) ? (unsigned char)q[(size_t)k * N + n + e] : 0;
+    }
+  }
+}
+
+// this thread's q block of the stage, (k, n) -> (n, k): column n's four
+// bytes of k 4 kg .. 4 kg + 3 become one word of q^T's row n
+template <int BN, int THREADS>
+__device__ __forceinline__ void sg8_transpose_q(unsigned char* st) {
+  using S = Sg8Stage<BN>;
+  if (threadIdx.x % (THREADS / S::QBLOCKS)) return;
+  const int b = threadIdx.x / (THREADS / S::QBLOCKS);
+  const int kg = b / (BN / 16), c = (b % (BN / 16)) * 16;
+  uint4 rows[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    rows[i] = *reinterpret_cast<const uint4*>(st + S::Q_RAW + (4 * kg + i) * BN + c);
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const unsigned r0 = (&rows[0].x)[w], r1 = (&rows[1].x)[w];
+    const unsigned r2 = (&rows[2].x)[w], r3 = (&rows[3].x)[w];
+    const unsigned t0 = __byte_perm(r0, r1, 0x5140), t1 = __byte_perm(r0, r1, 0x7362);
+    const unsigned t2 = __byte_perm(r2, r3, 0x5140), t3 = __byte_perm(r2, r3, 0x7362);
+    const unsigned cols[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+                              __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<unsigned*>(st + S::QT + (c + 4 * w + j) * SG8_LD + 4 * kg) = cols[j];
+  }
+}
+
+// The end of sg_gemm_s8, sg_gemm's reduction on s32 sums: each warp's
+// 64 x 16 accumulator fragments (mma.cuh's C layout) go to red, this
+// block's partial sums [SG_BM][BN + 4] in its own shared memory; after a
+// cluster barrier each block finishes every splits-th group of THREADS
+// 4-vectors of the strip, adding every rank's partial in rank order. The
+// caller has drained its cp.async groups and passed a __syncthreads, so red
+// may alias its ring.
+template <int BN, int THREADS>
+__device__ __forceinline__ void sg8_reduce(const int (&acc)[4][2][4], int* red,
+                                           int* __restrict__ out, int M, int N, int m0, int n0) {
+  namespace cg = cooperative_groups;
+  using V2 = int2;
+  using V4 = int4;
+  using T = int;
+  constexpr int RLD = BN + 4;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nw = warp * 16;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = mt * 16 + lane / 4, c = nw + j * 8 + 2 * (lane % 4);
+      *reinterpret_cast<V2*>(red + r * RLD + c) = V2{acc[mt][j][0], acc[mt][j][1]};
+      *reinterpret_cast<V2*>(red + (r + 8) * RLD + c) = V2{acc[mt][j][2], acc[mt][j][3]};
+    }
+
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int splits = gridDim.x;
+  constexpr int ROW4 = BN / 4;
+  for (int i = blockIdx.x * THREADS + threadIdx.x; i < SG_BM * ROW4; i += splits * THREADS) {
+    const int r = i / ROW4, c = (i % ROW4) * 4;
+    const int m = m0 + r;
+    if (m >= M) continue;
+    V4 p[SG_MAX_SPLITS];  // every rank's partial first, then the sums in rank order
+#pragma unroll
+    for (int q = 0; q < SG_MAX_SPLITS; ++q)
+      if (q < splits)
+        p[q] = *reinterpret_cast<const V4*>(cluster.map_shared_rank(red, q) + r * RLD + c);
+    V4 v = p[0];
+#pragma unroll
+    for (int q = 1; q < SG_MAX_SPLITS; ++q)
+      if (q < splits) {
+        v.x += p[q].x;
+        v.y += p[q].y;
+        v.z += p[q].z;
+        v.w += p[q].w;
+      }
+    const T vals[4] = {v.x, v.y, v.z, v.w};
+    T* o = out + (size_t)m * N + n0 + c;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (n0 + c + j < N) o[j] = vals[j];
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+template <int BN, bool VEC, int STAGES>
+__device__ __forceinline__ void sg_gemm_s8(const int8_t* __restrict__ x,
+                                           const int8_t* __restrict__ q, int* __restrict__ out,
+                                           int M, int K, int N, int kper) {
+  using S = Sg8Stage<BN>;
+  constexpr int THREADS = BN / 16 * 32;
+  extern __shared__ __align__(16) unsigned char sg_smem[];
+
+  const int n0 = blockIdx.y * BN, m0 = blockIdx.z * SG_BM;
+  const int kt0 = blockIdx.x * kper;  // this split's first K stage
+  const int nt = max(0, min(kper, (K + SG8_KT - 1) / SG8_KT - kt0));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nw = warp * 16;  // the warp's columns in the strip
+
+  int acc[4][2][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  // tile t lives in stage t % STAGES; one commit group a tile (empty past
+  // nt). Other warps read a stage's x and q^T, so a stage is refilled only
+  // after the barrier that follows its last products: tile t + STAGES - 1
+  // goes into tile t - 1's stage after tile t's barrier.
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < nt)
+      sg8_load<BN, VEC, THREADS>(sg_smem + t * S::BYTES, x, q, M, K, N, m0,
+                                 (kt0 + t) * SG8_KT, n0);
+    gmt_cp_async_commit();
+  }
+  for (int t = 0; t < nt; ++t) {
+    gmt_cp_async_wait<STAGES - 2>();
+    unsigned char* st = sg_smem + (t % STAGES) * S::BYTES;
+    sg8_transpose_q<BN, THREADS>(st);
+    __syncthreads();  // tile t's x and q^T complete; tile t - 1's products done
+    const int tn = t + STAGES - 1;
+    if (tn < nt)
+      sg8_load<BN, VEC, THREADS>(sg_smem + (tn % STAGES) * S::BYTES, x, q, M, K, N, m0,
+                                 (kt0 + tn) * SG8_KT, n0);
+    gmt_cp_async_commit();
+    constexpr int KS = SG8_KT / 32;
+    unsigned bf[KS][4];     // (b0, b1) of the warp's two 8-column tiles
+    unsigned af[KS][4][4];  // the four 16-row tiles of x
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const int kk = ks * 32;
+      gmt_ldmatrix_x4(bf[ks], st + S::QT + (nw + lane % 8 + (lane / 16) * 8) * SG8_LD + kk +
+                                  ((lane / 8) % 2) * 16);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        gmt_ldmatrix_x4(af[ks][mt], st + S::X + (mt * 16 + lane % 8 + ((lane / 8) % 2) * 8) *
+                                                    SG8_LD + kk + (lane / 16) * 16);
+    }
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        gmt_mma_s8(acc[mt][0], af[ks][mt], bf[ks][0], bf[ks][1]);
+        gmt_mma_s8(acc[mt][1], af[ks][mt], bf[ks][2], bf[ks][3]);
+      }
+  }
+  gmt_cp_async_wait<0>();
+  __syncthreads();  // every thread is past the ring: it holds the partial sums now
+  sg8_reduce<BN, THREADS>(acc, reinterpret_cast<int*>(sg_smem), out, M, N, m0, n0);
+}
+
 // The checks every launcher makes: positive M and N, 1 <= splits <= 8,
-// every K tile in exactly one split and no split empty, and a grid within
-// CUDA's limits.
-inline bool sg_plan_ok(int M, int K, int N, int bn, int splits, int kper) {
+// every kt-deep K tile in exactly one split and no split empty, and a grid
+// within CUDA's limits.
+inline bool sg_plan_ok(int M, int K, int N, int bn, int splits, int kper, int kt = SG_KT) {
   if (M <= 0 || N <= 0 || K < 0 || splits < 1 || splits > SG_MAX_SPLITS || kper < 1) return false;
-  const long k_tiles = ((long)K + SG_KT - 1) / SG_KT;
+  const long k_tiles = ((long)K + kt - 1) / kt;
   if ((long)splits * kper < k_tiles || (long)(splits - 1) * kper >= (k_tiles > 0 ? k_tiles : 1))
     return false;
   return (M + SG_BM - 1) / SG_BM <= 65535 && (N + bn - 1) / bn <= 65535;

@@ -10,9 +10,11 @@ kernels collapse the dense chains of a Block step:
   block_tail  -- attention out-proj + residual + pre-LN MLP (fc1, tanh
                  GELU, fc2) + residual: one launch instead of ~8 ops.
 
-The CUDA sources are ops/csrc/decode_fused.cu. Each wrapper launches its
-kernel for CUDA tensors (and refuses what the kernel does not take), and
-runs the plain PyTorch version for CPU tensors. The plain versions take the
+The CUDA sources are ops/csrc/decode_fused.cu. block_tail runs one
+thread-block cluster a 16-row strip, the weights spread over the cluster's
+blocks as plan_block_tail lays them out. Each wrapper launches its kernel for CUDA
+tensors (and refuses what the kernel does not take), and runs the plain
+PyTorch version for CPU tensors. The plain versions take the
 matmul operand dtype, so on the card they repeat the kernel's arithmetic
 (bf16 operands, f32 accumulation) and isolate the kernel in a comparison.
 
@@ -20,12 +22,27 @@ Weights use the JAX package's (in, out) layout, which the kernels read
 coalesced along the output columns.
 """
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
-from generative_models_tpu_torch.ops.common import c_function, check_cuda, launch
+from generative_models_tpu_torch.ops.common import c_function, check_cuda, launch, round_up
 
 LN_EPS = 1e-6  # flax LayerNorm's eps (torch's default is 1e-5)
+
+# Kernel B's layout (ops/csrc/decode_fused.cu, the BT_* constants): rows a
+# cluster, the rows and columns of a weight tile and its row stride, ring
+# slots at most, the widest C and cluster, and a block's shared memory on
+# an H100; the widest C that takes BT_CLUSTER blocks (wider takes
+# BT_MAX_CLUSTER)
+BT_ROWS, BT_KC, BT_NC, BT_WLD = 16, 64, 64, 72
+BT_SLOT = BT_KC * BT_WLD * 2
+BT_MAX_SLOTS, BT_MAX_C, BT_MAX_CLUSTER = 24, 512, 16
+BT_BARRIERS = 2 * BT_MAX_SLOTS * 8  # the ring slots' full and empty mbarriers
+SMEM_MAX = 232448
+BT_CLUSTER, BT_NARROW_C = 8, 128
 
 
 def _ln(x, scale, bias, eps=LN_EPS):
@@ -52,6 +69,62 @@ def block_tail_plain(x, y, lp, dtype=torch.float32):
     g = _ln(h1, lp['ln2_scale'], lp['ln2_bias'])
     g = F.gelu(_mm(g, lp['wfc1'], dtype) + lp['bfc1'], approximate='tanh')
     return h1 + (_mm(g, lp['wfc2'], dtype) + lp['bfc2'])
+
+
+class BlockTailPlan(NamedTuple):
+    """Kernel B's layout for one C: `cluster` blocks a 16-row strip; block
+    r owns h1's (and the output's) columns [r*P, (r+1)*P) and the hidden
+    columns [r*F, (r+1)*F) (fewer or none at the end); its weight tiles
+    stream through `slots` ring slots; `smem` bytes of shared memory a
+    block."""
+    cluster: int
+    P: int
+    F: int
+    slots: int
+    smem: int
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def block_tail_tiles(C, P, F):
+    """Weight tiles (BT_KC x BT_NC) block 0, the busiest, streams: proj's
+    C x P slice, fc1's C x F slice, fc2's F x C slice."""
+    nk = _cdiv(C, BT_KC)
+    return nk * _cdiv(P, BT_NC) + nk * _cdiv(F, BT_NC) + _cdiv(F, BT_KC) * _cdiv(C, BT_NC)
+
+
+def block_tail_smem(C, cluster, P, F, slots):
+    """Shared memory of one block (the layout in decode_fused.cu): the ring
+    slots' mbarriers; the bf16 rows of y, then LN2(h1); the bf16 hidden
+    slice; h1's rows (f32, every block's columns); fc2's partial sums of
+    this block's columns from every block; the f32 vectors (bproj's, bfc1's
+    and bfc2's slices, LN2's scale and bias); the weight ring."""
+    cp = round_up(C, 16)
+    return (BT_BARRIERS + BT_ROWS * (cp + 8) * 2 + BT_ROWS * (F + 8) * 2 + BT_ROWS * cp * 4
+            + cluster * BT_ROWS * P * 4 + (2 * P + F + 2 * cp) * 4 + slots * BT_SLOT)
+
+
+@functools.cache
+def plan_block_tail(C, cluster=None):
+    """BlockTailPlan for width C (1 <= C <= 512) over `cluster` blocks (8
+    up to C = 128, else 16: at C=256 a block's 8-way slices are 20 tiles and
+    it takes 1.6x the 16-way's 12, PERF.md), slices of whole 16-column
+    groups, and as many ring slots as fit (at most BT_MAX_SLOTS, and no more
+    than block 0's tiles). Raises ValueError where fewer than 2 fit."""
+    if cluster is None:
+        cluster = BT_CLUSTER if C <= BT_NARROW_C else BT_MAX_CLUSTER
+    if not 1 <= C <= BT_MAX_C or not 1 <= cluster <= BT_MAX_CLUSTER:
+        raise ValueError(f'block_tail: C={C}, cluster={cluster} outside 1..{BT_MAX_C}, '
+                         f'1..{BT_MAX_CLUSTER}')
+    P, F = round_up(_cdiv(C, cluster), 16), round_up(_cdiv(4 * C, cluster), 16)
+    room = (SMEM_MAX - block_tail_smem(C, cluster, P, F, 0)) // BT_SLOT
+    slots = max(2, min(block_tail_tiles(C, P, F), BT_MAX_SLOTS, room))
+    if slots > room:
+        raise ValueError(f'block_tail: 2 ring slots for C={C} over {cluster} blocks do not '
+                         f'fit {SMEM_MAX} bytes')
+    return BlockTailPlan(cluster, P, F, slots, block_tail_smem(C, cluster, P, F, slots))
 
 
 def ln_matmul(x, scale, bias, w, b):
@@ -82,9 +155,9 @@ _BT_VECS = ('bproj', 'ln2_scale', 'ln2_bias', 'bfc1', 'bfc2')
 
 
 def block_tail(x, y, lp):
-    """The whole post-attention half of a Block step in one kernel. x, y:
-    (B, C) f32; lp as block_tail_plain, weights bf16 on the card. Returns
-    (B, C) f32."""
+    """The whole post-attention half of a Block step in one kernel, laid
+    out by plan_block_tail. x, y: (B, C) f32, C <= 512; lp as
+    block_tail_plain, weights bf16 on the card. Returns (B, C) f32."""
     if x.device.type == 'cpu':
         return block_tail_plain(x, y, lp)
     B, C = x.shape
@@ -97,13 +170,14 @@ def block_tail(x, y, lp):
         check_cuda(f'block_tail {name}', lp[name], torch.float32, (n,))
     out = torch.empty((B, C), dtype=torch.float32, device=x.device)
     if B:
-        fn = c_function('decode_fused', 'gmt_block_tail', 11, 2)
+        plan = plan_block_tail(C)
+        fn = c_function('decode_fused', 'gmt_block_tail', 11, 6)
         launch('decode_fused', fn, x.data_ptr(), y.data_ptr(),
                lp['wproj'].data_ptr(), lp['bproj'].data_ptr(),
                lp['ln2_scale'].data_ptr(), lp['ln2_bias'].data_ptr(),
                lp['wfc1'].data_ptr(), lp['bfc1'].data_ptr(),
                lp['wfc2'].data_ptr(), lp['bfc2'].data_ptr(), out.data_ptr(),
-               B, C)
+               B, C, plan.cluster, plan.P, plan.F, plan.slots)
         block_tail.launches += 1
     return out
 

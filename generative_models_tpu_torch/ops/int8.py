@@ -6,8 +6,9 @@ Counterpart of generative_models_tpu/ops/int8.py:
                       per-output-column symmetric absmax: w ~= q * scale.
   quantize_rows    -- the w8a8 activation quantization: one absmax scale a
                       row, xq int8 and sx f32 (M, 1).
-  int8_gemm        -- Kernel I (ops/csrc/int8.cu): xq (M, K) int8 @ q (K, N)
-                      int8 -> int32, exact.
+  int8_gemm        -- Kernel I (ops/csrc/int8.cu, on the int8 tensor cores,
+                      K split as plan_split_k says with 64-deep tiles): xq
+                      (M, K) int8 @ q (K, N) int8 -> int32, exact.
   dequant_gemm     -- Kernel J (same file, on the tensor cores, K split as
                       plan_split_k says): bf16(x) (M, K) @ q (K, N) int8
                       -> f32, the weight widened on chip.
@@ -36,6 +37,9 @@ from generative_models_tpu_torch.ops.common import (
 )
 
 DEQUANT_GEMM_BN = 32  # Kernel J's output columns a block (DQ_BN in the source)
+INT8_GEMM_BN = 32  # Kernel I's output columns a block (I8_BN in the source)
+INT8_GEMM_KT = 64  # Kernel I's K bytes a stage (SG8_KT in stream_gemm.cuh)
+INT8_GEMM_MAX_K = 133144  # past it K * 127^2 may overflow int32 (I8_MAX_K)
 
 _ONE27 = {}  # device -> a 0-dim 127.0 on it
 
@@ -85,18 +89,23 @@ def dequant_gemm_plain(x, q):
 
 
 def int8_gemm(x, q):
-    """Kernel I. x (M, K) int8, q (K, N) int8, contiguous on the card ->
-    (M, N) int32. CPU tensors take int8_gemm_plain."""
+    """Kernel I. x (M, K) int8, q (K, N) int8, contiguous on the card,
+    K <= INT8_GEMM_MAX_K -> (M, N) int32. CPU tensors take
+    int8_gemm_plain."""
     if x.device.type == 'cpu':
         return int8_gemm_plain(x, q)
     M, K = x.shape
     N = q.shape[1]
     check_cuda('int8_gemm x', x, torch.int8, (M, K))
     check_cuda('int8_gemm q', q, torch.int8, (K, N))
+    if K > INT8_GEMM_MAX_K:
+        raise ValueError(f'int8_gemm: K={K} > {INT8_GEMM_MAX_K} may overflow int32 sums')
     out = torch.empty((M, N), dtype=torch.int32, device=x.device)
     if M and N:
-        fn = c_function('int8', 'gmt_int8_gemm', 3, 3)
-        launch('int8', fn, x.data_ptr(), q.data_ptr(), out.data_ptr(), M, K, N)
+        splits, kper = plan_split_k(M, K, N, INT8_GEMM_BN, sm_count(x.device.index),
+                                    kt=INT8_GEMM_KT)
+        fn = c_function('int8', 'gmt_int8_gemm', 3, 5)
+        launch('int8', fn, x.data_ptr(), q.data_ptr(), out.data_ptr(), M, K, N, splits, kper)
         int8_gemm.launches += 1
     return out
 

@@ -1,21 +1,25 @@
-"""Sweep compile-time knobs of Kernels C and H on the card.
+"""Sweep compile-time knobs of Kernels C, H, I and B on the card.
 
-    python -m generative_models_tpu_torch.ops.knob_sweep [--out FILE]
+    python -m generative_models_tpu_torch.ops.knob_sweep [--out FILE] [--only SRC,...]
 
 Each variant is a copy of ops/csrc/ with knob lines rewritten: Kernel C's
 register cap at D=32 (FwdPlan's MINB, blocks an SM) and K/V tile depth
 (SROWS) in attention.cu; Kernel H's register cap on its 16-byte route
 (HM_MINB), its dW tile (HM_BM, HM_BN), a warp's patch of it (HM_WM, HM_WN)
-and its staged depth of K (HM_KC) in masked_dense.cu. Every variant is
-built by nvcc (all at once, ptxas's registers and spills kept), launched at
-the main paths' shapes (pixel_transformer's (64,4,784,32) and long T
-(1,4,2048,32) for C; made's dW at hidden_size=2048, (2048,64) x (64,2048)
-and (784,64) x (64,2048), for H), compared bitwise with the shipped kernel
-through its wrapper, held against the plain version within chip_smoke.py's
-tolerances (the run fails if any case misses), and timed as device time
-from torch.profiler's CUDA trace, for H also with L2 flushed before each
-launch. Prints one JSON line a variant and writes them all to --out. Needs
-a card.
+and its staged depth of K (HM_KC) in masked_dense.cu; Kernel I's cp.async
+stages (I8_STAGES) in int8.cu; Kernel B's weight-tile depth (BT_KC) in
+decode_fused.cu, and, at the call, its cluster size at C=256 (cluster_c256:
+plan_block_tail's 16 or 8). Every variant is built by nvcc (all at once,
+ptxas's registers and spills kept), launched at the main paths' shapes
+(pixel_transformer's (64,4,784,32) and long T (1,4,2048,32) for C; made's
+dW at hidden_size=2048, (2048,64) x (64,2048) and (784,64) x (64,2048),
+for H; made's three w8a8 products at hidden_size=1024 and
+pixel_transformer's fc2 for I; the decode step at C=128 and C=256, B=64,
+for B), compared bitwise with the shipped kernel through its wrapper, held
+against the plain version within chip_smoke.py's tolerances (the run fails
+if any case misses), and timed as device time from torch.profiler's CUDA
+trace, for H, I and B also with L2 flushed before each launch. Prints one
+JSON line a variant and writes them all to --out. Needs a card.
 """
 
 import argparse
@@ -47,7 +51,11 @@ KNOBS = {
                 'constexpr int HM_WM = {}, HM_WN = {};'),
     'HM_KC': ('masked_dense', r'constexpr int HM_KC = \d+;', 'constexpr int HM_KC = {};'),
     'HM_MINB': ('masked_dense', r'constexpr int HM_MINB = \d+,', 'constexpr int HM_MINB = {},'),
+    'I8_STAGES': ('int8', r'constexpr int I8_STAGES = \d+;', 'constexpr int I8_STAGES = {};'),
+    'BT_KC': ('decode_fused', r'constexpr int BT_KC = \d+, BT_NC = 64;',
+              'constexpr int BT_KC = {}, BT_NC = 64;'),
 }
+CALL_KNOBS = ('cluster_c256',)  # set at the call, not in the source
 
 # C: 64-key tiles (as shipped) or 32, by register cap; H: the shipped 64 x
 # 128 tile (32 x 32 a warp, 64 deep) by register cap, then tiles that read
@@ -65,6 +73,10 @@ VARIANTS = (
         dict(HM_TILE=(128, 128), HM_WARP=(32, 64), HM_KC=32),
         dict(HM_TILE=(128, 128), HM_WARP=(64, 32), HM_KC=32),
         dict(HM_TILE=(64, 256), HM_WARP=(32, 64), HM_KC=32))]
+    + [('int8', dict(I8_STAGES=k)) for k in (4, 2, 3, 6)]
+    + [('decode_fused', kw) for kw in (
+        dict(BT_KC=64), dict(BT_KC=64, cluster_c256=8), dict(BT_KC=32),
+        dict(BT_KC=32, cluster_c256=8))]
 )
 
 
@@ -73,6 +85,8 @@ def patched_source(src, knobs):
     raises unless every knob is src's and its line occurs exactly once."""
     text = (CSRC / f'{src}.cu').read_text()
     for knob, value in knobs.items():
+        if knob in CALL_KNOBS:
+            continue
         owner, pattern, line = KNOBS[knob]
         value = value if isinstance(value, tuple) else (value,)
         text, n = re.subn(pattern, line.format(*value), text)
@@ -211,9 +225,91 @@ def run_masked_dense(lib, rng, dev):
     return out
 
 
+def run_int8(lib, rng, dev, knobs):
+    from generative_models_tpu_torch.ops.common import plan_split_k
+    from generative_models_tpu_torch.ops.int8 import (
+        INT8_GEMM_BN, INT8_GEMM_KT, int8_gemm, int8_gemm_plain,
+    )
+
+    fn = lib.gmt_int8_gemm
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    flush = torch.empty(64 << 20, device=dev)
+    out = {}
+    for M, K, N in ((64, 784, 1024), (64, 1024, 1024), (64, 1024, 784), (64, 512, 128)):
+        x = torch.tensor(rng.randint(-127, 128, (M, K)), dtype=torch.int8, device=dev)
+        q = torch.tensor(rng.randint(-127, 128, (K, N)), dtype=torch.int8, device=dev)
+        o = torch.empty((M, N), dtype=torch.int32, device=dev)
+        splits, kper = plan_split_k(M, K, N, INT8_GEMM_BN, kt=INT8_GEMM_KT)
+
+        def call():
+            rc = fn(x.data_ptr(), q.data_ptr(), o.data_ptr(), M, K, N, splits, kper,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f'int8_gemm launch failed ({rc})')
+
+        call()
+        out[f'({M},{K})x({K},{N})'] = dict(
+            bitwise_as_shipped=bool(torch.equal(o, int8_gemm(x, q))),
+            outside_tol=int((o != int8_gemm_plain(x, q)).sum()),
+            ms=device_ms(call, 'int8_gemm_kernel', 200),
+            ms_l2_cold=device_ms(call, 'int8_gemm_kernel', 50, flush))
+    return out
+
+
+def run_decode_fused(lib, rng, dev, knobs):
+    from generative_models_tpu_torch.ops.decode_fused import (
+        block_tail, block_tail_plain, plan_block_tail,
+    )
+
+    fn = lib.gmt_block_tail
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    flush = torch.empty(64 << 20, device=dev)
+    bf, B = torch.bfloat16, 64
+    f32 = lambda *s, scale=1.0: torch.tensor(rng.randn(*s) * scale, dtype=torch.float32,
+                                             device=dev)
+    out = {}
+    for C in (128, 256):
+        lp = dict(
+            wproj=f32(C, C, scale=C ** -0.5).to(bf), bproj=f32(C, scale=0.1),
+            ln2_scale=1 + f32(C, scale=0.1), ln2_bias=f32(C, scale=0.1),
+            wfc1=f32(C, 4 * C, scale=C ** -0.5).to(bf), bfc1=f32(4 * C, scale=0.1),
+            wfc2=f32(4 * C, C, scale=(4 * C) ** -0.5).to(bf), bfc2=f32(C, scale=0.1),
+        )
+        x, y = f32(B, C), f32(B, C)
+        o = torch.empty_like(x)
+        plan = plan_block_tail(C, knobs.get('cluster_c256') if C == 256 else None)
+        names = ('wproj', 'bproj', 'ln2_scale', 'ln2_bias', 'wfc1', 'bfc1', 'wfc2', 'bfc2')
+
+        def call():
+            rc = fn(x.data_ptr(), y.data_ptr(), *(lp[k].data_ptr() for k in names), o.data_ptr(),
+                    B, C, plan.cluster, plan.P, plan.F, plan.slots,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f'block_tail launch failed ({rc})')
+
+        call()
+        out[f'C={C}'] = dict(
+            plan=plan._asdict(), bitwise_as_shipped=bool(torch.equal(o, block_tail(x, y, lp))),
+            outside_tol=outside(o, block_tail_plain(x, y, lp, dtype=bf), 1e-2, 1e-2),
+            ms=device_ms(call, 'block_tail_kernel', 200),
+            ms_l2_cold=device_ms(call, 'block_tail_kernel', 50, flush))
+    return out
+
+
+# per source: the kernel's name in the trace and its runner
+RUNS = {
+    'attention': ('flash_fwd_kernel', lambda lib, rng, dev, knobs: run_attention(lib, rng, dev)),
+    'masked_dense': ('mask_out_matmul_kernel',
+                     lambda lib, rng, dev, knobs: run_masked_dense(lib, rng, dev)),
+    'int8': ('int8_gemm_kernel', run_int8),
+    'decode_fused': ('block_tail_kernel', run_decode_fused),
+}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--out', default=str(SWEEP_DIR / 'knob_sweep.json'))
+    ap.add_argument('--only', default='', help='comma-separated sources to sweep (default all)')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('knob_sweep: torch.cuda.is_available() is False; this needs a GPU', file=sys.stderr)
@@ -223,16 +319,16 @@ def main(argv=None):
     dev = resolve_device('cuda')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    vs = VARIANTS
+    only = set(filter(None, args.only.split(',')))
+    vs = [v for v in VARIANTS if not only or v[0] in only]
     built = build(vs)
     rows = []
     for (src, knobs), (lib_path, log) in zip(vs, built):
         lib = ctypes.CDLL(str(lib_path))
         rng = np.random.RandomState(0)
-        kernel = 'flash_fwd_kernel' if src == 'attention' else 'mask_out_matmul_kernel'
-        run = run_attention if src == 'attention' else run_masked_dense
-        row = dict(source=src, knobs=knobs, ptxas=ptxas(log, kernel), shapes=run(lib, rng, dev),
-                   device=smi)
+        kernel, run = RUNS[src]
+        row = dict(source=src, knobs=knobs, ptxas=ptxas(log, kernel),
+                   shapes=run(lib, rng, dev, knobs), device=smi)
         print(json.dumps(row), flush=True)
         rows.append(row)
         torch.cuda.empty_cache()

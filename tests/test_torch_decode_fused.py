@@ -91,3 +91,64 @@ def test_wrappers_refuse_tensors_off_the_cpu_without_a_kernel():
     lp = {k: torch.zeros(v.shape, device='meta') for k, v in _tail_params(np.random.RandomState(0)).items()}
     with pytest.raises(ValueError, match='CUDA tensor'):
         tdf.block_tail(x, x, lp)
+
+
+# Kernel B's layout (plan_block_tail, the launch of ops/csrc/decode_fused.cu
+# block_tail_kernel) at the two serving widths: pixel_transformer's C=128
+# over 8 blocks, the vqvae prior's C=256 over 16, every weight tile resident
+def test_block_tail_plan_pinned():
+    assert tdf.plan_block_tail(128) == tdf.BlockTailPlan(8, 16, 64, 6, 80128)
+    assert tdf.plan_block_tail(256) == tdf.BlockTailPlan(16, 16, 64, 12, 156928)
+    for C in (128, 256):
+        p = tdf.plan_block_tail(C)
+        assert p.slots == tdf.block_tail_tiles(C, p.P, p.F)
+
+
+@pytest.mark.parametrize('cluster', [None, 8, 16])
+def test_block_tail_plan_owns_every_column_once(cluster):
+    """At every C from 1 to 512: proj's (and the output's) C columns and
+    fc1's 4C hidden columns (fc2's K) each belong to exactly one block of
+    the cluster, in whole 16-column groups from block 0 on; the shared
+    memory stays within a block's 232448 bytes, with 2 to 24 ring slots.
+    Blocks past the last owned group own nothing and still take part."""
+    for C in range(1, tdf.BT_MAX_C + 1):
+        p = tdf.plan_block_tail(C, cluster)
+        assert p.P % 16 == 0 and p.F % 16 == 0
+        for width, per in ((C, p.P), (4 * C, p.F)):
+            owned = [c for r in range(p.cluster) for c in range(r * per, min((r + 1) * per, width))]
+            assert owned == list(range(width))
+        assert p.smem <= tdf.SMEM_MAX and 2 <= p.slots <= tdf.BT_MAX_SLOTS
+        assert p.smem == tdf.block_tail_smem(C, p.cluster, p.P, p.F, p.slots)
+    with pytest.raises(ValueError):
+        tdf.plan_block_tail(tdf.BT_MAX_C + 16)
+
+
+@pytest.mark.parametrize('C', [48, 100, 128, 144])
+def test_block_tail_plan_computes_the_block(C):
+    """The plan's decomposition, emulated in f32 on the CPU: h1's column
+    slices, LN2 over the gathered rows, each block's hidden slice through
+    fc1 and its K slice of fc2, the blocks' partial sums added in rank
+    order; equal to block_tail_plain within f32 reordering."""
+    rng = np.random.RandomState(C)
+    x, y = (torch.from_numpy(_f32(rng, 5, C)) for _ in range(2))
+    lp = {k: torch.from_numpy(v) for k, v in dict(
+        wproj=_f32(rng, C, C, scale=C ** -0.5), bproj=_f32(rng, C, scale=0.1),
+        ln2_scale=1 + _f32(rng, C, scale=0.1), ln2_bias=_f32(rng, C, scale=0.1),
+        wfc1=_f32(rng, C, 4 * C, scale=C ** -0.5), bfc1=_f32(rng, 4 * C, scale=0.1),
+        wfc2=_f32(rng, 4 * C, C, scale=(4 * C) ** -0.5), bfc2=_f32(rng, C, scale=0.1),
+    ).items()}
+    p = tdf.plan_block_tail(C)
+    h1 = torch.empty_like(x)
+    for r in range(p.cluster):
+        cols = slice(r * p.P, min((r + 1) * p.P, C))
+        h1[:, cols] = x[:, cols] + (y @ lp['wproj'][:, cols] + lp['bproj'][cols])
+    g = tdf._ln(h1, lp['ln2_scale'], lp['ln2_bias'])
+    total = None
+    for r in range(p.cluster):
+        hc = slice(r * p.F, min((r + 1) * p.F, 4 * C))
+        hid = torch.nn.functional.gelu(g @ lp['wfc1'][:, hc] + lp['bfc1'][hc], approximate='tanh')
+        part = hid @ lp['wfc2'][hc, :]
+        total = part if total is None else total + part
+    got = h1 + (total + lp['bfc2'])
+    np.testing.assert_allclose(got.numpy(), tdf.block_tail_plain(x, y, lp).numpy(),
+                               rtol=1e-5, atol=1e-5)

@@ -119,19 +119,80 @@ def test_mask_out_matmul_multiplies_on_the_tensor_cores():
     assert 'fmaf(' not in h and 'md_gemm' not in src and 'md_' not in src
 
 
-@pytest.mark.parametrize('src', ['attention', 'masked_dense'])
+def test_int8_gemm_multiplies_on_the_int8_tensor_cores():
+    """Kernel I (int8.cu) is the s8 sibling of stream_gemm.cuh's skeleton:
+    every product an mma.sync m16n8k32 s8 through mma.cuh's gmt_mma_s8, K
+    split in a cluster; the first design's __dp4a loop and its byte-by-byte
+    loaders (i8_load_x, i8_load_q) are gone."""
+    csrc = PORT / 'ops' / 'csrc'
+    src = (csrc / 'int8.cu').read_text()
+    skeleton = (csrc / 'stream_gemm.cuh').read_text()
+    assert 'mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32' in (csrc / 'mma.cuh').read_text()
+    assert 'sg_gemm_s8<' in src and 'int8_gemm_kernel' in src
+    assert skeleton.count('gmt_mma_s8(') == 2 and '__byte_perm' in skeleton
+    assert 'cluster.map_shared_rank' in skeleton
+    assert '__dp4a(' not in src and 'i8_load_' not in src and 'QG_' not in src
+
+
+def test_block_tail_multiplies_on_the_tensor_cores_over_a_cluster():
+    """Kernel B (decode_fused.cu block_tail_kernel) multiplies with
+    mma.cuh's gmt_mma_bf16 on ldmatrix fragments, over a thread-block
+    cluster whose blocks meet through distributed shared memory; it calls
+    no rows_matmul (Kernel A's f32 FMA loop, which stays for A)."""
+    src = (PORT / 'ops' / 'csrc' / 'decode_fused.cu').read_text()
+    b = src[src.index('-- Kernel B'):]
+    assert b.count('gmt_mma_bf16(') == 1 and 'gmt_ldmatrix_x4_trans(' in b
+    assert 'cudaLaunchAttributeClusterDimension' in b and 'barrier.cluster.arrive' in b
+    assert 'st.shared::cluster' in b and 'mapa.shared::cluster' in b
+    assert 'rows_matmul' not in b and 'rows_matmul<LM_ROWS>' in src
+
+
+@pytest.mark.parametrize('src', ['attention', 'masked_dense', 'int8', 'decode_fused'])
 def test_knob_sweep_rewrites_one_line_a_knob(src):
     """ops/knob_sweep.py (run on the card) finds each of its knobs' lines
     exactly once in the source, and its first variant of each source is the
     source as shipped, so the sweep times the shipped kernel beside the
-    others."""
+    others; every other variant differs from it in the source or in a knob
+    set at the call (Kernel B's cluster size)."""
     from generative_models_tpu_torch.ops import knob_sweep
 
     variants = [knobs for s, knobs in knob_sweep.VARIANTS if s == src]
     assert len(variants) > 3
     shipped = (PORT / 'ops' / 'csrc' / f'{src}.cu').read_text()
     assert knob_sweep.patched_source(src, variants[0]) == shipped
-    assert all(knob_sweep.patched_source(src, k) != shipped for k in variants[1:])
+    assert not set(variants[0]) & set(knob_sweep.CALL_KNOBS)
+    assert all(knob_sweep.patched_source(src, k) != shipped
+               or set(k) & set(knob_sweep.CALL_KNOBS) for k in variants[1:])
+
+
+def test_every_kernel_entry_a_wrapper_calls_is_in_its_source():
+    """Each c_function(library, 'gmt_...') of the port names an extern "C"
+    entry that ops/csrc/<library>.cu defines: a lost host entry fails here
+    on the CPU, not at the first launch on the card."""
+    calls = set()
+    for p in sorted(PORT.rglob('*.py')):
+        for node in ast.walk(ast.parse(p.read_text(), str(p))):
+            if (isinstance(node, ast.Call) and getattr(node.func, 'id', '') == 'c_function'
+                    and all(isinstance(a, ast.Constant) for a in node.args[:2])):
+                calls.add((node.args[0].value, node.args[1].value))
+    assert len(calls) >= 12
+    csrc = PORT / 'ops' / 'csrc'
+    missing = [(lib, fn) for lib, fn in sorted(calls)
+               if f'extern "C" int {fn}(' not in (csrc / f'{lib}.cu').read_text()]
+    assert missing == []
+
+
+def test_block_tail_stamps_find_their_lines():
+    """ops/block_tail_stamps.py (run on the card) puts each of its stamps
+    at a line of Kernel B that occurs exactly once, so the timeline it
+    prints follows the shipped source."""
+    from generative_models_tpu_torch.ops import block_tail_stamps as bts
+
+    text = bts.stamped_source()
+    assert text.count('%%globaltimer') == len(bts.ANCHORS)
+    shipped = (PORT / 'ops' / 'csrc' / 'decode_fused.cu').read_text()
+    kept = iter(text.split('\n'))
+    assert all(line in kept for line in shipped.split('\n'))  # every line, in order
 
 
 def test_ptxas_report_reads_registers_and_spills():
