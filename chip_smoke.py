@@ -10,14 +10,17 @@ failure exits non-zero before the result lines:
                 power limit.
   2. build   -- compile ops/csrc/*.cu (one nvcc per source, in parallel)
                 and print the build seconds and ptxas's registers and
-                spills of every entry function (Kernels C, E and D's by D
-                bucket, H's and I's by their VEC flag and B's by VEC flag
-                and LN width also in the kernels line; fails where C, E or
-                D spill at D=32 or H, I or B spills).
+                spills of every entry function (Kernels C, E, D and L's by
+                D bucket, H's and I's by their VEC flag and A's and B's by
+                VEC flag and LN width also in the kernels line; fails where
+                C, E or D spill at D=32 or H, I, A, B or L spills).
   3. kernels -- hold each kernel against its plain PyTorch version on the
                 card at the main paths' shapes (pixel_transformer's,
                 vqvae's and made's at hidden_size=2048), with seeded inputs
-                and a stated tolerance; Kernel F's indices must be
+                and a stated tolerance; A (the decode step's LN + product)
+                at its four path shapes and eleven ragged ones (B 1-70, N 7
+                and 96, C 100-4096, x at an odd offset), launched twice and
+                bitwise equal; Kernel F's indices must be
                 identical but for ties within rounding, Kernel H exactly 0
                 off its mask, and Kernel I (int8 x int8 -> int32) bitwise
                 equal; I and J (the dequantizing product) at every product
@@ -32,8 +35,10 @@ failure exits non-zero before the result lines:
                 cases of their tiling, each launched twice and bitwise
                 equal;
                 the ring's hop Kernels K, L and M on rings of 2, 4 and 8 at
-                their first hop and at a carry hop, and the whole ring at 4
-                and 8 against Kernels C, E and D on the full sequence.
+                their first hop and at a carry hop (L launched twice and
+                bitwise equal, then untimed at D 8-128, t_valid 75 and one
+                rank's launch of a ring of 4), and the whole ring at 4 and 8
+                against Kernels C, E and D on the full sequence.
                 Time kernel, plain version and, where one PyTorch call
                 computes the same function, that call, as device time
                 (torch.profiler's CUDA trace) and as eager back-to-back time
@@ -282,12 +287,14 @@ def ptxas_report(text):
 def phase_build():
     """Builds every kernel source; logs ptxas's registers and spills of
     each entry function. Returns the reports of the kernels redesigned for
-    the tensor cores, Kernels C, E and D by D bucket, H and I by their VEC
-    flag and B by VEC flag and LN width, as {'causal_attention_fwd':
-    {'DP=32': {...}, ...}, 'flash_bwd_dq': ..., 'flash_bwd_dkv': ...,
-    'mask_out_matmul': {'VEC=1': {...}, 'VEC=0': {...}}, 'int8_gemm': ...,
-    'block_tail': {'VEC=1,VPL=4': {...}, ...}}, and raises if C, E or D
-    spill at D=32 (every path's width) or H, I or B spill at all."""
+    the tensor cores, Kernels C, E, D and L by D bucket, H and I by their
+    VEC flag and A and B by VEC flag and LN width (A's dot route as 'dot'),
+    as {'causal_attention_fwd': {'DP=32': {...}, ...}, 'flash_bwd_dq': ...,
+    'flash_bwd_dkv': ..., 'mask_out_matmul': {'VEC=1': {...}, 'VEC=0':
+    {...}}, 'int8_gemm': ..., 'block_tail': {'VEC=1,VPL=4': {...}, ...},
+    'ln_matmul': {'VEC=1,VPL=4': {...}, 'dot,VPL=4': {...}, ...},
+    'ring_chunk_bwd_dq': {'DP=32': {...}, ...}}, and raises if C, E or D
+    spill at D=32 (every path's width) or H, I, A, B or L spill at all."""
     from generative_models_tpu_torch.ops.common import BUILD_DIR, KERNEL_SOURCES, build_kernels
 
     t0 = time.time()
@@ -302,7 +309,12 @@ def phase_build():
                ('masked_dense', r'mask_out_matmul_kernelILb(\d+)E', 'mask_out_matmul', 'VEC={}'),
                ('int8', r'int8_gemm_kernelILb(\d+)E', 'int8_gemm', 'VEC={}'),
                ('decode_fused', r'block_tail_kernelILb(\d+)ELi(\d+)E', 'block_tail',
-                'VEC={},VPL={}'))
+                'VEC={},VPL={}'),
+               ('decode_fused', r'ln_matmul_kernelILb(\d+)ELi(\d+)E', 'ln_matmul',
+                'VEC={},VPL={}'),
+               ('decode_fused', r'ln_matmul_dot_kernelILi(\d+)E', 'ln_matmul', 'dot,VPL={}'),
+               ('ring_attention', r'ring_bwd_dq_kernelILi(\d+)E', 'ring_chunk_bwd_dq', 'DP={}'))
+    every_bucket = ('ring_chunk_bwd_dq',)  # held at every D bucket, not at D=32 alone
     reps = {name: {} for _, _, name, _ in watched}
     for p in sorted(BUILD_DIR.glob('*.log')):
         for fn, rep in ptxas_report(p.read_text()).items():
@@ -315,7 +327,8 @@ def phase_build():
         log(f'[build] {name} ptxas {json.dumps(rep)}')
         if not rep:
             raise AssertionError(f'{name}: no ptxas report')
-        held = [('DP=32', rep['DP=32'])] if 'DP=32' in rep else rep.items()
+        held = ([('DP=32', rep['DP=32'])] if 'DP=32' in rep and name not in every_bucket
+                else rep.items())
         for key, r in held:
             if r.get('spill_stores', 0):
                 raise AssertionError(f'{name} spills at {key}: {r}')
@@ -334,6 +347,7 @@ def phase_kernels(dev):
     )
     from generative_models_tpu_torch.ops.decode_fused import (
         block_tail, block_tail_plain, ln_matmul, ln_matmul_plain, plan_block_tail,
+        plan_ln_matmul,
     )
 
     rng = np.random.RandomState(0)
@@ -346,25 +360,50 @@ def phase_kernels(dev):
     # accumulation). Tolerance atol 1e-2 + rtol 1e-2: the f32 sums differ
     # only in order (~1e-6), but a normalised input that lands within an
     # f32 ulp of a bf16 rounding boundary rounds the other way in one of the
-    # two, moving its products by up to 2^-8 relative.
+    # two, moving its products by up to 2^-8 relative. A launches twice on
+    # the same inputs and the two must be bitwise equal (no atomics, no split
+    # K); ms_l2_cold: with L2 flushed before each launch. Then untimed:
+    # ragged rows (B = 1, 25, 70: a part-filled 16-row strip), ragged N (7:
+    # the dot route at N > 1; 96: a part-filled 64-column slice), ragged C
+    # (100: plain loads; 1024 and 4096: LN by loops, the weight streamed
+    # through the stage ring), and x at an odd offset (plain loads).
     tol_dense = dict(atol=1e-2, rtol=1e-2)
+    flush = torch.empty(64 << 20, device=dev)  # 256 MB of f32
     B = 64
     for C, N, path in ((128, 384, 'pixel_transformer'), (128, 1, 'pixel_transformer'),
                        (256, 768, 'vqvae'), (256, 64, 'vqvae')):
         x, s, b = f32(B, C), 1 + f32(C, scale=0.1), f32(C, scale=0.1)
         w, bias = f32(C, N, scale=C ** -0.5).to(bf), f32(N, scale=0.1)
-        got = ln_matmul(x, s, b, w, bias)
+        got = _twice_bitwise(f'ln_matmul C={C} N={N}', lambda: ln_matmul(x, s, b, w, bias))
         ref = ln_matmul_plain(x, s, b, w, bias, dtype=bf)
         err = compare(f'ln_matmul C={C} N={N}', got, ref, **tol_dense)
         nbytes = B * C * 4 + 2 * C * 4 + C * N * 2 + N * 4 + B * N * 4
         bms, by = bound(nbytes, 2 * B * C * N)
         cases['ln_matmul'].append(dict(
             shape=f'x ({B},{C}) -> ({B},{N})', path=path, max_abs_err=err, **tol_dense,
-            bound_ms=bms, bound_by=by, **timings(
+            bound_ms=bms, bound_by=by, bitwise_twice=True,
+            plan=plan_ln_matmul(B, C, N)._asdict(),
+            ms_l2_cold=l2_cold_ms(lambda: ln_matmul(x, s, b, w, bias), 'ln_matmul', flush),
+            **timings(
                 lambda: ln_matmul(x, s, b, w, bias),
                 lambda: ln_matmul_plain(x, s, b, w, bias, dtype=bf),
             ),
         ))
+    for rows, C, N, odd in ((1, 128, 384, False), (25, 128, 384, False), (70, 256, 768, False),
+                            (64, 128, 7, False), (64, 128, 96, False), (64, 100, 96, False),
+                            (25, 1024, 384, False), (70, 1024, 1, False), (5, 4096, 96, False),
+                            (64, 128, 384, True), (25, 100, 1, True)):
+        s, b = 1 + f32(C, scale=0.1), f32(C, scale=0.1)
+        w, bias = f32(C, N, scale=C ** -0.5).to(bf), f32(N, scale=0.1)
+        # 4 bytes past a 16-byte boundary: the plain-load route
+        x = f32(rows * C + 1)[1:].view(rows, C) if odd else f32(rows, C)
+        shape = f'ragged x ({rows},{C}) -> ({rows},{N}){", at an odd offset" if odd else ""}'
+        got = _twice_bitwise(f'ln_matmul {shape}', lambda: ln_matmul(x, s, b, w, bias))
+        err = compare(f'ln_matmul {shape}', got, ln_matmul_plain(x, s, b, w, bias, dtype=bf),
+                      **tol_dense)
+        plan = plan_ln_matmul(rows, C, N, aligned=not odd)._asdict()
+        cases['ln_matmul'].append(dict(shape=shape, path='ragged', max_abs_err=err, **tol_dense,
+                                       bitwise_twice=True, plan=plan))
     # Kernel B launched twice on the same inputs must be bitwise equal (its
     # cluster's partial sums meet in rank order); ms_l2_cold: with L2
     # flushed before each launch. Then untimed: ragged rows (B = 1, 25, 70:
@@ -372,7 +411,6 @@ def phase_kernels(dev):
     # (P=32 slices over 8 blocks, the last rank's 16 wide, ranks 5-7 empty)
     # and on the plain-load route (x, y at an odd offset), and C=100 (not a
     # multiple of 16: plain loads)
-    flush = torch.empty(64 << 20, device=dev)  # 256 MB of f32
 
     def block_tail_params(C):
         return dict(
@@ -616,6 +654,7 @@ def ring_cases(f32, shape=(64, 4, 784, 32)):
     BH, bf = B * H, torch.bfloat16
     q, k, v, do = (f32(B, H, T, D).to(bf) for _ in range(4))
     tol_k, tol_lm = dict(atol=2e-5, rtol=2e-4), dict(atol=1e-4, rtol=1e-3)
+    flush = torch.empty(64 << 20, device=q.device)  # 256 MB of f32
     out = {'ring_chunk_fwd': [], 'ring_chunk_bwd_dq': [], 'ring_chunk_bwd_dkv': []}
     clone = lambda xs: None if xs is None else tuple(x.clone() for x in xs)
     for n in (4, 2, 8):
@@ -654,18 +693,24 @@ def ring_cases(f32, shape=(64, 4, 784, 32)):
                     lambda: att.ring_chunk_fwd(qc, kc, vc, None if init else scratch, hop, Tl),
                     lambda: att.ring_hop_fwd_plain(qc, kc, vc, c_in, hop, Tl, dtype=bf),
                     iters=10)))
-            # L: q, k, v, dO, lse, delta read, dq read (not at init) and written
-            got = att.ring_chunk_bwd_dq(qc, kc, vc, doc, lse, delta,
-                                        None if init else dq0.clone(), hop, Tl)
+            # L: q, k, v, dO, lse, delta read, dq read (not at init) and
+            # written; launched twice on the same inputs, bitwise equal (no
+            # atomics); timed in place, as the ring runs it, and at the
+            # seq_train ring also with L2 flushed before each launch
+            got = _twice_bitwise(f'ring_chunk_bwd_dq {shape}', lambda: att.ring_chunk_bwd_dq(
+                qc, kc, vc, doc, lse, delta, None if init else dq0.clone(), hop, Tl))
             ref = att.ring_hop_bwd_dq_plain(qc, kc, vc, doc, lse, delta, dq_in, hop, Tl, dtype=bf)
             err = compare(f'ring_chunk_bwd_dq {shape}', got, ref, **tol_lm)
             bms, by = bound(4 * full * 2 + 2 * rows + (1 if init else 2) * full * 4,
                             3 * 2 * D * pairs)
             dq_s = dq0.clone()
+            l_call = lambda: att.ring_chunk_bwd_dq(qc, kc, vc, doc, lse, delta,
+                                                   None if init else dq_s, hop, Tl)
+            cold = {'ms_l2_cold': l2_cold_ms(l_call, 'ring_bwd_dq_kernel', flush)} if n == 4 else {}
             out['ring_chunk_bwd_dq'].append(dict(
-                **common, max_abs_err=err, **tol_lm, bound_ms=bms, bound_by=by, **timings(
-                    lambda: att.ring_chunk_bwd_dq(qc, kc, vc, doc, lse, delta,
-                                                  None if init else dq_s, hop, Tl),
+                **common, max_abs_err=err, **tol_lm, bound_ms=bms, bound_by=by,
+                bitwise_twice=True, **cold, **timings(
+                    l_call,
                     lambda: att.ring_hop_bwd_dq_plain(qc, kc, vc, doc, lse, delta, dq_in, hop,
                                                       Tl, dtype=bf),
                     iters=10)))
@@ -689,6 +734,8 @@ def ring_cases(f32, shape=(64, 4, 784, 32)):
             del got, ref
         del qc, kc, vc, doc, o, lse, delta, carry, dq0, dkv0
         torch.cuda.empty_cache()
+    del flush
+    out['ring_chunk_bwd_dq'] += ring_dq_edge_cases(f32, tol_lm)
 
     # the whole ring against Kernels C, E and D on the full sequence; f32
     # inputs holding bf16 values, so the ring's gradients come back in f32
@@ -722,6 +769,64 @@ def ring_cases(f32, shape=(64, 4, 784, 32)):
     del so, qs, ks, vs, oc, lsec, refs
     torch.cuda.empty_cache()
     return dict(cases=out, whole=whole)
+
+
+def ring_dq_edge_cases(f32, tol):
+    """Kernel L, untimed, at the edges of its tiling, each launched twice
+    (bitwise equal) and held against ring_hop_bwd_dq_plain on the same
+    arguments: D = 8, 16, 64 and 128 (every D bucket, 32 being the path's)
+    on a ring of 4 at T=784 (t_valid 196); t_valid 75 on a ring of 2 (T=150,
+    chunks of 80 rows); and one rank's launch of a ring of 4 (P=1, pos0=2,
+    the visiting chunk in slot 0) at every hop, on a dq at an odd offset at
+    the carry hops (the wrapper's copy back)."""
+    from generative_models_tpu_torch.ops import attention as att
+    from generative_models_tpu_torch.parallel.ring_attention import _chunks, ring_forward
+
+    bf = torch.bfloat16
+    out = []
+
+    def fresh(dq, odd):
+        """a copy of dq (None stays None), 4 bytes past a 16-byte boundary
+        where odd"""
+        if dq is None or not odd:
+            return None if dq is None else dq.clone()
+        buf = torch.empty(dq.numel() + 1, device=dq.device)
+        buf[1:] = dq.flatten()
+        return buf[1:].view(dq.shape)
+
+    def check(label, qc, kc, vc, doc, lse, delta, dq_in, hop, Tl, pos0=0, n_ring=None,
+              odd=False):
+        got = _twice_bitwise(f'ring_chunk_bwd_dq {label}', lambda: att.ring_chunk_bwd_dq(
+            qc, kc, vc, doc, lse, delta, fresh(dq_in, odd), hop, Tl, pos0, n_ring))
+        ref = att.ring_hop_bwd_dq_plain(qc, kc, vc, doc, lse, delta, dq_in, hop, Tl, pos0,
+                                        n_ring, dtype=bf)
+        out.append(dict(shape=label, path='edge', bitwise_twice=True, **tol,
+                        max_abs_err=compare(f'ring_chunk_bwd_dq {label}', got, ref, **tol)))
+
+    for n, (B, H, T, D) in ((4, (2, 3, 784, 8)), (4, (2, 3, 784, 16)), (4, (2, 3, 784, 64)),
+                            (4, (2, 3, 784, 128)), (2, (2, 3, 150, 32))):
+        Tl = T // n
+        Tp = att._pick_chunk_blk(Tl)[1]
+        qc, kc, vc, doc = (_chunks(f32(B, H, T, D), n, Tp, bf) for _ in range(4))
+        o, lse = ring_forward(qc, kc, vc, Tl)
+        delta = (doc.float() * o).sum(-1)
+        dq0 = att.ring_chunk_bwd_dq(qc, kc, vc, doc, lse, delta, None, 0, Tl)
+        for hop in (0, 1):
+            check(f'ring of {n}: (n={n},BH={B * H},Tp={Tp},D={D}), t_valid {Tl}, hop {hop}',
+                  qc, kc, vc, doc, lse, delta, None if hop == 0 else dq0, hop, Tl)
+    n, (B, H, T, D) = 4, (2, 3, 200, 32)
+    Tl = T // n
+    Tp = att._pick_chunk_blk(Tl)[1]
+    qc, kc, vc, doc = (_chunks(f32(B, H, T, D), n, Tp, bf) for _ in range(4))
+    o, lse = ring_forward(qc, kc, vc, Tl)
+    delta = (doc.float() * o).sum(-1)
+    for hop in range(n):
+        c = (2 - hop) % n  # the chunk visiting position 2
+        dq_in = None if hop == 0 else f32(1, B * H, Tp, D)
+        check(f'one rank of a ring of {n}: P=1, pos0=2, (BH={B * H},Tp={Tp},D={D}), '
+              f't_valid {Tl}, hop {hop}', qc[2:3], kc[c:c + 1], vc[c:c + 1], doc[2:3], lse[2:3],
+              delta[2:3], dq_in, hop, Tl, 2, n, odd=hop > 0)
+    return out
 
 
 def vq_cases(f32):

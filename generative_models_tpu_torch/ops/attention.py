@@ -506,21 +506,27 @@ def ring_chunk_bwd_dq(q, k, v, do, lse, delta, dq, hop, t_valid, pos0=0, n_ring=
     (ring_chunk_fwd's layout). do: (P, BH, Tp, D) bf16, zero on padded
     rows; lse (from the forward) and delta = rowsum(dO * o) (P, BH, Tp) f32;
     dq: None at the first hop or the carried (P, BH, Tp, D) f32, updated in
-    place on the card. Returns dq + dS K * scale. CPU tensors take
-    ring_hop_bwd_dq_plain in f32."""
+    place on the card. Returns dq + dS K * scale; on the card rows at or
+    past t_valid keep dq (0 at the first hop), which is what a zero dO
+    gives them. CPU tensors take ring_hop_bwd_dq_plain in f32."""
     n_ring = n_ring or q.shape[0]
     if q.device.type == 'cpu':
         return ring_hop_bwd_dq_plain(q, k, v, do, lse, delta, dq, hop, t_valid, pos0, n_ring)
     _check_ring('ring_chunk_bwd_dq', q, k, v, t_valid, pos0, n_ring, do=do, lse=lse,
                 delta=delta, dq=dq)
     P, BH, Tp, D = q.shape
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device) if dq is None else dq
+    q, k, v, do = map(_aligned16, (q, k, v, do))
+    # the kernel reads and writes dq 8 bytes at a time: a dq at an odd
+    # offset is updated in an aligned copy, copied back into it
+    odd = dq is not None and dq.data_ptr() % 8
+    acc = dq.clone() if odd else dq
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device) if dq is None else acc
     fn = c_function('ring_attention', 'gmt_ring_bwd_dq', 8, 8, 1)
     launch('ring_attention', fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           lse.data_ptr(), delta.data_ptr(), _ptr(dq), out.data_ptr(), P, BH, Tp, D, t_valid,
+           lse.data_ptr(), delta.data_ptr(), _ptr(acc), out.data_ptr(), P, BH, Tp, D, t_valid,
            pos0, n_ring, hop, 1.0 / math.sqrt(D))
     ring_chunk_bwd_dq.launches += 1
-    return out
+    return dq.copy_(out) if odd else out
 
 
 ring_chunk_bwd_dq.launches = 0

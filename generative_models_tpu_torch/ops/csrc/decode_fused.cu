@@ -10,12 +10,38 @@
 // weights are most of it, and they stay in the 50 MB L2 across decode
 // steps) and does at most 75 MFLOP, so a launch costs its fixed latency.
 //
-// A (ln_matmul, a first design): one block owns a tile of rows and
-// does every stage for it, so the normalised rows live in shared memory
-// only; threads map to output columns, so each weight row is read
-// coalesced, and where a stage has fewer output columns than threads (the
-// head's N = 1) the threads split the reduction and meet in shared memory
-// (rows_matmul); operands rounded to bf16, f32 FMA sums.
+// A (ln_matmul) has two routes, by N (plan_ln_matmul in ops/decode_fused.py
+// reckons the same):
+//   * N >= 8, on the tensor cores (ln_matmul_kernel): one block of LM_COLS / 8
+//     warps a (16-row strip, LM_COLS-column slice). At entry the block issues
+//     its weight slice's 16-byte cp.async copies, 64 rows of w a stage, every
+//     stage at once where the slice has at most LM_STAGES of them (C <= 256:
+//     every path shape), so the weight flies while LN runs, and one wait and
+//     one barrier serve them all; wider C streams through a ring of LM_STAGES
+//     stages, one barrier a stage. b is read at entry, so no load waits behind
+//     a barrier. Each warp reads two rows of x once into registers, takes LN
+//     from there (two-pass mean and variance, eps 1e-6, row sums by a shuffle
+//     butterfly) and writes the bf16 rows to shared memory at a row stride of
+//     C + 8 (rounded up to 16), so ldmatrix reads them without bank conflicts.
+//     Then each warp owns an 8-column group: mma.sync m16n8k16 through
+//     gmt_mma_bf16, A by ldmatrix from the rows, B by ldmatrix.trans from the
+//     (in, out) stage, the even and the odd k steps into two sums (two
+//     dependent chains of half the length); the epilogue adds them and b and
+//     masks rows past B and columns past N. The first design re-normalised its
+//     rows in every column block, reading x from device memory three times,
+//     and started its weight loads only after LN, behind a barrier: two
+//     dependent round trips and an f32 FMA chain of K / splits x 8 rows.
+//   * N < 8, on the CUDA cores (ln_matmul_dot_kernel; pixel_transformer's
+//     head, N = 1): an m16n8 tile would be 7/8 zeros, so a warp takes a
+//     row: LN and the C-long dot products from registers, one shuffle
+//     reduction an output, no shared memory and no barrier.
+// 16-byte loads of x and w only where N % 8 == 0, C % 4 == 0 and x and w
+// are 16-byte aligned (VEC); plain loads otherwise. C up to 6096 (the rows
+// and LM_STAGES stages within a block's shared memory). No atomics and no
+// split K: A is bitwise the same run to run. Rounding as the plain version:
+// bf16(LN(x) * scale + bias) and bf16(w) as operands, f32 sums and output.
+// The first design took 6.553 us at (64,128) -> 384 and 4.522 us at -> 1
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
 // B (block_tail) spreads the weights over a cluster, not the rows over
 // blocks, and multiplies on the tensor cores:
@@ -82,9 +108,6 @@
 
 #include <cstdint>
 
-constexpr int LM_ROWS = 8;       // rows of x per ln_matmul block
-constexpr int LM_COLS = 32;      // output columns per ln_matmul block
-constexpr int LM_THREADS = 128;
 constexpr size_t SMEM_MAX = 232448;  // bytes of shared memory a block can have
 
 __device__ __forceinline__ float gelu_tanh(float v) {
@@ -95,58 +118,314 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   return __fdividef(v, 1.f + __expf(-2.f * u));
 }
 
-// dst[r * ncols + j] = sum_k src[r * K + k] * W[k * ldw + n0 + j] for r < ROWS,
-// j < ncols. When ncols < blockDim.x the threads split K into blockDim.x /
-// ncols slices whose partial sums meet in scratch (ROWS * max(blockDim.x,
-// ncols) floats), summed in slice order. Ends with a __syncthreads().
-template <int ROWS>
-__device__ void rows_matmul(const float* src, int K, const __nv_bfloat16* __restrict__ W,
-                            int ldw, int n0, int ncols, float* scratch, float* dst) {
-  const int splits = max(1, (int)blockDim.x / ncols);
-  const int span = (K + splits - 1) / splits;
-  for (int idx = threadIdx.x; idx < ncols * splits; idx += blockDim.x) {
-    const int j = idx % ncols, part = idx / ncols;
-    const int k1 = min(K, (part + 1) * span);
-    const __nv_bfloat16* wj = W + n0 + j;
-    float acc[ROWS];
+// out[j] = the sum of t[j] over the warp's 32 lanes, for each of R rows
+// (R a power of 2 up to 16): a butterfly that halves the rows at each of
+// the first log2 R levels (R - 1 shuffles, independent within a level), the
+// full sum over the rest, then each row's total broadcast from its lanes.
+template <int R>
+__device__ __forceinline__ void bt_rows_sum(float (&t)[R], float (&out)[R]) {
+  constexpr int LOG = R >= 16 ? 4 : R >= 8 ? 3 : R >= 4 ? 2 : R >= 2 ? 1 : 0;
+  static_assert(R == 1 << LOG, "R a power of 2 up to 16");
+  const int lane = threadIdx.x % 32;
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-#pragma unroll 8
-    for (int k = part * span; k < k1; ++k) {
-      const float wv = __bfloat162float(wj[(size_t)k * ldw]);
+  for (int l = 0; l < LOG; ++l) {
+    const int half = R >> (l + 1), bit = 16 >> l;
+    const bool up = lane & bit;  // keep rows half.. (else ..half), send the others
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(src[r * K + k], wv, acc[r]);
+    for (int k = 0; k < half; ++k) {
+      const float send = up ? t[k] : t[half + k];
+      t[k] = (up ? t[half + k] : t[k]) + __shfl_xor_sync(0xffffffffu, send, bit);
     }
+  }
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) scratch[(part * ROWS + r) * ncols + j] = acc[r];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < ROWS * ncols; i += blockDim.x) {
-    float s = 0.f;
-    for (int part = 0; part < splits; ++part) s += scratch[part * ROWS * ncols + i];
-    dst[i] = s;
-  }
-  __syncthreads();
+  for (int bit = 16 >> LOG; bit > 0; bit >>= 1) t[0] += __shfl_xor_sync(0xffffffffu, t[0], bit);
+  // lane l now holds row l >> (5 - LOG)'s total
+#pragma unroll
+  for (int j = 0; j < R; ++j) out[j] = __shfl_sync(0xffffffffu, t[0], j << (5 - LOG));
 }
 
-// out[r, n] = LN(x[r]) . w[:, n] + b[n]; x (B, C) f32, w (C, N) bf16.
+// ---------------------------------------------------------------- Kernel A
+
+constexpr int LM_ROWS = 16, LM_COLS = 64;  // a block's strip of x and slice of w's columns
+constexpr int LM_WARPS = LM_COLS / 8;      // an 8-column group a warp
+constexpr int LM_THREADS = 32 * LM_WARPS;
+constexpr int LM_KC = 64;                  // rows of w a stage
+constexpr int LM_WLD = LM_COLS + 8;        // a stage's row stride: ldmatrix rows on distinct banks
+constexpr int LM_STAGE = LM_KC * LM_WLD;   // bf16 elements of a stage
+constexpr int LM_STAGES = 4;               // stages in flight where C > 4 LM_KC
+constexpr int LM_DOT_WARPS = 4;            // the dot route: a row a warp
+constexpr int LM_DOT_MAX_N = 7;            // the dot route takes N < 8
+static_assert(LM_ROWS % 16 == 0 && LM_ROWS % LM_WARPS == 0, "whole m16 tiles, rows a warp");
+
+// The column of value i of a lane's VPL values of a row, W columns a load.
+template <int W>
+__device__ __forceinline__ int lm_col(int i) {
+  return (threadIdx.x % 32 + 32 * (i / W)) * W + i % W;
+}
+
+// Rows m .. m + R - 1 of x (zero from row B and column C on) into v, 4
+// columns a load where VEC, VPL values a lane a row (C <= 32 VPL); each
+// row's mean and 1 / sqrt(var + 1e-6), two-pass, as the plain version's _ln.
+template <bool VEC, int VPL, int R>
+__device__ __forceinline__ void lm_rows_stats(const float* __restrict__ x, int m, int B, int C,
+                                              float (&v)[R][VPL], float (&mean)[R],
+                                              float (&rs)[R]) {
+  constexpr int W = VEC ? 4 : 1;
+#pragma unroll
+  for (int i = 0; i < VPL; i += W) {
+    const int c = lm_col<W>(i);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float* src = x + (size_t)(m + j) * C + c;
+      const bool in = m + j < B && c < C;
+      if constexpr (VEC) {
+        const float4 f = in ? *reinterpret_cast<const float4*>(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[j][i] = f.x, v[j][i + 1] = f.y, v[j][i + 2] = f.z, v[j][i + 3] = f.w;
+      } else {
+        v[j][i] = in ? src[0] : 0.f;
+      }
+    }
+  }
+  float t[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    t[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) t[j] += v[j][i];
+  }
+  bt_rows_sum<R>(t, mean);
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    mean[j] /= C;
+    t[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const float d = lm_col<W>(i) < C ? v[j][i] - mean[j] : 0.f;
+      t[j] += d * d;
+    }
+  }
+  bt_rows_sum<R>(t, rs);
+#pragma unroll
+  for (int j = 0; j < R; ++j) rs[j] = rsqrtf(rs[j] / C + 1e-6f);
+}
+
+// The same for one row of any width, by loops over x's row xr (the wide C
+// route: x read from device memory once, then from L1): (mean, rs).
+__device__ __forceinline__ float2 lm_row_stats(const float* __restrict__ xr, int C) {
+  const int lane = threadIdx.x % 32;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += xr[c];
+  const float mean = gmt_warp_sum(s) / C;
+  s = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = xr[c] - mean;
+    s += d * d;
+  }
+  return make_float2(mean, rsqrtf(gmt_warp_sum(s) / C + 1e-6f));
+}
+
+// Rows k0 .. k0 + LM_KC - 1 and columns n0 .. n0 + LM_COLS - 1 of w (C, N)
+// into a stage (zero past C and past the slice's cw columns): 16-byte
+// cp.async where VEC (the caller commits), else plain loads.
+template <bool VEC>
+__device__ __forceinline__ void lm_load_stage(__nv_bfloat16* st, const __nv_bfloat16* __restrict__ w,
+                                              int N, int C, int k0, int n0, int cw) {
+  constexpr int CH = LM_COLS / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < LM_KC * CH; i += LM_THREADS) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const __nv_bfloat16* src = w + (size_t)(k0 + r) * N + n0 + c;
+    __nv_bfloat16* dst = st + r * LM_WLD + c;
+    if (VEC) {
+      const bool ok = k0 + r < C && c < cw;
+      gmt_cp_async16(dst, ok ? src : w, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e] = k0 + r < C && c + e < cw ? src[e] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// out[r, n] = bf16(LN(x[r]) * scale + bias) . bf16(w[:, n]) + b[n] for N >= 8;
+// x (B, C) f32, w (C, N) bf16. Grid (N / LM_COLS, B / LM_ROWS), rounded up.
+template <bool VEC, int VPL>
 __global__ void __launch_bounds__(LM_THREADS) ln_matmul_kernel(
     const float* __restrict__ x, const float* __restrict__ scale,
     const float* __restrict__ bias, const __nv_bfloat16* __restrict__ w,
     const float* __restrict__ b, float* __restrict__ out, int B, int C, int N) {
-  extern __shared__ float sm[];
-  float* h = sm;                         // (LM_ROWS, C) normalised rows, bf16-rounded
-  float* acc = h + LM_ROWS * C;          // (LM_ROWS, LM_COLS) products
-  float* scratch = acc + LM_ROWS * LM_COLS;  // (LM_ROWS, LM_THREADS) partial sums
-  const int r0 = blockIdx.x * LM_ROWS, n0 = blockIdx.y * LM_COLS;
-  const int ncols = min(LM_COLS, N - n0);
-  gmt_layernorm_rows_bf16(x + (size_t)r0 * C, scale, bias, h, LM_ROWS, B - r0, C);
-  __syncthreads();
-  rows_matmul<LM_ROWS>(h, C, w, N, n0, ncols, scratch, acc);
-  for (int i = threadIdx.x; i < LM_ROWS * ncols; i += LM_THREADS) {
-    const int r = i / ncols, j = i % ncols;
-    if (r0 + r < B) out[(size_t)(r0 + r) * N + n0 + j] = acc[i] + b[n0 + j];
+  constexpr int R = LM_ROWS / LM_WARPS, MT = LM_ROWS / 16, KS = LM_KC / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = blockIdx.x * LM_COLS, m0 = blockIdx.y * LM_ROWS;
+  const int cw = min(LM_COLS, N - n0);
+  const int nk = (C + LM_KC - 1) / LM_KC, ring = min(nk, LM_STAGES);
+  const int Cp = (C + 15) / 16 * 16, ldh = Cp + 8;
+  // shared memory: `ring` weight stages, then the strip's bf16 rows
+  extern __shared__ __align__(16) unsigned char lm_smem[];
+  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(lm_smem);
+  __nv_bfloat16* hs = stages + ring * LM_STAGE;
+  // this lane's two output columns and their b, read now so that no load
+  // waits behind the barriers
+  const int col = n0 + warp * 8 + 2 * (lane % 4);
+  const float b0 = col < N ? b[col] : 0.f, b1 = col + 1 < N ? b[col + 1] : 0.f;
+
+  // the weight's first stages (all of them where nk <= LM_STAGES) fly
+  // while LN runs; stage s is cp.async group s
+#pragma unroll
+  for (int s = 0; s < LM_STAGES; ++s) {
+    if (s < nk) lm_load_stage<VEC>(stages + s * LM_STAGE, w, N, C, s * LM_KC, n0, cw);
+    gmt_cp_async_commit();
   }
+
+  // LN of this warp's R rows into hs as bf16, zero past C (up to Cp) and
+  // on rows past B
+  const int r0 = warp * R;
+  if constexpr (VPL > 0) {
+    constexpr int W = VEC ? 4 : 1;
+    float v[R][VPL], mean[R], rs[R];
+    lm_rows_stats<VEC, VPL, R>(x, m0 + r0, B, C, v, mean, rs);
+#pragma unroll
+    for (int i = 0; i < VPL; i += W) {
+      const int c = lm_col<W>(i);
+      if (c >= Cp) continue;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        float o[W];
+#pragma unroll
+        for (int e = 0; e < W; ++e)
+          o[e] = m0 + r0 + j < B && c + e < C
+                     ? (v[j][i + e] - mean[j]) * rs[j] * scale[c + e] + bias[c + e]
+                     : 0.f;
+        __nv_bfloat16* dst = hs + (r0 + j) * ldh + c;
+        if constexpr (VEC)
+          *reinterpret_cast<uint2*>(dst) = make_uint2(gmt_pack_bf16(o[0], o[1]),
+                                                      gmt_pack_bf16(o[2], o[3]));
+        else
+          dst[0] = __float2bfloat16(o[0]);
+      }
+    }
+  } else {
+    for (int j = 0; j < R; ++j) {
+      const int m = m0 + r0 + j;
+      const float* xr = x + (size_t)m * C;
+      const float2 st = m < B ? lm_row_stats(xr, C) : make_float2(0.f, 0.f);
+      for (int c = lane; c < Cp; c += 32)
+        hs[(r0 + j) * ldh + c] = __float2bfloat16(
+            m < B && c < C ? (xr[c] - st.x) * st.y * scale[c] + bias[c] : 0.f);
+    }
+  }
+
+  // two sums a fragment, of the even and the odd k steps, so that the
+  // products form two dependent chains of half the length
+  float acc[2][MT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][mt][e] = 0.f;
+  for (int t = 0; t < nk; ++t) {
+    // stage t has landed (groups past it may fly), and for t > 0 every warp
+    // is past stage t - 1, whose slot the next copies refill; where every
+    // stage is resident, one wait and one barrier serve them all
+    if (nk <= LM_STAGES) {
+      if (t == 0) {
+        gmt_cp_async_wait<0>();
+        __syncthreads();
+      }
+    } else {
+      if (t == 0)
+        gmt_cp_async_wait<LM_STAGES - 1>();
+      else
+        gmt_cp_async_wait<LM_STAGES - 2>();
+      __syncthreads();
+    }
+    if (t > 0 && nk > LM_STAGES) {
+      const int nt = t - 1 + LM_STAGES;
+      if (nt < nk)
+        lm_load_stage<VEC>(stages + ((t - 1) % LM_STAGES) * LM_STAGE, w, N, C, nt * LM_KC, n0, cw);
+      gmt_cp_async_commit();
+    }
+    if (warp * 8 >= cw) continue;  // a group past N: the warp keeps the barriers only
+    const __nv_bfloat16* st = stages + (t % LM_STAGES) * LM_STAGE + warp * 8;
+    const int ka0 = t * LM_KC, ksteps = min(KS, (C - ka0 + 15) / 16);
+    unsigned bf[KS / 2][4];  // bf[i]: (b0, b1) of k-steps 2i and 2i + 1
+#pragma unroll
+    for (int ks = 0; ks < KS; ks += 2) gmt_ldmatrix_x4_trans(bf[ks / 2], st + (ks * 16 + lane) * LM_WLD);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      unsigned af[KS][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        if (ks >= ksteps) break;
+        gmt_ldmatrix_x4(af[ks], hs + (mt * 16 + lane % 8 + ((lane / 8) % 2) * 8) * ldh + ka0 +
+                                    ks * 16 + (lane / 16) * 8);
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        if (ks >= ksteps) break;
+        gmt_mma_bf16(acc[ks % 2][mt], af[ks], bf[ks / 2][2 * (ks % 2)],
+                     bf[ks / 2][2 * (ks % 2) + 1]);
+      }
+    }
+  }
+
+  // rows g and g + 8 of each m16 tile
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + mt * 16 + lane / 4 + 8 * h;
+      if (m >= B || col >= N) continue;
+      float* dst = out + (size_t)m * N + col;
+      const float v0 = (acc[0][mt][2 * h] + acc[1][mt][2 * h]) + b0;
+      const float v1 = (acc[0][mt][2 * h + 1] + acc[1][mt][2 * h + 1]) + b1;
+      if (VEC) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      } else {
+        dst[0] = v0;
+        if (col + 1 < N) dst[1] = v1;
+      }
+    }
+}
+
+// out[r, n] as above for N < 8: a warp a row, the products on the CUDA
+// cores. Grid B / LM_DOT_WARPS, rounded up.
+template <int VPL>
+__global__ void __launch_bounds__(32 * LM_DOT_WARPS) ln_matmul_dot_kernel(
+    const float* __restrict__ x, const float* __restrict__ scale,
+    const float* __restrict__ bias, const __nv_bfloat16* __restrict__ w,
+    const float* __restrict__ b, float* __restrict__ out, int B, int C, int N) {
+  const int lane = threadIdx.x % 32;
+  const int m = blockIdx.x * LM_DOT_WARPS + threadIdx.x / 32;
+  if (m >= B) return;
+  float acc[LM_DOT_MAX_N];
+#pragma unroll
+  for (int n = 0; n < LM_DOT_MAX_N; ++n) acc[n] = 0.f;
+  auto dot = [&](int c, float h) {  // h = the row's LN at column c, as bf16
+#pragma unroll
+    for (int n = 0; n < LM_DOT_MAX_N; ++n)
+      if (n < N) acc[n] = fmaf(h, __bfloat162float(w[(size_t)c * N + n]), acc[n]);
+  };
+  if constexpr (VPL > 0) {
+    float v[1][VPL], mean[1], rs[1];
+    lm_rows_stats<false, VPL, 1>(x, m, B, C, v, mean, rs);
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int c = lm_col<1>(i);
+      if (c < C) dot(c, gmt_round_bf16((v[0][i] - mean[0]) * rs[0] * scale[c] + bias[c]));
+    }
+  } else {
+    const float* xr = x + (size_t)m * C;
+    const float2 st = lm_row_stats(xr, C);
+    for (int c = lane; c < C; c += 32)
+      dot(c, gmt_round_bf16((xr[c] - st.x) * st.y * scale[c] + bias[c]));
+  }
+#pragma unroll
+  for (int n = 0; n < LM_DOT_MAX_N; ++n)
+    if (n < N) {
+      const float s = gmt_warp_sum(acc[n]);
+      if (lane == 0) out[(size_t)m * N + n] = s + b[n];
+    }
 }
 
 // ---------------------------------------------------------------- Kernel B
@@ -320,32 +599,6 @@ __device__ __forceinline__ void bt_tile_mma(float (&acc)[4], const __nv_bfloat16
   }
   __syncwarp();
   if (lane == 0) bt_mbar_arrive(&empty[slot]);
-}
-
-// out[j] = the sum of t[j] over the warp's 32 lanes, for each of R rows
-// (R a power of 2 up to 16): a butterfly that halves the rows at each of
-// the first log2 R levels (R - 1 shuffles, independent within a level), the
-// full sum over the rest, then each row's total broadcast from its lanes.
-template <int R>
-__device__ __forceinline__ void bt_rows_sum(float (&t)[R], float (&out)[R]) {
-  constexpr int LOG = R >= 16 ? 4 : R >= 8 ? 3 : R >= 4 ? 2 : R >= 2 ? 1 : 0;
-  static_assert(R == 1 << LOG, "R a power of 2 up to 16");
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int l = 0; l < LOG; ++l) {
-    const int half = R >> (l + 1), bit = 16 >> l;
-    const bool up = lane & bit;  // keep rows half.. (else ..half), send the others
-#pragma unroll
-    for (int k = 0; k < half; ++k) {
-      const float send = up ? t[k] : t[half + k];
-      t[k] = (up ? t[half + k] : t[k]) + __shfl_xor_sync(0xffffffffu, send, bit);
-    }
-  }
-#pragma unroll
-  for (int bit = 16 >> LOG; bit > 0; bit >>= 1) t[0] += __shfl_xor_sync(0xffffffffu, t[0], bit);
-  // lane l now holds row l >> (5 - LOG)'s total
-#pragma unroll
-  for (int j = 0; j < R; ++j) out[j] = __shfl_sync(0xffffffffu, t[0], j << (5 - LOG));
 }
 
 // LN2 of this warp's 2 rows of h1 (f32, row stride ldf, every block's
@@ -592,16 +845,44 @@ __global__ void __launch_bounds__(BT_THREADS, 1) block_tail_kernel(
   }
 }
 
+template <bool VEC, int VPL>
+static cudaError_t lm_launch(const float* x, const float* scale, const float* bias,
+                             const __nv_bfloat16* w, const float* b, float* out, int B, int C,
+                             int N, size_t smem, cudaStream_t stream) {
+  const cudaError_t e = gmt_allow_smem(ln_matmul_kernel<VEC, VPL>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + LM_COLS - 1) / LM_COLS, (B + LM_ROWS - 1) / LM_ROWS);
+  ln_matmul_kernel<VEC, VPL><<<grid, LM_THREADS, smem, stream>>>(x, scale, bias, w, b, out, B, C,
+                                                                N);
+  return cudaGetLastError();
+}
+
+// A: out (B, N) f32 = LN(x) . w + b, by the route plan_ln_matmul names:
+// the dot route for N < 8, else the tensor cores, 16-byte loads where VEC.
+// Refuses C past 6096, where the rows and the stages outgrow a block.
 extern "C" int gmt_ln_matmul(const float* x, const float* scale, const float* bias,
                              const __nv_bfloat16* w, const float* b, float* out,
                              int B, int C, int N, cudaStream_t stream) {
-  const size_t smem = (size_t)LM_ROWS * (C + LM_COLS + LM_THREADS) * sizeof(float);
-  if (smem > SMEM_MAX) return cudaErrorInvalidValue;  // C too wide for one block
-  cudaError_t e = gmt_allow_smem(ln_matmul_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((B + LM_ROWS - 1) / LM_ROWS, (N + LM_COLS - 1) / LM_COLS);
-  ln_matmul_kernel<<<grid, LM_THREADS, smem, stream>>>(x, scale, bias, w, b, out, B, C, N);
-  return cudaGetLastError();
+  if (B <= 0 || C <= 0 || N <= 0) return cudaErrorInvalidValue;
+  const int vpl = C <= 128 ? 4 : C <= 256 ? 8 : 0;  // x in registers up to C = 256
+  if (N <= LM_DOT_MAX_N) {
+    const int grid = (B + LM_DOT_WARPS - 1) / LM_DOT_WARPS;
+    auto kernel = vpl == 4 ? ln_matmul_dot_kernel<4>
+                           : vpl == 8 ? ln_matmul_dot_kernel<8> : ln_matmul_dot_kernel<0>;
+    kernel<<<grid, 32 * LM_DOT_WARPS, 0, stream>>>(x, scale, bias, w, b, out, B, C, N);
+    return cudaGetLastError();
+  }
+  const size_t nk = (C + LM_KC - 1) / LM_KC, cp = (C + 15) / 16 * 16;
+  const size_t smem = (nk < LM_STAGES ? nk : LM_STAGES) * LM_STAGE * 2 + LM_ROWS * (cp + 8) * 2;
+  if (smem > SMEM_MAX || (B + LM_ROWS - 1) / LM_ROWS > 65535) return cudaErrorInvalidValue;
+  const bool vec = N % 8 == 0 && C % 4 == 0 && gmt_aligned16(x) && gmt_aligned16(w);
+#define LM_ARGS x, scale, bias, w, b, out, B, C, N, smem, stream
+  if (vec)
+    return vpl == 4 ? lm_launch<true, 4>(LM_ARGS)
+                    : vpl == 8 ? lm_launch<true, 8>(LM_ARGS) : lm_launch<true, 0>(LM_ARGS);
+  return vpl == 4 ? lm_launch<false, 4>(LM_ARGS)
+                  : vpl == 8 ? lm_launch<false, 8>(LM_ARGS) : lm_launch<false, 0>(LM_ARGS);
+#undef LM_ARGS
 }
 
 template <bool VEC, int VPL>
@@ -640,8 +921,6 @@ static cudaError_t bt_launch(const float* x, const float* y, const __nv_bfloat16
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-static bool bt_aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 // B: the post-attention half of a decode step over clusters of n blocks
 // a 16-row strip, slices of P and F columns, a ring of `slots` weight tiles
 // (plan_block_tail in ops/decode_fused.py). Refuses a plan that leaves a
@@ -663,10 +942,10 @@ extern "C" int gmt_block_tail(const float* x, const float* y, const __nv_bfloat1
                       (size_t)n * BT_ROWS * P * 4 + (2 * (size_t)P + F + 2 * cp) * 4 +
                       (size_t)slots * BT_SLOT * 2;
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  const bool vec = C % 16 == 0 && bt_aligned16(x) && bt_aligned16(y) && bt_aligned16(wproj) &&
-                   bt_aligned16(bproj) && bt_aligned16(ln2s) && bt_aligned16(ln2b) &&
-                   bt_aligned16(wfc1) && bt_aligned16(bfc1) && bt_aligned16(wfc2) &&
-                   bt_aligned16(bfc2) && bt_aligned16(out);
+  const bool vec = C % 16 == 0 && gmt_aligned16(x) && gmt_aligned16(y) && gmt_aligned16(wproj) &&
+                   gmt_aligned16(bproj) && gmt_aligned16(ln2s) && gmt_aligned16(ln2b) &&
+                   gmt_aligned16(wfc1) && gmt_aligned16(bfc1) && gmt_aligned16(wfc2) &&
+                   gmt_aligned16(bfc2) && gmt_aligned16(out);
 #define BT_ARGS                                                                                   \
   x, y, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2, out, B, C, n, P, F, slots, smem, \
       stream

@@ -24,10 +24,11 @@
 //      * scale - lse); dq_in null means 0.
 //   M: dk = dk_in + dS^T q * scale and dv = dv_in + P^T dO onto the
 //      visiting chunk's accumulators (slot c, or slot j across ranks).
-// q, k, v, dO are bf16; every sum and P and dS are f32. (The TPU kernel
-// rounds P and dS to bf16 before its products, :308 and :717-721; Kernels
-// C, D and E keep them f32 too, and the plain versions in ops/attention.py
-// round at the same places as these kernels.)
+// q, k, v, dO are bf16; every sum is f32. K and M keep P and dS in f32;
+// L carries dS as a bf16 hi/lo pair into its tensor-core product, as
+// Kernels D and E do (attention_bwd.cu: rounded once it misses the port's
+// contract). (The TPU kernel rounds P and dS to bf16 before its products,
+// :308 and :717-721; the plain versions in ops/attention.py keep them f32.)
 //
 // The TPU kernel seeded dK/dV in VMEM at the first q block and added to
 // them across the sequential q-block grid axis (:687-694, :719-720). Blocks
@@ -53,20 +54,38 @@
 // K moves ~121 MB (q, k, v bf16, the f32 carry read and written; ~36 us at
 // 3.35 TB/s) against ~4 GFLOP over the hop's live pairs (~4 us at the bf16
 // tensor-core peak): bound by bytes, the carry's f32 traffic the largest
-// part. L and M move ~103 MB and ~137 MB a hop. On FMA units the products
-// bound them, as in Kernels C, D and E: each score is a D-long chain of one
-// shared-memory broadcast read and one FMA per element. The design follows
-// Kernel C: one block per (ring position, bh, 64-row query tile), one thread
-// per row (per key row in M), q, dO and the accumulators in registers, K/V
-// (Q/dO in M) tiles of 32 staged in shared memory as f32, D padded in
-// registers to a bucket (8, 16, 32, 64, 128). Plain FMA on f32, not
-// mma/wgmma: a simple, correct first kernel; PERF.md records its time
-// against the bound.
+// part. L and M move ~103 MB and ~137 MB a hop.
+//
+// K and M (first designs) follow Kernel C's first design: one block per
+// (ring position, bh, 64-row tile), one thread per query row (per key row
+// in M), q, dO and the accumulators in registers, K/V (Q/dO in M) tiles of
+// 32 staged in shared memory as f32, D padded in registers to a bucket (8,
+// 16, 32, 64, 128), plain FMA on f32; on FMA units the products bound
+// them, each score a D-long chain of a shared-memory read and an FMA per
+// element. PERF.md records their times against the bound.
+//
+// L is Kernel E's hop form, on the tensor cores through flash_tiles.cuh:
+// one block of four warps per (ring position, bh, 64-row query tile), each
+// warp 16 query rows with q and dO as mma A fragments; K/V tiles of 64 keys
+// (32 at D > 64) by 16-byte cp.async, double-buffered, one barrier a tile,
+// up to the tile's live bound; S and dP by ft_scores, P = 2^(S scale log2 e
+// - lse log2 e), dS split by ft_split and dq += dS k by ft_accum (four
+// products a 16-key chunk). Only a tile that crosses the global diagonal or
+// t_valid takes the mask (at a hop >= 1 on one card a live position sees
+// its whole chunk, so only the t_valid tile). Rows at or past t_valid
+// keep dq_in (their dO and delta are 0, so is their dS): they load as
+// zeros, and a warp whose 16 rows all lie there skips the products. A
+// block whose rows see no key of the visiting chunk returns at once where
+// dq is updated in place, and writes dq_in (zeros at the first hop)
+// otherwise. D is padded to 16, 32, 64 or 128. The first design (one
+// thread a row, f32 FMA, every padded row computed) took 0.664 ms a seq:4
+// carry hop and 0.904 ms the first hop (NVIDIA H100 80GB HBM3, 700 W).
 
 #include "common.cuh"
+#include "flash_tiles.cuh"
 
-constexpr int RQ_ROWS = 64;  // K, L: query rows per block, one per thread
-constexpr int RQ_KEYS = 32;  // K, L: keys per shared-memory tile
+constexpr int RQ_ROWS = 64;  // K: query rows per block, one per thread
+constexpr int RQ_KEYS = 32;  // K: keys per shared-memory tile
 constexpr int RK_ROWS = 64;  // M: key rows per block, one per thread
 constexpr int RK_QRYS = 32;  // M: queries per shared-memory tile
 
@@ -184,63 +203,157 @@ __global__ void __launch_bounds__(RQ_ROWS) ring_fwd_kernel(
   }
 }
 
-// Kernel L. dq_in may alias dq_out.
+// ---------------------------------------------------------------- Kernel L
+
+constexpr int RL_ROWS = 64;      // query rows a block, 16 a warp
+constexpr int RL_THREADS = 128;  // four warps
+constexpr float RL_LOG2E = 1.4426950408889634f;
+
+// L's tiling of one D bucket: K/V tiles of SROWS keys (32 at DP = 128,
+// where the accumulators take the registers) and, at DP = 32 (every path's
+// width), the register cap that lets MINB blocks share an SM, as Kernel E's.
 template <int DP>
-__global__ void __launch_bounds__(RQ_ROWS) ring_bwd_dq_kernel(
+struct DqHopPlan {
+  static constexpr int SROWS = DP > 64 ? 32 : 64;
+  static constexpr int MINB = DP == 32 ? 6 : 1;
+  static constexpr int LD = DP + 8, KD = DP / 16, STILE = SROWS * LD;
+  // its own q and dO tiles, then two stages of (K, V)
+  static constexpr size_t SMEM = (size_t)(2 * RL_ROWS * LD + 4 * STILE) * 2;
+};
+
+// L's work for one warp on one K/V tile (keys k0 .. of the visiting chunk):
+// over each 16-key chunk, P and dS of the warp's rows wr0 .. wr0 + 15, then
+// acc += dS k. diag = q_start - k_start: key kk is live for row r where kk
+// <= diag + r and kk < t_valid. EDGE: the tile reaches past the block's
+// first row or past t_valid, so a chunk wholly past the warp's rows (or
+// t_valid) is skipped and the rest are masked; an inner tile takes neither
+// test.
+template <int DP, bool EDGE>
+__device__ __forceinline__ void dq_hop_tile(float (&acc)[DP / 8][4],
+                                            const unsigned (&qa)[DP / 16][4],
+                                            const unsigned (&doa)[DP / 16][4],
+                                            const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                                            int k0, int wr0, int diag, int t_valid, float sl2,
+                                            const float (&lg)[2], const float (&dl)[2]) {
+  using PL = DqHopPlan<DP>;
+  const int lane = threadIdx.x % 32, g = lane / 4, c = 2 * (lane % 4);
+#pragma unroll
+  for (int cc = 0; cc < PL::SROWS / 16; ++cc) {
+    const int kc0 = k0 + 16 * cc;  // the chunk's first key
+    if (EDGE && (kc0 > diag + wr0 + 15 || kc0 >= t_valid)) continue;
+    float s[2][4], dp[2][4];
+    ft_scores<PL::KD, PL::LD>(s, qa, ks, 16 * cc);
+    ft_scores<PL::KD, PL::LD>(dp, doa, vs, 16 * cc);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2, key = kc0 + 8 * j + c + (e & 1);
+        float p = ft_exp2(fmaf(s[j][e], sl2, -lg[h]));
+        if (EDGE && (key > diag + wr0 + g + 8 * h || key >= t_valid)) p = 0.f;
+        s[j][e] = p * (dp[j][e] - dl[h]);  // dS
+      }
+    unsigned hi[4], lo[4];
+    ft_split(s, hi, lo);
+    ft_accum<DP, PL::LD>(acc, hi, lo, ks, 16 * cc);
+  }
+}
+
+// Kernel L. dq_in may alias dq_out (in place): each thread reads its own
+// elements before it writes them.
+template <int DP>
+__global__ void __launch_bounds__(RL_THREADS, DqHopPlan<DP>::MINB) ring_bwd_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, const float* dq_in,
     float* dq_out, int P, int BH, int Tp, int D, int t_valid, int pos0, int n_ring, int hop,
     float scale) {
-  __shared__ __align__(16) float ks[RQ_KEYS][DP];
-  __shared__ __align__(16) float vs[RQ_KEYS][DP];
+  using PL = DqHopPlan<DP>;
+  constexpr int LD = PL::LD, KD = PL::KD, BKV = PL::SROWS, TILE = PL::STILE;
+  extern __shared__ __align__(16) unsigned char rl_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(rl_smem);
+  __nv_bfloat16* dos = qs + RL_ROWS * LD;
+  __nv_bfloat16* ring = dos + RL_ROWS * LD;  // stage s: K at ring + 2 s TILE, V after it
   const HopItem it = hop_item(blockIdx.z, blockIdx.y, P, BH, Tp, D, t_valid, pos0, n_ring, hop);
-  const int q0 = blockIdx.x * RQ_ROWS;
-  const int row = q0 + threadIdx.x;
-  const bool live = row < Tp;
-  const int gq = it.q_start + row;
-  const size_t qrow = it.q_off + (size_t)row * D;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * RL_ROWS;  // longest tiles first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = 2 * (lane % 4);
+  const int wr0 = q0 + 16 * warp;  // the warp's first query row
+  const int diag = it.q_start - it.k_start;
+  // keys that a row of the tile below t_valid sees
+  const int kv_end = q0 < t_valid ? live_keys(it, min(q0 + RL_ROWS, t_valid) - 1, t_valid) : 0;
+  if (kv_end == 0 && dq_in == dq_out) return;  // nothing to add to dq in place
+  const int n_tiles = (kv_end + BKV - 1) / BKV;
 
-  float qr[DP], dor[DP], acc[DP];
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    const bool in = live && d < D;
-    qr[d] = in ? __bfloat162float(q[qrow + d]) : 0.f;
-    dor[d] = in ? __bfloat162float(dout[qrow + d]) : 0.f;
-    acc[d] = 0.f;
-  }
-  const float lr = live ? lse[it.row_off + row] : 0.f;
-  const float dl = live ? delta[it.row_off + row] : 0.f;
-
-  const int kv_end = live_keys(it, min(q0 + RQ_ROWS, Tp) - 1, t_valid);
-  for (int k0 = 0; k0 < kv_end; k0 += RQ_KEYS) {
-    __syncthreads();
-    load_kv_tile<DP>(ks, vs, k, v, it.kv_off, k0, t_valid, D);
-    __syncthreads();
-
-    const bool edge = it.k_start + k0 + RQ_KEYS - 1 > it.q_start + q0 || k0 + RQ_KEYS > t_valid;
-#pragma unroll(DP <= 32 ? RQ_KEYS : 1)
-    for (int j = 0; j < RQ_KEYS; ++j) {
-      float s = 0.f, dp = 0.f;
+  for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
-      for (int d = 0; d < DP; ++d) {
-        s = fmaf(qr[d], ks[j][d], s);
-        dp = fmaf(dor[d], vs[j][d], dp);
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  if (n_tiles > 0) {
+    const __nv_bfloat16* kb = k + it.kv_off;
+    const __nv_bfloat16* vb = v + it.kv_off;
+    // rows and keys at or past t_valid load as zeros
+    ft_load_tile<RL_ROWS, DP, RL_THREADS>(qs, q + it.q_off, q0, t_valid, D);
+    ft_load_tile<RL_ROWS, DP, RL_THREADS>(dos, dout + it.q_off, q0, t_valid, D);
+    ft_load_tile<BKV, DP, RL_THREADS>(ring, kb, 0, t_valid, D);
+    ft_load_tile<BKV, DP, RL_THREADS>(ring + TILE, vb, 0, t_valid, D);
+    gmt_cp_async_commit();
+    // lse * log2(e) and delta of this thread's rows g and g + 8 (0 from t_valid)
+    float lg[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wr0 + g + 8 * h;
+      lg[h] = row < t_valid ? lse[it.row_off + row] * RL_LOG2E : 0.f;
+      dl[h] = row < t_valid ? delta[it.row_off + row] : 0.f;
+    }
+    gmt_cp_async_wait<0>();
+    __syncthreads();
+
+    unsigned qa[KD][4], doa[KD][4];
+    ft_a_frags<KD, LD>(qa, qs, 16 * warp);
+    ft_a_frags<KD, LD>(doa, dos, 16 * warp);
+    const float sl2 = scale * RL_LOG2E;
+    for (int t = 0; t < n_tiles; ++t) {
+      if (t > 0) {
+        gmt_cp_async_wait<0>();
+        // tile t has landed for every thread, and every warp is past tile
+        // t - 1, whose stage the next copies refill
+        __syncthreads();
       }
-      float p = expf(s * scale - lr);
-      if (edge && (it.k_start + k0 + j > gq || k0 + j >= t_valid)) p = 0.f;
-      const float ds = p * (dp - dl);
-#pragma unroll
-      for (int d = 0; d < DP; ++d) acc[d] = fmaf(ds, ks[j][d], acc[d]);
+      if (t + 1 < n_tiles) {
+        __nv_bfloat16* st = ring + ((t + 1) % 2) * 2 * TILE;
+        ft_load_tile<BKV, DP, RL_THREADS>(st, kb, (t + 1) * BKV, t_valid, D);
+        ft_load_tile<BKV, DP, RL_THREADS>(st + TILE, vb, (t + 1) * BKV, t_valid, D);
+        gmt_cp_async_commit();
+      }
+      if (wr0 >= t_valid) continue;  // the warp's rows keep dq_in
+      const __nv_bfloat16* ks = ring + (t % 2) * 2 * TILE;
+      const int k0 = t * BKV;
+      if (k0 + BKV - 1 > diag + q0 || k0 + BKV > t_valid)
+        dq_hop_tile<DP, true>(acc, qa, doa, ks, ks + TILE, k0, wr0, diag, t_valid, sl2, lg, dl);
+      else
+        dq_hop_tile<DP, false>(acc, qa, doa, ks, ks + TILE, k0, wr0, diag, t_valid, sl2, lg, dl);
     }
   }
 
-  if (live) {
 #pragma unroll
-    for (int d = 0; d < DP; ++d)
-      if (d < D) dq_out[qrow + d] = (dq_in ? dq_in[qrow + d] : 0.f) + acc[d] * scale;
+  for (int h = 0; h < 2; ++h) {
+    const int row = wr0 + g + 8 * h;
+    if (row >= Tp) continue;
+    const size_t off = it.q_off + (size_t)row * D + c;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      if (8 * n < D) {
+        const float2 in = dq_in ? *reinterpret_cast<const float2*>(dq_in + off + 8 * n)
+                                : make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(dq_out + off + 8 * n) =
+            make_float2(in.x + acc[n][2 * h] * scale, in.y + acc[n][2 * h + 1] * scale);
+      }
   }
 }
+
+// ---------------------------------------------------------------- Kernel M
 
 // Kernel M. dk_in/dv_in may alias dk_out/dv_out.
 template <int DP>
@@ -355,16 +468,34 @@ extern "C" int gmt_ring_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return cudaGetLastError();
 }
 
-// L: dq (P, BH, Tp, D) f32; dq_in null: the first hop.
+template <int DP>
+static int launch_ring_dq(dim3 grid, cudaStream_t stream, const __nv_bfloat16* q,
+                          const __nv_bfloat16* k, const __nv_bfloat16* v,
+                          const __nv_bfloat16* dout, const float* lse, const float* delta,
+                          const float* dq_in, float* dq, int P, int BH, int Tp, int D,
+                          int t_valid, int pos0, int n_ring, int hop, float scale) {
+  constexpr size_t smem = DqHopPlan<DP>::SMEM;
+  const cudaError_t e = gmt_allow_smem(ring_bwd_dq_kernel<DP>, smem);
+  if (e != cudaSuccess) return e;
+  ring_bwd_dq_kernel<DP><<<grid, RL_THREADS, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq_in, dq, P, BH, Tp, D, t_valid, pos0, n_ring, hop, scale);
+  return cudaGetLastError();
+}
+
+// L: dq (P, BH, Tp, D) f32; dq_in null: the first hop. D a multiple of 8,
+// q, k, v and dout 16-byte aligned, dq_in and dq 8-byte aligned; D is
+// padded to the smallest bucket >= D.
 extern "C" int gmt_ring_bwd_dq(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                const __nv_bfloat16* v, const __nv_bfloat16* dout,
                                const float* lse, const float* delta, const float* dq_in,
                                float* dq, int P, int BH, int Tp, int D, int t_valid, int pos0,
                                int n_ring, int hop, float scale, cudaStream_t stream) {
-  const dim3 grid((Tp + RQ_ROWS - 1) / RQ_ROWS, BH, P);
-  RING_DISPATCH_D(ring_bwd_dq_kernel, grid, RQ_ROWS, stream, q, k, v, dout, lse, delta, dq_in,
-                  dq, P, BH, Tp, D, t_valid, pos0, n_ring, hop, scale);
-  return cudaGetLastError();
+  if (D % 8 || D < 8 || D > 128) return cudaErrorInvalidValue;
+  const dim3 grid((Tp + RL_ROWS - 1) / RL_ROWS, BH, P);
+  auto go = D <= 16 ? launch_ring_dq<16> : D <= 32 ? launch_ring_dq<32>
+                                        : D <= 64 ? launch_ring_dq<64> : launch_ring_dq<128>;
+  return go(grid, stream, q, k, v, dout, lse, delta, dq_in, dq, P, BH, Tp, D, t_valid, pos0,
+            n_ring, hop, scale);
 }
 
 // M: dk, dv with k's slots, f32; dk_in, dv_in null: the first hop.

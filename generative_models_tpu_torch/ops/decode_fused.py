@@ -10,13 +10,16 @@ kernels collapse the dense chains of a Block step:
   block_tail  -- attention out-proj + residual + pre-LN MLP (fc1, tanh
                  GELU, fc2) + residual: one launch instead of ~8 ops.
 
-The CUDA sources are ops/csrc/decode_fused.cu. block_tail runs one
-thread-block cluster a 16-row strip, the weights spread over the cluster's
-blocks as plan_block_tail lays them out. Each wrapper launches its kernel for CUDA
-tensors (and refuses what the kernel does not take), and runs the plain
-PyTorch version for CPU tensors. The plain versions take the
-matmul operand dtype, so on the card they repeat the kernel's arithmetic
-(bf16 operands, f32 accumulation) and isolate the kernel in a comparison.
+The CUDA sources are ops/csrc/decode_fused.cu. ln_matmul multiplies on the
+tensor cores, a block a 16-row strip and 64-column slice, or takes a row a
+warp on the CUDA cores where N < 8, as plan_ln_matmul lays it out.
+block_tail runs one thread-block cluster a 16-row strip, the weights spread
+over the cluster's blocks as plan_block_tail lays them out. Each wrapper
+launches its kernel for CUDA tensors (and refuses what the kernel does not
+take), and runs the plain PyTorch version for CPU tensors. The plain
+versions take the matmul operand dtype, so on the card they repeat the
+kernel's arithmetic (bf16 operands, f32 accumulation) and isolate the
+kernel in a comparison.
 
 Weights use the JAX package's (in, out) layout, which the kernels read
 coalesced along the output columns.
@@ -43,6 +46,11 @@ BT_MAX_SLOTS, BT_MAX_C, BT_MAX_CLUSTER = 24, 512, 16
 BT_BARRIERS = 2 * BT_MAX_SLOTS * 8  # the ring slots' full and empty mbarriers
 SMEM_MAX = 232448
 BT_CLUSTER, BT_NARROW_C = 8, 128
+# Kernel A's layout (the LM_* constants): rows and output columns a block on
+# the tensor cores, rows of w a stage, stages in flight, rows a block on the
+# dot route (a row a warp), and the widest N it takes
+LM_ROWS, LM_COLS, LM_KC, LM_STAGES = 16, 64, 64, 4
+LM_DOT_WARPS, LM_DOT_MAX_N = 4, 7
 
 
 def _ln(x, scale, bias, eps=LN_EPS):
@@ -127,9 +135,57 @@ def plan_block_tail(C, cluster=None):
     return BlockTailPlan(cluster, P, F, slots, block_tail_smem(C, cluster, P, F, slots))
 
 
+class LnMatmulPlan(NamedTuple):
+    """Kernel A's launch for (B, C, N): `route` 'mma' (N >= 8: tensor cores,
+    a block a `rows`-row strip and `cols`-column slice) or 'dot' (N < 8: a
+    warp a row, `rows` rows a block, every column); `grid` (x, y) blocks of
+    `threads`; `vec` 16-byte loads (else plain); x held in registers at
+    `vpl` values a lane a row (0: read by loops, C > 256); `stages` weight
+    stages resident; `smem` bytes of shared memory a block."""
+    route: str
+    grid: tuple
+    threads: int
+    rows: int
+    cols: int
+    vec: bool
+    vpl: int
+    stages: int
+    smem: int
+
+
+def ln_matmul_smem(C, stages):
+    """Shared memory of a tensor-core block: its weight stages (LM_KC rows
+    at a stride of LM_COLS + 8) and the strip's bf16 rows at a stride of C
+    rounded up to 16, + 8."""
+    return stages * LM_KC * (LM_COLS + 8) * 2 + LM_ROWS * (round_up(C, 16) + 8) * 2
+
+
+@functools.cache
+def plan_ln_matmul(B, C, N, aligned=True):
+    """LnMatmulPlan of ops/csrc/decode_fused.cu's gmt_ln_matmul, which
+    reckons the same: `aligned` says whether x and w start on 16 bytes.
+    Raises ValueError for an empty shape, a C past what a block holds (6096)
+    or more than 65535 strips."""
+    if B <= 0 or C <= 0 or N <= 0:
+        raise ValueError(f'ln_matmul: B={B}, C={C}, N={N} must be positive')
+    vpl = 4 if C <= 128 else 8 if C <= 256 else 0
+    if N <= LM_DOT_MAX_N:
+        return LnMatmulPlan('dot', (_cdiv(B, LM_DOT_WARPS), 1), 32 * LM_DOT_WARPS,
+                            LM_DOT_WARPS, N, False, vpl, 0, 0)
+    stages = min(_cdiv(C, LM_KC), LM_STAGES)
+    smem = ln_matmul_smem(C, stages)
+    if smem > SMEM_MAX or _cdiv(B, LM_ROWS) > 65535:
+        raise ValueError(f'ln_matmul: C={C} (at most 6096) or B={B} too large for a block '
+                         f'({smem} of {SMEM_MAX} bytes)')
+    vec = aligned and N % 8 == 0 and C % 4 == 0
+    return LnMatmulPlan('mma', (_cdiv(N, LM_COLS), _cdiv(B, LM_ROWS)), 4 * LM_COLS, LM_ROWS,
+                        LM_COLS, vec, vpl, stages, smem)
+
+
 def ln_matmul(x, scale, bias, w, b):
-    """LN(x) @ w + b in one kernel. x: (B, C) f32; scale, bias: (C,) f32;
-    w: (C, N) bf16 on the card; b: (N,) f32 -> (B, N) f32."""
+    """LN(x) @ w + b in one kernel, laid out by plan_ln_matmul. x: (B, C)
+    f32, C <= 6096; scale, bias: (C,) f32; w: (C, N) bf16 on the card;
+    b: (N,) f32 -> (B, N) f32."""
     if x.device.type == 'cpu':
         return ln_matmul_plain(x, scale, bias, w, b)
     B, C = x.shape
@@ -141,6 +197,7 @@ def ln_matmul(x, scale, bias, w, b):
     check_cuda('ln_matmul b', b, torch.float32, (N,))
     out = torch.empty((B, N), dtype=torch.float32, device=x.device)
     if B and N:
+        plan_ln_matmul(B, C, N)  # refuses what the kernel does not take
         fn = c_function('decode_fused', 'gmt_ln_matmul', 6, 3)
         launch('decode_fused', fn, x.data_ptr(), scale.data_ptr(),
                bias.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),

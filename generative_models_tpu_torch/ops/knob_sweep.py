@@ -1,4 +1,4 @@
-"""Sweep compile-time knobs of Kernels C, H, I and B on the card.
+"""Sweep compile-time knobs of Kernels C, H, I, A, B and L on the card.
 
     python -m generative_models_tpu_torch.ops.knob_sweep [--out FILE] [--only SRC,...]
 
@@ -7,19 +7,23 @@ register cap at D=32 (FwdPlan's MINB, blocks an SM) and K/V tile depth
 (SROWS) in attention.cu; Kernel H's register cap on its 16-byte route
 (HM_MINB), its dW tile (HM_BM, HM_BN), a warp's patch of it (HM_WM, HM_WN)
 and its staged depth of K (HM_KC) in masked_dense.cu; Kernel I's cp.async
-stages (I8_STAGES) in int8.cu; Kernel B's weight-tile depth (BT_KC) in
-decode_fused.cu, and, at the call, its cluster size at C=256 (cluster_c256:
-plan_block_tail's 16 or 8). Every variant is built by nvcc (all at once,
-ptxas's registers and spills kept), launched at the main paths' shapes
-(pixel_transformer's (64,4,784,32) and long T (1,4,2048,32) for C; made's
-dW at hidden_size=2048, (2048,64) x (64,2048) and (784,64) x (64,2048),
-for H; made's three w8a8 products at hidden_size=1024 and
-pixel_transformer's fc2 for I; the decode step at C=128 and C=256, B=64,
-for B), compared bitwise with the shipped kernel through its wrapper, held
-against the plain version within chip_smoke.py's tolerances (the run fails
-if any case misses), and timed as device time from torch.profiler's CUDA
-trace, for H, I and B also with L2 flushed before each launch. Prints one
-JSON line a variant and writes them all to --out. Needs a card.
+stages (I8_STAGES) in int8.cu; in decode_fused.cu Kernel A's rows and
+columns a block (LM_TILE: LM_ROWS, LM_COLS) and Kernel B's weight-tile depth
+(BT_KC), and, at the call, B's cluster size at C=256 (cluster_c256:
+plan_block_tail's 16 or 8); Kernel L's key-tile depth (L_SROWS) and its
+register cap at D=32 (L_MINB_D32, blocks an SM) in ring_attention.cu.
+Every variant is built by nvcc (all at once, ptxas's registers and spills
+kept), launched at the main paths' shapes (pixel_transformer's
+(64,4,784,32) and long T (1,4,2048,32) for C; made's dW at
+hidden_size=2048, (2048,64) x (64,2048) and (784,64) x (64,2048), for H;
+made's three w8a8 products at hidden_size=1024 and pixel_transformer's fc2
+for I; the decode step's four products at B=64 for A and the step at C=128
+and C=256 for B; the seq:4 ring's first and carry hops for L), compared
+bitwise with the shipped kernel through its wrapper, held against the plain
+version within chip_smoke.py's tolerances (the run fails if any case
+misses), and timed as device time from torch.profiler's CUDA trace, for H,
+I, A, B and L also with L2 flushed before each launch. Prints one JSON
+line a variant and writes them all to --out. Needs a card.
 """
 
 import argparse
@@ -54,6 +58,12 @@ KNOBS = {
     'I8_STAGES': ('int8', r'constexpr int I8_STAGES = \d+;', 'constexpr int I8_STAGES = {};'),
     'BT_KC': ('decode_fused', r'constexpr int BT_KC = \d+, BT_NC = 64;',
               'constexpr int BT_KC = {}, BT_NC = 64;'),
+    'LM_TILE': ('decode_fused', r'constexpr int LM_ROWS = \d+, LM_COLS = \d+;',
+                'constexpr int LM_ROWS = {}, LM_COLS = {};'),
+    'L_SROWS': ('ring_attention', r'static constexpr int SROWS = [^;]+;',
+                'static constexpr int SROWS = {};'),
+    'L_MINB_D32': ('ring_attention', r'static constexpr int MINB = DP == 32 \? \d+ : 1;',
+                   'static constexpr int MINB = DP == 32 ? {} : 1;'),
 }
 CALL_KNOBS = ('cluster_c256',)  # set at the call, not in the source
 
@@ -64,6 +74,10 @@ CALL_KNOBS = ('cluster_c256',)  # set at the call, not in the source
 _C = dict(SROWS='DP > 64 ? 32 : 64', MINB_D32=4)
 _C32 = 'DP == 32 ? 32 : DP > 64 ? 32 : 64'  # 32-key tiles at D=32 only
 _H = dict(HM_TILE=(64, 128), HM_WARP=(32, 32), HM_KC=64, HM_MINB=2)
+# L: 64-key tiles and 6 blocks an SM at D=32 (as shipped), by register cap,
+# then 32-key tiles at D=32
+_L = dict(L_SROWS='DP > 64 ? 32 : 64', L_MINB_D32=6)
+_L32 = 'DP == 32 ? 32 : DP > 64 ? 32 : 64'  # 32-key tiles at D=32 only
 VARIANTS = (
     [('attention', dict(_C, **kw)) for kw in (
         {}, dict(MINB_D32=3), dict(MINB_D32=5), dict(SROWS=_C32),
@@ -75,8 +89,12 @@ VARIANTS = (
         dict(HM_TILE=(64, 256), HM_WARP=(32, 64), HM_KC=32))]
     + [('int8', dict(I8_STAGES=k)) for k in (4, 2, 3, 6)]
     + [('decode_fused', kw) for kw in (
-        dict(BT_KC=64), dict(BT_KC=64, cluster_c256=8), dict(BT_KC=32),
-        dict(BT_KC=32, cluster_c256=8))]
+        dict(BT_KC=64, LM_TILE=(16, 64)), dict(BT_KC=64, cluster_c256=8), dict(BT_KC=32),
+        dict(BT_KC=32, cluster_c256=8), dict(LM_TILE=(16, 32)), dict(LM_TILE=(16, 128)),
+        dict(LM_TILE=(32, 64)), dict(LM_TILE=(32, 128)))]
+    + [('ring_attention', dict(_L, **kw)) for kw in (
+        {}, dict(L_MINB_D32=4), dict(L_MINB_D32=5), dict(L_MINB_D32=8), dict(L_SROWS=_L32),
+        dict(L_SROWS=_L32, L_MINB_D32=8))]
 )
 
 
@@ -118,13 +136,14 @@ def build(variants_):
     return out
 
 
-def ptxas(log, kernel):
-    """{registers, spill_stores} of each instantiation of kernel in log."""
+def ptxas(log, kernels):
+    """{registers, spill_stores} of each instantiation of the kernels named
+    (a tuple of substrings of their entry names) in log."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = m.group(1) if kernel in m.group(1) else None
+            name = m.group(1) if any(k in m.group(1) for k in kernels) else None
             if name:
                 out[name] = {}
         m = re.search(r'(\d+) bytes spill stores', line)
@@ -258,16 +277,35 @@ def run_int8(lib, rng, dev, knobs):
 
 def run_decode_fused(lib, rng, dev, knobs):
     from generative_models_tpu_torch.ops.decode_fused import (
-        block_tail, block_tail_plain, plan_block_tail,
+        block_tail, block_tail_plain, ln_matmul, ln_matmul_plain, plan_block_tail,
     )
 
-    fn = lib.gmt_block_tail
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     flush = torch.empty(64 << 20, device=dev)
     bf, B = torch.bfloat16, 64
     f32 = lambda *s, scale=1.0: torch.tensor(rng.randn(*s) * scale, dtype=torch.float32,
                                              device=dev)
     out = {}
+    fa = lib.gmt_ln_matmul
+    fa.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    for C, N in ((128, 384), (128, 1), (256, 768), (256, 64)):
+        x, s, b = f32(B, C), 1 + f32(C, scale=0.1), f32(C, scale=0.1)
+        w, bias = f32(C, N, scale=C ** -0.5).to(bf), f32(N, scale=0.1)
+        o = torch.empty((B, N), dtype=torch.float32, device=dev)
+
+        def call_a():
+            rc = fa(x.data_ptr(), s.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                    o.data_ptr(), B, C, N, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f'ln_matmul launch failed ({rc})')
+
+        call_a()
+        out[f'A ({B},{C})->{N}'] = dict(
+            bitwise_as_shipped=bool(torch.equal(o, ln_matmul(x, s, b, w, bias))),
+            outside_tol=outside(o, ln_matmul_plain(x, s, b, w, bias, dtype=bf), 1e-2, 1e-2),
+            ms=device_ms(call_a, 'ln_matmul', 200),
+            ms_l2_cold=device_ms(call_a, 'ln_matmul', 50, flush))
+    fn = lib.gmt_block_tail
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     for C in (128, 256):
         lp = dict(
             wproj=f32(C, C, scale=C ** -0.5).to(bf), bproj=f32(C, scale=0.1),
@@ -296,13 +334,57 @@ def run_decode_fused(lib, rng, dev, knobs):
     return out
 
 
-# per source: the kernel's name in the trace and its runner
+def run_ring_attention(lib, rng, dev, knobs):
+    from generative_models_tpu_torch.ops import attention as att
+    from generative_models_tpu_torch.parallel.ring_attention import _chunks, ring_forward
+
+    fn = lib.gmt_ring_bwd_dq
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float]
+                   + [ctypes.c_void_p])
+    flush = torch.empty(64 << 20, device=dev)
+    bf, n, (B, H, T, D) = torch.bfloat16, 4, (64, 4, 784, 32)
+    Tl = T // n
+    Tp = att._pick_chunk_blk(Tl)[1]
+    q, k, v, do = (_chunks(torch.tensor(rng.randn(B, H, T, D), dtype=torch.float32, device=dev),
+                           n, Tp, bf) for _ in range(4))
+    o, lse = ring_forward(q, k, v, Tl)
+    delta = (do.float() * o).sum(-1)
+    dq0 = att.ring_chunk_bwd_dq(q, k, v, do, lse, delta, None, 0, Tl)
+    out = {}
+    for hop in (1, 0):
+        dq = dq0.clone()  # updated in place at the carry hop, as the ring does
+
+        def call():
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), None if hop == 0 else dq.data_ptr(), dq.data_ptr(), n,
+                    B * H, Tp, D, Tl, 0, n, hop, 1.0 / math.sqrt(D),
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f'ring_bwd_dq launch failed ({rc})')
+
+        call()
+        got = dq.clone()
+        dq_in = None if hop == 0 else dq0
+        ref = att.ring_chunk_bwd_dq(q, k, v, do, lse, delta, None if hop == 0 else dq0.clone(),
+                                    hop, Tl)
+        plain = att.ring_hop_bwd_dq_plain(q, k, v, do, lse, delta, dq_in, hop, Tl, dtype=bf)
+        out[f'seq:4 hop {hop}'] = dict(
+            bitwise_as_shipped=bool(torch.equal(got, ref)),
+            outside_tol=outside(got, plain, 1e-4, 1e-3),
+            ms=device_ms(call, 'ring_bwd_dq_kernel', 50),
+            ms_l2_cold=device_ms(call, 'ring_bwd_dq_kernel', 20, flush))
+    return out
+
+
+# per source: the kernels' names in the trace and ptxas's report, and the runner
 RUNS = {
-    'attention': ('flash_fwd_kernel', lambda lib, rng, dev, knobs: run_attention(lib, rng, dev)),
-    'masked_dense': ('mask_out_matmul_kernel',
+    'attention': (('flash_fwd_kernel',),
+                  lambda lib, rng, dev, knobs: run_attention(lib, rng, dev)),
+    'masked_dense': (('mask_out_matmul_kernel',),
                      lambda lib, rng, dev, knobs: run_masked_dense(lib, rng, dev)),
-    'int8': ('int8_gemm_kernel', run_int8),
-    'decode_fused': ('block_tail_kernel', run_decode_fused),
+    'int8': (('int8_gemm_kernel',), run_int8),
+    'decode_fused': (('ln_matmul', 'block_tail_kernel'), run_decode_fused),
+    'ring_attention': (('ring_bwd_dq_kernel',), run_ring_attention),
 }
 
 
@@ -326,8 +408,8 @@ def main(argv=None):
     for (src, knobs), (lib_path, log) in zip(vs, built):
         lib = ctypes.CDLL(str(lib_path))
         rng = np.random.RandomState(0)
-        kernel, run = RUNS[src]
-        row = dict(source=src, knobs=knobs, ptxas=ptxas(log, kernel),
+        kernels, run = RUNS[src]
+        row = dict(source=src, knobs=knobs, ptxas=ptxas(log, kernels),
                    shapes=run(lib, rng, dev, knobs), device=smi)
         print(json.dumps(row), flush=True)
         rows.append(row)

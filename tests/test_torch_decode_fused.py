@@ -152,3 +152,90 @@ def test_block_tail_plan_computes_the_block(C):
     got = h1 + (total + lp['bfc2'])
     np.testing.assert_allclose(got.numpy(), tdf.block_tail_plain(x, y, lp).numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+# Kernel A's layout (plan_ln_matmul, the launch of ops/csrc/decode_fused.cu
+# gmt_ln_matmul) at the four path shapes: pixel_transformer's LN1 + qkv and
+# ln_f + head (the dot route), the vqvae prior's LN1 + qkv and head
+def test_ln_matmul_plan_pinned():
+    P = tdf.LnMatmulPlan
+    assert tdf.plan_ln_matmul(64, 128, 384) == P('mma', (6, 4), 256, 16, 64, True, 4, 2, 22784)
+    assert tdf.plan_ln_matmul(64, 128, 1) == P('dot', (16, 1), 128, 4, 1, False, 4, 0, 0)
+    assert tdf.plan_ln_matmul(64, 256, 768) == P('mma', (12, 4), 256, 16, 64, True, 8, 4, 45312)
+    assert tdf.plan_ln_matmul(64, 256, 64) == P('mma', (1, 4), 256, 16, 64, True, 8, 4, 45312)
+
+
+def _plan_tiles(plan, B, N):
+    """(rows, columns) of each block of an ln_matmul plan."""
+    gx, gy = plan.grid
+    if plan.route == 'dot':
+        return [(range(i * plan.rows, min((i + 1) * plan.rows, B)), range(N)) for i in range(gx)]
+    return [(range(y * plan.rows, min((y + 1) * plan.rows, B)),
+             range(x * plan.cols, min((x + 1) * plan.cols, N)))
+            for y in range(gy) for x in range(gx)]
+
+
+@pytest.mark.parametrize('C', [48, 100, 128, 256, 4096])
+def test_ln_matmul_plan_owns_every_output_once(C):
+    """Every output of (B, N) belongs to exactly one block, the shared
+    memory fits a block's 232448 bytes, N < 8 takes the dot route (a warp a
+    row) and the tensor cores otherwise, and 16-byte loads are taken only
+    where N % 8 == 0, C % 4 == 0 and the pointers are aligned."""
+    B = 70
+    for N in (1, 7, 8, 64, 96, 384):
+        plan = tdf.plan_ln_matmul(B, C, N)
+        owned = sorted((r, c) for rows, cols in _plan_tiles(plan, B, N) for r in rows for c in cols)
+        assert owned == [(r, c) for r in range(B) for c in range(N)]
+        assert plan.route == ('dot' if N < 8 else 'mma')
+        assert plan.vec == (N % 8 == 0 and C % 4 == 0)
+        assert not tdf.plan_ln_matmul(B, C, N, aligned=False).vec
+        assert plan.smem <= tdf.SMEM_MAX
+        if plan.route == 'mma':
+            assert plan.smem == tdf.ln_matmul_smem(C, plan.stages)
+            assert plan.stages == min(-(-C // tdf.LM_KC), tdf.LM_STAGES)
+    assert tdf.plan_ln_matmul(B, 6096, 64).smem <= tdf.SMEM_MAX
+    with pytest.raises(ValueError):
+        tdf.plan_ln_matmul(B, 6097, 64)
+
+
+def _emulate_ln_matmul(x, scale, bias, w, b):
+    """Kernel A's arithmetic block by block from its plan, in f32 on the
+    CPU: each block's rows normalised and rounded to bf16 (zero from C to a
+    multiple of 16), its slice of w rounded to bf16, and the product summed
+    over 16-deep k steps in order into two sums, of the even and the odd
+    steps, added at the end (the dot route: one sum over C)."""
+    B, C = x.shape
+    N = w.shape[1]
+    plan = tdf.plan_ln_matmul(B, C, N)
+    rnd = lambda t: t.to(torch.bfloat16).float()
+    out = torch.full((B, N), float('nan'))
+    for rows, cols in _plan_tiles(plan, B, N):
+        r, c = slice(rows.start, rows.stop), slice(cols.start, cols.stop)
+        h = rnd(tdf._ln(x[r], scale, bias))
+        wc = rnd(w[:, c])
+        if plan.route == 'dot':
+            acc = h @ wc
+        else:
+            acc = [torch.zeros((len(rows), len(cols))) for _ in range(2)]
+            for i, k in enumerate(range(0, C, 16)):
+                acc[i % 2] = acc[i % 2] + h[:, k:k + 16] @ wc[k:k + 16]
+            acc = acc[0] + acc[1]
+        out[r, c] = acc + b[c]
+    return out
+
+
+@pytest.mark.parametrize('B,C,N', [(64, 128, 384), (64, 128, 1), (64, 256, 768), (64, 256, 64),
+                                   (25, 100, 96), (70, 48, 7), (1, 1024, 8)])
+def test_ln_matmul_plan_computes_the_product(B, C, N):
+    """The emulated kernel (bf16 rows, 16-deep k steps, the plan's blocks)
+    holds ln_matmul_plain(dtype=bf16) within chip_smoke.py's atol 1e-2 +
+    rtol 1e-2, and leaves no output unwritten."""
+    rng = np.random.RandomState(B + C + N)
+    x = torch.from_numpy(_f32(rng, B, C))
+    s, b = 1 + torch.from_numpy(_f32(rng, C, scale=0.1)), torch.from_numpy(_f32(rng, C, scale=0.1))
+    w = torch.from_numpy(_f32(rng, C, N, scale=C ** -0.5))
+    bias = torch.from_numpy(_f32(rng, N, scale=0.1))
+    got = _emulate_ln_matmul(x, s, b, w, bias)
+    ref = tdf.ln_matmul_plain(x, s, b, w, bias, dtype=torch.bfloat16)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-2, rtol=1e-2)

@@ -137,17 +137,54 @@ def test_int8_gemm_multiplies_on_the_int8_tensor_cores():
 def test_block_tail_multiplies_on_the_tensor_cores_over_a_cluster():
     """Kernel B (decode_fused.cu block_tail_kernel) multiplies with
     mma.cuh's gmt_mma_bf16 on ldmatrix fragments, over a thread-block
-    cluster whose blocks meet through distributed shared memory; it calls
-    no rows_matmul (Kernel A's f32 FMA loop, which stays for A)."""
+    cluster whose blocks meet through distributed shared memory; neither it
+    nor Kernel A, which multiplies on the tensor cores before it, calls the
+    first design's f32 FMA loop (rows_matmul)."""
     src = (PORT / 'ops' / 'csrc' / 'decode_fused.cu').read_text()
     b = src[src.index('-- Kernel B'):]
     assert b.count('gmt_mma_bf16(') == 1 and 'gmt_ldmatrix_x4_trans(' in b
     assert 'cudaLaunchAttributeClusterDimension' in b and 'barrier.cluster.arrive' in b
     assert 'st.shared::cluster' in b and 'mapa.shared::cluster' in b
-    assert 'rows_matmul' not in b and 'rows_matmul<LM_ROWS>' in src
+    assert 'rows_matmul' not in src and src[:src.index('-- Kernel B')].count('gmt_mma_bf16(') == 1
 
 
-@pytest.mark.parametrize('src', ['attention', 'masked_dense', 'int8', 'decode_fused'])
+def test_ln_matmul_multiplies_on_the_tensor_cores():
+    """Kernel A's route for N >= 8 (decode_fused.cu ln_matmul_kernel)
+    multiplies with mma.cuh's gmt_mma_bf16 on ldmatrix fragments (A from
+    the bf16 rows, B from the (in, out) weight stages by ldmatrix.trans)
+    that 16-byte cp.async copies fill; it has no f32 FMA product loop, and
+    the first design's rows_matmul and its LN into f32 shared memory
+    (common.cuh's gmt_layernorm_rows_bf16) are gone. Only the N < 8 route
+    (ln_matmul_dot_kernel, a warp a row) sums on the CUDA cores."""
+    csrc = PORT / 'ops' / 'csrc'
+    src = (csrc / 'decode_fused.cu').read_text()
+    a = src[src.index('-- Kernel A'):src.index('-- Kernel B')]
+    mma = a[a.index('ln_matmul_kernel('):a.index('ln_matmul_dot_kernel(')]
+    assert mma.count('gmt_mma_bf16(') == 1 and 'gmt_ldmatrix_x4(' in mma
+    assert 'gmt_ldmatrix_x4_trans(' in mma and 'fmaf(' not in mma
+    assert 'gmt_cp_async16(' in a and 'lm_load_stage<VEC>(' in mma
+    assert 'rows_matmul' not in src and 'gmt_layernorm_rows_bf16' not in src
+    assert 'gmt_layernorm_rows_bf16' not in (csrc / 'common.cuh').read_text()
+
+
+def test_ring_dq_hop_multiplies_on_the_tensor_cores():
+    """Kernel L (ring_attention.cu ring_bwd_dq_kernel) is Kernel E's hop
+    form on flash_tiles.cuh: S and dP by ft_scores, dS split into a bf16
+    hi/lo pair by ft_split and dq += dS k by ft_accum, K/V tiles by
+    ft_load_tile; no f32 K/V tile is staged for an FMA product loop, as the
+    first design (and Kernels K and M still) do."""
+    src = (PORT / 'ops' / 'csrc' / 'ring_attention.cu').read_text()
+    assert '#include "flash_tiles.cuh"' in src
+    l_src = src[src.index('-- Kernel L'):src.index('-- Kernel M')]
+    assert l_src.count('ft_scores<') == 2 and l_src.count('ft_split(') == 1
+    assert l_src.count('ft_accum<') == 1 and 'ft_exp2(' in l_src and 'ft_a_frags<' in l_src
+    assert 'ft_load_tile<' in l_src and 'ring_bwd_dq_kernel(' in l_src
+    assert 'gmt_mma_bf16' not in l_src and 'expf(' not in l_src and 'fmaf(ds' not in l_src
+    assert '__shared__ __align__(16) float' not in l_src and 'load_kv_tile<' not in l_src
+
+
+@pytest.mark.parametrize('src', ['attention', 'masked_dense', 'int8', 'decode_fused',
+                                 'ring_attention'])
 def test_knob_sweep_rewrites_one_line_a_knob(src):
     """ops/knob_sweep.py (run on the card) finds each of its knobs' lines
     exactly once in the source, and its first variant of each source is the

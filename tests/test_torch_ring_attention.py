@@ -27,7 +27,9 @@ from generative_models_tpu.utils.config import parse_args as jax_parse_args
 from generative_models_tpu_torch.convert import params_from_jax
 from generative_models_tpu_torch.ops import attention as tat
 from generative_models_tpu_torch.parallel import parse_mesh_spec, ring_size, seq_size
-from generative_models_tpu_torch.parallel.ring_attention import ring_causal_attention
+from generative_models_tpu_torch.parallel.ring_attention import (
+    _chunks, ring_causal_attention, ring_forward,
+)
 from generative_models_tpu_torch.utils.config import parse_args
 
 torch.set_num_threads(1)
@@ -320,3 +322,58 @@ def test_hop_wrappers_refuse_tensors_off_the_cpu(fn):
     args = (u, u, u, None, 0, 8) if fn == 'ring_chunk_fwd' else (u, u, u, u, row, row, None, 0, 8)
     with pytest.raises(ValueError, match='CUDA tensor'):
         getattr(tat, fn)(*args)
+
+
+def _emulate_ring_dq(q, k, v, do, lse, delta, dq, hop, t_valid, pair):
+    """Kernel L's arithmetic for every ring position of a one-card launch,
+    in f32 on the CPU: S and dP from the bf16 operands with f32 sums, P =
+    2^(S scale log2 e - lse log2 e) under the global-position mask, dS =
+    P (dP - delta) carried as hi = bf16(dS), lo = bf16(dS - hi) into two
+    f32 products (pair) or rounded to bf16 once (the TPU kernel's rounding);
+    rows at or past t_valid keep dq (the kernel loads them as zeros)."""
+    bf = torch.bfloat16
+    P, _, Tp, D = q.shape
+    log2e = math.log2(math.e)
+    r = torch.arange(Tp)
+    outs = []
+    for j, kv, qs, ks in tat._hop_items(P, hop, t_valid, 0, P):
+        qf, kf, vf, dof = (u.to(bf).float() for u in (q[j], k[kv], v[kv], do[j]))
+        p = torch.exp2((qf @ kf.transpose(-1, -2)) * (log2e / math.sqrt(D))
+                       - lse[j][..., None] * log2e)
+        live = ((qs + r[:, None] >= ks + r[None, :]) & (r[None, :] < t_valid)
+                & (r[:, None] < t_valid))
+        ds = p.masked_fill(~live, 0.0) * (dof @ vf.transpose(-1, -2) - delta[j][..., None])
+        hi = ds.to(bf).float()
+        prod = hi @ kf + (ds - hi).to(bf).float() @ kf if pair else hi @ kf
+        outs.append(prod / math.sqrt(D) if dq is None else dq[j] + prod / math.sqrt(D))
+    return torch.stack(outs)
+
+
+@pytest.mark.parametrize('hop', [0, 1])
+@pytest.mark.parametrize('pair', [True, False])
+def test_ring_dq_as_bf16_pairs_holds_the_plain_hop(hop, pair):
+    """Why Kernel L splits dS: on pixel_transformer's ring of 4 (T=784,
+    D=32, t_valid 196 in 256-row chunks), with bf16-valued inputs and lse
+    and delta from the forward ring, the emulated kernel with dS as a hi/lo
+    pair holds ring_hop_bwd_dq_plain(dtype=bf16) within chip_smoke.py's
+    atol 1e-4 + rtol 1e-3 at the first hop and at a carry hop; rounding dS
+    to bf16 once misses it (6653 and 3690 of 65536 outputs at seed 3)."""
+    bf = torch.bfloat16
+    rng = np.random.RandomState(3)
+    n, T, D = 4, 784, 32
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 2, T, D).astype(np.float32)).to(bf).float()
+                   for _ in range(4))
+    Tl = T // n
+    Tp = tat._pick_chunk_blk(Tl)[1]
+    qc, kc, vc, doc = (_chunks(u, n, Tp, torch.float32) for u in (q, k, v, do))
+    o, lse = ring_forward(qc, kc, vc, Tl)
+    delta = (doc * o).sum(-1)
+    dq_in = None if hop == 0 else tat.ring_hop_bwd_dq_plain(qc, kc, vc, doc, lse, delta, None, 0,
+                                                            Tl, dtype=bf)
+    ref = tat.ring_hop_bwd_dq_plain(qc, kc, vc, doc, lse, delta, dq_in, hop, Tl, dtype=bf)
+    got = _emulate_ring_dq(qc, kc, vc, doc, lse, delta, dq_in, hop, Tl, pair)
+    outside = int(((got - ref).abs() > 1e-4 + 1e-3 * ref.abs()).sum())
+    if pair:
+        assert outside == 0
+    else:
+        assert outside > 1000, outside
