@@ -10,10 +10,11 @@ failure exits non-zero before the result lines:
                 power limit.
   2. build   -- compile ops/csrc/*.cu (one nvcc per source, in parallel)
                 and print the build seconds and ptxas's registers and
-                spills of every entry function (Kernels C, E, D and L's by
-                D bucket, H's and I's by their VEC flag and A's and B's by
-                VEC flag and LN width also in the kernels line; fails where
-                C, E or D spill at D=32 or H, I, A, B or L spills).
+                spills of every entry function (Kernels C, E, D, K, L and
+                M's by D bucket, H's and I's by their VEC flag and A's and
+                B's by VEC flag and LN width also in the kernels line; fails
+                where C, E or D spill at D=32 or H, I, A, B, K, L or M
+                spills).
   3. kernels -- hold each kernel against its plain PyTorch version on the
                 card at the main paths' shapes (pixel_transformer's,
                 vqvae's and made's at hidden_size=2048), with seeded inputs
@@ -35,7 +36,7 @@ failure exits non-zero before the result lines:
                 cases of their tiling, each launched twice and bitwise
                 equal;
                 the ring's hop Kernels K, L and M on rings of 2, 4 and 8 at
-                their first hop and at a carry hop (L launched twice and
+                their first hop and at a carry hop (each launched twice and
                 bitwise equal, then untimed at D 8-128, t_valid 75 and one
                 rank's launch of a ring of 4), and the whole ring at 4 and 8
                 against Kernels C, E and D on the full sequence.
@@ -287,14 +288,15 @@ def ptxas_report(text):
 def phase_build():
     """Builds every kernel source; logs ptxas's registers and spills of
     each entry function. Returns the reports of the kernels redesigned for
-    the tensor cores, Kernels C, E, D and L by D bucket, H and I by their
+    the tensor cores, Kernels C, E, D, K, L and M by D bucket, H and I by their
     VEC flag and A and B by VEC flag and LN width (A's dot route as 'dot'),
     as {'causal_attention_fwd': {'DP=32': {...}, ...}, 'flash_bwd_dq': ...,
     'flash_bwd_dkv': ..., 'mask_out_matmul': {'VEC=1': {...}, 'VEC=0':
     {...}}, 'int8_gemm': ..., 'block_tail': {'VEC=1,VPL=4': {...}, ...},
     'ln_matmul': {'VEC=1,VPL=4': {...}, 'dot,VPL=4': {...}, ...},
-    'ring_chunk_bwd_dq': {'DP=32': {...}, ...}}, and raises if C, E or D
-    spill at D=32 (every path's width) or H, I, A, B or L spill at all."""
+    'ring_chunk_fwd': {'DP=32': {...}, ...}, 'ring_chunk_bwd_dq': ...,
+    'ring_chunk_bwd_dkv': ...}, and raises if C, E or D spill at D=32 (every
+    path's width) or H, I, A, B, K, L or M spill at all."""
     from generative_models_tpu_torch.ops.common import BUILD_DIR, KERNEL_SOURCES, build_kernels
 
     t0 = time.time()
@@ -313,8 +315,12 @@ def phase_build():
                ('decode_fused', r'ln_matmul_kernelILb(\d+)ELi(\d+)E', 'ln_matmul',
                 'VEC={},VPL={}'),
                ('decode_fused', r'ln_matmul_dot_kernelILi(\d+)E', 'ln_matmul', 'dot,VPL={}'),
-               ('ring_attention', r'ring_bwd_dq_kernelILi(\d+)E', 'ring_chunk_bwd_dq', 'DP={}'))
-    every_bucket = ('ring_chunk_bwd_dq',)  # held at every D bucket, not at D=32 alone
+               ('ring_attention', r'ring_fwd_kernelILi(\d+)E', 'ring_chunk_fwd', 'DP={}'),
+               ('ring_attention', r'ring_bwd_dq_kernelILi(\d+)E', 'ring_chunk_bwd_dq', 'DP={}'),
+               ('ring_attention', r'ring_bwd_dkv_kernelILi(\d+)E', 'ring_chunk_bwd_dkv',
+                'DP={}'))
+    # held at every D bucket, not at D=32 alone
+    every_bucket = ('ring_chunk_fwd', 'ring_chunk_bwd_dq', 'ring_chunk_bwd_dkv')
     reps = {name: {} for _, _, name, _ in watched}
     for p in sorted(BUILD_DIR.glob('*.log')):
         for fn, rep in ptxas_report(p.read_text()).items():
@@ -638,11 +644,14 @@ def ring_cases(f32, shape=(64, 4, 784, 32)):
     padded rows); L and M get lse and delta from the full forward ring.
     Tolerances are Kernel C's for K (atol 2e-5 + rtol 2e-4) and E/D's for
     L and M (atol 1e-4 + rtol 1e-3): the same bf16 operands on both sides,
-    f32 sums in another order. No single PyTorch call computes a hop's
-    carry: library_ms is null. Then the whole ring at n = 4 and 8 through
-    ring_causal_attention (its autograd Function) against Kernels C, E and
-    D on the full sequence, o and the three gradients, and its forward and
-    backward timed beside scaled_dot_product_attention's."""
+    f32 sums in another order. Each case launches each kernel twice on the
+    same inputs, and the two must be bitwise equal; at the seq_train ring
+    each is also timed with L2 flushed (ms_l2_cold). No single PyTorch call
+    computes a hop's carry: library_ms is null. Then each kernel, untimed,
+    at the edges of its tiling (ring_edge_cases), and the whole ring at n =
+    4 and 8 through ring_causal_attention (its autograd Function) against
+    Kernels C, E and D on the full sequence, o and the three gradients,
+    its forward and backward timed beside scaled_dot_product_attention's."""
     import torch.nn.functional as F
 
     from generative_models_tpu_torch.ops import attention as att
@@ -680,18 +689,23 @@ def ring_cases(f32, shape=(64, 4, 784, 32)):
             dq_in = None if init else dq0
             dkv_in = None if init else dkv0
             # K: q and the visited k, v read, the carry read (not at init)
-            # and written
-            got = att.ring_chunk_fwd(qc, kc, vc, clone(c_in), hop, Tl)
+            # and written; launched twice on the same inputs, bitwise equal
+            # (no atomics); timed in place, as the ring runs it, and at the
+            # seq_train ring also with L2 flushed before each launch
+            got = _twice_bitwise(f'ring_chunk_fwd {shape}', lambda: att.ring_chunk_fwd(
+                qc, kc, vc, clone(c_in), hop, Tl))
             ref = att.ring_hop_fwd_plain(qc, kc, vc, c_in, hop, Tl, dtype=bf)
             err = max(compare(f'ring_chunk_fwd {x} {shape}', g, r, **tol_k)
                       for x, g, r in zip(('acc', 'm', 'l'), got, ref))
             bms, by = bound(3 * full * 2 + (1 if init else 2) * (full * 4 + 2 * rows),
                             4 * D * pairs)
             scratch = clone(carry)
+            k_call = lambda: att.ring_chunk_fwd(qc, kc, vc, None if init else scratch, hop, Tl)
+            cold = {'ms_l2_cold': l2_cold_ms(k_call, 'ring_fwd_kernel', flush)} if n == 4 else {}
             out['ring_chunk_fwd'].append(dict(
-                **common, max_abs_err=err, **tol_k, bound_ms=bms, bound_by=by, **timings(
-                    lambda: att.ring_chunk_fwd(qc, kc, vc, None if init else scratch, hop, Tl),
-                    lambda: att.ring_hop_fwd_plain(qc, kc, vc, c_in, hop, Tl, dtype=bf),
+                **common, max_abs_err=err, **tol_k, bound_ms=bms, bound_by=by,
+                bitwise_twice=True, **cold, **timings(
+                    k_call, lambda: att.ring_hop_fwd_plain(qc, kc, vc, c_in, hop, Tl, dtype=bf),
                     iters=10)))
             # L: q, k, v, dO, lse, delta read, dq read (not at init) and
             # written; launched twice on the same inputs, bitwise equal (no
@@ -715,8 +729,10 @@ def ring_cases(f32, shape=(64, 4, 784, 32)):
                                                       Tl, dtype=bf),
                     iters=10)))
             # M: q, k, v, dO, lse, delta read, the visited chunk's dk and dv
-            # read (not at init) and written
-            got = att.ring_chunk_bwd_dkv(qc, kc, vc, doc, lse, delta, clone(dkv_in), hop, Tl)
+            # read (not at init) and written; twice bitwise, timed in place,
+            # L2 flushed at the seq_train ring, as K and L
+            got = _twice_bitwise(f'ring_chunk_bwd_dkv {shape}', lambda: att.ring_chunk_bwd_dkv(
+                qc, kc, vc, doc, lse, delta, clone(dkv_in), hop, Tl))
             ref = att.ring_hop_bwd_dkv_plain(qc, kc, vc, doc, lse, delta, dkv_in, hop, Tl,
                                              dtype=bf)
             err = max(compare(f'ring_chunk_bwd_dkv {x} {shape}', g, r, **tol_lm)
@@ -724,10 +740,14 @@ def ring_cases(f32, shape=(64, 4, 784, 32)):
             bms, by = bound(4 * full * 2 + 2 * rows + (1 if init else 2) * 2 * full * 4,
                             4 * 2 * D * pairs)
             dkv_s = clone(dkv0)
+            m_call = lambda: att.ring_chunk_bwd_dkv(qc, kc, vc, doc, lse, delta,
+                                                    None if init else dkv_s, hop, Tl)
+            cold = ({'ms_l2_cold': l2_cold_ms(m_call, 'ring_bwd_dkv_kernel', flush)}
+                    if n == 4 else {})
             out['ring_chunk_bwd_dkv'].append(dict(
-                **common, max_abs_err=err, **tol_lm, bound_ms=bms, bound_by=by, **timings(
-                    lambda: att.ring_chunk_bwd_dkv(qc, kc, vc, doc, lse, delta,
-                                                   None if init else dkv_s, hop, Tl),
+                **common, max_abs_err=err, **tol_lm, bound_ms=bms, bound_by=by,
+                bitwise_twice=True, **cold, **timings(
+                    m_call,
                     lambda: att.ring_hop_bwd_dkv_plain(qc, kc, vc, doc, lse, delta, dkv_in,
                                                        hop, Tl, dtype=bf),
                     iters=10)))
@@ -735,7 +755,8 @@ def ring_cases(f32, shape=(64, 4, 784, 32)):
         del qc, kc, vc, doc, o, lse, delta, carry, dq0, dkv0
         torch.cuda.empty_cache()
     del flush
-    out['ring_chunk_bwd_dq'] += ring_dq_edge_cases(f32, tol_lm)
+    for name, cs in ring_edge_cases(f32, tol_k, tol_lm).items():
+        out[name] += cs
 
     # the whole ring against Kernels C, E and D on the full sequence; f32
     # inputs holding bf16 values, so the ring's gradients come back in f32
@@ -771,61 +792,83 @@ def ring_cases(f32, shape=(64, 4, 784, 32)):
     return dict(cases=out, whole=whole)
 
 
-def ring_dq_edge_cases(f32, tol):
-    """Kernel L, untimed, at the edges of its tiling, each launched twice
-    (bitwise equal) and held against ring_hop_bwd_dq_plain on the same
-    arguments: D = 8, 16, 64 and 128 (every D bucket, 32 being the path's)
-    on a ring of 4 at T=784 (t_valid 196); t_valid 75 on a ring of 2 (T=150,
-    chunks of 80 rows); and one rank's launch of a ring of 4 (P=1, pos0=2,
-    the visiting chunk in slot 0) at every hop, on a dq at an odd offset at
-    the carry hops (the wrapper's copy back)."""
+def ring_edge_cases(f32, tol_k, tol_lm):
+    """Kernels K, L and M, untimed, at the edges of their tiling, each
+    launched twice (bitwise equal) and held against its plain version on
+    the same arguments (K at tol_k on acc, m and l, L and M at tol_lm): D =
+    8, 16, 64 and 128 (every D bucket, 32 being the path's) on a ring of 4
+    at T=784 (t_valid 196), and t_valid 75 on a ring of 2 (T=150, chunks of
+    80 rows), each at the first hop and a carry hop; and one rank's launch
+    of a ring of 4 (P=1, pos0=2, the visiting chunk in slot 0) at every
+    hop, on a carry (K's acc, L's dq, M's dk and dv) at an odd offset at
+    the carry hops (the wrappers' copy back). Returns {wrapper: cases}."""
     from generative_models_tpu_torch.ops import attention as att
     from generative_models_tpu_torch.parallel.ring_attention import _chunks, ring_forward
 
     bf = torch.bfloat16
-    out = []
+    out = {'ring_chunk_fwd': [], 'ring_chunk_bwd_dq': [], 'ring_chunk_bwd_dkv': []}
 
-    def fresh(dq, odd):
-        """a copy of dq (None stays None), 4 bytes past a 16-byte boundary
+    def fresh(x, odd):
+        """a copy of x (None stays None), 4 bytes past a 16-byte boundary
         where odd"""
-        if dq is None or not odd:
-            return None if dq is None else dq.clone()
-        buf = torch.empty(dq.numel() + 1, device=dq.device)
-        buf[1:] = dq.flatten()
-        return buf[1:].view(dq.shape)
+        if x is None or not odd:
+            return None if x is None else x.clone()
+        buf = torch.empty(x.numel() + 1, device=x.device)
+        buf[1:] = x.flatten()
+        return buf[1:].view(x.shape)
 
-    def check(label, qc, kc, vc, doc, lse, delta, dq_in, hop, Tl, pos0=0, n_ring=None,
-              odd=False):
-        got = _twice_bitwise(f'ring_chunk_bwd_dq {label}', lambda: att.ring_chunk_bwd_dq(
-            qc, kc, vc, doc, lse, delta, fresh(dq_in, odd), hop, Tl, pos0, n_ring))
-        ref = att.ring_hop_bwd_dq_plain(qc, kc, vc, doc, lse, delta, dq_in, hop, Tl, pos0,
-                                        n_ring, dtype=bf)
-        out.append(dict(shape=label, path='edge', bitwise_twice=True, **tol,
-                        max_abs_err=compare(f'ring_chunk_bwd_dq {label}', got, ref, **tol)))
+    def check(label, args, carries, hop, Tl, pos0=0, n_ring=None, odd=False):
+        """args: q, k, v, dO, lse, delta; carries: K's (acc, m, l), L's dq,
+        M's (dk, dv), each None at the first hop"""
+        qc, kc, vc = args[:3]
+        c_k, c_l, c_m = carries
+        runs = (
+            ('ring_chunk_fwd', ('acc', 'm', 'l'), tol_k,
+             lambda: att.ring_chunk_fwd(qc, kc, vc, None if c_k is None else (
+                 fresh(c_k[0], odd), c_k[1].clone(), c_k[2].clone()), hop, Tl, pos0, n_ring),
+             lambda: att.ring_hop_fwd_plain(qc, kc, vc, c_k, hop, Tl, pos0, n_ring, dtype=bf)),
+            ('ring_chunk_bwd_dq', ('dq',), tol_lm,
+             lambda: (att.ring_chunk_bwd_dq(*args, fresh(c_l, odd), hop, Tl, pos0, n_ring),),
+             lambda: (att.ring_hop_bwd_dq_plain(*args, c_l, hop, Tl, pos0, n_ring, dtype=bf),)),
+            ('ring_chunk_bwd_dkv', ('dk', 'dv'), tol_lm,
+             lambda: att.ring_chunk_bwd_dkv(*args, None if c_m is None else tuple(
+                 fresh(u, odd) for u in c_m), hop, Tl, pos0, n_ring),
+             lambda: att.ring_hop_bwd_dkv_plain(*args, c_m, hop, Tl, pos0, n_ring, dtype=bf)),
+        )
+        for name, parts, tol, kern, plain in runs:
+            got = _twice_bitwise(f'{name} {label}', lambda: tuple(kern()))
+            err = max(compare(f'{name} {x} {label}', g, r, **tol)
+                      for x, g, r in zip(parts, got, plain()))
+            out[name].append(dict(shape=label, path='edge', bitwise_twice=True, **tol,
+                                  max_abs_err=err))
 
-    for n, (B, H, T, D) in ((4, (2, 3, 784, 8)), (4, (2, 3, 784, 16)), (4, (2, 3, 784, 64)),
-                            (4, (2, 3, 784, 128)), (2, (2, 3, 150, 32))):
+    def ring_inputs(n, B, H, T, D):
         Tl = T // n
         Tp = att._pick_chunk_blk(Tl)[1]
         qc, kc, vc, doc = (_chunks(f32(B, H, T, D), n, Tp, bf) for _ in range(4))
         o, lse = ring_forward(qc, kc, vc, Tl)
-        delta = (doc.float() * o).sum(-1)
-        dq0 = att.ring_chunk_bwd_dq(qc, kc, vc, doc, lse, delta, None, 0, Tl)
+        return Tl, Tp, (qc, kc, vc, doc, lse, (doc.float() * o).sum(-1))
+
+    for n, (B, H, T, D) in ((4, (2, 3, 784, 8)), (4, (2, 3, 784, 16)), (4, (2, 3, 784, 64)),
+                            (4, (2, 3, 784, 128)), (2, (2, 3, 150, 32))):
+        Tl, Tp, args = ring_inputs(n, B, H, T, D)
+        carries = (att.ring_chunk_fwd(*args[:3], None, 0, Tl),
+                   att.ring_chunk_bwd_dq(*args, None, 0, Tl),
+                   att.ring_chunk_bwd_dkv(*args, None, 0, Tl))
         for hop in (0, 1):
             check(f'ring of {n}: (n={n},BH={B * H},Tp={Tp},D={D}), t_valid {Tl}, hop {hop}',
-                  qc, kc, vc, doc, lse, delta, None if hop == 0 else dq0, hop, Tl)
+                  args, (None,) * 3 if hop == 0 else carries, hop, Tl)
     n, (B, H, T, D) = 4, (2, 3, 200, 32)
-    Tl = T // n
-    Tp = att._pick_chunk_blk(Tl)[1]
-    qc, kc, vc, doc = (_chunks(f32(B, H, T, D), n, Tp, bf) for _ in range(4))
-    o, lse = ring_forward(qc, kc, vc, Tl)
-    delta = (doc.float() * o).sum(-1)
+    Tl, Tp, args = ring_inputs(n, B, H, T, D)
     for hop in range(n):
         c = (2 - hop) % n  # the chunk visiting position 2
-        dq_in = None if hop == 0 else f32(1, B * H, Tp, D)
+        one = tuple(u[2:3] for u in args)
+        one = (one[0], args[1][c:c + 1], args[2][c:c + 1], *one[3:])
+        carries = (None,) * 3 if hop == 0 else (
+            (f32(1, B * H, Tp, D), f32(1, B * H, Tp), 1 + f32(1, B * H, Tp).abs()),
+            f32(1, B * H, Tp, D), (f32(1, B * H, Tp, D), f32(1, B * H, Tp, D)))
         check(f'one rank of a ring of {n}: P=1, pos0=2, (BH={B * H},Tp={Tp},D={D}), '
-              f't_valid {Tl}, hop {hop}', qc[2:3], kc[c:c + 1], vc[c:c + 1], doc[2:3], lse[2:3],
-              delta[2:3], dq_in, hop, Tl, 2, n, odd=hop > 0)
+              f't_valid {Tl}, hop {hop}', one, carries, hop, Tl, 2, n, odd=hop > 0)
     return out
 
 

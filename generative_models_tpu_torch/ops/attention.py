@@ -31,12 +31,13 @@ Counterpart of generative_models_tpu/ops/attention.py:
   ring_chunk_fwd         -- Kernel K (ops/csrc/ring_attention.cu), one ring
                             hop of the causal online softmax: folds each ring
                             position's visiting K/V chunk into its carried
-                            (acc, m, l). parallel/ring_attention.py runs the
-                            hops.
+                            (acc, m, l); Kernel C's hop form on the tensor
+                            cores. parallel/ring_attention.py runs the hops.
   ring_chunk_bwd_dq      -- Kernel L (same file), one hop's dQ onto the
-                            local carried dQ.
+                            local carried dQ; Kernel E's hop form.
   ring_chunk_bwd_dkv     -- Kernel M (same file), one hop's dK/dV onto the
-                            visiting chunk's travelling accumulators.
+                            visiting chunk's travelling accumulators; Kernel
+                            D's hop form.
 
 Operands (q, k, v, dO) are bf16 on the card and f32 on the CPU; every
 product accumulates in f32, and o, lse and the gradients are f32.
@@ -445,10 +446,14 @@ def ring_hop_bwd_dkv_plain(q, k, v, do, lse, delta, dkv, hop, t_valid, pos0=0, n
 
 
 def _check_ring(name, q, k, v, t_valid, pos0, n_ring, do=None, **f32):
-    """Refuse what Kernels K, L and M do not take: q, k, v (and do) bf16 of
-    q's shape, the named f32 tensors of q's shape or, for the rows m, l,
-    lse and delta, (P, BH, Tp); None stands for an absent carry."""
+    """Refuse what Kernels K, L and M do not take: a D that is not a
+    multiple of 8 in [8, 128] (checked first, from q's shape alone), q, k, v
+    (and do) bf16 of q's shape, the named f32 tensors of q's shape or, for
+    the rows m, l, lse and delta, (P, BH, Tp); None stands for an absent
+    carry."""
     P, BH, Tp, D = q.shape
+    if D % 8 or not 8 <= D <= 128:
+        raise ValueError(f'{name}: D={D} must be a multiple of 8 in [8, 128]')
     for arg, u in (('q', q), ('k', k), ('v', v), ('do', do)):
         if u is not None:
             check_cuda(f'{name} {arg}', u, torch.bfloat16, (P, BH, Tp, D))
@@ -456,13 +461,19 @@ def _check_ring(name, q, k, v, t_valid, pos0, n_ring, do=None, **f32):
         if u is not None:
             rows = arg in ('m', 'l', 'lse', 'delta')
             check_cuda(f'{name} {arg}', u, torch.float32, (P, BH, Tp) if rows else (P, BH, Tp, D))
-    if D % 8 or not 8 <= D <= 128:
-        raise ValueError(f'{name}: D={D} must be a multiple of 8 in [8, 128]')
     if BH > 65535 or P > 65535:
         raise ValueError(f'{name}: BH={BH} and P={P} must not exceed the grid limit 65535')
     if not 0 < t_valid <= Tp or not 0 <= pos0 <= n_ring - P:
         raise ValueError(f'{name}: t_valid={t_valid}, Tp={Tp}, pos0={pos0}, P={P}, '
                          f'n_ring={n_ring} out of range')
+
+
+def _aligned8(u):
+    """u (None stays None), or a copy of it where its data does not start on
+    8 bytes (an f32 view at an odd offset): Kernels K, L and M read and
+    write their f32 carries 8 bytes at a time. The caller copies the result
+    back into u."""
+    return u if u is None or u.data_ptr() % 8 == 0 else u.clone()
 
 
 def _ptr(u):
@@ -484,17 +495,21 @@ def ring_chunk_fwd(q, k, v, carry, hop, t_valid, pos0=0, n_ring=None):
     acc_in, m_in, l_in = (None,) * 3 if carry is None else carry
     _check_ring('ring_chunk_fwd', q, k, v, t_valid, pos0, n_ring, acc=acc_in, m=m_in, l=l_in)
     P, BH, Tp, D = q.shape
+    q, k, v = map(_aligned16, (q, k, v))
     if carry is None:
         acc = torch.empty((P, BH, Tp, D), dtype=torch.float32, device=q.device)
         m = torch.empty((P, BH, Tp), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
     else:
-        acc, m, l = carry
+        acc, m, l = _aligned8(acc_in), m_in, l_in
     fn = c_function('ring_attention', 'gmt_ring_fwd', 9, 8, 1)
-    launch('ring_attention', fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(acc_in),
+    acc_ptr = None if carry is None else acc.data_ptr()
+    launch('ring_attention', fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), acc_ptr,
            _ptr(m_in), _ptr(l_in), acc.data_ptr(), m.data_ptr(), l.data_ptr(), P, BH, Tp, D,
            t_valid, pos0, n_ring, hop, 1.0 / math.sqrt(D))
     ring_chunk_fwd.launches += 1
+    if acc_in is not None and acc is not acc_in:
+        acc = acc_in.copy_(acc)
     return acc, m, l
 
 
@@ -516,17 +531,14 @@ def ring_chunk_bwd_dq(q, k, v, do, lse, delta, dq, hop, t_valid, pos0=0, n_ring=
                 delta=delta, dq=dq)
     P, BH, Tp, D = q.shape
     q, k, v, do = map(_aligned16, (q, k, v, do))
-    # the kernel reads and writes dq 8 bytes at a time: a dq at an odd
-    # offset is updated in an aligned copy, copied back into it
-    odd = dq is not None and dq.data_ptr() % 8
-    acc = dq.clone() if odd else dq
+    acc = _aligned8(dq)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device) if dq is None else acc
     fn = c_function('ring_attention', 'gmt_ring_bwd_dq', 8, 8, 1)
     launch('ring_attention', fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), _ptr(acc), out.data_ptr(), P, BH, Tp, D, t_valid,
            pos0, n_ring, hop, 1.0 / math.sqrt(D))
     ring_chunk_bwd_dq.launches += 1
-    return dq.copy_(out) if odd else out
+    return out if acc is dq else dq.copy_(out)
 
 
 ring_chunk_bwd_dq.launches = 0
@@ -547,16 +559,22 @@ def ring_chunk_bwd_dkv(q, k, v, do, lse, delta, dkv, hop, t_valid, pos0=0, n_rin
     _check_ring('ring_chunk_bwd_dkv', q, k, v, t_valid, pos0, n_ring, do=do, lse=lse,
                 delta=delta, dk=dk_in, dv=dv_in)
     P, BH, Tp, D = q.shape
+    q, k, v, do = map(_aligned16, (q, k, v, do))
     if dkv is None:
         dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
         dv = torch.empty_like(dk)
     else:
-        dk, dv = dkv
+        dk, dv = _aligned8(dk_in), _aligned8(dv_in)
+    dk_ptr, dv_ptr = (None, None) if dkv is None else (dk.data_ptr(), dv.data_ptr())
     fn = c_function('ring_attention', 'gmt_ring_bwd_dkv', 10, 8, 1)
     launch('ring_attention', fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           lse.data_ptr(), delta.data_ptr(), _ptr(dk_in), _ptr(dv_in), dk.data_ptr(),
-           dv.data_ptr(), P, BH, Tp, D, t_valid, pos0, n_ring, hop, 1.0 / math.sqrt(D))
+           lse.data_ptr(), delta.data_ptr(), dk_ptr, dv_ptr,
+           dk.data_ptr(), dv.data_ptr(), P, BH, Tp, D, t_valid, pos0, n_ring, hop,
+           1.0 / math.sqrt(D))
     ring_chunk_bwd_dkv.launches += 1
+    if dkv is not None:  # a copy made for alignment goes back into its tensor
+        dk = dk if dk is dk_in else dk_in.copy_(dk)
+        dv = dv if dv is dv_in else dv_in.copy_(dv)
     return dk, dv
 
 

@@ -38,7 +38,8 @@
 //     the registers) stream from key 0 to the diagonal by 16-byte cp.async
 //     into a double-buffered ring, one barrier a tile;
 //   * a tile's scores (ft_scores) are taken whole, then one online-softmax
-//     step a tile in log2 units: the row max across the quad of lanes that
+//     step a tile in log2 units (flash_tiles.cuh's ft_fwd_tile, which the
+//     ring's hop forward shares): the row max across the quad of lanes that
 //     shares a row (each lane holds rows g and g + 8 and a quarter of their
 //     columns), one rescale of acc and l, P = exp2(S * scale * log2(e) - m)
 //     (ft_exp2), l += P, and acc += (hi + lo) v (ft_split, ft_accum);
@@ -79,66 +80,6 @@ struct FwdPlan {
   // its own q tile, then two stages of (K, V)
   static constexpr size_t SMEM = (size_t)(FWD_ROWS * LD + 4 * STILE) * 2;
 };
-
-// One warp's work on one K/V tile (keys k0 ..) for its rows row0 .. row0 +
-// 15: the online-softmax step (m in log2 units, l this lane's share of the
-// row sum) and acc += P v. EDGE: the tile reaches past the block's first
-// row (or T), as in attention_bwd.cu's dq_tile.
-template <int DP, bool EDGE>
-__device__ __forceinline__ void fwd_tile(float (&acc)[DP / 8][4], float (&m)[2], float (&l)[2],
-                                         const unsigned (&qa)[DP / 16][4],
-                                         const __nv_bfloat16* ks, const __nv_bfloat16* vs,
-                                         int k0, int row0, int T, float sl2) {
-  using P = FwdPlan<DP>;
-  constexpr int NC = P::SROWS / 16;
-  const int lane = threadIdx.x % 32, g = lane / 4, c = 2 * (lane % 4);
-  float s[NC][2][4];
-  float mx[2] = {GMT_NEG_INF, GMT_NEG_INF};
-#pragma unroll
-  for (int cc = 0; cc < NC; ++cc) {
-    const int kc0 = k0 + 16 * cc;  // the chunk's first key
-    if (EDGE && (kc0 > row0 + 15 || kc0 >= T)) continue;
-    ft_scores<P::KD, P::LD>(s[cc], qa, ks, 16 * cc);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (EDGE && kc0 + 8 * j + c + (e & 1) > row0 + g + 8 * (e / 2))
-          s[cc][j][e] = GMT_NEG_INF;  // also masks keys >= T for rows < T
-        mx[e / 2] = fmaxf(mx[e / 2], s[cc][j][e]);
-      }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    const float m_new = fmaxf(m[h], mx[h] * sl2);
-    const float alpha = ft_exp2(m[h] - m_new);
-    m[h] = m_new;
-    l[h] *= alpha;
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      acc[n][2 * h] *= alpha;
-      acc[n][2 * h + 1] *= alpha;
-    }
-  }
-#pragma unroll
-  for (int cc = 0; cc < NC; ++cc) {
-    const int kc0 = k0 + 16 * cc;
-    if (EDGE && (kc0 > row0 + 15 || kc0 >= T)) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = ft_exp2(fmaf(s[cc][j][e], sl2, -m[e / 2]));
-        l[e / 2] += p;
-        s[cc][j][e] = p;
-      }
-    unsigned hi[4], lo[4];
-    ft_split(s[cc], hi, lo);
-    ft_accum<DP, P::LD>(acc, hi, lo, vs, 16 * cc);
-  }
-}
 
 template <int DP>
 __global__ void __launch_bounds__(FWD_THREADS, FwdPlan<DP>::MINB) flash_fwd_kernel(
@@ -192,9 +133,10 @@ __global__ void __launch_bounds__(FWD_THREADS, FwdPlan<DP>::MINB) flash_fwd_kern
     }
     const __nv_bfloat16* ks = ring + (t % 2) * 2 * TILE;
     if ((t + 1) * BKV - 1 > q0)  // some key here lies past the block's first row
-      fwd_tile<DP, true>(acc, m, l, qa, ks, ks + TILE, t * BKV, wr0, T, sl2);
+      ft_fwd_tile<DP, BKV, true, false>(acc, m, l, qa, ks, ks + TILE, t * BKV, wr0, 0, T, sl2);
     else
-      fwd_tile<DP, false>(acc, m, l, qa, ks, ks + TILE, t * BKV, wr0, T, sl2);
+      ft_fwd_tile<DP, BKV, false, false>(acc, m, l, qa, ks, ks + TILE, t * BKV, wr0, 0, T,
+                                         sl2);
   }
 
 #pragma unroll

@@ -91,41 +91,6 @@ struct BwdPlan {
       (size_t)(2 * BWD_ROWS * LD + 4 * STILE) * 2 + 4 * SROWS * 4;
 };
 
-// E's work for one warp on one K/V tile (keys k0 ..): over each 16-key
-// chunk, P and dS of the warp's rows row0 .. row0 + 15, then acc += dS k.
-// EDGE: the tile reaches past the block's first row (or T), so a chunk
-// wholly past the warp's rows is skipped and the rest are masked; an inner
-// tile takes neither test, so its chunks are one straight run of code.
-template <int DP, bool EDGE>
-__device__ __forceinline__ void dq_tile(float (&acc)[DP / 8][4], const unsigned (&qa)[DP / 16][4],
-                                        const unsigned (&doa)[DP / 16][4],
-                                        const __nv_bfloat16* ks, const __nv_bfloat16* vs, int k0,
-                                        int row0, int T, float sl2, const float (&lg)[2],
-                                        const float (&dl)[2]) {
-  using P = BwdPlan<DP>;
-  const int lane = threadIdx.x % 32, g = lane / 4, c = 2 * (lane % 4);
-#pragma unroll
-  for (int cc = 0; cc < P::SROWS / 16; ++cc) {
-    const int kc0 = k0 + 16 * cc;  // the chunk's first key
-    if (EDGE && (kc0 > row0 + 15 || kc0 >= T)) continue;
-    float s[2][4], dp[2][4];
-    ft_scores<P::KD, P::LD>(s, qa, ks, 16 * cc);
-    ft_scores<P::KD, P::LD>(dp, doa, vs, 16 * cc);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        float p = ft_exp2(fmaf(s[j][e], sl2, -lg[h]));
-        if (EDGE && kc0 + 8 * j + c + (e & 1) > row0 + g + 8 * h) p = 0.f;
-        s[j][e] = p * (dp[j][e] - dl[h]);  // dS
-      }
-    unsigned hi[4], lo[4];
-    ft_split(s, hi, lo);
-    ft_accum<DP, P::LD>(acc, hi, lo, ks, 16 * cc);
-  }
-}
-
 template <int DP>
 __global__ void __launch_bounds__(BWD_THREADS, BwdPlan<DP>::MINB_E) flash_bwd_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -218,9 +183,9 @@ __global__ void __launch_bounds__(BWD_THREADS, BwdPlan<DP>::MINB_E) flash_bwd_dq
     }
     const __nv_bfloat16* ks = ring + (t % 2) * 2 * TILE;
     if ((t + 1) * BKV - 1 > q0)  // some key here lies past the block's first row
-      dq_tile<DP, true>(acc, qa, doa, ks, ks + TILE, t * BKV, wr0, T, sl2, lg, dl);
+      ft_dq_tile<DP, BKV, true>(acc, qa, doa, ks, ks + TILE, t * BKV, wr0, 0, T, sl2, lg, dl);
     else
-      dq_tile<DP, false>(acc, qa, doa, ks, ks + TILE, t * BKV, wr0, T, sl2, lg, dl);
+      ft_dq_tile<DP, BKV, false>(acc, qa, doa, ks, ks + TILE, t * BKV, wr0, 0, T, sl2, lg, dl);
   }
 
 #pragma unroll
@@ -233,52 +198,6 @@ __global__ void __launch_bounds__(BWD_THREADS, BwdPlan<DP>::MINB_E) flash_bwd_dq
       if (8 * n < D)
         *reinterpret_cast<float2*>(dst + 8 * n) =
             make_float2(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
-  }
-}
-
-// D's work for one warp on one Q/dO tile (queries q0 ..): over each 16-query
-// chunk, P^T and dS^T of the warp's keys key0 .. key0 + 15 (rows kr0 of
-// the block's k and v tiles), then dV += P^T dO and dK += dS^T Q. EDGE: the
-// tile reaches before the block's last key (or past T), as in dq_tile.
-template <int DP, bool EDGE>
-__device__ __forceinline__ void dkv_tile(float (&dka)[DP / 8][4], float (&dva)[DP / 8][4],
-                                         unsigned (&ka)[DP / 16][4], unsigned (&va)[DP / 16][4],
-                                         const __nv_bfloat16* ks, const __nv_bfloat16* vs,
-                                         const __nv_bfloat16* qs, const __nv_bfloat16* dos,
-                                         const float* ls, const float* dls, int q0, int key0,
-                                         int kr0, int T, float sl2) {
-  using P = BwdPlan<DP>;
-  constexpr int KD = P::KD, LD = P::LD;
-  const int lane = threadIdx.x % 32, g = lane / 4, c = 2 * (lane % 4);
-#pragma unroll
-  for (int cc = 0; cc < P::SROWS / 16; ++cc) {
-    const int qc0 = q0 + 16 * cc;  // the chunk's first query
-    if (EDGE && (qc0 + 15 < key0 || qc0 >= T)) continue;
-    float s[2][4], dp[2][4];  // S^T and dP^T: (key, query)
-    if constexpr (DP > 64) ft_a_frags<KD, LD>(ka, ks, kr0);
-    ft_scores<KD, LD>(s, ka, qs, 16 * cc);
-    if constexpr (DP > 64) ft_a_frags<KD, LD>(va, vs, kr0);
-    ft_scores<KD, LD>(dp, va, dos, 16 * cc);
-    float p[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int qi = 16 * cc + 8 * j + c;  // the thread's first query of the half, in the tile
-      const float2 l2 = *reinterpret_cast<const float2*>(ls + qi);
-      const float2 d2 = *reinterpret_cast<const float2*>(dls + qi);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float l = (e & 1) ? l2.y : l2.x, dl = (e & 1) ? d2.y : d2.x;
-        float pe = ft_exp2(fmaf(s[j][e], sl2, -l * BWD_LOG2E));
-        if (EDGE && q0 + qi + (e & 1) < key0 + g + 8 * (e / 2)) pe = 0.f;
-        p[j][e] = pe;
-        s[j][e] = pe * (dp[j][e] - dl);  // dS^T
-      }
-    }
-    unsigned hi[4], lo[4];
-    ft_split(p, hi, lo);
-    ft_accum<DP, LD>(dva, hi, lo, dos, 16 * cc);
-    ft_split(s, hi, lo);
-    ft_accum<DP, LD>(dka, hi, lo, qs, 16 * cc);
   }
 }
 
@@ -349,11 +268,11 @@ __global__ void __launch_bounds__(BWD_THREADS, BwdPlan<DP>::MINB_D) flash_bwd_dk
     const float* ls = rows + (t % 2) * 2 * BQ;
     // some query here precedes the block's last key, or lies past T
     if (q0 < k0 + BWD_ROWS - 1 || q0 + BQ > T)
-      dkv_tile<DP, true>(dka, dva, ka, va, ks, vs, qs, qs + TILE, ls, ls + BQ, q0, wk0,
-                         16 * warp, T, sl2);
+      ft_dkv_tile<DP, BQ, true>(dka, dva, ka, va, ks, vs, qs, qs + TILE, ls, ls + BQ, q0, wk0,
+                                16 * warp, 0, T, sl2);
     else
-      dkv_tile<DP, false>(dka, dva, ka, va, ks, vs, qs, qs + TILE, ls, ls + BQ, q0, wk0,
-                          16 * warp, T, sl2);
+      ft_dkv_tile<DP, BQ, false>(dka, dva, ka, va, ks, vs, qs, qs + TILE, ls, ls + BQ, q0, wk0,
+                                 16 * warp, 0, T, sl2);
   }
 
 #pragma unroll

@@ -19,22 +19,55 @@
 //
 //   K: (acc, m, l) += the online softmax of q against the visiting chunk,
 //      from the carry (acc_in, m_in, l_in) or, when those are null (the
-//      first hop, the init variant), from acc = 0, m = -1e30, l = 0.
+//      first hop, the init variant), from acc = 0, m = -1e30, l = 0. acc is
+//      unnormalised and m is in natural units, as the plain version, L, M
+//      and ring_forward's m + log(l) read them.
 //   L: dq = dq_in + dS k * scale, dS = P * (dO v^T - delta), P = exp(q k^T
 //      * scale - lse); dq_in null means 0.
 //   M: dk = dk_in + dS^T q * scale and dv = dv_in + P^T dO onto the
 //      visiting chunk's accumulators (slot c, or slot j across ranks).
-// q, k, v, dO are bf16; every sum is f32. K and M keep P and dS in f32;
-// L carries dS as a bf16 hi/lo pair into its tensor-core product, as
-// Kernels D and E do (attention_bwd.cu: rounded once it misses the port's
-// contract). (The TPU kernel rounds P and dS to bf16 before its products,
-// :308 and :717-721; the plain versions in ops/attention.py keep them f32.)
+// q, k, v, dO are bf16; every sum is f32.
 //
 // The TPU kernel seeded dK/dV in VMEM at the first q block and added to
 // them across the sequential q-block grid axis (:687-694, :719-720). Blocks
 // on Hopper run in no order, so the backward is split as Kernels E and D
 // split the flash backward: L owns query rows, M owns key rows; no atomics,
-// every sum in a fixed order.
+// every sum in a fixed order, so two launches on the same inputs give
+// bitwise the same outputs.
+//
+// The three are the hop forms of Kernels C (K), E (L) and D (M), on the
+// tensor cores through flash_tiles.cuh, whose tile routines they share with
+// those kernels (ft_fwd_tile, ft_dq_tile, ft_dkv_tile), with diag = q_start
+// - k_start in place of the flat kernels' 0 and t_valid in place of T:
+//   * one block of four warps per (ring position, bh, 64-row tile): query
+//     rows for K and L (q, and dO for L, as mma A fragments, 16 rows a
+//     warp), key rows for M (k and v as A fragments);
+//   * the other side streams by 16-byte cp.async into a double-buffered
+//     ring, one barrier a tile: K/V tiles of 64 keys (32 at D > 64, where
+//     the accumulators take the registers) for K and L, up to the block's
+//     live bound; Q/dO tiles with their lse and delta for M, from the first
+//     query that sees a key of the block to t_valid;
+//   * P (K, M) and dS (L, M) enter their products split into bf16 parts
+//     (P = 2^(S scale log2 e - m) or 2^(S scale log2 e - lse log2 e)):
+//     rounded once they move the outputs past the port's contract
+//     (attention.cu, attention_bwd.cu; the TPU kernel rounds them, :308 and
+//     :717-721; the plain versions in ops/attention.py keep them f32). L and
+//     M take hi/lo pairs, as E and D do. K takes three parts (hi, mid, lo:
+//     one more product a chunk): its acc is an unnormalised sum, held
+//     element by element to atol 2e-5 + rtol 2e-4, and a pair's error
+//     (~2^-18 of each P, up to 4.7e-5 on an acc at the seq:4 shape) misses
+//     that where |acc| is small, which C's o, divided by l, never shows;
+//   * only a tile that crosses the global diagonal or t_valid takes the
+//     masks: on one card a carry hop's live position sees its whole chunk,
+//     so there only the t_valid tile does;
+//   * K works in log2 units: m_in scale log2 e at entry, m ln 2 at exit,
+//     the sentinel -1e30 in both (finite, so m - m_new is never NaN). acc
+//     and l are read from the carry before the first tile lands (l_in into
+//     one lane of the quad whose partial sums meet at the end), acc in the
+//     mma C-fragment layout, 8 bytes a thread;
+//   * D is padded to 16, 32, 64 or 128; D must be a multiple of 8 up to
+//     128 (the C entries refuse anything else), q, k, v and dO 16-byte
+//     aligned and the f32 carries 8-byte aligned (the wrappers copy).
 //
 // Bounds. A query tile of K or L stops at the last key that any of its rows
 // can see (the TPU kernel's _live_kv_bound, :550, taken per element), so a
@@ -42,52 +75,72 @@
 // query that can see any key of its tile (the transpose of that bound).
 // The ring's first hop is the diagonal chunk, so every row meets a live key
 // in its first tile and m is finite from then on: a tile in which a row
-// sees no key then adds exp(-1e30 - m) = 0. That is why the sentinel is a
+// sees no key then adds 2^(-1e30 - m) = 0. That is why the sentinel is a
 // finite -1e30 and why the diagonal comes first.
 //
-// Padded rows. Query rows at or past t_valid compute junk that the caller
-// slices off; their dO is zero (the caller pads it so), which makes their
-// dK/dV terms exactly 0, so M stops at t_valid.
+// Padded rows. K computes query rows at or past t_valid as the plain
+// version does, from q as it lies in memory (the caller slices them off;
+// were they to keep the carry, ring_forward would give them lse ~ -1e30,
+// and the plain backward exp(+1e30) * 0 = NaN). L and M load them as
+// zeros: the caller's dO is zero there, so they add exactly 0, and L's rows
+// keep dq_in. Keys at or past t_valid load as zeros; K and L mask them, and
+// M drops their rows' sums (their P would be 2^(-lse), not 0): they keep
+// dk_in and dv_in. A block with nothing to add returns at once where the
+// carry is updated in place, and writes the carry through (or the first
+// hop's seed) otherwise.
 //
 // What bounds it on an H100: at the pixel_transformer training shape (BH =
 // 256, D = 32, T = 784) on a ring of 4 (t_valid = 196, Tp = 256) one hop of
 // K moves ~121 MB (q, k, v bf16, the f32 carry read and written; ~36 us at
 // 3.35 TB/s) against ~4 GFLOP over the hop's live pairs (~4 us at the bf16
 // tensor-core peak): bound by bytes, the carry's f32 traffic the largest
-// part. L and M move ~103 MB and ~137 MB a hop.
-//
-// K and M (first designs) follow Kernel C's first design: one block per
-// (ring position, bh, 64-row tile), one thread per query row (per key row
-// in M), q, dO and the accumulators in registers, K/V (Q/dO in M) tiles of
-// 32 staged in shared memory as f32, D padded in registers to a bucket (8,
-// 16, 32, 64, 128), plain FMA on f32; on FMA units the products bound
-// them, each score a D-long chain of a shared-memory read and an FMA per
-// element. PERF.md records their times against the bound.
-//
-// L is Kernel E's hop form, on the tensor cores through flash_tiles.cuh:
-// one block of four warps per (ring position, bh, 64-row query tile), each
-// warp 16 query rows with q and dO as mma A fragments; K/V tiles of 64 keys
-// (32 at D > 64) by 16-byte cp.async, double-buffered, one barrier a tile,
-// up to the tile's live bound; S and dP by ft_scores, P = 2^(S scale log2 e
-// - lse log2 e), dS split by ft_split and dq += dS k by ft_accum (four
-// products a 16-key chunk). Only a tile that crosses the global diagonal or
-// t_valid takes the mask (at a hop >= 1 on one card a live position sees
-// its whole chunk, so only the t_valid tile). Rows at or past t_valid
-// keep dq_in (their dO and delta are 0, so is their dS): they load as
-// zeros, and a warp whose 16 rows all lie there skips the products. A
-// block whose rows see no key of the visiting chunk returns at once where
-// dq is updated in place, and writes dq_in (zeros at the first hop)
-// otherwise. D is padded to 16, 32, 64 or 128. The first design (one
-// thread a row, f32 FMA, every padded row computed) took 0.664 ms a seq:4
-// carry hop and 0.904 ms the first hop (NVIDIA H100 80GB HBM3, 700 W).
+// part. L and M move ~103 MB and ~137 MB a hop. mma.sync does not reach the
+// tensor-core peak (wgmma does), and each 16-row chunk of a warp is one
+// dependent chain, so in practice the chain's latency and the products'
+// issue rate set the pace, as for C, E and D (PERF.md section 6). The first
+// designs (one thread a row, f32 K/V or Q/dO tiles and FMA on the CUDA
+// cores, every padded row computed) took 0.4500 (K), 0.6640 (L) and 0.6938
+// (M) ms a seq:4 carry hop on an NVIDIA H100 80GB HBM3 at 700 W.
 
 #include "common.cuh"
 #include "flash_tiles.cuh"
 
-constexpr int RQ_ROWS = 64;  // K: query rows per block, one per thread
-constexpr int RQ_KEYS = 32;  // K: keys per shared-memory tile
-constexpr int RK_ROWS = 64;  // M: key rows per block, one per thread
-constexpr int RK_QRYS = 32;  // M: queries per shared-memory tile
+constexpr int RING_ROWS = 64;      // query (K, L) or key (M) rows a block, 16 a warp
+constexpr int RING_THREADS = 128;  // four warps
+constexpr float RING_LOG2E = 1.4426950408889634f;
+constexpr float RING_LN2 = 0.6931471805599453f;
+
+// Each kernel's streamed-tile depth and register cap (blocks an SM) at DP =
+// 32, every path's width (ops/knob_sweep.py rewrites these lines, and its
+// sweep chose them): K 5 blocks an SM (96 registers; at C's 4, 122
+// registers, its first hop ran 1.8-2.7 % slower in three sweeps, its carry
+// hop within 1 %), L E's 6, M 4 (at D's 5, 96 registers, it spills). A
+// block's chunks run as one dependent chain, and more warps to switch
+// between hide it better than more registers help one warp.
+constexpr int K_SROWS_D32 = 64, K_MINB_D32 = 5;
+constexpr int L_SROWS_D32 = 64, L_MINB_D32 = 6;
+constexpr int M_SROWS_D32 = 64, M_MINB_D32 = 4;
+
+// One hop kernel's tiling of one D bucket: streamed tiles of SROWS rows,
+// 32 at DP = 128 where the accumulators take the registers, and MINB
+// blocks an SM at DP = 32 (the other buckets take what ptxas gives them).
+template <int DP, int SROWS_D32, int MINB_D32>
+struct HopPlan {
+  static constexpr int SROWS = DP > 64 ? 32 : DP == 32 ? SROWS_D32 : 64;
+  static constexpr int MINB = DP == 32 ? MINB_D32 : 1;
+  static constexpr int LD = DP + 8, KD = DP / 16, STILE = SROWS * LD;
+  // OWN tiles of the block's own rows, then two stages of two streamed
+  // tiles, then (M) two stages of two f32 rows (lse, delta)
+  static constexpr size_t smem(int own, bool rows) {
+    return (size_t)(own * RING_ROWS * LD + 4 * STILE) * 2 + (rows ? 4 * SROWS * 4 : 0);
+  }
+};
+template <int DP>
+using FwdHopPlan = HopPlan<DP, K_SROWS_D32, K_MINB_D32>;
+template <int DP>
+using DqHopPlan = HopPlan<DP, L_SROWS_D32, L_MINB_D32>;
+template <int DP>
+using DkvHopPlan = HopPlan<DP, M_SROWS_D32, M_MINB_D32>;
 
 // Where slot j of a launch finds its data at hop `hop`.
 struct HopItem {
@@ -115,154 +168,116 @@ __device__ __forceinline__ int live_keys(const HopItem& it, int last, int t_vali
   return max(0, min(t_valid, it.q_start + last - it.k_start + 1));
 }
 
-// Stage keys [k0, k0 + RQ_KEYS) of a chunk as f32; keys at or past t_valid
-// load as zeros (they are masked).
-template <int DP>
-__device__ __forceinline__ void load_kv_tile(float (*ks)[DP], float (*vs)[DP],
-                                             const __nv_bfloat16* k, const __nv_bfloat16* v,
-                                             size_t base, int k0, int t_valid, int D) {
-  for (int i = threadIdx.x; i < RQ_KEYS * DP; i += blockDim.x) {
-    const int r = i / DP, c = i % DP;
-    const bool in = k0 + r < t_valid && c < D;
-    const size_t off = base + (size_t)(k0 + r) * D + c;
-    ks[r][c] = in ? __bfloat162float(k[off]) : 0.f;
-    vs[r][c] = in ? __bfloat162float(v[off]) : 0.f;
-  }
-}
+// ---------------------------------------------------------------- Kernel K
 
-// Kernel K. acc_in/m_in/l_in may alias acc/m/l (the carry updated in
-// place): each thread reads its own row before it writes it.
+// Kernel K. acc_in/m_in/l_in may alias acc_out/m_out/l_out (the carry
+// updated in place): each thread reads its own elements of acc before it
+// writes them, and a row's m and l are written by one lane of its quad after
+// the quad's shuffles, which every lane reaches past its reads.
 template <int DP>
-__global__ void __launch_bounds__(RQ_ROWS) ring_fwd_kernel(
+__global__ void __launch_bounds__(RING_THREADS, FwdHopPlan<DP>::MINB) ring_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* acc_in, const float* m_in,
     const float* l_in, float* acc_out, float* m_out, float* l_out, int P, int BH, int Tp,
     int D, int t_valid, int pos0, int n_ring, int hop, float scale) {
-  __shared__ __align__(16) float ks[RQ_KEYS][DP];
-  __shared__ __align__(16) float vs[RQ_KEYS][DP];
+  using PL = FwdHopPlan<DP>;
+  constexpr int LD = PL::LD, KD = PL::KD, BKV = PL::SROWS, TILE = PL::STILE;
+  extern __shared__ __align__(16) unsigned char rk_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(rk_smem);
+  __nv_bfloat16* ring = qs + RING_ROWS * LD;  // stage s: K at ring + 2 s TILE, V after it
   const HopItem it = hop_item(blockIdx.z, blockIdx.y, P, BH, Tp, D, t_valid, pos0, n_ring, hop);
-  const int q0 = blockIdx.x * RQ_ROWS;
-  const int row = q0 + threadIdx.x;
-  const bool live = row < Tp;
-  const int gq = it.q_start + row;  // the row's global position
-  const size_t qrow = it.q_off + (size_t)row * D;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * RING_ROWS;  // longest tiles first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = 2 * (lane % 4);
+  const int wr0 = q0 + 16 * warp;  // the warp's first query row
+  const int diag = it.q_start - it.k_start;
+  // keys that some row of the tile sees, rows past t_valid included
+  const int kv_end = live_keys(it, min(q0 + RING_ROWS, Tp) - 1, t_valid);
+  if (kv_end == 0 && acc_in == acc_out) return;  // the carry stays as it is
+  const int n_tiles = (kv_end + BKV - 1) / BKV;
+  const __nv_bfloat16* kb = k + it.kv_off;
+  const __nv_bfloat16* vb = v + it.kv_off;
+  if (n_tiles > 0) {
+    // q rows as they lie in memory up to Tp; keys at or past t_valid as zeros
+    ft_load_tile<RING_ROWS, DP, RING_THREADS>(qs, q + it.q_off, q0, Tp, D);
+    ft_load_tile<BKV, DP, RING_THREADS>(ring, kb, 0, t_valid, D);
+    ft_load_tile<BKV, DP, RING_THREADS>(ring + TILE, vb, 0, t_valid, D);
+    gmt_cp_async_commit();
+  }
 
-  float qr[DP], acc[DP];
+  // while the copies fly: the carry of this thread's rows g and g + 8
+  float acc[DP / 8][4], m[2], l[2];
 #pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    const bool in = live && d < D;
-    qr[d] = in ? __bfloat162float(q[qrow + d]) : 0.f;
-    acc[d] = (in && acc_in) ? acc_in[qrow + d] : 0.f;
-  }
-  float m = GMT_NEG_INF, l = 0.f;
-  if (live && m_in) {
-    m = m_in[it.row_off + row];
-    l = l_in[it.row_off + row];
+  for (int h = 0; h < 2; ++h) {
+    const int row = wr0 + g + 8 * h;
+    const bool in = acc_in != nullptr && row < Tp;
+    m[h] = in ? m_in[it.row_off + row] * RING_LOG2E : GMT_NEG_INF;
+    l[h] = in && c == 0 ? l_in[it.row_off + row] : 0.f;
+    const size_t off = it.q_off + (size_t)row * D + c;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const float2 a = in && 8 * n < D ? *reinterpret_cast<const float2*>(acc_in + off + 8 * n)
+                                       : make_float2(0.f, 0.f);
+      acc[n][2 * h] = a.x;
+      acc[n][2 * h + 1] = a.y;
+    }
   }
 
-  const int kv_end = live_keys(it, min(q0 + RQ_ROWS, Tp) - 1, t_valid);
-  for (int k0 = 0; k0 < kv_end; k0 += RQ_KEYS) {
-    __syncthreads();  // the previous tile is consumed
-    load_kv_tile<DP>(ks, vs, k, v, it.kv_off, k0, t_valid, D);
+  if (n_tiles > 0) {
+    gmt_cp_async_wait<0>();
     __syncthreads();
-
-    // some key here lies past some row, or past t_valid
-    const bool edge = it.k_start + k0 + RQ_KEYS - 1 > it.q_start + q0 || k0 + RQ_KEYS > t_valid;
-    float s[RQ_KEYS];
-    float m_new = m;
-#pragma unroll
-    for (int j = 0; j < RQ_KEYS; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < DP; ++d) dot = fmaf(qr[d], ks[j][d], dot);
-      dot *= scale;
-      if (edge && (it.k_start + k0 + j > gq || k0 + j >= t_valid)) dot = GMT_NEG_INF;
-      s[j] = dot;
-      m_new = fmaxf(m_new, dot);
+    unsigned qa[KD][4];
+    ft_a_frags<KD, LD>(qa, qs, 16 * warp);
+    const float sl2 = scale * RING_LOG2E;
+    for (int t = 0; t < n_tiles; ++t) {
+      if (t > 0) {
+        gmt_cp_async_wait<0>();
+        // tile t has landed for every thread, and every warp is past tile
+        // t - 1, whose stage the next copies refill
+        __syncthreads();
+      }
+      if (t + 1 < n_tiles) {
+        __nv_bfloat16* st = ring + ((t + 1) % 2) * 2 * TILE;
+        ft_load_tile<BKV, DP, RING_THREADS>(st, kb, (t + 1) * BKV, t_valid, D);
+        ft_load_tile<BKV, DP, RING_THREADS>(st + TILE, vb, (t + 1) * BKV, t_valid, D);
+        gmt_cp_async_commit();
+      }
+      const __nv_bfloat16* ks = ring + (t % 2) * 2 * TILE;
+      const int k0 = t * BKV;
+      if (k0 + BKV - 1 > diag + q0 || k0 + BKV > t_valid)
+        ft_fwd_tile<DP, BKV, true, true>(acc, m, l, qa, ks, ks + TILE, k0, wr0, diag, t_valid,
+                                        sl2);
+      else
+        ft_fwd_tile<DP, BKV, false, true>(acc, m, l, qa, ks, ks + TILE, k0, wr0, diag, t_valid,
+                                         sl2);
     }
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < DP; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < RQ_KEYS; ++j) {
-      const float p = expf(s[j] - m_new);
-      l += p;
-#pragma unroll
-      for (int d = 0; d < DP; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
-    }
-    m = m_new;
   }
 
-  if (live) {
 #pragma unroll
-    for (int d = 0; d < DP; ++d)
-      if (d < D) acc_out[qrow + d] = acc[d];
-    m_out[it.row_off + row] = m;
-    l_out[it.row_off + row] = l;
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = wr0 + g + 8 * h;
+    if (row >= Tp) continue;
+    const size_t off = it.q_off + (size_t)row * D + c;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      if (8 * n < D)
+        *reinterpret_cast<float2*>(acc_out + off + 8 * n) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+    if (c == 0) {
+      m_out[it.row_off + row] = m[h] * RING_LN2;
+      l_out[it.row_off + row] = l[h];
+    }
   }
 }
 
 // ---------------------------------------------------------------- Kernel L
 
-constexpr int RL_ROWS = 64;      // query rows a block, 16 a warp
-constexpr int RL_THREADS = 128;  // four warps
-constexpr float RL_LOG2E = 1.4426950408889634f;
-
-// L's tiling of one D bucket: K/V tiles of SROWS keys (32 at DP = 128,
-// where the accumulators take the registers) and, at DP = 32 (every path's
-// width), the register cap that lets MINB blocks share an SM, as Kernel E's.
-template <int DP>
-struct DqHopPlan {
-  static constexpr int SROWS = DP > 64 ? 32 : 64;
-  static constexpr int MINB = DP == 32 ? 6 : 1;
-  static constexpr int LD = DP + 8, KD = DP / 16, STILE = SROWS * LD;
-  // its own q and dO tiles, then two stages of (K, V)
-  static constexpr size_t SMEM = (size_t)(2 * RL_ROWS * LD + 4 * STILE) * 2;
-};
-
-// L's work for one warp on one K/V tile (keys k0 .. of the visiting chunk):
-// over each 16-key chunk, P and dS of the warp's rows wr0 .. wr0 + 15, then
-// acc += dS k. diag = q_start - k_start: key kk is live for row r where kk
-// <= diag + r and kk < t_valid. EDGE: the tile reaches past the block's
-// first row or past t_valid, so a chunk wholly past the warp's rows (or
-// t_valid) is skipped and the rest are masked; an inner tile takes neither
-// test.
-template <int DP, bool EDGE>
-__device__ __forceinline__ void dq_hop_tile(float (&acc)[DP / 8][4],
-                                            const unsigned (&qa)[DP / 16][4],
-                                            const unsigned (&doa)[DP / 16][4],
-                                            const __nv_bfloat16* ks, const __nv_bfloat16* vs,
-                                            int k0, int wr0, int diag, int t_valid, float sl2,
-                                            const float (&lg)[2], const float (&dl)[2]) {
-  using PL = DqHopPlan<DP>;
-  const int lane = threadIdx.x % 32, g = lane / 4, c = 2 * (lane % 4);
-#pragma unroll
-  for (int cc = 0; cc < PL::SROWS / 16; ++cc) {
-    const int kc0 = k0 + 16 * cc;  // the chunk's first key
-    if (EDGE && (kc0 > diag + wr0 + 15 || kc0 >= t_valid)) continue;
-    float s[2][4], dp[2][4];
-    ft_scores<PL::KD, PL::LD>(s, qa, ks, 16 * cc);
-    ft_scores<PL::KD, PL::LD>(dp, doa, vs, 16 * cc);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2, key = kc0 + 8 * j + c + (e & 1);
-        float p = ft_exp2(fmaf(s[j][e], sl2, -lg[h]));
-        if (EDGE && (key > diag + wr0 + g + 8 * h || key >= t_valid)) p = 0.f;
-        s[j][e] = p * (dp[j][e] - dl[h]);  // dS
-      }
-    unsigned hi[4], lo[4];
-    ft_split(s, hi, lo);
-    ft_accum<DP, PL::LD>(acc, hi, lo, ks, 16 * cc);
-  }
-}
-
 // Kernel L. dq_in may alias dq_out (in place): each thread reads its own
 // elements before it writes them.
 template <int DP>
-__global__ void __launch_bounds__(RL_THREADS, DqHopPlan<DP>::MINB) ring_bwd_dq_kernel(
+__global__ void __launch_bounds__(RING_THREADS, DqHopPlan<DP>::MINB) ring_bwd_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, const float* dq_in,
@@ -272,16 +287,16 @@ __global__ void __launch_bounds__(RL_THREADS, DqHopPlan<DP>::MINB) ring_bwd_dq_k
   constexpr int LD = PL::LD, KD = PL::KD, BKV = PL::SROWS, TILE = PL::STILE;
   extern __shared__ __align__(16) unsigned char rl_smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(rl_smem);
-  __nv_bfloat16* dos = qs + RL_ROWS * LD;
-  __nv_bfloat16* ring = dos + RL_ROWS * LD;  // stage s: K at ring + 2 s TILE, V after it
+  __nv_bfloat16* dos = qs + RING_ROWS * LD;
+  __nv_bfloat16* ring = dos + RING_ROWS * LD;  // stage s: K at ring + 2 s TILE, V after it
   const HopItem it = hop_item(blockIdx.z, blockIdx.y, P, BH, Tp, D, t_valid, pos0, n_ring, hop);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * RL_ROWS;  // longest tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * RING_ROWS;  // longest tiles first
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = 2 * (lane % 4);
   const int wr0 = q0 + 16 * warp;  // the warp's first query row
   const int diag = it.q_start - it.k_start;
   // keys that a row of the tile below t_valid sees
-  const int kv_end = q0 < t_valid ? live_keys(it, min(q0 + RL_ROWS, t_valid) - 1, t_valid) : 0;
+  const int kv_end = q0 < t_valid ? live_keys(it, min(q0 + RING_ROWS, t_valid) - 1, t_valid) : 0;
   if (kv_end == 0 && dq_in == dq_out) return;  // nothing to add to dq in place
   const int n_tiles = (kv_end + BKV - 1) / BKV;
 
@@ -294,17 +309,17 @@ __global__ void __launch_bounds__(RL_THREADS, DqHopPlan<DP>::MINB) ring_bwd_dq_k
     const __nv_bfloat16* kb = k + it.kv_off;
     const __nv_bfloat16* vb = v + it.kv_off;
     // rows and keys at or past t_valid load as zeros
-    ft_load_tile<RL_ROWS, DP, RL_THREADS>(qs, q + it.q_off, q0, t_valid, D);
-    ft_load_tile<RL_ROWS, DP, RL_THREADS>(dos, dout + it.q_off, q0, t_valid, D);
-    ft_load_tile<BKV, DP, RL_THREADS>(ring, kb, 0, t_valid, D);
-    ft_load_tile<BKV, DP, RL_THREADS>(ring + TILE, vb, 0, t_valid, D);
+    ft_load_tile<RING_ROWS, DP, RING_THREADS>(qs, q + it.q_off, q0, t_valid, D);
+    ft_load_tile<RING_ROWS, DP, RING_THREADS>(dos, dout + it.q_off, q0, t_valid, D);
+    ft_load_tile<BKV, DP, RING_THREADS>(ring, kb, 0, t_valid, D);
+    ft_load_tile<BKV, DP, RING_THREADS>(ring + TILE, vb, 0, t_valid, D);
     gmt_cp_async_commit();
     // lse * log2(e) and delta of this thread's rows g and g + 8 (0 from t_valid)
     float lg[2], dl[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = wr0 + g + 8 * h;
-      lg[h] = row < t_valid ? lse[it.row_off + row] * RL_LOG2E : 0.f;
+      lg[h] = row < t_valid ? lse[it.row_off + row] * RING_LOG2E : 0.f;
       dl[h] = row < t_valid ? delta[it.row_off + row] : 0.f;
     }
     gmt_cp_async_wait<0>();
@@ -313,7 +328,7 @@ __global__ void __launch_bounds__(RL_THREADS, DqHopPlan<DP>::MINB) ring_bwd_dq_k
     unsigned qa[KD][4], doa[KD][4];
     ft_a_frags<KD, LD>(qa, qs, 16 * warp);
     ft_a_frags<KD, LD>(doa, dos, 16 * warp);
-    const float sl2 = scale * RL_LOG2E;
+    const float sl2 = scale * RING_LOG2E;
     for (int t = 0; t < n_tiles; ++t) {
       if (t > 0) {
         gmt_cp_async_wait<0>();
@@ -323,17 +338,19 @@ __global__ void __launch_bounds__(RL_THREADS, DqHopPlan<DP>::MINB) ring_bwd_dq_k
       }
       if (t + 1 < n_tiles) {
         __nv_bfloat16* st = ring + ((t + 1) % 2) * 2 * TILE;
-        ft_load_tile<BKV, DP, RL_THREADS>(st, kb, (t + 1) * BKV, t_valid, D);
-        ft_load_tile<BKV, DP, RL_THREADS>(st + TILE, vb, (t + 1) * BKV, t_valid, D);
+        ft_load_tile<BKV, DP, RING_THREADS>(st, kb, (t + 1) * BKV, t_valid, D);
+        ft_load_tile<BKV, DP, RING_THREADS>(st + TILE, vb, (t + 1) * BKV, t_valid, D);
         gmt_cp_async_commit();
       }
       if (wr0 >= t_valid) continue;  // the warp's rows keep dq_in
       const __nv_bfloat16* ks = ring + (t % 2) * 2 * TILE;
       const int k0 = t * BKV;
       if (k0 + BKV - 1 > diag + q0 || k0 + BKV > t_valid)
-        dq_hop_tile<DP, true>(acc, qa, doa, ks, ks + TILE, k0, wr0, diag, t_valid, sl2, lg, dl);
+        ft_dq_tile<DP, BKV, true>(acc, qa, doa, ks, ks + TILE, k0, wr0, diag, t_valid, sl2, lg,
+                                  dl);
       else
-        dq_hop_tile<DP, false>(acc, qa, doa, ks, ks + TILE, k0, wr0, diag, t_valid, sl2, lg, dl);
+        ft_dq_tile<DP, BKV, false>(acc, qa, doa, ks, ks + TILE, k0, wr0, diag, t_valid, sl2, lg,
+                                   dl);
     }
   }
 
@@ -355,116 +372,129 @@ __global__ void __launch_bounds__(RL_THREADS, DqHopPlan<DP>::MINB) ring_bwd_dq_k
 
 // ---------------------------------------------------------------- Kernel M
 
-// Kernel M. dk_in/dv_in may alias dk_out/dv_out.
+// Kernel M. dk_in/dv_in may alias dk_out/dv_out: each thread reads its own
+// elements before it writes them.
 template <int DP>
-__global__ void __launch_bounds__(RK_ROWS) ring_bwd_dkv_kernel(
+__global__ void __launch_bounds__(RING_THREADS, DkvHopPlan<DP>::MINB) ring_bwd_dkv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, const float* dk_in,
     const float* dv_in, float* dk_out, float* dv_out, int P, int BH, int Tp, int D,
     int t_valid, int pos0, int n_ring, int hop, float scale) {
-  __shared__ __align__(16) float qs[RK_QRYS][DP];
-  __shared__ __align__(16) float dos[RK_QRYS][DP];
-  __shared__ float ls[RK_QRYS];
-  __shared__ float dls[RK_QRYS];
+  using PL = DkvHopPlan<DP>;
+  constexpr int LD = PL::LD, KD = PL::KD, BQ = PL::SROWS, TILE = PL::STILE;
+  extern __shared__ __align__(16) unsigned char rm_smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(rm_smem);
+  __nv_bfloat16* vs = ks + RING_ROWS * LD;
+  __nv_bfloat16* ring = vs + RING_ROWS * LD;  // stage s: Q at ring + 2 s TILE, dO after it
+  // stage s: lse at rows + 2 s BQ, delta after it
+  float* rows = reinterpret_cast<float*>(ring + 4 * TILE);
   const HopItem it = hop_item(blockIdx.z, blockIdx.y, P, BH, Tp, D, t_valid, pos0, n_ring, hop);
-  const int kt0 = blockIdx.x * RK_ROWS;
-  const int key = kt0 + threadIdx.x;
-  const bool in_mem = key < Tp;
-  const bool valid = key < t_valid;  // keys past t_valid are masked for every query
-  const int gk = it.k_start + key;
-  const size_t krow = it.kv_off + (size_t)key * D;
-
-  float kr[DP], vr[DP], dka[DP], dva[DP];
-#pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    const bool in = valid && d < D;
-    kr[d] = in ? __bfloat162float(k[krow + d]) : 0.f;
-    vr[d] = in ? __bfloat162float(v[krow + d]) : 0.f;
-    dka[d] = 0.f;
-    dva[d] = 0.f;
-  }
-
-  // The first query that sees any key of the tile, the transpose of the
-  // live bound: global q_start + row >= k_start + kt0. A tile wholly past
-  // t_valid sees none. Rows at or past t_valid add exactly 0 (dO = 0).
-  const int q_lo = max(0, it.k_start + kt0 - it.q_start);
+  const int kt0 = blockIdx.x * RING_ROWS;  // the first key tiles see the most queries
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = 2 * (lane % 4);
+  const int wk0 = kt0 + 16 * warp;  // the warp's first key
+  const int diag = it.q_start - it.k_start;
+  // the queries that see a key of the tile: from the first that sees key
+  // kt0 (the transpose of the live bound) up to t_valid, past which rows
+  // add exactly 0; a tile wholly past t_valid sees none
+  const int q_lo = max(0, kt0 - diag);
   const int q_hi = kt0 < t_valid ? t_valid : 0;
-  for (int q0 = q_lo; q0 < q_hi; q0 += RK_QRYS) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < RK_QRYS * DP; i += RK_ROWS) {
-      const int r = i / DP, c = i % DP;
-      const bool in = q0 + r < q_hi && c < D;
-      const size_t off = it.q_off + (size_t)(q0 + r) * D + c;
-      qs[r][c] = in ? __bfloat162float(q[off]) : 0.f;
-      dos[r][c] = in ? __bfloat162float(dout[off]) : 0.f;
-    }
-    if (threadIdx.x < RK_QRYS) {
-      const bool in = q0 + threadIdx.x < q_hi;
-      ls[threadIdx.x] = in ? lse[it.row_off + q0 + threadIdx.x] : 0.f;
-      dls[threadIdx.x] = in ? delta[it.row_off + q0 + threadIdx.x] : 0.f;
-    }
+  const int n_tiles = q_lo < q_hi ? (q_hi - q_lo + BQ - 1) / BQ : 0;
+  if (n_tiles == 0 && dk_in == dk_out) return;  // nothing to add to dk, dv in place
+
+  float dka[DP / 8][4], dva[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  if (n_tiles > 0) {
+    const __nv_bfloat16* qb = q + it.q_off;
+    const __nv_bfloat16* dob = dout + it.q_off;
+    const float* lb = lse + it.row_off;
+    const float* db = delta + it.row_off;
+    // keys and queries at or past t_valid load as zeros, their lse and
+    // delta as 0
+    ft_load_tile<RING_ROWS, DP, RING_THREADS>(ks, k + it.kv_off, kt0, t_valid, D);
+    ft_load_tile<RING_ROWS, DP, RING_THREADS>(vs, v + it.kv_off, kt0, t_valid, D);
+    ft_load_tile<BQ, DP, RING_THREADS>(ring, qb, q_lo, t_valid, D);
+    ft_load_tile<BQ, DP, RING_THREADS>(ring + TILE, dob, q_lo, t_valid, D);
+    ft_load_row<BQ, RING_THREADS>(rows, lb, q_lo, t_valid);
+    ft_load_row<BQ, RING_THREADS>(rows + BQ, db, q_lo, t_valid);
+    gmt_cp_async_commit();
+    gmt_cp_async_wait<0>();
     __syncthreads();
 
-    // some query here precedes some key of the tile
-    const bool edge = it.q_start + q0 < it.k_start + kt0 + RK_ROWS - 1;
-#pragma unroll(DP <= 32 ? RK_QRYS : 1)
-    for (int j = 0; j < RK_QRYS; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < DP; ++d) {
-        s = fmaf(kr[d], qs[j][d], s);
-        dp = fmaf(vr[d], dos[j][d], dp);
+    unsigned ka[KD][4], va[KD][4];  // at DP > 64 re-read each chunk (registers)
+    if constexpr (DP <= 64) {
+      ft_a_frags<KD, LD>(ka, ks, 16 * warp);
+      ft_a_frags<KD, LD>(va, vs, 16 * warp);
+    }
+    const float sl2 = scale * RING_LOG2E;
+    for (int t = 0; t < n_tiles; ++t) {
+      if (t > 0) {
+        gmt_cp_async_wait<0>();
+        __syncthreads();  // as in K
       }
-      float p = expf(s * scale - ls[j]);
-      if ((edge && it.q_start + q0 + j < gk) || !valid) p = 0.f;
-      // a query row past q_hi has qs = dos = 0 and ls = dls = 0: p = 1 and
-      // ds = 0 there, so it adds exactly 0 below
-      const float ds = p * (dp - dls[j]);
-#pragma unroll
-      for (int d = 0; d < DP; ++d) {
-        dva[d] = fmaf(p, dos[j][d], dva[d]);
-        dka[d] = fmaf(ds, qs[j][d], dka[d]);
+      if (t + 1 < n_tiles) {
+        const int nq0 = q_lo + (t + 1) * BQ;
+        __nv_bfloat16* st = ring + ((t + 1) % 2) * 2 * TILE;
+        float* sr = rows + ((t + 1) % 2) * 2 * BQ;
+        ft_load_tile<BQ, DP, RING_THREADS>(st, qb, nq0, t_valid, D);
+        ft_load_tile<BQ, DP, RING_THREADS>(st + TILE, dob, nq0, t_valid, D);
+        ft_load_row<BQ, RING_THREADS>(sr, lb, nq0, t_valid);
+        ft_load_row<BQ, RING_THREADS>(sr + BQ, db, nq0, t_valid);
+        gmt_cp_async_commit();
       }
+      if (wk0 >= t_valid) continue;  // the warp's keys keep dk_in, dv_in
+      const int q0 = q_lo + t * BQ;
+      const __nv_bfloat16* qs = ring + (t % 2) * 2 * TILE;
+      const float* ls = rows + (t % 2) * 2 * BQ;
+      // a query row past t_valid has q = dO = 0 and lse = delta = 0: P = 1
+      // and dS = 0 there, so it adds exactly 0 to dV and dK. Some query
+      // here precedes the block's last key, or lies past t_valid:
+      if (q0 + diag < kt0 + RING_ROWS - 1 || q0 + BQ > t_valid)
+        ft_dkv_tile<DP, BQ, true>(dka, dva, ka, va, ks, vs, qs, qs + TILE, ls, ls + BQ, q0, wk0,
+                                  16 * warp, diag, t_valid, sl2);
+      else
+        ft_dkv_tile<DP, BQ, false>(dka, dva, ka, va, ks, vs, qs, qs + TILE, ls, ls + BQ, q0,
+                                   wk0, 16 * warp, diag, t_valid, sl2);
     }
   }
 
-  if (in_mem) {
 #pragma unroll
-    for (int d = 0; d < DP; ++d) {
-      if (d < D) {
-        dk_out[krow + d] = (dk_in ? dk_in[krow + d] : 0.f) + dka[d] * scale;
-        dv_out[krow + d] = (dv_in ? dv_in[krow + d] : 0.f) + dva[d];
+  for (int h = 0; h < 2; ++h) {
+    const int key = wk0 + g + 8 * h;
+    if (key >= Tp) continue;
+    const bool live = key < t_valid;  // a key past t_valid keeps dk_in, dv_in
+    const size_t off = it.kv_off + (size_t)key * D + c;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      if (8 * n < D) {
+        const float2 ki = dk_in ? *reinterpret_cast<const float2*>(dk_in + off + 8 * n)
+                                : make_float2(0.f, 0.f);
+        const float2 vi = dv_in ? *reinterpret_cast<const float2*>(dv_in + off + 8 * n)
+                                : make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(dk_out + off + 8 * n) =
+            live ? make_float2(ki.x + dka[n][2 * h] * scale, ki.y + dka[n][2 * h + 1] * scale)
+                 : ki;
+        *reinterpret_cast<float2*>(dv_out + off + 8 * n) =
+            live ? make_float2(vi.x + dva[n][2 * h], vi.y + dva[n][2 * h + 1]) : vi;
       }
-    }
   }
 }
 
-// launch KERNEL<DP> for the smallest bucket DP >= D
-#define RING_DISPATCH_D(KERNEL, GRID, BLOCK, STREAM, ...)                    \
-  do {                                                                       \
-    if (D <= 8)                                                              \
-      KERNEL<8><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__);                    \
-    else if (D <= 16)                                                        \
-      KERNEL<16><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__);                   \
-    else if (D <= 32)                                                        \
-      KERNEL<32><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__);                   \
-    else if (D <= 64)                                                        \
-      KERNEL<64><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__);                   \
-    else                                                                     \
-      KERNEL<128><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__);                  \
-  } while (0)
-
-// K: one hop for P ring positions; acc (P, BH, Tp, D), m, l (P, BH, Tp) f32.
-// acc_in, m_in, l_in null: the first hop.
-extern "C" int gmt_ring_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                            const __nv_bfloat16* v, const float* acc_in, const float* m_in,
-                            const float* l_in, float* acc, float* m, float* l, int P, int BH,
-                            int Tp, int D, int t_valid, int pos0, int n_ring, int hop,
-                            float scale, cudaStream_t stream) {
-  const dim3 grid((Tp + RQ_ROWS - 1) / RQ_ROWS, BH, P);
-  RING_DISPATCH_D(ring_fwd_kernel, grid, RQ_ROWS, stream, q, k, v, acc_in, m_in, l_in, acc, m,
-                  l, P, BH, Tp, D, t_valid, pos0, n_ring, hop, scale);
+template <int DP>
+static int launch_ring_fwd(dim3 grid, cudaStream_t stream, const __nv_bfloat16* q,
+                           const __nv_bfloat16* k, const __nv_bfloat16* v, const float* acc_in,
+                           const float* m_in, const float* l_in, float* acc, float* m, float* l,
+                           int P, int BH, int Tp, int D, int t_valid, int pos0, int n_ring,
+                           int hop, float scale) {
+  constexpr size_t smem = FwdHopPlan<DP>::smem(1, false);
+  const cudaError_t e = gmt_allow_smem(ring_fwd_kernel<DP>, smem);
+  if (e != cudaSuccess) return e;
+  ring_fwd_kernel<DP><<<grid, RING_THREADS, smem, stream>>>(
+      q, k, v, acc_in, m_in, l_in, acc, m, l, P, BH, Tp, D, t_valid, pos0, n_ring, hop, scale);
   return cudaGetLastError();
 }
 
@@ -474,24 +504,57 @@ static int launch_ring_dq(dim3 grid, cudaStream_t stream, const __nv_bfloat16* q
                           const __nv_bfloat16* dout, const float* lse, const float* delta,
                           const float* dq_in, float* dq, int P, int BH, int Tp, int D,
                           int t_valid, int pos0, int n_ring, int hop, float scale) {
-  constexpr size_t smem = DqHopPlan<DP>::SMEM;
+  constexpr size_t smem = DqHopPlan<DP>::smem(2, false);
   const cudaError_t e = gmt_allow_smem(ring_bwd_dq_kernel<DP>, smem);
   if (e != cudaSuccess) return e;
-  ring_bwd_dq_kernel<DP><<<grid, RL_THREADS, smem, stream>>>(
+  ring_bwd_dq_kernel<DP><<<grid, RING_THREADS, smem, stream>>>(
       q, k, v, dout, lse, delta, dq_in, dq, P, BH, Tp, D, t_valid, pos0, n_ring, hop, scale);
   return cudaGetLastError();
 }
 
-// L: dq (P, BH, Tp, D) f32; dq_in null: the first hop. D a multiple of 8,
-// q, k, v and dout 16-byte aligned, dq_in and dq 8-byte aligned; D is
-// padded to the smallest bucket >= D.
+template <int DP>
+static int launch_ring_dkv(dim3 grid, cudaStream_t stream, const __nv_bfloat16* q,
+                           const __nv_bfloat16* k, const __nv_bfloat16* v,
+                           const __nv_bfloat16* dout, const float* lse, const float* delta,
+                           const float* dk_in, const float* dv_in, float* dk, float* dv, int P,
+                           int BH, int Tp, int D, int t_valid, int pos0, int n_ring, int hop,
+                           float scale) {
+  constexpr size_t smem = DkvHopPlan<DP>::smem(2, true);
+  const cudaError_t e = gmt_allow_smem(ring_bwd_dkv_kernel<DP>, smem);
+  if (e != cudaSuccess) return e;
+  ring_bwd_dkv_kernel<DP><<<grid, RING_THREADS, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk_in, dv_in, dk, dv, P, BH, Tp, D, t_valid, pos0, n_ring, hop,
+      scale);
+  return cudaGetLastError();
+}
+
+// The C entries. Each refuses a D that is not a multiple of 8 in [8, 128]
+// and pads D to the smallest bucket >= D. q, k, v and dout 16-byte
+// aligned, the f32 carries 8-byte aligned.
+
+// K: one hop for P ring positions; acc (P, BH, Tp, D), m, l (P, BH, Tp) f32.
+// acc_in, m_in, l_in null: the first hop.
+extern "C" int gmt_ring_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                            const __nv_bfloat16* v, const float* acc_in, const float* m_in,
+                            const float* l_in, float* acc, float* m, float* l, int P, int BH,
+                            int Tp, int D, int t_valid, int pos0, int n_ring, int hop,
+                            float scale, cudaStream_t stream) {
+  if (D % 8 || D < 8 || D > 128) return cudaErrorInvalidValue;
+  const dim3 grid((Tp + RING_ROWS - 1) / RING_ROWS, BH, P);
+  auto go = D <= 16 ? launch_ring_fwd<16> : D <= 32 ? launch_ring_fwd<32>
+                                         : D <= 64 ? launch_ring_fwd<64> : launch_ring_fwd<128>;
+  return go(grid, stream, q, k, v, acc_in, m_in, l_in, acc, m, l, P, BH, Tp, D, t_valid, pos0,
+            n_ring, hop, scale);
+}
+
+// L: dq (P, BH, Tp, D) f32; dq_in null: the first hop.
 extern "C" int gmt_ring_bwd_dq(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                const __nv_bfloat16* v, const __nv_bfloat16* dout,
                                const float* lse, const float* delta, const float* dq_in,
                                float* dq, int P, int BH, int Tp, int D, int t_valid, int pos0,
                                int n_ring, int hop, float scale, cudaStream_t stream) {
   if (D % 8 || D < 8 || D > 128) return cudaErrorInvalidValue;
-  const dim3 grid((Tp + RL_ROWS - 1) / RL_ROWS, BH, P);
+  const dim3 grid((Tp + RING_ROWS - 1) / RING_ROWS, BH, P);
   auto go = D <= 16 ? launch_ring_dq<16> : D <= 32 ? launch_ring_dq<32>
                                         : D <= 64 ? launch_ring_dq<64> : launch_ring_dq<128>;
   return go(grid, stream, q, k, v, dout, lse, delta, dq_in, dq, P, BH, Tp, D, t_valid, pos0,
@@ -505,8 +568,10 @@ extern "C" int gmt_ring_bwd_dkv(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                 const float* dv_in, float* dk, float* dv, int P, int BH, int Tp,
                                 int D, int t_valid, int pos0, int n_ring, int hop, float scale,
                                 cudaStream_t stream) {
-  const dim3 grid((Tp + RK_ROWS - 1) / RK_ROWS, BH, P);
-  RING_DISPATCH_D(ring_bwd_dkv_kernel, grid, RK_ROWS, stream, q, k, v, dout, lse, delta, dk_in,
-                  dv_in, dk, dv, P, BH, Tp, D, t_valid, pos0, n_ring, hop, scale);
-  return cudaGetLastError();
+  if (D % 8 || D < 8 || D > 128) return cudaErrorInvalidValue;
+  const dim3 grid((Tp + RING_ROWS - 1) / RING_ROWS, BH, P);
+  auto go = D <= 16 ? launch_ring_dkv<16> : D <= 32 ? launch_ring_dkv<32>
+                                         : D <= 64 ? launch_ring_dkv<64> : launch_ring_dkv<128>;
+  return go(grid, stream, q, k, v, dout, lse, delta, dk_in, dv_in, dk, dv, P, BH, Tp, D, t_valid,
+            pos0, n_ring, hop, scale);
 }

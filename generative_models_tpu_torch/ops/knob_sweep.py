@@ -1,4 +1,4 @@
-"""Sweep compile-time knobs of Kernels C, H, I, A, B and L on the card.
+"""Sweep compile-time knobs of Kernels C, H, I, A, B, K, L and M on the card.
 
     python -m generative_models_tpu_torch.ops.knob_sweep [--out FILE] [--only SRC,...]
 
@@ -10,8 +10,10 @@ and its staged depth of K (HM_KC) in masked_dense.cu; Kernel I's cp.async
 stages (I8_STAGES) in int8.cu; in decode_fused.cu Kernel A's rows and
 columns a block (LM_TILE: LM_ROWS, LM_COLS) and Kernel B's weight-tile depth
 (BT_KC), and, at the call, B's cluster size at C=256 (cluster_c256:
-plan_block_tail's 16 or 8); Kernel L's key-tile depth (L_SROWS) and its
-register cap at D=32 (L_MINB_D32, blocks an SM) in ring_attention.cu.
+plan_block_tail's 16 or 8); in ring_attention.cu the streamed-tile depth
+at D=32 of Kernels K, L and M (K_SROWS, L_SROWS, M_SROWS) and their
+register caps at D=32 (K_MINB_D32, L_MINB_D32, M_MINB_D32, blocks an SM),
+the three kernels' knobs moved together in each variant.
 Every variant is built by nvcc (all at once, ptxas's registers and spills
 kept), launched at the main paths' shapes (pixel_transformer's
 (64,4,784,32) and long T (1,4,2048,32) for C; made's dW at
@@ -22,7 +24,7 @@ and C=256 for B; the seq:4 ring's first and carry hops for L), compared
 bitwise with the shipped kernel through its wrapper, held against the plain
 version within chip_smoke.py's tolerances (the run fails if any case
 misses), and timed as device time from torch.profiler's CUDA trace, for H,
-I, A, B and L also with L2 flushed before each launch. Prints one JSON
+I, A, B, K, L and M also with L2 flushed before each launch. Prints one JSON
 line a variant and writes them all to --out. Needs a card.
 """
 
@@ -60,10 +62,12 @@ KNOBS = {
               'constexpr int BT_KC = {}, BT_NC = 64;'),
     'LM_TILE': ('decode_fused', r'constexpr int LM_ROWS = \d+, LM_COLS = \d+;',
                 'constexpr int LM_ROWS = {}, LM_COLS = {};'),
-    'L_SROWS': ('ring_attention', r'static constexpr int SROWS = [^;]+;',
-                'static constexpr int SROWS = {};'),
-    'L_MINB_D32': ('ring_attention', r'static constexpr int MINB = DP == 32 \? \d+ : 1;',
-                   'static constexpr int MINB = DP == 32 ? {} : 1;'),
+    'K_SROWS': ('ring_attention', r'K_SROWS_D32 = \d+,', 'K_SROWS_D32 = {},'),
+    'K_MINB_D32': ('ring_attention', r'K_MINB_D32 = \d+;', 'K_MINB_D32 = {};'),
+    'L_SROWS': ('ring_attention', r'L_SROWS_D32 = \d+,', 'L_SROWS_D32 = {},'),
+    'L_MINB_D32': ('ring_attention', r'L_MINB_D32 = \d+;', 'L_MINB_D32 = {};'),
+    'M_SROWS': ('ring_attention', r'M_SROWS_D32 = \d+,', 'M_SROWS_D32 = {},'),
+    'M_MINB_D32': ('ring_attention', r'M_MINB_D32 = \d+;', 'M_MINB_D32 = {};'),
 }
 CALL_KNOBS = ('cluster_c256',)  # set at the call, not in the source
 
@@ -74,10 +78,12 @@ CALL_KNOBS = ('cluster_c256',)  # set at the call, not in the source
 _C = dict(SROWS='DP > 64 ? 32 : 64', MINB_D32=4)
 _C32 = 'DP == 32 ? 32 : DP > 64 ? 32 : 64'  # 32-key tiles at D=32 only
 _H = dict(HM_TILE=(64, 128), HM_WARP=(32, 32), HM_KC=64, HM_MINB=2)
-# L: 64-key tiles and 6 blocks an SM at D=32 (as shipped), by register cap,
-# then 32-key tiles at D=32
-_L = dict(L_SROWS='DP > 64 ? 32 : 64', L_MINB_D32=6)
-_L32 = 'DP == 32 ? 32 : DP > 64 ? 32 : 64'  # 32-key tiles at D=32 only
+# K, L and M: 64-row streamed tiles and 4, 6 and 4 blocks an SM at D=32
+# (as shipped), by register cap, then 32-row tiles;
+# the three are separate kernels in one library, so each variant moves all
+# three
+_R = dict(K_SROWS=64, K_MINB_D32=5, L_SROWS=64, L_MINB_D32=6, M_SROWS=64, M_MINB_D32=4)
+_R32 = dict(K_SROWS=32, L_SROWS=32, M_SROWS=32)
 VARIANTS = (
     [('attention', dict(_C, **kw)) for kw in (
         {}, dict(MINB_D32=3), dict(MINB_D32=5), dict(SROWS=_C32),
@@ -92,9 +98,11 @@ VARIANTS = (
         dict(BT_KC=64, LM_TILE=(16, 64)), dict(BT_KC=64, cluster_c256=8), dict(BT_KC=32),
         dict(BT_KC=32, cluster_c256=8), dict(LM_TILE=(16, 32)), dict(LM_TILE=(16, 128)),
         dict(LM_TILE=(32, 64)), dict(LM_TILE=(32, 128)))]
-    + [('ring_attention', dict(_L, **kw)) for kw in (
-        {}, dict(L_MINB_D32=4), dict(L_MINB_D32=5), dict(L_MINB_D32=8), dict(L_SROWS=_L32),
-        dict(L_SROWS=_L32, L_MINB_D32=8))]
+    + [('ring_attention', dict(_R, **kw)) for kw in (
+        {}, dict(K_MINB_D32=4, L_MINB_D32=5, M_MINB_D32=3),
+        dict(K_MINB_D32=5, L_MINB_D32=8, M_MINB_D32=5),
+        dict(K_MINB_D32=6, L_MINB_D32=4, M_MINB_D32=6), _R32,
+        dict(_R32, K_MINB_D32=6, L_MINB_D32=8, M_MINB_D32=6))]
 )
 
 
@@ -335,12 +343,12 @@ def run_decode_fused(lib, rng, dev, knobs):
 
 
 def run_ring_attention(lib, rng, dev, knobs):
+    """K, L and M at the seq:4 ring's carry hop (in place, as the ring runs
+    them) and first hop, against the shipped wrappers (bitwise) and the
+    plain versions (K at atol 2e-5 + rtol 2e-4, L and M at 1e-4 + 1e-3)."""
     from generative_models_tpu_torch.ops import attention as att
     from generative_models_tpu_torch.parallel.ring_attention import _chunks, ring_forward
 
-    fn = lib.gmt_ring_bwd_dq
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float]
-                   + [ctypes.c_void_p])
     flush = torch.empty(64 << 20, device=dev)
     bf, n, (B, H, T, D) = torch.bfloat16, 4, (64, 4, 784, 32)
     Tl = T // n
@@ -349,30 +357,52 @@ def run_ring_attention(lib, rng, dev, knobs):
                            n, Tp, bf) for _ in range(4))
     o, lse = ring_forward(q, k, v, Tl)
     delta = (do.float() * o).sum(-1)
-    dq0 = att.ring_chunk_bwd_dq(q, k, v, do, lse, delta, None, 0, Tl)
+    bwd = (q, k, v, do, lse, delta)
+    carries = dict(fwd=att.ring_chunk_fwd(q, k, v, None, 0, Tl),
+                   dq=(att.ring_chunk_bwd_dq(*bwd, None, 0, Tl),),
+                   dkv=att.ring_chunk_bwd_dkv(*bwd, None, 0, Tl))
+    clone = lambda xs: tuple(u.clone() for u in xs)
+    # (name, entry, kernel in the trace, inputs, tolerance, shipped, plain):
+    # shipped(carry, hop) and plain(carry, hop) return tuples
+    specs = (
+        ('fwd', 'gmt_ring_fwd', 'ring_fwd_kernel', (q, k, v), (2e-5, 2e-4),
+         lambda c, hop: att.ring_chunk_fwd(q, k, v, c, hop, Tl),
+         lambda c, hop: att.ring_hop_fwd_plain(q, k, v, c, hop, Tl, dtype=bf)),
+        ('dq', 'gmt_ring_bwd_dq', 'ring_bwd_dq_kernel', bwd, (1e-4, 1e-3),
+         lambda c, hop: (att.ring_chunk_bwd_dq(*bwd, c if c is None else c[0], hop, Tl),),
+         lambda c, hop: (att.ring_hop_bwd_dq_plain(*bwd, c if c is None else c[0], hop, Tl,
+                                                   dtype=bf),)),
+        ('dkv', 'gmt_ring_bwd_dkv', 'ring_bwd_dkv_kernel', bwd, (1e-4, 1e-3),
+         lambda c, hop: att.ring_chunk_bwd_dkv(*bwd, c, hop, Tl),
+         lambda c, hop: att.ring_hop_bwd_dkv_plain(*bwd, c, hop, Tl, dtype=bf)),
+    )
     out = {}
-    for hop in (1, 0):
-        dq = dq0.clone()  # updated in place at the carry hop, as the ring does
+    for name, entry, trace, ins, (atol, rtol), shipped, plain in specs:
+        fn = getattr(lib, entry)
+        carry = carries[name]
+        fn.argtypes = ([ctypes.c_void_p] * (len(ins) + 2 * len(carry)) + [ctypes.c_int] * 8
+                       + [ctypes.c_float] + [ctypes.c_void_p])
+        for hop in (1, 0):
+            res = clone(carry)  # updated in place at the carry hop
+            c_in = (None,) * len(carry) if hop == 0 else res
 
-        def call():
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), None if hop == 0 else dq.data_ptr(), dq.data_ptr(), n,
-                    B * H, Tp, D, Tl, 0, n, hop, 1.0 / math.sqrt(D),
-                    torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f'ring_bwd_dq launch failed ({rc})')
+            def call():
+                rc = fn(*(u.data_ptr() for u in ins), *(None if u is None else u.data_ptr() for u in c_in),
+                        *(u.data_ptr() for u in res), n, B * H, Tp, D, Tl, 0, n, hop,
+                        1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f'{entry} launch failed ({rc})')
 
-        call()
-        got = dq.clone()
-        dq_in = None if hop == 0 else dq0
-        ref = att.ring_chunk_bwd_dq(q, k, v, do, lse, delta, None if hop == 0 else dq0.clone(),
-                                    hop, Tl)
-        plain = att.ring_hop_bwd_dq_plain(q, k, v, do, lse, delta, dq_in, hop, Tl, dtype=bf)
-        out[f'seq:4 hop {hop}'] = dict(
-            bitwise_as_shipped=bool(torch.equal(got, ref)),
-            outside_tol=outside(got, plain, 1e-4, 1e-3),
-            ms=device_ms(call, 'ring_bwd_dq_kernel', 50),
-            ms_l2_cold=device_ms(call, 'ring_bwd_dq_kernel', 20, flush))
+            call()
+            got = clone(res)
+            c_ref = None if hop == 0 else carry
+            ref = tuple(shipped(None if hop == 0 else clone(carry), hop))
+            ref_plain = tuple(plain(c_ref, hop))
+            out[f'{trace} seq:4 hop {hop}'] = dict(
+                bitwise_as_shipped=all(torch.equal(a, b) for a, b in zip(got, ref)),
+                outside_tol=sum(outside(a, b, atol, rtol) for a, b in zip(got, ref_plain)),
+                ms=device_ms(call, trace, 50),
+                ms_l2_cold=device_ms(call, trace, 20, flush))
     return out
 
 
@@ -384,7 +414,8 @@ RUNS = {
                      lambda lib, rng, dev, knobs: run_masked_dense(lib, rng, dev)),
     'int8': (('int8_gemm_kernel',), run_int8),
     'decode_fused': (('ln_matmul', 'block_tail_kernel'), run_decode_fused),
-    'ring_attention': (('ring_bwd_dq_kernel',), run_ring_attention),
+    'ring_attention': (('ring_fwd_kernel', 'ring_bwd_dq_kernel', 'ring_bwd_dkv_kernel'),
+                       run_ring_attention),
 }
 
 

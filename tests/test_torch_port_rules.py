@@ -79,31 +79,52 @@ def test_kernel_sources_call_no_library_gemm():
         assert '#include "stream_gemm.cuh"' in src and 'sg_gemm<' in src and kernel in src
 
 
+def _tile_routine(name):
+    """The body of flash_tiles.cuh's tile routine `name`, up to the next
+    template or the end of the file."""
+    tiles = (PORT / 'ops' / 'csrc' / 'flash_tiles.cuh').read_text()
+    body = tiles[tiles.index(f'void {name}('):]
+    return body[:body.index('template <')] if 'template <' in body else body
+
+
 def test_flash_backward_multiplies_on_the_tensor_cores():
     """Kernels E and D (attention_bwd.cu) compute every product with
-    mma.sync on bf16 fragments through flash_tiles.cuh's warp routines
-    (S and dP by ft_scores, dQ, dV and dK by ft_accum with P and dS split
-    into hi/lo pairs); no f32 tile is staged for an FMA product loop."""
+    mma.sync on bf16 fragments through flash_tiles.cuh's warp routines: S
+    and dP by ft_scores, dQ, dV and dK by ft_accum with P and dS split into
+    hi/lo pairs, in the tile routines ft_dq_tile (E) and ft_dkv_tile (D,
+    over ft_dkv_chunk) that the ring's L and M share; no f32 tile is staged
+    for an FMA product loop."""
     csrc = PORT / 'ops' / 'csrc'
     src = (csrc / 'attention_bwd.cu').read_text()
     tiles = (csrc / 'flash_tiles.cuh').read_text()
     assert '#include "flash_tiles.cuh"' in src and '#include "mma.cuh"' in tiles
-    assert src.count('ft_scores<') == 4 and src.count('ft_accum<') == 3
-    assert src.count('ft_split(') == 3 and 'gmt_mma_bf16' not in src
+    assert src.count('ft_dq_tile<') == 2 and src.count('ft_dkv_tile<') == 2
+    dq, dkv = _tile_routine('ft_dq_tile'), _tile_routine('ft_dkv_chunk')
+    assert _tile_routine('ft_dkv_tile').count('ft_dkv_chunk<') == 2
+    assert dq.count('ft_scores<') + dkv.count('ft_scores<') == 4
+    assert dq.count('ft_accum<') + dkv.count('ft_accum<') == 3
+    assert dq.count('ft_split(') + dkv.count('ft_split(') == 3
+    assert 'gmt_mma_bf16' not in src and 'ft_scores<' not in src
+    # two products a 16-deep step in ft_scores, two a B fragment and part
+    # in ft_accum (its DP <= 64 form and its DP = 128 form)
+    assert _tile_routine('ft_scores').count('gmt_mma_bf16(') == 2
+    assert _tile_routine('ft_accum').count('gmt_mma_bf16(') == 4
     assert tiles.count('gmt_mma_bf16(') == 6 and 'gmt_ldmatrix_x4_trans' in tiles
     assert '__shared__ __align__(16) float' not in src
 
 
 def test_flash_forward_multiplies_on_the_tensor_cores():
     """Kernel C (attention.cu) is built from flash_tiles.cuh's warp routines:
-    S by ft_scores, P split into a bf16 hi/lo pair by ft_split and P v by
+    its tile routine ft_fwd_tile (shared with the ring's K) takes S by
+    ft_scores, splits P into a bf16 hi/lo pair by ft_split and adds P v by
     ft_accum, every product an mma.sync; no f32 K/V tile is staged in shared
     memory for an FMA product loop, as the first design did."""
     csrc = PORT / 'ops' / 'csrc'
     src = (csrc / 'attention.cu').read_text()
-    assert '#include "flash_tiles.cuh"' in src
-    assert src.count('ft_scores<') == 1 and src.count('ft_accum<') == 1
-    assert src.count('ft_split(') == 1 and 'ft_exp2(' in src and 'ft_a_frags<' in src
+    fwd = _tile_routine('ft_fwd_tile')
+    assert '#include "flash_tiles.cuh"' in src and src.count('ft_fwd_tile<') == 2
+    assert fwd.count('ft_scores<') == 1 and fwd.count('ft_accum<') == 1
+    assert fwd.count('ft_split(') == 1 and 'ft_exp2(' in fwd and 'ft_a_frags<' in src
     assert 'gmt_mma_bf16' not in src and 'expf(' not in src
     assert '__shared__ __align__(16) float' not in src and 'float ks[' not in src
 
@@ -167,20 +188,64 @@ def test_ln_matmul_multiplies_on_the_tensor_cores():
     assert 'gmt_layernorm_rows_bf16' not in (csrc / 'common.cuh').read_text()
 
 
+def _ring_section(kernel):
+    """ring_attention.cu's section of Kernel K, L or M."""
+    src = (PORT / 'ops' / 'csrc' / 'ring_attention.cu').read_text()
+    marks = ['-- Kernel K', '-- Kernel L', '-- Kernel M', 'static int launch_ring_fwd(']
+    i = 'KLM'.index(kernel)
+    return src[src.index(marks[i]):src.index(marks[i + 1])]
+
+
 def test_ring_dq_hop_multiplies_on_the_tensor_cores():
     """Kernel L (ring_attention.cu ring_bwd_dq_kernel) is Kernel E's hop
-    form on flash_tiles.cuh: S and dP by ft_scores, dS split into a bf16
-    hi/lo pair by ft_split and dq += dS k by ft_accum, K/V tiles by
-    ft_load_tile; no f32 K/V tile is staged for an FMA product loop, as the
-    first design (and Kernels K and M still) do."""
+    form on flash_tiles.cuh: its tile routine is E's ft_dq_tile (S and dP
+    by ft_scores, dS split into a bf16 hi/lo pair by ft_split and dq += dS
+    k by ft_accum), K/V tiles by ft_load_tile; no f32 K/V tile is staged
+    for an FMA product loop, as the first design did."""
     src = (PORT / 'ops' / 'csrc' / 'ring_attention.cu').read_text()
     assert '#include "flash_tiles.cuh"' in src
-    l_src = src[src.index('-- Kernel L'):src.index('-- Kernel M')]
-    assert l_src.count('ft_scores<') == 2 and l_src.count('ft_split(') == 1
-    assert l_src.count('ft_accum<') == 1 and 'ft_exp2(' in l_src and 'ft_a_frags<' in l_src
+    l_src = _ring_section('L')
+    assert l_src.count('ft_dq_tile<') == 2 and 'ft_a_frags<' in l_src
     assert 'ft_load_tile<' in l_src and 'ring_bwd_dq_kernel(' in l_src
     assert 'gmt_mma_bf16' not in l_src and 'expf(' not in l_src and 'fmaf(ds' not in l_src
     assert '__shared__ __align__(16) float' not in l_src and 'load_kv_tile<' not in l_src
+
+
+@pytest.mark.parametrize('kernel, routine, entry', [('K', 'ft_fwd_tile', 'ring_fwd_kernel('),
+                                                    ('M', 'ft_dkv_tile', 'ring_bwd_dkv_kernel(')])
+def test_ring_fwd_and_dkv_hops_multiply_on_the_tensor_cores(kernel, routine, entry):
+    """Kernels K and M (ring_attention.cu) are Kernels C's and D's hop
+    forms: each runs its flat kernel's tile routine from flash_tiles.cuh
+    (ft_fwd_tile, in its hop form for K, and ft_dkv_tile) on tiles that
+    ft_load_tile streams by cp.async, with no atomics, no f32 tile staged
+    in shared memory and no FMA product loop on the CUDA cores, as their
+    first designs had."""
+    sec = _ring_section(kernel)
+    assert entry in sec and sec.count(f'{routine}<') == 2
+    # K's hop form carries P in three bf16 parts (its acc is unnormalised)
+    assert kernel == 'M' or 'ft_split3(' in _tile_routine(routine)
+    assert 'ft_load_tile<' in sec and 'ft_a_frags<' in sec and 'gmt_cp_async_commit()' in sec
+    src = (PORT / 'ops' / 'csrc' / 'ring_attention.cu').read_text()
+    assert 'atomicAdd' not in src and 'gmt_mma_bf16' not in src and 'expf(' not in src
+    assert '__shared__ __align__(16) float' not in src and 'load_kv_tile' not in src
+    assert 'RING_DISPATCH_D' not in src and src.count('return cudaErrorInvalidValue;') == 3
+
+
+@pytest.mark.parametrize('fn', ['ring_chunk_fwd', 'ring_chunk_bwd_dq', 'ring_chunk_bwd_dkv'])
+@pytest.mark.parametrize('D', [4, 12, 136])
+def test_check_ring_refuses_a_head_width_the_hop_kernels_do_not_take(fn, D):
+    """The hop kernels take D a multiple of 8 in [8, 128]; _check_ring
+    (which the wrappers call on the card, never on the CPU) refuses any
+    other D with a message before it looks at where the tensors lie, and
+    the C entries refuse it too (cudaErrorInvalidValue)."""
+    from generative_models_tpu_torch.ops import attention as att
+
+    u = torch.zeros((2, 1, 8, D), device='meta')
+    with pytest.raises(ValueError, match=f'D={D} must be a multiple of 8'):
+        att._check_ring(fn, u, u, u, 8, 0, 2)
+    ok = torch.zeros((2, 1, 8, 32), device='meta')
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        att._check_ring(fn, ok, ok, ok, 8, 0, 2)
 
 
 @pytest.mark.parametrize('src', ['attention', 'masked_dense', 'int8', 'decode_fused',

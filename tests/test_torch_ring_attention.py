@@ -377,3 +377,146 @@ def test_ring_dq_as_bf16_pairs_holds_the_plain_hop(hop, pair):
         assert outside == 0
     else:
         assert outside > 1000, outside
+
+
+def _split(x, parts):
+    """x as the kernels carry it into a tensor-core product: its bf16 parts
+    (parts=2: hi = bf16(x), lo = bf16(x - hi); parts=3 adds mid between
+    them), or rounded to bf16 once (parts=1)."""
+    out, r = [], x
+    for _ in range(parts):
+        out.append(r.to(torch.bfloat16).float())
+        r = r - out[-1]
+    return out
+
+
+def _emulate_ring_fwd(q, k, v, carry, hop, t_valid, parts, tile=64):
+    """Kernel K's arithmetic for every ring position of a one-card launch,
+    in f32 on the CPU: S from the bf16 operands with f32 sums, dead pairs
+    (global positions, keys past t_valid) at NEG_INF; one online-softmax
+    step a 64-key tile in log2 units, the carry's m converted at entry (m
+    log2 e) and at exit (m ln 2); P = 2^(S scale log2 e - m) carried into
+    P v in `parts` bf16 parts (_split); l adds the f32 P. Rows at or past
+    t_valid are computed from q as it lies."""
+    bf = torch.bfloat16
+    P, BH, Tp, D = q.shape
+    log2e = math.log2(math.e)
+    sl2 = (1.0 / math.sqrt(D)) * log2e
+    r = torch.arange(Tp)
+    outs = ([], [], [])
+    for j, kv, qs, ks in tat._hop_items(P, hop, t_valid, 0, P):
+        qf, kf, vf = (u.to(bf).float() for u in (q[j], k[kv], v[kv]))
+        live = (qs + r[:, None] >= ks + r[None, :]) & (r[None, :] < t_valid)
+        s = (qf @ kf.transpose(-1, -2)).masked_fill(~live, tat.NEG_INF)
+        if carry is None:
+            acc, m = torch.zeros((BH, Tp, D)), torch.full((BH, Tp), tat.NEG_INF)
+            l = torch.zeros((BH, Tp))
+        else:
+            acc, m, l = carry[0][j], carry[1][j] * log2e, carry[2][j]
+        for k0 in range(0, t_valid, tile):
+            st, vt = s[..., k0:k0 + tile], vf[:, k0:k0 + tile]
+            m_new = torch.maximum(m, st.max(-1).values * sl2)
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(st * sl2 - m_new[..., None])
+            acc = acc * alpha[..., None] + sum(u @ vt for u in _split(p, parts))
+            l, m = l * alpha + p.sum(-1), m_new
+        for o, u in zip(outs, (acc, m * math.log(2.0), l)):
+            o.append(u)
+    return tuple(torch.stack(o) for o in outs)
+
+
+def _emulate_ring_dkv(q, k, v, do, lse, delta, dkv, hop, t_valid, pair):
+    """Kernel M's arithmetic for every ring position of a one-card launch,
+    in f32 on the CPU: the transposed S^T and dP^T from the bf16 operands
+    with f32 sums, P = 2^(S scale log2 e - lse log2 e) under the
+    global-position mask, dS = P (dP - delta); dV += P^T dO and dK += dS^T
+    Q, P and dS each carried as a hi/lo pair (pair) or rounded to bf16
+    once. Queries at or past t_valid add nothing (the kernel loads them as
+    zeros), and keys at or past t_valid keep the carry."""
+    bf = torch.bfloat16
+    P, BH, Tp, D = q.shape
+    log2e = math.log2(math.e)
+    r = torch.arange(Tp)
+    dk = torch.empty(k.shape)
+    dv = torch.empty(k.shape)
+    for j, kv, qs, ks in tat._hop_items(P, hop, t_valid, 0, P):
+        qf, kf, vf, dof = (u.to(bf).float() for u in (q[j], k[kv], v[kv], do[j]))
+        p = torch.exp2((qf @ kf.transpose(-1, -2)) * (log2e / math.sqrt(D))
+                       - lse[j][..., None] * log2e)
+        live = ((qs + r[:, None] >= ks + r[None, :]) & (r[None, :] < t_valid)
+                & (r[:, None] < t_valid))
+        p = p.masked_fill(~live, 0.0)
+        ds = p * (dof @ vf.transpose(-1, -2) - delta[j][..., None])
+        n_parts = 2 if pair else 1
+        gv = sum(u.transpose(-1, -2) @ dof for u in _split(p, n_parts))
+        gk = sum(u.transpose(-1, -2) @ qf for u in _split(ds, n_parts)) / math.sqrt(D)
+        dk[kv], dv[kv] = (gk, gv) if dkv is None else (dkv[0][kv] + gk, dkv[1][kv] + gv)
+    return dk, dv
+
+
+def _seq4_ring(B=1, H=2, seed=3, n=4, T=784, D=32):
+    """pixel_transformer's ring of 4 (T=784, D=32, t_valid 196 in 256-row
+    chunks) at BH=B*H: bf16-valued q, k, v, dO chunks, and lse and delta
+    from the forward ring."""
+    bf = torch.bfloat16
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, H, T, D).astype(np.float32)).to(bf).float()
+                   for _ in range(4))
+    Tl = T // n
+    Tp = tat._pick_chunk_blk(Tl)[1]
+    qc, kc, vc, doc = (_chunks(u, n, Tp, torch.float32) for u in (q, k, v, do))
+    o, lse = ring_forward(qc, kc, vc, Tl)
+    return Tl, qc, kc, vc, doc, lse, (doc * o).sum(-1)
+
+
+def _outside(got, ref, atol, rtol):
+    return sum(int((~((g - r).abs() <= atol + rtol * r.abs())).sum()) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize('hop', [0, 1])
+@pytest.mark.parametrize('parts', [3, 2, 1])
+def test_ring_fwd_as_three_bf16_parts_holds_the_plain_hop(hop, parts):
+    """Why Kernel K carries P into P v in three bf16 parts, and that its
+    log2 units and the conversion of the carry's m at entry and exit cost
+    nothing: on pixel_transformer's ring of 4 at BH=32, the emulated kernel
+    with P as hi + mid + lo holds ring_hop_fwd_plain(dtype=bf16) within
+    chip_smoke.py's atol 2e-5 + rtol 2e-4 on acc, m and l at the first hop
+    and at a carry hop (the carry from the plain first hop). A hi/lo pair,
+    which holds Kernel C's normalised o, misses it on a few elements of the
+    unnormalised acc where |acc| is small (4 and 2 of 1114112 outputs at
+    seed 3; at the card's BH=256, 26-35, up to 4.7e-5 off); P rounded once
+    misses it on half of them (711103 and 532774)."""
+    Tl, qc, kc, vc, doc, lse, delta = _seq4_ring(B=8, H=4)
+    bf = torch.bfloat16
+    carry = None if hop == 0 else tat.ring_hop_fwd_plain(qc, kc, vc, None, 0, Tl, dtype=bf)
+    ref = tat.ring_hop_fwd_plain(qc, kc, vc, carry, hop, Tl, dtype=bf)
+    got = _emulate_ring_fwd(qc, kc, vc, carry, hop, Tl, parts)
+    outside = _outside(got, ref, 2e-5, 2e-4)
+    if parts == 3:
+        assert outside == 0
+    elif parts == 2:
+        assert outside > 0
+    else:
+        assert outside > 100000, outside
+
+
+@pytest.mark.parametrize('hop', [0, 1])
+@pytest.mark.parametrize('pair', [True, False])
+def test_ring_dkv_as_bf16_pairs_holds_the_plain_hop(hop, pair):
+    """Why Kernel M carries P and dS as bf16 pairs: on pixel_transformer's
+    ring of 4, the emulated kernel with both as hi/lo pairs holds
+    ring_hop_bwd_dkv_plain(dtype=bf16) within chip_smoke.py's atol 1e-4 +
+    rtol 1e-3 on dk and dv at the first hop and at a carry hop; both
+    rounded to bf16 once miss it (9940 and 6082 of 131072 outputs at
+    seed 3)."""
+    Tl, qc, kc, vc, doc, lse, delta = _seq4_ring()
+    bf = torch.bfloat16
+    dkv = None if hop == 0 else tat.ring_hop_bwd_dkv_plain(qc, kc, vc, doc, lse, delta, None, 0,
+                                                           Tl, dtype=bf)
+    ref = tat.ring_hop_bwd_dkv_plain(qc, kc, vc, doc, lse, delta, dkv, hop, Tl, dtype=bf)
+    got = _emulate_ring_dkv(qc, kc, vc, doc, lse, delta, dkv, hop, Tl, pair)
+    outside = _outside(got, ref, 1e-4, 1e-3)
+    if pair:
+        assert outside == 0
+    else:
+        assert outside > 1000, outside
