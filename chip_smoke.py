@@ -11,18 +11,22 @@ failure exits non-zero before the result lines:
   2. build   -- compile ops/csrc/*.cu (one nvcc per source, in parallel)
                 and print the build seconds and ptxas's registers and
                 spills of every entry function (Kernels C, E, D, K, L and
-                M's by D bucket, H's and I's by their VEC flag and A's and
-                B's by VEC flag and LN width also in the kernels line; fails
-                where C, E or D spill at D=32 or H, I, A, B, K, L or M
-                spills).
+                M's by D bucket, H's and I's by their VEC flag, A's and
+                B's by VEC flag and LN width and F's by VEC flag also in
+                the kernels line; fails where C, E or D
+                spill at D=32 or H, I, A, B, K, L, M or F spills).
   3. kernels -- hold each kernel against its plain PyTorch version on the
                 card at the main paths' shapes (pixel_transformer's,
                 vqvae's and made's at hidden_size=2048), with seeded inputs
                 and a stated tolerance; A (the decode step's LN + product)
                 at its four path shapes and eleven ragged ones (B 1-70, N 7
                 and 96, C 100-4096, x at an odd offset), launched twice and
-                bitwise equal; Kernel F's indices must be
-                identical but for ties within rounding, Kernel H exactly 0
+                bitwise equal; Kernel F (the VQ search, 3xTF32 on the tensor
+                cores) at its three shapes, launched twice and bitwise
+                equal, its indices identical but for ties within rounding,
+                then untimed at N 1-3137, K 1-4096, D 7-256, z at an odd
+                offset and two NaN cases (indices exactly the plain
+                version's); Kernel H exactly 0
                 off its mask, and Kernel I (int8 x int8 -> int32) bitwise
                 equal; I and J (the dequantizing product) at every product
                 of the quantized serving paths and at four ragged shapes, I
@@ -75,7 +79,8 @@ failure exits non-zero before the result lines:
                 exact launch counts, artifacts, finite metrics, the test
                 recon_loss falling, the perplexity in [1, vqK].
   11. vq_grads -- phase 6 for vqvae, every AE and prior parameter, and the
-                count of codes the card and the CPU copy assign apart.
+                count of codes the card and the CPU copy assign apart
+                (reported in the vqvae_train summary).
   12. made_serve -- made's serving path at hidden_size=2048, the width at
                 which it takes the kernel route (warm, n=25, seed=7 twice):
                 Kernel G 784 * 4 launches a pass and nothing else; the
@@ -106,7 +111,9 @@ failure exits non-zero before the result lines:
                 of each model, one pixel_transformer scoring forward, one
                 seq:4 train step, one quantized request of vqvae and of made
                 in each mode, and 32 decode steps of a quantized
-                pixel_transformer request in each mode.
+                pixel_transformer request in each mode; the device-to-host
+                copies of one vqvae train step, counted, each with the op
+                and the Python lines that issued it.
 Then the kernels line, the nvidia-smi line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
@@ -128,7 +135,7 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
-H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+H100_TF32_FLOPS = 495e12  # dense tf32 tensor-core peak, H100 SXM data sheet
 H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
 TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_train'
 VQ_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_vqvae'
@@ -180,11 +187,12 @@ def _on_device(event):
     return event.device_type == DeviceType.CUDA and not getattr(event, 'is_user_annotation', False)
 
 
-def _device_events(fn, iters, flush=None, tries=3):
+def _device_events(fn, iters, flush=None, tries=6):
     """The card's events over iters calls of fn (each after a write of
     flush, where given) under torch.profiler's CUDA trace. A trace with no
-    device event at all is taken again, up to tries times: the trace now
-    and then comes back empty (it also loses a window's first events)."""
+    device event at all is taken again, a second later, up to tries times:
+    the trace now and then comes back empty, up to three times running (it
+    also loses a window's first events)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -200,6 +208,7 @@ def _device_events(fn, iters, flush=None, tries=3):
         if events:
             return events
         log(f'[profile] the trace has no device event; taking it again ({attempt + 1} of {tries})')
+        time.sleep(1.0)
     raise AssertionError('the profiler saw no device events')
 
 
@@ -288,23 +297,24 @@ def ptxas_report(text):
 def phase_build():
     """Builds every kernel source; logs ptxas's registers and spills of
     each entry function. Returns the reports of the kernels redesigned for
-    the tensor cores, Kernels C, E, D, K, L and M by D bucket, H and I by their
-    VEC flag and A and B by VEC flag and LN width (A's dot route as 'dot'),
+    the tensor cores, Kernels C, E, D, K, L and M by D bucket, H, I and F by
+    their VEC flag and A and B by VEC flag and LN width (A's dot route as 'dot'),
     as {'causal_attention_fwd': {'DP=32': {...}, ...}, 'flash_bwd_dq': ...,
     'flash_bwd_dkv': ..., 'mask_out_matmul': {'VEC=1': {...}, 'VEC=0':
     {...}}, 'int8_gemm': ..., 'block_tail': {'VEC=1,VPL=4': {...}, ...},
     'ln_matmul': {'VEC=1,VPL=4': {...}, 'dot,VPL=4': {...}, ...},
     'ring_chunk_fwd': {'DP=32': {...}, ...}, 'ring_chunk_bwd_dq': ...,
-    'ring_chunk_bwd_dkv': ...}, and raises if C, E or D spill at D=32 (every
-    path's width) or H, I, A, B, K, L or M spill at all."""
+    'ring_chunk_bwd_dkv': ..., 'vq_one_hot': {'VEC=1': {...}, ...}}, and
+    raises if C, E or D spill at D=32 (every path's width) or H, I, A, B, K,
+    L, M or F spill at all."""
     from generative_models_tpu_torch.ops.common import BUILD_DIR, KERNEL_SOURCES, build_kernels
 
     t0 = time.time()
     build_kernels()
     log(f'[build] {len(KERNEL_SOURCES)} sources in {time.time() - t0:.1f}s -> {BUILD_DIR}')
     # (library, mangled kernel name with its template arguments, wrapper,
-    # key): the D bucket (C, E, D), the VEC flag (H, I), VEC and the LN
-    # width (B)
+    # key): the D bucket (C, E, D), the VEC flag (H, I, F), VEC and the LN
+    # width (A, B)
     watched = (('attention', r'flash_fwd_kernelILi(\d+)E', 'causal_attention_fwd', 'DP={}'),
                ('attention_bwd', r'flash_bwd_dq_kernelILi(\d+)E', 'flash_bwd_dq', 'DP={}'),
                ('attention_bwd', r'flash_bwd_dkv_kernelILi(\d+)E', 'flash_bwd_dkv', 'DP={}'),
@@ -318,7 +328,8 @@ def phase_build():
                ('ring_attention', r'ring_fwd_kernelILi(\d+)E', 'ring_chunk_fwd', 'DP={}'),
                ('ring_attention', r'ring_bwd_dq_kernelILi(\d+)E', 'ring_chunk_bwd_dq', 'DP={}'),
                ('ring_attention', r'ring_bwd_dkv_kernelILi(\d+)E', 'ring_chunk_bwd_dkv',
-                'DP={}'))
+                'DP={}'),
+               ('quantize', r'vq_one_hot_kernelILb(\d+)E', 'vq_one_hot', 'VEC={}'))
     # held at every D bucket, not at D=32 alone
     every_bucket = ('ring_chunk_fwd', 'ring_chunk_bwd_dq', 'ring_chunk_bwd_dkv')
     reps = {name: {} for _, _, name, _ in watched}
@@ -874,46 +885,71 @@ def ring_edge_cases(f32, tol_k, tol_lm):
 
 def vq_cases(f32):
     """Kernel F vs its plain version (f32 on both sides) at vqvae's
-    training batch, at evaluate's 8 images, and at a codebook of 16
-    K-tiles. The indices must be identical; where one differs, the plain
-    scores' gap between the best and the second-best code at that row must
-    be under 1e-5 of the row's largest |score| (a tie within rounding,
-    which a sum in another order may break either way)."""
-    from generative_models_tpu_torch.ops.quantize import vq_one_hot, vq_one_hot_plain, vq_scores
+    training batch, at evaluate's 8 images and at a codebook of 16 K-tiles,
+    each launched twice and bitwise equal, timed also with L2 flushed
+    (ms_l2_cold); then untimed at ragged N, K and D, z at an odd float
+    offset (the kernel's 4-byte copies) and two NaN cases. The indices must
+    be identical but for ties: where one differs, the plain scores of the
+    two codes must differ by less than 1e-5 of the row's largest |score|
+    (vq_ties_missed: a sum in another order may break such a tie either
+    way). At the NaN cases (a NaN code, taken by every row, the first of
+    two; a row of z all NaN, index 0) they must be identical."""
+    import torch.nn.functional as F
+
+    from generative_models_tpu_torch.ops.quantize import (
+        VQ_TIE_REL, vq_one_hot, vq_one_hot_plain, vq_ties_missed,
+    )
+
+    def check(label, z, e, exact=False):
+        oh, idx = _twice_bitwise(f'vq_one_hot {label}', lambda: vq_one_hot(z, e))
+        roh, ridx = vq_one_hot_plain(z, e)
+        if idx.dtype != torch.int64 or not torch.equal(oh, F.one_hot(idx, e.shape[0]).float()):
+            raise AssertionError(f'vq_one_hot {label}: one-hot disagrees with its index')
+        differ = int((idx != ridx).sum())
+        missed = differ if exact else vq_ties_missed(idx, ridx, z, e)
+        if differ:
+            log(f'[kernels] vq_one_hot {label}: {differ} rows differ, {missed} beyond a tie')
+        if missed:
+            raise AssertionError(f'vq_one_hot {label}: indices differ beyond a tie at {missed} rows')
+        return dict(shape=label, rows_differ=differ, max_abs_err=float((oh - roh).abs().max()),
+                    atol=0.0, rtol=0.0, tie_rel_gap=0.0 if exact else VQ_TIE_REL,
+                    bitwise_twice=True)
 
     out = []
+    flush = torch.empty(64 << 20, device='cuda')  # 256 MB of f32, past the 50 MB L2
     for N, K, D, path in ((3136, 64, 64, 'vqvae train'), (392, 64, 64, 'vqvae evaluate'),
                           (12544, 1024, 64, 'K-tiles')):
         z, e = f32(N, D), f32(K, D)
-        oh, idx = vq_one_hot(z, e)
-        roh, ridx = vq_one_hot_plain(z, e)
-        if not torch.equal(oh, torch.nn.functional.one_hot(idx, K).float()):
-            raise AssertionError(f'vq_one_hot ({N},{K},{D}): one-hot disagrees with its index')
-        rows = (idx != ridx).nonzero().flatten()
-        gaps = []
-        if len(rows):
-            sc = vq_scores(z[rows], e)
-            top2 = sc.topk(2, dim=1, largest=False).values
-            gap = top2[:, 1] - top2[:, 0]
-            scale = sc.abs().max(dim=1).values
-            gaps = [dict(row=int(r), gap=float(g), rel_gap=float(g / m))
-                    for r, g, m in zip(rows, gap, scale)]
-            log(f'[kernels] vq_one_hot ({N},{K},{D}): {len(rows)} rows differ: {gaps[:20]}')
-            if (gap >= 1e-5 * scale).any():
-                raise AssertionError(f'vq_one_hot ({N},{K},{D}): indices differ beyond a tie')
-        # bytes: z and the codebook read once, the one-hot and the int32
-        # index written once; operations: the f32 z.e products (FMA on the
-        # CUDA cores, so against the f32 peak)
-        bms, by = bound(4 * (N * D + K * D + N * K + N), 2 * N * K * D, peak=H100_F32_FLOPS)
+        # bytes: z and the codebook read once, the one-hot and the int64
+        # index written once; operations: the z.e products, three tf32
+        # products a multiply-add on the tensor cores (3xTF32)
+        bms, by = bound(4 * (N * D + K * D + N * K) + 8 * N, 3 * 2 * N * K * D,
+                        peak=H100_TF32_FLOPS)
         out.append(dict(
-            shape=f'z ({N},{D}) x e ({K},{D})', path=path, rows_differ=len(rows),
-            max_abs_err=float((oh - roh).abs().max()), atol=0.0, rtol=0.0,
-            tie_rel_gap=1e-5, bound_ms=bms, bound_by=by,
+            check(f'z ({N},{D}) x e ({K},{D})', z, e), path=path, bound_ms=bms, bound_by=by,
+            ms_l2_cold=l2_cold_ms(lambda: vq_one_hot(z, e), 'vq_one_hot_kernel', flush),
             **timings(lambda: vq_one_hot(z, e), lambda: vq_one_hot_plain(z, e),
                       iters=100 if N * K < 2 ** 24 else 20),
         ))
-        del z, e, oh, roh
-        torch.cuda.empty_cache()
+        del z, e
+    del flush
+    for N, K, D in ((1, 64, 64), (17, 64, 64), (3137, 64, 64), (300, 1, 64), (300, 7, 64),
+                    (300, 65, 64), (300, 4096, 64), (300, 64, 8), (300, 64, 20), (300, 64, 100),
+                    (300, 64, 256), (300, 64, 7)):
+        out.append(dict(check(f'ragged z ({N},{D}) x e ({K},{D})', f32(N, D), f32(K, D)),
+                        path='ragged'))
+    z = f32(3136 * 64 + 1)[1:].view(3136, 64)  # 4 bytes past a 16-byte boundary
+    out.append(dict(check('z (3136,64) at an odd offset x e (64,64)', z, f32(64, 64)),
+                    path='ragged'))
+    z, e = f32(392, 64), f32(1024, 64)
+    e[900, 1] = e[700, 3] = float('nan')  # every row takes code 700, the first NaN score
+    out.append(dict(check('NaN codes 700, 900 of e (1024,64), z (392,64)', z, e, exact=True),
+                    path='nan'))
+    z, e = f32(392, 64), f32(64, 64)
+    z[7] = float('nan')  # row 7's scores all NaN: index 0
+    out.append(dict(check('z (392,64) with row 7 all NaN x e (64,64)', z, e, exact=True),
+                    path='nan'))
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1950,6 +1986,41 @@ def _profile(label, fn, top_n):
     return dict(wall_ms=wall * 1e3, device_ms=busy_ms, launches=launches, traced_sec=traced)
 
 
+def _dtoh_copies(label, fn, top_n=12):
+    """The device-to-host copies of one call of fn under torch.profiler with
+    Python stacks: their count on the card's timeline, and each one's
+    source, the aten op that issued it with its parents and the innermost
+    frames of the repo or of torch.optim in its stack, counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    copies = sum(1 for e in events if _on_device(e) and 'DtoH' in e.name)
+    sources = {}
+    for e in events:
+        n = sum('DtoH' in k.name for k in getattr(e, 'kernels', ())) if e.device_type == DeviceType.CPU else 0
+        if not n:
+            continue
+        ops, up = [], e
+        while up is not None and len(ops) < 4:
+            ops.append(up.name)
+            up = up.cpu_parent
+        frames = [f for f in (e.stack or ()) if 'generative_models_tpu_torch' in f
+                  or 'torch/optim' in f][:3]
+        key = ' < '.join(ops) + ' @ ' + ' < '.join(frames or (e.stack or ['?'])[:2])
+        sources[key] = sources.get(key, 0) + n
+    top = sorted(sources.items(), key=lambda kv: -kv[1])
+    log(f'[profile] {label}: {copies} device-to-host copies on the card, '
+        f'{sum(sources.values())} traced to an op')
+    for key, n in top[:top_n]:
+        log(f'[profile]   {n:5d}x  {key[:300]}')
+    return dict(copies=copies, traced=sum(sources.values()), sources=dict(top[:top_n]))
+
+
 def _decode_window(server, steps):
     """A call running the quantized decode steps `steps` of a request at
     serve_bs=64 (server.model.net with server.quant, on a fresh KV cache),
@@ -1992,6 +2063,8 @@ def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
         vqvae_request=_profile('one vqvae request', lambda: vq_server.sample(64, seed=11), 15),
         vqvae_train_step=_profile('one vqvae train step',
                                   lambda: vq_model.train_step(vq_bx[1]), 15),
+        vqvae_train_step_dtoh=_dtoh_copies('one vqvae train step',
+                                           lambda: vq_model.train_step(vq_bx[2])),
         made_request=_profile('one made request', lambda: made_server.sample(64, seed=11), 10),
         made_train_step=_profile('one made train step',
                                  lambda: made_model.train_step(made_bx[1]), 15),

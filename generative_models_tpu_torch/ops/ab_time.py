@@ -12,12 +12,15 @@ at hidden_size=2048), J (dequant_gemm: bf16(x) @ q at the w8a16 serving
 products), B (block_tail: the decode step's second half at C=128 and
 C=256, B=64), C (causal_attention_fwd), E (flash_bwd_dq) and D
 (flash_bwd_dkv) at pixel_transformer's (64,4,784,32) and vqvae's
-(64,8,49,32), and K (ring_chunk_fwd), L (ring_chunk_bwd_dq) and M
+(64,8,49,32), K (ring_chunk_fwd), L (ring_chunk_bwd_dq) and M
 (ring_chunk_bwd_dkv) at the seq:4 ring's carry hop and first hop (BH=256,
-T=784, D=32). The outputs are checked bitwise equal between the trees, but
-for those of kernels whose arithmetic a tree may change (TOL: K and M), which
-are each held against the plain version within chip_smoke.py's tolerances
-(this tree's must hold; the other's count is reported); the launches timed as
+T=784, D=32), and F (vq_one_hot) at vqvae's training and evaluate batches
+and a 1024-code book. The outputs are checked bitwise equal between the
+trees, but for those of kernels whose arithmetic a tree may change, which
+are each held against the plain version: K and M within chip_smoke.py's
+tolerances (TOL), F's indices, read from its one-hot, by its tie rule
+(TIE_RULE: ops/quantize.py vq_ties_missed); this tree's must hold, the
+other's count is reported. The launches are timed as
 device time from torch.profiler's CUDA trace, in the order this, other,
 other, this, each round. Prints one JSON line a shape: both trees' medians
 and their ratio. Two trees on two cards (or two calls) are not comparable:
@@ -54,12 +57,16 @@ KERNELS = {
     'ring_chunk_fwd': ('ring_attention', 'ring_fwd_kernel'),
     'ring_chunk_bwd_dq': ('ring_attention', 'ring_bwd_dq_kernel'),
     'ring_chunk_bwd_dkv': ('ring_attention', 'ring_bwd_dkv_kernel'),
+    'vq_one_hot': ('quantize', 'vq_one_hot_kernel'),
 }
-# (atol, rtol) of the kernels held within a tolerance of their plain
-# versions rather than bitwise to the other tree: the ring's K and M,
-# redesigned after their first designs (chip_smoke.py's tolerances)
+# kernels held against their plain versions rather than bitwise to the
+# other tree: (atol, rtol) of the ring's K and M, redesigned after their
+# first designs (chip_smoke.py's tolerances); and F, whose indices are held
+# by its tie rule
 TOL = {'ring_chunk_fwd': (2e-5, 2e-4), 'ring_chunk_bwd_dkv': (1e-4, 1e-3)}
+TIE_RULE = ('vq_one_hot',)
 ATT_SHAPES = ((64, 4, 784, 32), (64, 8, 49, 32))
+VQ_SHAPES = ((3136, 64, 64), (392, 64, 64), (12544, 1024, 64))
 
 
 def build(csrc, tag, srcs):
@@ -177,9 +184,32 @@ def _attention_calls(libs, dev, rng, only):
     return out
 
 
+def _vq_calls(libs, dev, rng, only):
+    """F at VQ_SHAPES, as calls() gives them; the index buffer is int64 for
+    both trees (a tree that writes an int32 index fills its first half),
+    so the trees are compared by their one-hots, and the plain version's
+    part is (its index, z, e)."""
+    from generative_models_tpu_torch.ops.quantize import vq_one_hot_plain
+
+    out = []
+    for N, K, D in VQ_SHAPES if 'vq_one_hot' in only else ():
+        z = torch.tensor(rng.randn(N, D), dtype=torch.float32, device=dev)
+        e = torch.tensor(rng.randn(K, D), dtype=torch.float32, device=dev)
+        fns, outs = {}, {}
+        for tag in libs:
+            fn = _entry(libs, tag, 'quantize', 'gmt_vq_one_hot', 4, 3)
+            oh = torch.empty((N, K), dtype=torch.float32, device=dev)
+            idx = torch.empty((N,), dtype=torch.int64, device=dev)
+            outs[tag] = (oh,)
+            fns[tag] = _launcher(fn, (z, e, oh, idx), z.data_ptr(), e.data_ptr(), oh.data_ptr(),
+                                 idx.data_ptr(), N, K, D)
+        out.append(('vq_one_hot', (N, K, D), fns, outs, (vq_one_hot_plain(z, e)[1], z, e)))
+    return out
+
+
 def calls(libs, dev, rng, only):
     """(kernel, shape, {tree: call}, {tree: outputs}, the plain version's
-    outputs for the kernels of TOL, else None) for every shape of the
+    outputs for the kernels of TOL and TIE_RULE, else None) for every shape of the
     kernels in only, both trees."""
     out = []
     for M, K, N in G_SHAPES if 'masked_matmul' in only else ():
@@ -224,7 +254,8 @@ def calls(libs, dev, rng, only):
                                  *(u.data_ptr() for u in ws), o.data_ptr(), B, C, plan.cluster,
                                  plan.P, plan.F, plan.slots)
         out.append(('block_tail', (B, C), fns, outs, None))
-    return out + _attention_calls(libs, dev, rng, only) + _ring_calls(libs, dev, rng, only)
+    return (out + _attention_calls(libs, dev, rng, only) + _ring_calls(libs, dev, rng, only)
+            + _vq_calls(libs, dev, rng, only))
 
 
 def main(argv=None):
@@ -253,7 +284,7 @@ def main(argv=None):
     rows = []
     for kernel, shape, fns, outs, plain in calls(libs, dev, np.random.RandomState(0), only):
         trace = KERNELS[kernel][1]
-        iters = 200 if kernel in ('masked_matmul', 'dequant_gemm', 'block_tail') else 20
+        iters = 200 if kernel in ('masked_matmul', 'dequant_gemm', 'block_tail', 'vq_one_hot') else 20
         for fn in fns.values():
             fn()
         ms = {tag: [] for tag in fns}
@@ -266,12 +297,19 @@ def main(argv=None):
         row = dict(kernel=kernel, shape=shape,
                    bitwise=all(torch.equal(x, y) for x, y in zip(a, b)),
                    max_abs_diff=max(float((x - y).abs().max()) for x, y in zip(a, b)))
-        if kernel in TOL:
+        if kernel in TIE_RULE:
+            from generative_models_tpu_torch.ops.quantize import VQ_TIE_REL, vq_ties_missed
+
+            ridx, z, e = plain
+            miss = {tag: vq_ties_missed(res[0].argmax(1), ridx, z, e) for tag, res in outs.items()}
+            row.update(tie_rel=VQ_TIE_REL, outside_tol_vs_plain=miss)
+        elif kernel in TOL:
             atol, rtol = TOL[kernel]
             miss = {tag: sum(int((~((x - y).abs() <= atol + rtol * y.abs())).sum())
                              for x, y in zip(res, plain)) for tag, res in outs.items()}
             row.update(atol=atol, rtol=rtol, outside_tol_vs_plain=miss)
-        row['ok'] = row['outside_tol_vs_plain']['this'] == 0 if kernel in TOL else row['bitwise']
+        held = kernel in TOL or kernel in TIE_RULE
+        row['ok'] = row['outside_tol_vs_plain']['this'] == 0 if held else row['bitwise']
         rows.append(dict(**row, ms_this=med['this'], ms_other=med['other'],
                          ratio=med['this'] / med['other'], runs=ms, device=smi))
         print(json.dumps(rows[-1]), flush=True)

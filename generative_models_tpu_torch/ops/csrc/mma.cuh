@@ -1,8 +1,9 @@
 // Tensor-core and copy helpers shared by the port's kernels, for sm_90a:
 // cp.async (global -> shared, 16 or 4 bytes, zero-filled when out of range),
 // ldmatrix (8x8 b16 tiles from shared memory into mma fragments),
-// mma.sync m16n8k16 on bf16 with f32 accumulation and mma.sync m16n8k32 on
-// s8 with s32 accumulation.
+// mma.sync m16n8k16 on bf16 with f32 accumulation, mma.sync m16n8k8 on tf32
+// with f32 accumulation (and the hi/lo split of an f32 into two tf32), and
+// mma.sync m16n8k32 on s8 with s32 accumulation.
 //
 // Fragments of mma.m16n8k16.row.col (lane l of the warp, g = l / 4,
 // c = 2 * (l % 4)):
@@ -21,6 +22,13 @@
 //   C, D (16 x 8, s32)      as the f32 accumulator above
 // so ldmatrix (non-.trans) gives A from an (m, k) byte tile and B from an
 // (n, k) byte tile, an 8x8 b16 matrix being 8 rows of 16 k.
+//
+// Fragments of mma.m16n8k8.row.col tf32 (g, t = l % 4): each register holds
+// one tf32 (an f32 whose low 13 mantissa bits are ignored):
+//   A (16 x 8, row-major)   a[0]: (g, t)   a[1]: (g+8, t)
+//                           a[2]: (g, t+4) a[3]: (g+8, t+4)
+//   B (8 x 8, k x n)        b0: (k t, n g)   b1: (k t+4, n g)
+//   C, D (16 x 8, f32)      as the f32 accumulator above
 #pragma once
 
 #include <cstdint>
@@ -35,6 +43,14 @@ __device__ __forceinline__ unsigned gmt_smem_addr(const void* p) {
 // and the 16 bytes are zero-filled (src must still be a valid address).
 __device__ __forceinline__ void gmt_cp_async16(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(gmt_smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// the same through L1 (.ca), so blocks on one SM that copy the same lines
+// share them
+__device__ __forceinline__ void gmt_cp_async16_ca(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(gmt_smem_addr(dst)),
                "l"(src), "r"(pred ? 16 : 0)
                : "memory");
 }
@@ -81,6 +97,32 @@ __device__ __forceinline__ void gmt_mma_bf16(float (&d)[4], const unsigned (&a)[
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16 x 8 tf32) @ b (8 x 8 tf32), f32 sums
+__device__ __forceinline__ void gmt_mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 (to nearest, ties away from zero), in an f32 register
+__device__ __forceinline__ unsigned gmt_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as hi + lo, both tf32: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact
+// in f32), so hi * hi + (hi * lo + lo * hi) carries x * y to about 2^-22 of
+// its size, three tf32 products in place of one f32 one (3xTF32). An
+// infinite x gives lo = inf - inf = NaN.
+__device__ __forceinline__ void gmt_tf32_split(float x, unsigned& hi, unsigned& lo) {
+  hi = gmt_tf32(x);
+  lo = gmt_tf32(x - __uint_as_float(hi));
 }
 
 // d += a (16 x 32 s8) @ b (32 x 8 s8), s32 sums (exact: the caller keeps

@@ -1,4 +1,4 @@
-"""Sweep compile-time knobs of Kernels C, H, I, A, B, K, L and M on the card.
+"""Sweep compile-time knobs of Kernels C, H, I, A, B, K, L, M and F on the card.
 
     python -m generative_models_tpu_torch.ops.knob_sweep [--out FILE] [--only SRC,...]
 
@@ -13,18 +13,25 @@ columns a block (LM_TILE: LM_ROWS, LM_COLS) and Kernel B's weight-tile depth
 plan_block_tail's 16 or 8); in ring_attention.cu the streamed-tile depth
 at D=32 of Kernels K, L and M (K_SROWS, L_SROWS, M_SROWS) and their
 register caps at D=32 (K_MINB_D32, L_MINB_D32, M_MINB_D32, blocks an SM),
-the three kernels' knobs moved together in each variant.
+the three kernels' knobs moved together in each variant; in quantize.cu
+Kernel F's 16-row strips a block (VQ_WM), its warps along the codes and
+codes a warp (VQ_WARP: VQ_WN, VQ_CW), its register cap (VQ_MINB, blocks
+an SM) and the depth of its copy ring (VQ_STAGES); and a control, F's dot
+as its hi.hi product alone (VQ_DOT: one tf32 product, not 3xTF32).
 Every variant is built by nvcc (all at once, ptxas's registers and spills
 kept), launched at the main paths' shapes (pixel_transformer's
 (64,4,784,32) and long T (1,4,2048,32) for C; made's dW at
 hidden_size=2048, (2048,64) x (64,2048) and (784,64) x (64,2048), for H;
 made's three w8a8 products at hidden_size=1024 and pixel_transformer's fc2
 for I; the decode step's four products at B=64 for A and the step at C=128
-and C=256 for B; the seq:4 ring's first and carry hops for L), compared
+and C=256 for B; the seq:4 ring's first and carry hops for L; vqvae's training and evaluate
+batches and a 1024-code book for F), compared
 bitwise with the shipped kernel through its wrapper, held against the plain
-version within chip_smoke.py's tolerances (the run fails if any case
-misses), and timed as device time from torch.profiler's CUDA trace, for H,
-I, A, B, K, L and M also with L2 flushed before each launch. Prints one JSON
+version within chip_smoke.py's tolerances (F's indices by its tie rule; the
+run fails if any case misses, or if a control, a variant that sets a
+knob of CONTROLS, misses at none of its shapes), and timed as device time from
+torch.profiler's CUDA trace, for H, I, A, B, K, L, M and F also with L2
+flushed before each launch. Prints one JSON
 line a variant and writes them all to --out. Needs a card.
 """
 
@@ -68,8 +75,17 @@ KNOBS = {
     'L_MINB_D32': ('ring_attention', r'L_MINB_D32 = \d+;', 'L_MINB_D32 = {};'),
     'M_SROWS': ('ring_attention', r'M_SROWS_D32 = \d+,', 'M_SROWS_D32 = {},'),
     'M_MINB_D32': ('ring_attention', r'M_MINB_D32 = \d+;', 'M_MINB_D32 = {};'),
+    'VQ_WM': ('quantize', r'constexpr int VQ_WM = \d+;', 'constexpr int VQ_WM = {};'),
+    'VQ_WARP': ('quantize', r'constexpr int VQ_WN = \d+, VQ_CW = \d+;',
+                'constexpr int VQ_WN = {}, VQ_CW = {};'),
+    'VQ_MINB': ('quantize', r'constexpr int VQ_MINB = \d+;', 'constexpr int VQ_MINB = {};'),
+    'VQ_STAGES': ('quantize', r'constexpr int VQ_STAGES = \d+;', 'constexpr int VQ_STAGES = {};'),
+    'VQ_DOT': ('quantize', r'const float dot = [^;]+;', 'const float dot = {};'),
 }
 CALL_KNOBS = ('cluster_c256',)  # set at the call, not in the source
+# knobs that make a control: a lower precision the plain-version check must
+# catch, so a variant that sets one must miss at some shape
+CONTROLS = ('VQ_DOT',)
 
 # C: 64-key tiles (as shipped) or 32, by register cap; H: the shipped 64 x
 # 128 tile (32 x 32 a warp, 64 deep) by register cap, then tiles that read
@@ -84,6 +100,11 @@ _H = dict(HM_TILE=(64, 128), HM_WARP=(32, 32), HM_KC=64, HM_MINB=2)
 # three
 _R = dict(K_SROWS=64, K_MINB_D32=5, L_SROWS=64, L_MINB_D32=6, M_SROWS=64, M_MINB_D32=4)
 _R32 = dict(K_SROWS=32, L_SROWS=32, M_SROWS=32)
+# F: one 16-row strip a block, 4 warps of 16 codes, 2 blocks an SM, a
+# ring of 2 (as shipped); then 2 and 4 strips a block, other warp splits of
+# a K-tile, the register cap and the ring's depth; last the control, one
+# tf32 product (hi.hi) where F sums three
+_F = dict(VQ_WM=1, VQ_WARP=(4, 16), VQ_MINB=2, VQ_STAGES=2)
 VARIANTS = (
     [('attention', dict(_C, **kw)) for kw in (
         {}, dict(MINB_D32=3), dict(MINB_D32=5), dict(SROWS=_C32),
@@ -103,6 +124,10 @@ VARIANTS = (
         dict(K_MINB_D32=5, L_MINB_D32=8, M_MINB_D32=5),
         dict(K_MINB_D32=6, L_MINB_D32=4, M_MINB_D32=6), _R32,
         dict(_R32, K_MINB_D32=6, L_MINB_D32=8, M_MINB_D32=6))]
+    + [('quantize', dict(_F, **kw)) for kw in (
+        {}, dict(VQ_WM=2), dict(VQ_WM=4, VQ_MINB=1), dict(VQ_WARP=(2, 32)),
+        dict(VQ_WARP=(8, 8)), dict(VQ_WARP=(2, 16)), dict(VQ_MINB=4), dict(VQ_MINB=3),
+        dict(VQ_STAGES=3), dict(VQ_STAGES=4), dict(VQ_DOT='acc_hh[j][q]'))]
 )
 
 
@@ -406,6 +431,38 @@ def run_ring_attention(lib, rng, dev, knobs):
     return out
 
 
+def run_quantize(lib, rng, dev, knobs):
+    """F at vqvae's training and evaluate batches and at a 1024-code book,
+    against the shipped wrapper (bitwise: one-hot and index) and the plain
+    version (indices equal but for ties, vq_ties_missed)."""
+    from generative_models_tpu_torch.ops.quantize import vq_one_hot, vq_one_hot_plain, vq_ties_missed
+
+    fn = lib.gmt_vq_one_hot
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    flush = torch.empty(64 << 20, device=dev)
+    out = {}
+    for N, K, D in ((3136, 64, 64), (392, 64, 64), (12544, 1024, 64)):
+        z = torch.tensor(rng.randn(N, D), dtype=torch.float32, device=dev)
+        e = torch.tensor(rng.randn(K, D), dtype=torch.float32, device=dev)
+        oh = torch.empty((N, K), dtype=torch.float32, device=dev)
+        idx = torch.empty((N,), dtype=torch.int64, device=dev)
+
+        def call():
+            rc = fn(z.data_ptr(), e.data_ptr(), oh.data_ptr(), idx.data_ptr(), N, K, D,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f'vq_one_hot launch failed ({rc})')
+
+        call()
+        ref_oh, ref_idx = vq_one_hot(z, e)
+        out[f'z ({N},{D}) x e ({K},{D})'] = dict(
+            bitwise_as_shipped=bool(torch.equal(oh, ref_oh) and torch.equal(idx, ref_idx)),
+            outside_tol=vq_ties_missed(idx, vq_one_hot_plain(z, e)[1], z, e),
+            ms=device_ms(call, 'vq_one_hot_kernel', 100),
+            ms_l2_cold=device_ms(call, 'vq_one_hot_kernel', 50, flush))
+    return out
+
+
 # per source: the kernels' names in the trace and ptxas's report, and the runner
 RUNS = {
     'attention': (('flash_fwd_kernel',),
@@ -416,6 +473,7 @@ RUNS = {
     'decode_fused': (('ln_matmul', 'block_tail_kernel'), run_decode_fused),
     'ring_attention': (('ring_fwd_kernel', 'ring_bwd_dq_kernel', 'ring_bwd_dkv_kernel'),
                        run_ring_attention),
+    'quantize': (('vq_one_hot_kernel',), run_quantize),
 }
 
 
@@ -440,16 +498,19 @@ def main(argv=None):
         lib = ctypes.CDLL(str(lib_path))
         rng = np.random.RandomState(0)
         kernels, run = RUNS[src]
-        row = dict(source=src, knobs=knobs, ptxas=ptxas(log, kernels),
-                   shapes=run(lib, rng, dev, knobs), device=smi)
+        row = dict(source=src, knobs=knobs, control=bool(set(knobs) & set(CONTROLS)),
+                   ptxas=ptxas(log, kernels), shapes=run(lib, rng, dev, knobs), device=smi)
         print(json.dumps(row), flush=True)
         rows.append(row)
         torch.cuda.empty_cache()
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(rows, indent=1) + '\n')
-    bad = [r for r in rows for s in r['shapes'].values() if s['outside_tol']]
-    if bad:
-        print(f'knob_sweep: {len(bad)} cases miss the plain version', file=sys.stderr)
+    bad = [s for r in rows if not r['control'] for s in r['shapes'].values() if s['outside_tol']]
+    caught = [r for r in rows if r['control'] and any(s['outside_tol'] for s in r['shapes'].values())]
+    n_controls = sum(r['control'] for r in rows)
+    if bad or len(caught) < n_controls:
+        print(f'knob_sweep: {len(bad)} cases miss the plain version; '
+              f'{n_controls - len(caught)} controls miss it nowhere', file=sys.stderr)
         return 1
     return 0
 

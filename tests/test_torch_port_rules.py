@@ -188,6 +188,34 @@ def test_ln_matmul_multiplies_on_the_tensor_cores():
     assert 'gmt_layernorm_rows_bf16' not in (csrc / 'common.cuh').read_text()
 
 
+def test_vq_search_multiplies_on_the_tensor_cores():
+    """Kernel F (quantize.cu vq_one_hot_kernel) multiplies on the tensor
+    cores: three tf32 mma.sync products a k8 step (3xTF32, mma.cuh's
+    gmt_mma_tf32 on gmt_tf32_split's hi/lo parts of both operands), the z
+    strip and the codebook's K-tiles by cp.async (16-byte, or 4-byte where
+    rows are not aligned) into a ring of buffers; no fmaf product loop over D, as
+    the first design had, and no atomics; the index written as int64 and
+    the one-hot in 16-byte stores. gmt_vq_one_hot is the one entry the
+    wrapper calls, and the wrapper adds no cast after it."""
+    csrc = PORT / 'ops' / 'csrc'
+    mma = (csrc / 'mma.cuh').read_text()
+    src = (csrc / 'quantize.cu').read_text()
+    assert 'mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32' in mma
+    assert 'cvt.rna.tf32.f32' in mma and '#include "mma.cuh"' in src
+    assert src.count('gmt_mma_tf32(') == 3 and src.count('gmt_tf32_split(') == 6
+    assert 'gmt_cp_async16_ca(' in src and 'gmt_cp_async4(' in src
+    assert 'gmt_cp_async_wait<VQ_STAGES - 2>()' in src
+    assert 'fmaf(' not in src and 'atomic' not in src.replace('(no atomics)', '')
+    assert 'float4' in src
+    assert 'extern "C" int gmt_vq_one_hot(const float* z, const float* e, float* one_hot, ' \
+           'long long* idx,' in src
+    wrapper = (PORT / 'ops' / 'quantize.py').read_text()
+    calls = [(n.args[0].value, n.args[1].value) for n in ast.walk(ast.parse(wrapper))
+             if isinstance(n, ast.Call) and getattr(n.func, 'id', '') == 'c_function']
+    assert calls == [('quantize', 'gmt_vq_one_hot')]
+    assert 'dtype=torch.int64' in wrapper and '.long()' not in wrapper
+
+
 def _ring_section(kernel):
     """ring_attention.cu's section of Kernel K, L or M."""
     src = (PORT / 'ops' / 'csrc' / 'ring_attention.cu').read_text()
@@ -249,7 +277,7 @@ def test_check_ring_refuses_a_head_width_the_hop_kernels_do_not_take(fn, D):
 
 
 @pytest.mark.parametrize('src', ['attention', 'masked_dense', 'int8', 'decode_fused',
-                                 'ring_attention'])
+                                 'ring_attention', 'quantize'])
 def test_knob_sweep_rewrites_one_line_a_knob(src):
     """ops/knob_sweep.py (run on the card) finds each of its knobs' lines
     exactly once in the source, and its first variant of each source is the
