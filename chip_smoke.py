@@ -107,18 +107,51 @@ failure exits non-zero before the result lines:
                 chain; made's causality under w8a16, bitwise, and under
                 w8a8 the logits that move (one absmax scale a row sees
                 every unit).
-  17. profile -- device time by kernel over one request and one train step
+  17. diff_serve -- diffusion_model's class-conditional serving path at
+                its default configuration (hidden_size=128, timesteps=250,
+                v, ddim, bf16; every ResBlock's zero-init output conv drawn
+                from seed 0) through load_server at serve_bs=64: warm, then
+                guided 250-step DDIM requests with labels (64 mixed with -1,
+                seed=7 twice and bitwise equal; 25 with y=3; 16 with y=3
+                over HTTP), bad labels refused, one request at
+                --fused_cfg=1 and one at --sampler=dpm2m --sample_steps=25;
+                no kernel of ops/ launched; then at batch 4 the card's
+                forward and a 10-step guided chain against a CPU f32 copy,
+                and fused against two-call guidance on the card, each within
+                its stated bound.
+  18. diff_train -- diffusion_model's training path through main.main at
+                bs=64 (10 steps, --ema=0.999, --eval_heavy=0): no kernel of
+                ops/, finite losses, the grid's event file and the three
+                chain GIFs of each epoch, the EMA copy in model.pt; then the
+                model restored from it, Adam's step counters on the CPU,
+                takes one step.
+  19. diff_grads -- one train step's gradients on the card, bf16 and from an
+                f32 copy, against a CPU f32 copy from the same draws; one
+                Adam step from the same gradients and state; each conv
+                shape of the UNet in bf16 against f32 arithmetic on its
+                bf16 operands (forward, dgrad, wgrad, bias gradient).
+  20. diff_distill -- --teacher_path=diff_train's model.pt at step1, then
+                step1's model.pt at step2, three steps each: at step 0 the
+                student, its EMA and the teacher equal the teacher
+                checkpoint but for the student's cond_w_embed; the teacher
+                bitwise unchanged after training; finite losses.
+  21. profile -- device time by kernel over one request and one train step
                 of each model, one pixel_transformer scoring forward, one
                 seq:4 train step, one quantized request of vqvae and of made
-                in each mode, and 32 decode steps of a quantized
-                pixel_transformer request in each mode; the device-to-host
-                copies of one vqvae train step, counted, each with the op
-                and the Python lines that issued it.
+                in each mode, 32 decode steps of a quantized
+                pixel_transformer request in each mode, one guided DDIM
+                step of a diffusion request, a whole dpm2m request and one
+                diffusion train step; the device-to-host copies of one
+                vqvae and one diffusion train step, counted, each with the
+                op and the Python lines that issued it (both models'
+                optimizers restored from model.pt: none may come from
+                Adam.step).
 Then the kernels line, the nvidia-smi line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
+import copy
 import itertools
 import json
 import re
@@ -148,6 +181,30 @@ NO_RING = dict.fromkeys(RING_KERNELS, 0)  # the ring's kernels run only under --
 SEQ_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_seq'
 SEQ = 4  # the seq_train phase's ring: --mesh=seq:4
 PT_DECODE_WINDOW = range(392, 424)  # the profiled steps of a quantized pixel_transformer request
+DIFF_FLAGS = ['--model=diffusion_model', '--eval_heavy=0']  # --eval_heavy=1 is not ported yet
+DIFF_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_diffusion'
+DIFF_DISTILL_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_distill'
+DIFF_LABELS = [i % 11 - 1 for i in range(64)]  # every class and -1 (unconditional)
+# the card's bf16 UNet against a CPU f32 copy of the same weights at batch 4,
+# as relative Frobenius errors: one forward and a 10-step guided DDIM chain
+# from the same noise and guidance weights (measured 0.0102 and 0.0094 on
+# an H100, a bf16 rounding of 2^-9 through ~30 layers: bounds 3x that);
+# fused against two-call guidance on the card (measured 0: bitwise; the
+# bound leaves room for cuDNN to take another algorithm at batch 8 than at
+# 4); a train step's Adam update from the same gradients and optimizer
+# state (f32 on both sides)
+DIFF_FWD_REL, DIFF_CHAIN_REL, DIFF_FUSED_REL, DIFF_ADAM_REL = 0.03, 0.03, 1e-3, 1e-4
+# a train step's gradients against a CPU f32 copy's, as grad_check's (rel of
+# each gradient's norm, floor of the whole gradient's): the card's f32 copy
+# (TF32 off) to f32 rounding (measured 3.9e-6 at most on an H100); the
+# card's bf16 UNet within 0.25 of each gradient's norm plus 5e-3 of the
+# whole gradient's: bf16 moves this loss's gradients far more than
+# pixel_transformer's (measured on an H100: a median 3.8 %, 12 % at
+# norm_out.bias and 159 % at conv_out.bias, the output's mean, 3.2e-3 of the
+# whole gradient's norm), while each bf16 conv alone stays within
+# DIFF_CONV_REL of f32 arithmetic on the same bf16 operands (2^-9, the
+# rounding of its bf16 output, and the bias added after it, rounded again)
+DIFF_GRAD_F32, DIFF_GRAD_BF16, DIFF_CONV_REL = (1e-3, 1e-5), (0.25, 5e-3), 3e-3
 
 
 def log(*a):
@@ -1382,16 +1439,16 @@ def _cpu_copy(model, G, **over):
     return cpu
 
 
-def grad_check(label, model, cpu):
+def grad_check(label, model, cpu, rel=5e-2, floor=1e-4):
     """Every parameter's gradient on the card (already in p.grad) against
     the CPU copy's: finite, non-zero, and within a bf16 tolerance."""
     ref = dict(cpu.net.named_parameters())
     total = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in ref.values())))
     # bf16 operands round each product's inputs by up to 2^-8 relative, and
     # a gradient passes ~10 such products: its relative error sits near
-    # 1e-2, so 5e-2 of its own norm, plus 1e-4 of the whole gradient's norm
-    # for key.bias, whose exact gradient is 0 (softmax is shift-invariant)
-    rel, floor = 5e-2, 1e-4
+    # 1e-2, so rel = 5e-2 of its own norm, plus floor = 1e-4 of the whole
+    # gradient's norm for key.bias, whose exact gradient is 0 (softmax is
+    # shift-invariant)
     out = {}
     for name, p in model.net.named_parameters():
         g = p.grad
@@ -1406,7 +1463,8 @@ def grad_check(label, model, cpu):
     worst = max(out, key=out.get)
     log(f'[{label}] {len(out)} parameters finite and non-zero; relative error vs CPU f32 '
         f'max {out[worst]:.3g} ({worst}), median {sorted(out.values())[len(out) // 2]:.3g}; '
-        f'tolerance {rel} of the norm + {floor} of |all grads| = {total:.4g}')
+        f'tolerance {rel} of the norm + {floor} of |all grads| = {total:.4g}; worst: '
+        f'{json.dumps({k: round(out[k], 5) for k in sorted(out, key=out.get)[-4:]})}')
     return dict(rel_err=out, rtol_norm=rel, atol_of_total=floor)
 
 
@@ -1755,6 +1813,372 @@ def phase_made_grads():
     return model, dataset, grad_check('made_grads', model, cpu)
 
 
+def _live_resblocks(model, seed=0):
+    """Draw every ResBlock's output conv, which starts at zero (so that each
+    block passes its input through and ignores the time and class
+    embedding), with the lecun-normal scale of the other convs, from a
+    CPU generator seeded with seed: random weights on which every layer of
+    the UNet acts."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for block in model.net.blocks:
+            w = block.conv1.weight
+            std = (1.0 / (w.shape[1] * w.shape[2] * w.shape[3])) ** 0.5
+            w.copy_(torch.randn(w.shape, generator=gen).to(w.device) * std)
+
+
+def _rel(got, ref):
+    """Relative Frobenius error of got against ref (float64, on the CPU)."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    return float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+
+
+def _check_samples(label, s, n):
+    if s.shape != (n, 28, 28, 1) or not np.isfinite(s).all() or s.min() < 0 or s.max() > 1:
+        raise AssertionError(f'{label}: shape {s.shape}, finite {np.isfinite(s).all()}, '
+                             f'range [{s.min()}, {s.max()}] (want (n, 28, 28, 1) in [0, 1])')
+
+
+def phase_diff_serve():
+    """diffusion_model's class-conditional serving path at its default
+    configuration (hidden_size=128, timesteps=250, v, ddim, bf16) through
+    load_server at serve_bs=64, random weights from seed 0: warm, then
+    guided 250-step DDIM requests with labels (64 mixed with -1, seed=7
+    twice; 25 with y=3; 16 with y=3 over HTTP), bad labels refused, one
+    request at --fused_cfg=1 and one at --sampler=dpm2m --sample_steps=25.
+    No kernel of ops/ is launched. Then the card against a CPU f32 copy at
+    batch 4 (diff_cpu_checks)."""
+    from generative_models_tpu_torch.serve import _http_serve, load_server
+
+    counters = _counters()
+    _reset(counters)
+    t0 = time.time()
+    server, G = load_server(DIFF_FLAGS + ['--serve_bs=64'])
+    _live_resblocks(server.model)
+    warm = server.warm()
+    log(f'[diff_serve] load_server + warm {time.time() - t0:.2f}s (warm {warm:.2f}s)')
+    a = server.sample(64, y=DIFF_LABELS, seed=7)
+    b = server.sample(64, y=DIFF_LABELS, seed=7)
+    c = server.sample(25, y=[3])
+    httpd = _http_serve(server, 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        st, png = _get(f'http://127.0.0.1:{httpd.server_address[1]}/sample?n=16&y=3')
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=60)
+    if st != 200 or png[:8] != b'\x89PNG\r\n\x1a\n' or th.is_alive():
+        raise AssertionError(f'diff_serve HTTP: /sample {st}, thread alive {th.is_alive()}')
+    for bad in ([10], [-2], [1, 2]):
+        try:
+            server.sample(4, y=bad)
+        except ValueError:
+            continue
+        raise AssertionError(f'diff_serve: labels {bad} were not refused')
+    for label, s, n in (('seed=7', a, 64), ('y=3', c, 25)):
+        _check_samples(f'diff_serve {label}', s, n)
+    if not np.array_equal(a, b):
+        raise AssertionError('diff_serve: seed=7 twice gave different batches')
+    if server.stats()['requests'] != 4 or not server.stats()['class_cond']:
+        raise AssertionError(f'diff_serve stats {server.stats()}')
+    lat = list(server.latencies)
+    log(f'[diff_serve] request latencies (s): {[round(v, 4) for v in lat]}')
+
+    other = {}
+    for key, flags in (('fused_cfg', ['--fused_cfg=1']),
+                       ('dpm2m_25', ['--sampler=dpm2m', '--sample_steps=25'])):
+        srv, _ = load_server(DIFF_FLAGS + ['--serve_bs=64'] + flags)
+        _live_resblocks(srv.model)
+        w = srv.warm()
+        s = srv.sample(64, y=DIFF_LABELS, seed=7)
+        _check_samples(f'diff_serve {key}', s, 64)
+        other[key] = dict(warm_sec=w, request_sec=list(srv.latencies),
+                          max_abs_diff_vs_ddim=float(np.abs(s - a).max()), server=srv)
+        log(f'[diff_serve] {key}: warm {w:.2f}s, request {srv.latencies[0]:.3f}s, '
+            f'max |this - two-call ddim| {other[key]["max_abs_diff_vs_ddim"]:.4f}')
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    if any(launches.values()):
+        raise AssertionError(f'diff_serve launched kernels of ops/: {launches}')
+    checks = diff_cpu_checks(server.model, G)
+    return dict(latencies=lat, warm_sec=warm, other=other, checks=checks, server=server)
+
+
+def diff_cpu_checks(model, G):
+    """The card's bf16 UNet against a CPU f32 copy of the same weights at
+    batch 4: one forward; a 10-step guided DDIM chain from the same noise
+    and guidance weights; and on the card fused against two-call guidance,
+    each as a relative Frobenius error within its bound."""
+    from generative_models_tpu_torch.models.diffusion import GaussianDiffusion
+
+    dev = model.device
+    cpu = _cpu_copy(model, G, bf16=0)
+    gen = torch.Generator().manual_seed(0)
+    z = torch.randn((4, 28, 28, 1), generator=gen)
+    ls = torch.tensor([-15.0, -2.0, 3.0, 12.0])
+    y = torch.tensor([1, -1, 5, 9], dtype=torch.int32)
+    w = torch.rand(4, generator=gen)
+    with torch.no_grad():
+        card = model.net.eval()(z.to(dev), ls.to(dev), guide=y.to(dev))
+        ref = cpu.net.eval()(z, ls, guide=y)
+    out = {'forward': _rel(card, ref)}
+    kw = dict(mean_type=G.mean_type, num_steps=int(G.timesteps), sample_steps=10,
+              sample_cond_w=-1.0)
+    chain = lambda m, d, dv: m.sample_chain(z.to(dv), y.to(dv), cond_w=0.5, w=w.to(dv),
+                                            return_history=False, diffusion=d)
+    two_call = chain(model, GaussianDiffusion(**kw), dev)
+    out['chain_10_guided'] = _rel(two_call, chain(cpu, GaussianDiffusion(**kw), 'cpu'))
+    out['fused_vs_two_call'] = _rel(chain(model, GaussianDiffusion(fused_cfg=True, **kw), dev),
+                                    two_call)
+    bounds = {'forward': DIFF_FWD_REL, 'chain_10_guided': DIFF_CHAIN_REL,
+              'fused_vs_two_call': DIFF_FUSED_REL}
+    log(f'[diff_serve] card vs CPU f32 (relative Frobenius): {json.dumps(out)}; '
+        f'bounds {json.dumps(bounds)}')
+    for k, v in out.items():
+        if not v < bounds[k]:
+            raise AssertionError(f'diff_serve {k}: relative error {v:.4g} >= {bounds[k]}')
+    return dict(rel_err=out, bounds=bounds)
+
+
+def phase_diff_train():
+    """diffusion_model's training path through main.main at bs=64 for one
+    epoch on the synthetic set cut to 640/128 images (10 steps), with
+    --ema=0.999: no kernel of ops/ launched, finite losses, the grid's
+    event file and the three chain GIFs of each epoch, a model.pt holding
+    the EMA copy; then the model restored from it (Adam's step counters on
+    the CPU) takes one step."""
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch.main import load_model_and_data
+    from generative_models_tpu_torch.main import main as train_main
+
+    train_n, test_n, bs = 640, 128, 64
+    mnist.TRAIN_N, mnist.TEST_N = train_n, test_n  # 10 steps, 2 eval batches
+    shutil.rmtree(DIFF_TRAIN_DIR, ignore_errors=True)
+    counters = _counters()
+    _reset(counters)
+    t0 = time.time()
+    history = train_main(DIFF_FLAGS + [
+        f'--bs={bs}', '--epochs=1', '--save_n=1', '--ema=0.999', '--data_source=synthetic',
+        f'--logdir={DIFF_TRAIN_DIR}',
+    ])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _read(counters)
+    log(f'[diff_train] main.main {wall:.2f}s; launches {launches}')
+    if any(launches.values()):
+        raise AssertionError(f'diff_train launched kernels of ops/: {launches}')
+    gifs = [f'{tag}_{e}.gif' for tag in ('sampling_process', 'diffusion_model_eps',
+                                         'diffusion_model_x') for e in (0, 1)]
+    for name in ['model.pt', 'hps.yaml'] + gifs:
+        if not (DIFF_TRAIN_DIR / name).is_file():
+            raise AssertionError(f'diff_train: {name} was not written')
+    for name in gifs:
+        if (DIFF_TRAIN_DIR / name).read_bytes()[:6] != b'GIF89a':
+            raise AssertionError(f'diff_train: {name} is not a GIF')
+    if not list(DIFF_TRAIN_DIR.glob('events.out.tfevents.*')):
+        raise AssertionError('diff_train: no TensorBoard event file (the samples grid)')
+    for i, h in enumerate(history):
+        bad = {k: v for k, v in h.items() if not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f'diff_train: non-finite metrics at epoch {i}: {bad}')
+    keys = {'diffusion_model/test/loss', 'diffusion_model/train/loss', 'dt/train', 'dt/eval',
+            'num_vars'}
+    if set(history[1]) != keys:
+        raise AssertionError(f'diff_train: epoch 1 logged {sorted(history[1])}')
+    state = torch.load(DIFF_TRAIN_DIR / 'model.pt', map_location='cpu', weights_only=True)
+    ema = state['extra'].get('ema', {})
+    if set(ema) != set(state['net']) or all(torch.equal(ema[k], state['net'][k]) for k in ema):
+        raise AssertionError('diff_train: model.pt holds no EMA copy apart from the weights')
+    loss = [h['diffusion_model/test/loss'] for h in history]
+    log(f'[diff_train] test loss {loss}, train loss {history[1]["diffusion_model/train/loss"]}, '
+        f'dt/train {history[1]["dt/train"]:.3f}s for {train_n // bs} steps, '
+        f'dt/eval {history[1]["dt/eval"]:.3f}s')
+
+    model, dataset, G = load_model_and_data([
+        f'--weights_from={DIFF_TRAIN_DIR / "model.pt"}', '--data_source=synthetic',
+    ])
+    on = {st['step'].device.type for st in model.opt.state.values()}
+    if on != {'cpu'}:
+        raise AssertionError(f'diff_train: restored Adam step counters on {on}')
+    bx, by = dataset.epoch_batches(torch.Generator().manual_seed(0))
+    restored_loss = float(model.train_step(bx[0], by[0])['loss'])
+    if not np.isfinite(restored_loss):
+        raise AssertionError(f'diff_train: restored step loss {restored_loss}')
+    log(f'[diff_train] restored from model.pt (Adam steps on the CPU): one step, loss '
+        f'{restored_loss:.5f}')
+    return dict(launches=launches, wall_sec=wall, steps=train_n // bs, history=history,
+                restored_loss=restored_loss, model=model, dataset=dataset, G=G)
+
+
+def phase_diff_grads(model, dataset, G):
+    """One train step's gradients on the card, bf16 and from an f32 copy,
+    against a CPU f32 copy from the same batch and draws (grad_check with
+    DIFF_GRAD_BF16's and DIFF_GRAD_F32's bounds); then one Adam step
+    on each from the same optimizer state and the same (the CPU copy's)
+    gradients, the updates' relative Frobenius error within DIFF_ADAM_REL.
+    The same gradients, because Adam divides each element by its own RMS:
+    an element whose exact gradient is 0 (a bias before a GroupNorm) steps
+    by ~lr on rounding noise, in a direction of its own on each side. Last,
+    bf16_conv_checks."""
+    dev = model.device
+    x, y = dataset.first_test_batch(0)
+    x, y = x[:8], y[:8]
+    gen = torch.Generator().manual_seed(1)
+    draws = dict(drop=torch.rand(8, generator=gen), eps=torch.randn((8, 28, 28, 1), generator=gen),
+                 u=torch.rand(8, generator=gen))
+    cpu = _cpu_copy(model, G, bf16=0)
+    cpu.opt.load_state_dict(copy.deepcopy(model.opt.state_dict()))  # shares no tensor
+    cpu.updates = model.updates
+    card_f32 = type(model)(type(G)(G, bf16=0))
+    card_f32.net.load_state_dict(model.net.state_dict())
+    on_card = {k: v.to(dev) for k, v in draws.items()}
+    model.backward(x, y, draws=on_card)
+    card_f32.backward(x, y, draws=on_card)
+    cpu.backward(x.cpu(), y.cpu(), draws=draws)
+    out_f32 = grad_check('diff_grads f32', card_f32, cpu, *DIFF_GRAD_F32)
+    out = grad_check('diff_grads', model, cpu, *DIFF_GRAD_BF16)
+    out['f32_max_rel_err'] = max(out_f32['rel_err'].values())
+    out['whole_rel_err'] = _rel(torch.cat([p.grad.flatten() for p in model.net.parameters()]),
+                                torch.cat([p.grad.flatten() for p in cpu.net.parameters()]))
+    log(f'[diff_grads] the whole bf16 gradient vs the CPU copy\'s, relative Frobenius '
+        f'{out["whole_rel_err"]:.4g}')
+    before = [p.detach().cpu().clone() for p in model.net.parameters()]
+    for p, q in zip(model.net.parameters(), cpu.net.parameters()):
+        p.grad = q.grad.to(dev)
+    model.apply_grads()
+    cpu.apply_grads()
+    step = torch.cat([(p.detach().cpu() - b).flatten() for p, b in zip(model.net.parameters(), before)])
+    ref = torch.cat([(p.detach() - b).flatten() for p, b in zip(cpu.net.parameters(), before)])
+    out['adam_update_rel_err'] = _rel(step, ref)
+    log(f'[diff_grads] one Adam step from the same gradients and state: update vs the CPU '
+        f'copy\'s, relative Frobenius {out["adam_update_rel_err"]:.4g} (bound {DIFF_ADAM_REL})')
+    if not out['adam_update_rel_err'] < DIFF_ADAM_REL:
+        raise AssertionError(f'diff_grads: Adam update relative error {out["adam_update_rel_err"]}')
+    out['bf16_convs'] = bf16_conv_checks(dev)
+    return out
+
+
+def bf16_conv_checks(dev):
+    """Each conv shape of the UNet at bs=8 (and the 3x3 at bs=64), in bf16
+    on the card against f32 arithmetic on the same bf16 operands on the CPU:
+    the forward (bias included), dgrad, wgrad and bias gradient, each a
+    relative Frobenius error within DIFF_CONV_REL."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(3)
+    out = {}
+    for cin, cout, k, B in ((1, 128, 3, 8), (128, 128, 3, 8), (256, 128, 3, 8), (256, 128, 1, 8),
+                            (128, 1, 3, 8), (128, 128, 3, 64)):
+        x = torch.randn((B, cin, 28, 28), generator=gen).bfloat16()
+        w = (torch.randn((cout, cin, k, k), generator=gen) / (k * cin ** 0.5)).bfloat16()
+        b = torch.randn(cout, generator=gen).bfloat16()
+        g = torch.randn((B, cout, 28, 28), generator=gen).bfloat16()
+        res = []
+        for t, cast in ((dev, lambda a: a.to(dev)), ('cpu', lambda a: a.float())):
+            args = [cast(a).detach().requires_grad_() for a in (x, w, b)]
+            o = F.conv2d(*args, padding=k // 2)
+            o.backward(cast(g))
+            res.append([o] + [a.grad for a in args])
+        errs = {name: _rel(c, r) for name, c, r in zip(('fwd', 'dgrad', 'wgrad', 'bias'), *res)}
+        out[f'{cin}->{cout} {k}x{k} B={B}'] = errs
+        if max(errs.values()) >= DIFF_CONV_REL:
+            raise AssertionError(f'diff_grads: bf16 conv {cin}->{cout} {k}x{k}: {errs}')
+    log(f'[diff_grads] bf16 convs vs f32 arithmetic on their bf16 operands: {json.dumps(out)} '
+        f'(bound {DIFF_CONV_REL})')
+    return out
+
+
+def phase_diff_distill():
+    """Progressive distillation through the entry points: a step1 student of
+    diff_train's model.pt, then a step2 student of that student's model.pt,
+    three steps each at bs=64 (one epoch, 192 images), with --ema=0.999. At
+    step 0 the student has its cond_w_embed and every other weight equal to
+    the teacher's, as its EMA; the frozen teacher is bitwise unchanged
+    after training; the losses are finite; no kernel of ops/ launched."""
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch.main import load_model_and_data, train
+    from generative_models_tpu_torch.models.base import read_checkpoint
+
+    mnist.TRAIN_N, mnist.TEST_N = 192, 64  # 3 steps, 1 eval batch
+    counters = _counters()
+    _reset(counters)
+    teacher_path, out = DIFF_TRAIN_DIR / 'model.pt', {}
+    for mode in ('step1', 'step2'):
+        logdir = DIFF_DISTILL_DIR / mode
+        shutil.rmtree(logdir, ignore_errors=True)
+        model, dataset, G = load_model_and_data(DIFF_FLAGS + [
+            '--bs=64', '--epochs=1', '--save_n=1', '--ema=0.999', '--data_source=synthetic',
+            f'--teacher_path={teacher_path}', f'--teacher_mode={mode}', f'--logdir={logdir}',
+        ])
+        teacher = read_checkpoint(teacher_path)['net']
+        if not model.has_teacher or model.net.cond_w_embed is None:
+            raise AssertionError(f'diff_distill {mode}: no teacher or no cond_w_embed')
+        for name, net in (('student', model.net), ('teacher', model.teacher_net),
+                          ('ema', model.ema_net)):
+            sd = net.state_dict()
+            if set(sd) - set(teacher) - {k for k in sd if k.startswith('cond_w_embed.')}:
+                raise AssertionError(f'diff_distill {mode}: {name} has weights the teacher lacks')
+            for k, v in teacher.items():
+                if not torch.equal(sd[k].cpu(), v):
+                    raise AssertionError(f'diff_distill {mode}: {name} {k} != the teacher\'s at step 0')
+        t0 = time.time()
+        history = train(model, dataset, G)
+        torch.cuda.synchronize()
+        for k, v in model.teacher_net.state_dict().items():
+            if k in teacher and not torch.equal(v.cpu(), teacher[k]):
+                raise AssertionError(f'diff_distill {mode}: the teacher moved at {k}')
+        losses = [h[k] for h in history for k in h if k.endswith('/loss')]
+        if not losses or not np.all(np.isfinite(losses)):
+            raise AssertionError(f'diff_distill {mode}: losses {losses}')
+        out[mode] = dict(wall_sec=time.time() - t0, history=history)
+        log(f'[diff_distill] {mode}: 3 steps in {out[mode]["wall_sec"]:.2f}s, losses {losses}')
+        teacher_path = logdir / 'model.pt'
+    launches = _read(counters)
+    if any(launches.values()):
+        raise AssertionError(f'diff_distill launched kernels of ops/: {launches}')
+    return out
+
+
+def _guided_step(model, n=64):
+    """One guided DDIM step of a request at serve_bs=n (the two UNet
+    forwards and the guidance math), on fixed inputs."""
+    gen = torch.Generator(model.device).manual_seed(0)
+    z = torch.randn((n, 28, 28, 1), generator=gen, device=model.device)
+    y = torch.as_tensor(DIFF_LABELS[:n], dtype=torch.int32, device=model.device)
+    cond_w = 4.0 * torch.rand(n, generator=gen, device=model.device)
+    net = model._make_net(model._sample_net(), y)
+    ls = model.diffusion.logsnr_schedule_fn(torch.tensor([0.5, 0.496], device=model.device))
+
+    @torch.no_grad()
+    def run():
+        model.diffusion.ddim_step(net=net, z_t=z, logsnr_t=ls[0], logsnr_s=ls[1], cond_w=cond_w)
+    return run
+
+
+def _count_launches(label, fn):
+    """The device kernels and copies of one call of fn, counted under
+    torch.profiler's CUDA activity alone (no op events): for a whole
+    request."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t1
+    events = [e for e in prof.events() if _on_device(e)]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    out = dict(wall_ms=wall * 1e3, device_ms=busy, launches=len(events),
+               busy_share=busy / (wall * 1e3), traced_sec=time.time() - t0)
+    log(f'[profile] {label}: wall {out["wall_ms"]:.1f} ms, device {busy:.1f} ms, '
+        f'{len(events)} launches, busy share {out["busy_share"]:.3f}; traced in '
+        f'{out["traced_sec"]:.1f}s')
+    return out
+
+
 def _healthz(server):
     """GET /healthz from the server's HTTP front, started and stopped here."""
     from generative_models_tpu_torch.serve import _http_serve
@@ -2037,14 +2461,21 @@ def _decode_window(server, steps):
 
 
 def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
-                  made_server, made_model, made_dataset, quant, seq_model, seq_dataset):
+                  made_server, made_model, made_dataset, quant, seq_model, seq_dataset, diff):
     """Device time by kernel over one seeded request, one (warm) scoring
     forward and one (warm) train step at bs=64, for pixel_transformer, for
     vqvae and for made at hidden_size=2048; one (warm) pixel_transformer
     train step under --mesh=seq:4; one seeded quantized request of vqvae and
     made in each mode; and a window of PT_DECODE_WINDOW decode steps of a
     quantized pixel_transformer request in each mode (a whole request's
-    trace, 100k-200k launches, took 60-100 s to process)."""
+    trace, 100k-200k launches, took 60-100 s to process). For diffusion
+    (diff: its server, and its restored model and dataset): one guided
+    DDIM step of a request (two UNet forwards: a 250-step request is 250
+    of them, plus 21 launches), a whole 25-step dpm2m request's launches
+    and device time (CUDA activity alone; a 250-step request's trace, 367k
+    launches, took 73 s to process), and one train step, whose
+    device-to-host copies, like the vqvae step's, include none from
+    Adam.step: both models' optimizers were restored from a model.pt."""
     bx = dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
     model.train_step(bx[0])
     seq_bx = seq_dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
@@ -2053,8 +2484,10 @@ def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
     vq_model.train_step(vq_bx[0])
     made_bx = made_dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
     made_model.train_step(made_bx[0])
+    diff_bx, diff_by = diff['dataset'].epoch_batches(torch.Generator().manual_seed(0))
+    diff['model'].train_step(diff_bx[0], diff_by[0])
     torch.cuda.synchronize()
-    return dict(
+    out = dict(
         request=_profile('one request', lambda: server.sample(64, seed=11), 15),
         scoring=_profile('one scoring forward', lambda: server.model.eval_loss(x), 10),
         train_step=_profile('one train step', lambda: model.train_step(bx[1]), 15),
@@ -2076,7 +2509,22 @@ def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
             **_profile(f'{len(PT_DECODE_WINDOW)} decode steps of a {key} request',
                        _decode_window(q['server'], PT_DECODE_WINDOW), 12))
            for key, q in quant.items() if key.startswith('pixel_transformer')},
+        diffusion_guided_step=_profile('one guided DDIM step of a diffusion request '
+                                       '(two UNet forwards)', _guided_step(diff['server'].model), 15),
+        diffusion_dpm2m_request=_count_launches(
+            'one diffusion request at --sampler=dpm2m --sample_steps=25 (25 guided steps)',
+            lambda: diff['dpm2m_server'].sample(64, y=DIFF_LABELS, seed=11)),
+        diffusion_train_step=_profile('one diffusion train step',
+                                      lambda: diff['model'].train_step(diff_bx[1], diff_by[1]), 15),
+        diffusion_train_step_dtoh=_dtoh_copies('one diffusion train step',
+                                               lambda: diff['model'].train_step(diff_bx[2],
+                                                                                diff_by[2])),
     )
+    for key in ('vqvae_train_step_dtoh', 'diffusion_train_step_dtoh'):
+        adam = {k: n for k, n in out[key]['sources'].items() if 'adam' in k.lower()}
+        if adam:
+            raise AssertionError(f'{key}: device-to-host copies in Adam.step: {adam}')
+    return out
 
 
 def main():
@@ -2117,9 +2565,16 @@ def main():
     mt = timed('made_train', phase_made_train)
     made_model, made_dataset, made_grads = timed('made_grads', phase_made_grads)
     qs = timed('quant_serve', phase_quant_serve)
+    ds = timed('diff_serve', phase_diff_serve)
+    dt = timed('diff_train', phase_diff_train)
+    dg = timed('diff_grads', phase_diff_grads, dt['model'], dt['dataset'], dt['G'])
+    dd = timed('diff_distill', phase_diff_distill)
     prof = timed('profile', phase_profile, sl['server'], sl['x'], model, dataset,
                  vs['server'], vq_model, vq_dataset, ms['server'], made_model, made_dataset, qs,
-                 seq_model, seq_dataset)
+                 seq_model, seq_dataset,
+                 dict(server=ds['server'], dpm2m_server=ds['other']['dpm2m_25'].pop('server'),
+                      model=dt['model'], dataset=dt['dataset']))
+    ds['other']['fused_cfg'].pop('server')
     phase_sec['total'] = time.time() - t_start
     log(f'[time] phases {json.dumps(phase_sec)}')
 
@@ -2203,6 +2658,16 @@ def main():
             serve_bs=64, warm_sec=q['warm_sec'], request_sec=sorted(q['latencies']),
             launches_per_pass=q['per_pass'], checks=q['checks'], power=smi,
         ) for key, q in qs.items()},
+        diffusion_serve=dict(
+            serve_bs=64, warm_sec=ds['warm_sec'], request_sec=sorted(ds['latencies']),
+            other=ds['other'], checks=ds['checks'], power=smi,
+        ),
+        diffusion_train=dict(
+            wall_sec=dt['wall_sec'], steps=dt['steps'], history=dt['history'],
+            restored_loss=dt['restored_loss'],
+            grads_max_rel_err=max(dg['rel_err'].values()),
+            adam_update_rel_err=dg['adam_update_rel_err'], distill=dd, power=smi,
+        ),
         phase_sec=phase_sec,
     )))
     log(json.dumps({'kernels': kernels}))

@@ -11,5 +11,7 @@ serve.py, the scoring forward through models/base.py eval_loss) and
 training (main.py: Adam with the trainer knobs, the data pipeline, the
 logger, checkpoints), with the flash-attention backward on the card; and
 vqvae training, eval and serving (models/vqvae.py: the codebook search
-kernel, the joint AE and transformer-prior step with two optimizers).
+kernel, the joint AE and transformer-prior step with two optimizers); made;
+and diffusion_model (models/diffusion/: the UNet, the samplers, --ema,
+distillation, class-conditional serving), which runs no kernel of ops/.
 """

@@ -7,7 +7,9 @@ block{i}/attn/{query,key,value,proj}/{kernel,bias},
 block{i}/{fc1,fc2}/{kernel,bias}, ln_f/{scale,bias} and
 head_layer/Dense_0/{kernel,bias}. A VQVAE has ae/encoder/Conv_{0..3},
 ae/decoder/ConvTranspose_{0..3}, ae/codebook and prior/<TransformerNet>. A
-MADE has w0..w3 (in, out) and b0..b3, which the port keeps as they are.
+MADE has w0..w3 (in, out) and b0..b3, which the port keeps as they are. A
+diffusion SimpleUnet has flax's auto-names (time_embed, guide_embed,
+cond_w_embed, Downsample_i, ResBlock_i, Upsample_i, GroupNorm_0, Conv_0).
 
 Layouts: a flax Dense kernel is (in, out), a torch Linear weight (out, in);
 a flax Conv kernel is HWIO, a torch Conv2d weight OIHW. A flax
@@ -101,3 +103,43 @@ def quant_table_from_jax(table):
     for path, v in table.items():
         out[_module_name(path)] = conv(v) if not isinstance(v[0], tuple) else tuple(map(conv, v))
     return out
+
+
+def _diffusion_resblock(p, pre):
+    sd = {}
+    for j in (0, 1):
+        sd.update(_layernorm(p[f'GroupNorm_{j}'], f'{pre}.norm{j}'))
+        sd.update(_conv(p[f'Conv_{j}'], f'{pre}.conv{j}'))
+    sd.update(_linear(p['Dense_0'], f'{pre}.dense'))
+    if 'Conv_2' in p:  # the 1x1 projection of an up block's [h, skip]
+        sd.update(_conv(p['Conv_2'], f'{pre}.skip'))
+    return sd
+
+
+def diffusion_params_from_jax(tree):
+    """JAX SimpleUnet params -> state dict of the port's SimpleUnet:
+    time_embed / guide_embed / cond_w_embed Dense_0, Dense_1 -> dense0,
+    dense1; Downsample_i/Conv_0 -> down.i; ResBlock_i -> blocks.i (GroupNorm_j
+    -> normj, Conv_0/1 -> conv0/1, Conv_2 -> skip, Dense_0 -> dense);
+    Upsample_i/Conv_0 -> ups.i.conv; the last GroupNorm_0 / Conv_0 ->
+    norm_out / conv_out."""
+    sd = {}
+    for name in ('time_embed', 'guide_embed', 'cond_w_embed'):
+        if name in tree:
+            for j in (0, 1):
+                sd.update(_linear(tree[name][f'Dense_{j}'], f'{name}.dense{j}'))
+    i = 0
+    while f'Downsample_{i}' in tree:
+        sd.update(_conv(tree[f'Downsample_{i}']['Conv_0'], f'down.{i}'))
+        i += 1
+    i = 0
+    while f'ResBlock_{i}' in tree:
+        sd.update(_diffusion_resblock(tree[f'ResBlock_{i}'], f'blocks.{i}'))
+        i += 1
+    i = 0
+    while f'Upsample_{i}' in tree:
+        sd.update(_conv(tree[f'Upsample_{i}']['Conv_0'], f'ups.{i}.conv'))
+        i += 1
+    sd.update(_layernorm(tree['GroupNorm_0'], 'norm_out'))
+    sd.update(_conv(tree['Conv_0'], 'conv_out'))
+    return sd

@@ -8,9 +8,10 @@ keys (eval/nlogp, eval/bits_per_dim, train/nlogp, <model>/train/<k>,
 <model>/test/<k>, dt/train, dt/eval, num_vars), same artifacts (model.pt,
 hps.yaml, sampling_process_<epoch>.gif for the autoregressive models),
 --weights_from, --keep_best with best.json, --nan_guard and
---skip_training. Models: pixel_transformer, vqvae and made;
-pixel_transformer also under --mesh=seq:N (ring attention, all N ring
-positions on the one card: parallel/mesh.py).
+--skip_training. Models: pixel_transformer, vqvae, made and
+diffusion_model (with --eval_heavy=0: its default of 1 is refused until the
+arbiters are ported); pixel_transformer also under --mesh=seq:N (ring
+attention, all N ring positions on the one card: parallel/mesh.py).
 
 Runs on the card unless given --device=cpu, and raises without CUDA. An
 epoch is a Python loop of train steps whose metrics stay on the device

@@ -22,11 +22,14 @@ Adam): optimizers() names every one whose state a checkpoint keeps, and
 trained_params() the parameters self.opt steps.
 
 Checkpoints are the port's own: model.pt holds the full train state (net,
-every optimizer's state, step counters) as a torch pickle of tensors,
-beside an hps.yaml that both packages read; load_weights also reads a
-params-only state dict. A JAX checkpoint's params are carried over with
-convert.params_from_jax, convert.vqvae_params_from_jax or
-convert.made_params_from_jax.
+every optimizer's state, step counters, and what extra_state() names: the
+diffusion model's EMA copy and frozen teacher, as the JAX package's
+TrainState.extra) as a torch pickle of tensors, beside an hps.yaml that
+both packages read; load_weights also reads a params-only state dict. A
+restored optimizer keeps Adam's step counters on the CPU, as a fresh one
+does, so its steps make no device-to-host copy. A JAX checkpoint's params
+are carried over with convert.params_from_jax, convert.vqvae_params_from_jax,
+convert.made_params_from_jax or convert.diffusion_params_from_jax.
 """
 
 import math
@@ -76,11 +79,26 @@ def flax_init_(module, generator):
                 nn.init.zeros_(m.bias)
 
 
+def read_checkpoint(path):
+    """A model.pt written by GM.save (or a params-only state dict), read
+    on the CPU; a JAX msgpack checkpoint is refused."""
+    path = Path(path)
+    with open(path, 'rb') as f:
+        if f.read(2) != b'PK':  # torch.save writes a zip archive
+            raise NotImplementedError(
+                f'{path} is not a torch checkpoint (a JAX msgpack checkpoint?); '
+                'reading JAX checkpoints is not ported yet: carry params '
+                'over with generative_models_tpu_torch.convert.params_from_jax'
+            )
+    return torch.load(path, map_location='cpu', weights_only=True)
+
+
 class GM:
     """GenerativeModel base."""
 
     DG = AttrDict()  # model-specific config defaults
     supports_ring = False  # whether --mesh=seq:N (N > 1) is ported
+    supports_quantize = True  # whether serve.py --quantize is ported
 
     def __init__(self, G):
         self.G = G
@@ -217,18 +235,19 @@ class GM:
     # ------------------------------------------------------------------ #
     # steps and epochs
     # ------------------------------------------------------------------ #
-    def backward(self, x, y=None):
+    def backward(self, x, y=None, **kw):
         """Forward and backward of one batch in train mode: leaves the
         batch's gradients in p.grad and returns its metrics (device
-        scalars, not synced)."""
+        scalars, not synced). kw goes to train_loss (the diffusion model's
+        draws)."""
         self.net.train()
         self.net.zero_grad(set_to_none=True)
-        loss, metrics = self.train_loss(self._as_input(x), y)
+        loss, metrics = self.train_loss(self._as_input(x), y, **kw)
         loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(self, x, y=None):
-        metrics = self.backward(x, y)
+    def train_step(self, x, y=None, **kw):
+        metrics = self.backward(x, y, **kw)
         self.apply_grads()
         self.step += 1
         return metrics
@@ -265,32 +284,40 @@ class GM:
         suffix = f'_{tag}' if tag else ''
         state = dict(
             net=self.net.state_dict(), step=self.step, updates=self.updates,
-            mini_step=self.mini_step, acc=self._acc,
+            mini_step=self.mini_step, acc=self._acc, extra=self.extra_state(),
             **{name: o.state_dict() for name, o in self.optimizers().items()},
         )
         torch.save(state, path / f'model{suffix}.pt')
         dump_hps(self.G, path)
 
+    def extra_state(self):
+        """{name: state dict} of the model's other weights that a
+        checkpoint keeps beside the net (the JAX package's
+        TrainState.extra); none by default."""
+        return {}
+
+    def load_extra_state(self, extra):
+        """Restore what extra_state() saved (extra may be {})."""
+
     def load_weights(self, path):
         """Restore a model.pt written by save (the full train state), or a
         params-only torch state dict."""
-        path = Path(path)
-        with open(path, 'rb') as f:
-            if f.read(2) != b'PK':  # torch.save writes a zip archive
-                raise NotImplementedError(
-                    f'{path} is not a torch checkpoint (a JAX msgpack checkpoint?); '
-                    'reading JAX checkpoints is not ported yet: carry params '
-                    'over with generative_models_tpu_torch.convert.params_from_jax'
-                )
-        state = torch.load(path, map_location=self.device, weights_only=True)
+        state = read_checkpoint(path)
         if 'net' not in state:  # params only
             self.net.load_state_dict(state)
             return
         self.net.load_state_dict(state['net'])
+        # read on the CPU: load_state_dict moves Adam's moments to their
+        # parameters' device and leaves each step counter on the CPU, where
+        # a fresh Adam keeps it (on the card Adam.step would sync on it with
+        # .item() twice a parameter)
         for name, o in self.optimizers().items():
             o.load_state_dict(state[name])
         self.step, self.updates = int(state['step']), int(state['updates'])
-        self.mini_step, self._acc = int(state['mini_step']), state['acc']
+        self.mini_step = int(state['mini_step'])
+        acc = state['acc']
+        self._acc = None if acc is None else [a.to(self.device) for a in acc]
+        self.load_extra_state(state.get('extra', {}))
 
 
     # ------------------------------------------------------------------ #

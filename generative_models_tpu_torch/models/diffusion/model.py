@@ -1,0 +1,272 @@
+"""The diffusion model. Counterpart of
+generative_models_tpu/models/diffusion/model.py: SimpleUnet +
+GaussianDiffusion, classifier-free label dropout in training, --ema (a
+moving average of the parameters that sampling reads), a progressive-
+distillation teacher (the student starts from the frozen teacher's
+weights), guided sampling and serving with labels, and a seeded evaluate
+that writes the 25-sample grid and the z / x_hat / eps_hat chain GIFs.
+
+No kernel of ops/ lies on this path: the UNet's convs, GroupNorm and
+Linears are stock PyTorch ops (the JAX package leaves them to XLA), in bf16
+under --bf16=1 as flax's dtype computes them (unet.py).
+
+Random draws: training takes, in order, the label-drop uniforms, eps, u
+(or i) and w from the model's generator unless train_step is handed them
+(draws=dict(drop=, eps=, u=, w=)); the eval loss draws from a generator
+seeded afresh each call, as the JAX package folds one fixed tag into its
+key; serving from torch.Generator(device).manual_seed(seed), the noise
+first, then w.
+"""
+
+import copy
+from pathlib import Path
+
+import torch
+
+from generative_models_tpu_torch.models.base import GM, read_checkpoint
+from generative_models_tpu_torch.models.diffusion.gaussian_diffusion import GaussianDiffusion
+from generative_models_tpu_torch.models.diffusion.unet import SimpleUnet
+from generative_models_tpu_torch.utils import register, write_grid, write_gridvid
+from generative_models_tpu_torch.utils.config import AttrDict
+
+EVAL_SEED_TAG = 0x7FFFFFFF  # the eval loss's generator seed, beside G.seed
+
+
+@register
+class DiffusionModel(GM):
+    DG = AttrDict()
+    SAMPLE_RANGE = (-1.0, 1.0)  # sampling clips x_hat to [-1, 1]
+    DG.binarize = 0
+    DG.timesteps = 250
+    DG.hidden_size = 128
+    DG.dropout = 0.0
+    DG.sampler = 'ddim'  # ddim | noisy (ancestral) | dpm2m (DPM-Solver++(2M)) | teacher_test
+    DG.sample_steps = 0  # the chain's length; 0 = --timesteps
+    DG.mean_type = 'v'
+    DG.eval_heavy = 1  # refused by utils/config.py until the arbiters are ported
+    DG.class_cond = 1
+    DG.sample_cond_w = -1.0
+    DG.cf_drop_prob = 0.1
+    DG.teacher_path = Path('.')
+    DG.teacher_mode = 'step1'
+    DG.lr_scheduler = 'none'
+    DG.bf16 = 1  # bf16 compute, f32 parameters
+    DG.ema = 0.0  # > 0: sample from a moving average of the parameters
+    DG.fused_cfg = 0  # guided sampling: 1 = one doubled-batch call a step, 0 = two
+    DG.eval_sampler = ''  # sample_images' sampler ('' = --sampler)
+    DG.eval_sample_steps = 0  # sample_images' chain length (0 = --sample_steps)
+    supports_quantize = False
+
+    def __init__(self, G):
+        self.size = 32 if G.get('pad32', 0) else 28
+        self.has_teacher = Path(G.teacher_path) != Path('.') and G.weights_from == Path('.')
+        kw = dict(mean_type=G.mean_type, num_steps=int(G.timesteps),
+                  has_teacher=self.has_teacher, teacher_mode=G.teacher_mode,
+                  sample_cond_w=float(G.sample_cond_w), fused_cfg=bool(G.get('fused_cfg', 0)))
+        self.diffusion = GaussianDiffusion(
+            sampler=G.sampler, sample_steps=int(G.get('sample_steps', 0)), **kw)
+        ev_sampler = G.get('eval_sampler', '') or G.sampler
+        ev_steps = int(G.get('eval_sample_steps', 0)) or int(G.get('sample_steps', 0))
+        self._eval_diffusion = None
+        if (ev_sampler, ev_steps) != (G.sampler, int(G.get('sample_steps', 0))):
+            self._eval_diffusion = GaussianDiffusion(sampler=ev_sampler, sample_steps=ev_steps, **kw)
+        super().__init__(G)
+        self.ema_decay = float(G.get('ema', 0))
+        self.ema_net = self._frozen_copy() if self.ema_decay else None
+        self.teacher_net = None
+        if self.has_teacher:
+            self._load_teacher(G.teacher_path)
+
+    def build(self):
+        G = self.G
+        return SimpleUnet(
+            channels=int(G.hidden_size), dropout=float(G.dropout),
+            out_channels=2 if G.mean_type == 'both' else 1,
+            dtype=torch.bfloat16 if int(G.get('bf16', 1)) else torch.float32,
+            remat=bool(G.get('remat', 0)), cond_w=self.has_teacher,
+        )
+
+    def _frozen_copy(self):
+        net = copy.deepcopy(self.net).eval()
+        net.requires_grad_(False)
+        return net
+
+    def _load_teacher(self, path):
+        """The student starts from the teacher's weights, merged strict=False
+        over its own init (a step1 student's cond_w_embed, which the teacher
+        lacks, keeps its init); a frozen copy is the teacher, and the EMA
+        restarts from it. path: a port model.pt, or its directory."""
+        print('Loading teacher model')
+        path = Path(path)
+        if path.is_dir():
+            path = path / 'model.pt'
+        state = read_checkpoint(path)
+        teacher = state.get('net', state)
+        merged = self.net.state_dict()
+        for k, v in teacher.items():
+            if k in merged and merged[k].shape == v.shape:
+                merged[k] = v
+        self.net.load_state_dict(merged)
+        self.teacher_net = self._frozen_copy()
+        if self.ema_net is not None:
+            self.ema_net.load_state_dict(merged)
+
+    def extra_state(self):
+        extra = {}
+        if self.ema_net is not None:
+            extra['ema'] = self.ema_net.state_dict()
+        if self.teacher_net is not None:
+            extra['teacher'] = self.teacher_net.state_dict()
+        return extra
+
+    def load_extra_state(self, extra):
+        if self.ema_net is not None:
+            # a checkpoint without an EMA starts it from the restored weights
+            self.ema_net.load_state_dict(extra.get('ema', self.net.state_dict()))
+        if self.teacher_net is not None and 'teacher' in extra:
+            self.teacher_net.load_state_dict(extra['teacher'])
+
+    # ---------------------------------------------------------------- #
+    def _make_net(self, net, guide):
+        """The closure net(z, logsnr, cond_w=None, uncond=False,
+        uncond_second_half=False) of the diffusion core, over the UNet net
+        with labels guide (-1: unconditional)."""
+
+        def fn(z, logsnr, cond_w=None, uncond=False, uncond_second_half=False):
+            B, dev = z.shape[0], z.device
+            logsnr = torch.as_tensor(logsnr, dtype=torch.float32, device=dev).expand(B)
+            if uncond_second_half:
+                # fused CF guidance: rows [B/2:] are the unconditional branch
+                g = torch.cat([guide, -torch.ones_like(guide)])
+                if cond_w is not None:
+                    cw = torch.as_tensor(cond_w, dtype=torch.float32, device=dev)
+                    cond_w = torch.cat([cw, cw]) if cw.dim() else cw
+            else:
+                g = -torch.ones_like(guide) if uncond else guide
+            if cond_w is not None:
+                cond_w = torch.as_tensor(cond_w, dtype=torch.float32, device=dev).expand(B)
+            return net(z, logsnr, guide=g, cond_w=cond_w)
+
+        return fn
+
+    def _labels(self, y, n):
+        if y is None:
+            return -torch.ones((n,), dtype=torch.int32, device=self.device)
+        return torch.as_tensor(y, dtype=torch.int32).to(self.device)
+
+    def _losses(self, x, y, generator, draws, train):
+        draws = draws or {}
+        y = self._labels(y, x.shape[0])
+        drop = draws.get('drop')
+        if drop is None:
+            drop = torch.rand(y.shape, generator=generator, device=self.device)
+        if train:  # classifier-free label dropout
+            y = torch.where(drop < float(self.G.cf_drop_prob), -1, y)
+        teacher = None if self.teacher_net is None else self._make_net(self.teacher_net, y)
+        losses = self.diffusion.training_losses(
+            net=self._make_net(self.net, y), x=x, generator=generator, teacher_net=teacher,
+            **{k: draws.get(k) for k in ('eps', 'u', 'w')},
+        )
+        loss = losses['loss'].mean()
+        return loss, {'loss': loss}
+
+    def loss(self, x, y=None, draws=None):
+        """The eval loss: no label drop, draws from a fixed seed."""
+        seed = int(self.G.get('seed', 0)) + EVAL_SEED_TAG
+        gen = torch.Generator(self.device).manual_seed(seed)
+        return self._losses(x, y, gen, draws, train=False)
+
+    def train_loss(self, x, y=None, draws=None):
+        return self._losses(x, y, self._gen, draws, train=True)
+
+    def train_step(self, x, y=None, draws=None):
+        """One step; draws (dict of drop, eps, u, w) replace the
+        generator's."""
+        metrics = super().train_step(x, y, draws=draws)
+        if self.ema_net is not None:
+            # ema = d * ema + (1 - d) * params, after every step
+            d = self.ema_decay
+            ema = list(self.ema_net.parameters())
+            with torch.no_grad():
+                torch._foreach_mul_(ema, d)
+                torch._foreach_add_(ema, list(self.net.parameters()), alpha=1 - d)
+        return metrics
+
+    # ---------------------------------------------------------------- #
+    def _sample_net(self):
+        """Sampling reads the EMA copy when --ema is on."""
+        return (self.ema_net if self.ema_net is not None else self.net).eval()
+
+    @torch.no_grad()
+    def sample_chain(self, noise, y, generator=None, cond_w=None, return_history=True,
+                     w=None, step_noise=None, diffusion=None):
+        """The chain from noise (n, H, W, 1) under labels y (n,): see
+        GaussianDiffusion.sample."""
+        teacher = None
+        if self.teacher_net is not None:
+            teacher = self._make_net(self.teacher_net.eval(), y)
+        return (diffusion or self.diffusion).sample(
+            net=self._make_net(self._sample_net(), y), init_x=noise, generator=generator,
+            cond_w=cond_w, teacher_net=teacher, return_history=return_history, w=w,
+            step_noise=step_noise,
+        )
+
+    def sample_fn(self, n, y=None, generator=None, noise=None, w=None, step_noise=None,
+                  diffusion=None):
+        """n samples (n, H, W, 1) in [-1, 1] under labels y (None: -1,
+        unconditional): noise from generator (unless given), then the
+        guided chain. cond_w=0.5 is only the flag that turns guidance on:
+        each sample's weight is 4 w, w uniform (the JAX package's quirk)."""
+        if noise is None:
+            noise = torch.randn((n, self.size, self.size, 1), generator=generator,
+                                device=self.device)
+        return self.sample_chain(noise, self._labels(y, n), generator, cond_w=0.5,
+                                 return_history=False, w=w, step_noise=step_noise,
+                                 diffusion=diffusion)
+
+    @torch.no_grad()
+    def sample(self, n, y=None):
+        return self.sample_fn(n, y, generator=self._gen)
+
+    @torch.no_grad()
+    def sample_images(self, n, y=None):
+        """n samples under labels y, through the --eval_sampler /
+        --eval_sample_steps chain where those are set."""
+        return self.sample_fn(n, y, generator=self._gen, diffusion=self._eval_diffusion)
+
+    def pure_serving_fn(self, n, quant=None):
+        """(seed, y) -> (n, H, W, 1) float32 numpy samples in [0, 1] with
+        --class_cond=1 (y: n labels, -1 unconditional), (seed) otherwise.
+        The seed becomes torch.Generator(device).manual_seed(seed). quant
+        is refused before it gets here (supports_quantize)."""
+        lo, hi = self.SAMPLE_RANGE
+
+        def fn(seed, y=None):
+            gen = torch.Generator(self.device).manual_seed(int(seed))
+            out = self.sample_fn(n, y, generator=gen)
+            return ((out - lo) / (hi - lo)).cpu().numpy()
+
+        if not self.G.get('class_cond', 0):
+            return lambda seed: fn(seed)
+        return fn
+
+    @torch.no_grad()
+    def evaluate(self, writer, x, y, epoch):
+        """Seeded 25-sample grid and the z / x_hat / eps_hat chain GIFs,
+        unguided (no cond_w, as the JAX package), labels 0-9 in turn."""
+
+        def proc(v):
+            v = torch.clamp((v + 1) * 127.5, 0, 255).to(torch.uint8)
+            if self.G.get('pad32', 0):
+                v = v[..., 2:-2, 2:-2, :]
+            return v.cpu().numpy()
+
+        gen = torch.Generator(self.device).manual_seed(0)
+        noise = torch.randn((25, self.size, self.size, 1), generator=gen, device=self.device)
+        labels = torch.arange(25, dtype=torch.int32, device=self.device) % 10
+        zs, xs, eps = map(proc, self.sample_chain(noise, labels, gen))
+        write_grid(writer, 'samples', zs[-1], epoch)
+        ld = self.G.logdir
+        write_gridvid(writer, 'sampling_process', zs, epoch, logdir=ld)
+        write_gridvid(writer, 'diffusion_model/eps', eps, epoch, logdir=ld)
+        write_gridvid(writer, 'diffusion_model/x', xs, epoch, logdir=ld)

@@ -32,7 +32,7 @@ from generative_models_tpu_torch.utils import (
 from generative_models_tpu_torch.utils.config import AttrDict
 
 
-def _same_pad(size, k, s):
+def same_pad(size, k, s):
     """flax padding='SAME' of one axis as (before, after): an odd total goes
     after, so a stride-2 3x3 conv on an even size pads 0 before and 1
     after (nn.Conv2d(padding=1) would pad 1 and 1)."""
@@ -55,8 +55,8 @@ class VQEncoder(nn.Module):
         """(B, 1, H, W) -> (B, vqD, h, w)."""
         for conv in self.convs:
             (k, _), (s, _) = conv.kernel_size, conv.stride
-            top, bottom = _same_pad(x.shape[2], k, s)
-            left, right = _same_pad(x.shape[3], k, s)
+            top, bottom = same_pad(x.shape[2], k, s)
+            left, right = same_pad(x.shape[3], k, s)
             x = F.relu(conv(F.pad(x, (left, right, top, bottom))))
         return x
 

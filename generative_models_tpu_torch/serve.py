@@ -11,6 +11,8 @@ Counterpart of generative_models_tpu/serve.py:
       --n=25 --out=made.png                        # Kernel G, 784 forwards
   python -m generative_models_tpu_torch.serve --model=made --quantize=int8 \
       --n=25 --out=made8.png                       # w8a8 through Kernel I
+  python -m generative_models_tpu_torch.serve --model=diffusion_model \
+      --eval_heavy=0 --port=8000                   # /sample?n=16&y=3
 
 Serving shape, as in the JAX package:
   * requests are padded up to a fixed --serve_bs and sliced back down, so
@@ -21,7 +23,13 @@ Serving shape, as in the JAX package:
   * --coalesce_ms=W micro-batches concurrent unseeded requests into one
     padded pass; seeded requests run solo (the seed pins the whole batch);
   * /healthz reports rolling latency stats; /sample?n=16&seed=3 returns a
-    PNG grid (stdlib zlib PNG encoder).
+    PNG grid (stdlib zlib PNG encoder);
+  * a class-conditional model (--class_cond=1: diffusion_model) takes labels
+    y: one label broadcasts to n, or n of them, each in [-1, 10) (-1 =
+    unconditional); the batch past n is padded with -1, and coalesced
+    requests pack their labels at their offsets (/sample?n=16&y=3 or
+    y=1,2,3). An unconditional server refuses labels. The CLI takes none,
+    as the JAX package's.
 
 Post-training quantization: --quantize=int8 (= w8a8) or w8a16 quantizes
 every nn.Linear with both dims >= 64 and >= 16384 elements, and MADE's
@@ -33,7 +41,8 @@ model's serving fn as quant=; pixel_transformer's and the vqvae prior's
 decode steps then run module by module, without Kernels A and B.
 
 A seed becomes torch.Generator(device).manual_seed(seed): the same seed
-gives the same batch on the same card. --mesh=seq:N serves
+(and labels) gives the same batch on the same card. --quantize is refused
+for diffusion_model (not ported yet). --mesh=seq:N serves
 pixel_transformer with its scoring forward through the ring (sampling
 takes the per-op decode chain) and refuses --quantize, as the JAX package
 does. Not ported yet: --export and --from_export (utils/config.py refuses
@@ -97,12 +106,15 @@ def tile_grid(x, cols=None):
 
 
 class _ServerBase:
-    """Shared serving mechanics: the request lock (the card is a single
-    stream), request coalescing, rolling latency stats. Subclasses set
-    _call(seed) -> (serve_bs, H, W, 1) numpy and _model_name()."""
+    """Shared serving mechanics: pad-to-serve_bs label handling, the
+    request lock (the card is a single stream), request coalescing, rolling
+    latency stats. Subclasses set _call(seed) (or _call(seed, y) when
+    class-conditional) -> (serve_bs, H, W, 1) numpy and _model_name()."""
 
-    def _init_serving(self, serve_bs):
+    def _init_serving(self, serve_bs, class_cond=False):
         self.serve_bs = int(serve_bs)
+        self.class_cond = bool(class_cond)
+        self.n_classes = 10  # valid labels: -1 (unconditional) .. 9
         self.quant_mode = ''  # '' | 'w8a8' | 'w8a16' (ops/int8.py)
         self.quant_kernels = 0
         self._lock = threading.Lock()
@@ -124,18 +136,59 @@ class _ServerBase:
     def warm(self):
         """Build the kernels and run one pass so request #1 is fast."""
         t0 = time.time()
-        self._call(0)
+        self._run(0, self._pad_y(None, self.serve_bs))
         self.warm_sec = time.time() - t0
         return self.warm_sec
 
-    def sample(self, n, y=None, seed=None):
-        """n samples -> (n, H, W, 1) float array in [0, 1]. With an explicit
-        seed the request is reproducible (same seed -> bitwise-same batch);
-        without one, requests draw from a urandom-salted stream. With
-        coalescing on, unseeded requests smaller than serve_bs share one
-        padded pass. 1 <= n <= serve_bs; larger requests are refused."""
-        if y is not None:
+    def _validate_y(self, y, n):
+        """One request's labels as exactly n: a single label broadcasts to
+        n, otherwise len(y) must be n; each must lie in [-1, n_classes)
+        (the UNet's one-hot maps a label out of range to zeros, which would
+        silently drop the conditioning)."""
+        y = np.asarray(y, np.int32).reshape(-1)
+        if len(y) == 1:
+            y = np.repeat(y, n)
+        if len(y) != n:
+            raise ValueError(f'len(y)={len(y)} must be 1 or n={n}')
+        if ((y < -1) | (y >= self.n_classes)).any():
+            raise ValueError(
+                f'labels must be in [-1, {self.n_classes}) (-1 = unconditional); '
+                f'got {int(y.min())}..{int(y.max())}'
+            )
+        return y
+
+    def _request_y(self, y, n):
+        """One request's n labels, validated, or None; an unconditional
+        server refuses labels. The dispatcher packs a coalesced request's
+        at its offset."""
+        if y is None:
+            return None
+        if not self.class_cond:
             raise ValueError('this server is unconditional; got y')
+        return self._validate_y(y, n)
+
+    def _pad_y(self, y, n):
+        """Labels for the whole serve_bs batch: the request's, then -1
+        (unconditional) past n; None for an unconditional server."""
+        y = self._request_y(y, n)
+        if not self.class_cond:
+            return None
+        full = -np.ones((self.serve_bs,), np.int32)
+        if y is not None:
+            full[:n] = y
+        return full
+
+    def _run(self, seed, y_full):
+        return self._call(seed) if y_full is None else self._call(seed, y_full)
+
+    def sample(self, n, y=None, seed=None):
+        """n samples (labels y: one broadcast to n, or n of them, for a
+        class-conditional server) -> (n, H, W, 1) float array in [0, 1].
+        With an explicit seed the request is reproducible (same seed and
+        labels -> bitwise-same batch); without one, requests draw from a
+        urandom-salted stream. With coalescing on, unseeded requests smaller
+        than serve_bs share one padded pass. 1 <= n <= serve_bs; larger
+        requests are refused."""
         n = int(n)
         if not 1 <= n <= self.serve_bs:
             raise ValueError(
@@ -143,12 +196,13 @@ class _ServerBase:
                 'restart with a larger --serve_bs for bigger batches'
             )
         if self.coalesce_ms > 0 and seed is None and n < self.serve_bs:
-            return self._sample_coalesced(n)
+            return self._sample_coalesced(n, y)
+        y_full = self._pad_y(y, n)
         with self._lock:
             self._requests += 1
             s = int(seed) if seed is not None else self._salt + self._requests
             t0 = time.time()
-            out = self._call(s)
+            out = self._run(s, y_full)
             self._record_latency(time.time() - t0)
         return out[:n]
 
@@ -169,9 +223,9 @@ class _ServerBase:
             )
             self._dispatcher.start()
 
-    def _sample_coalesced(self, n):
-        req = {'n': n, 'done': threading.Event(), 't0': time.time(),
-               'out': None, 'err': None}
+    def _sample_coalesced(self, n, y=None):
+        req = {'n': n, 'y': self._request_y(y, n), 'done': threading.Event(),
+               't0': time.time(), 'out': None, 'err': None}
         with self._queue_cv:
             self._queue.append(req)
             self._queue_cv.notify_all()
@@ -221,9 +275,17 @@ class _ServerBase:
         while True:
             batch = self._take_batch()
             try:
+                y_full = None
+                if self.class_cond:
+                    y_full = -np.ones((self.serve_bs,), np.int32)
+                    off = 0
+                    for r in batch:
+                        if r['y'] is not None:
+                            y_full[off:off + r['n']] = r['y']
+                        off += r['n']
                 with self._lock:
                     self._requests += len(batch)
-                    out = self._call(self._salt + self._requests)
+                    out = self._run(self._salt + self._requests, y_full)
                     self.coalesced_batches += 1
                     self.coalesced_requests += len(batch)
                     now = time.time()
@@ -249,6 +311,7 @@ class _ServerBase:
         return {
             'model': self._model_name(),
             'serve_bs': self.serve_bs,
+            'class_cond': self.class_cond,
             'requests': self._requests,
             'warm_sec': self.warm_sec,
             'latency_p50_sec': pick(0.50),
@@ -267,15 +330,15 @@ class SampleServer(_ServerBase):
     'w8a8' | 'w8a16'; the weights are quantized once, here."""
 
     def __init__(self, model, serve_bs=64, quantize=''):
-        if model.G.get('class_cond', 0):
-            raise NotImplementedError('class-conditional serving is not ported yet')
         self.model = model
-        self._init_serving(serve_bs)
+        self._init_serving(serve_bs, model.G.get('class_cond', 0))
         quantize = quantize or ''
         self.quant_mode = {'int8': 'w8a8'}.get(quantize, quantize)
         if self.quant_mode not in ('', 'w8a8', 'w8a16'):
             raise SystemExit(f'--quantize={quantize}: choose int8|w8a8|w8a16')
         self.quant = None  # the QuantTable every pass applies
+        if self.quant_mode and not model.supports_quantize:
+            raise NotImplementedError(f'--quantize is not ported yet for {model.G.model}')
         if self.quant_mode:
             from generative_models_tpu_torch.ops.int8 import build_quant_table
             from generative_models_tpu_torch.parallel import DATA_AXIS, parse_mesh_spec
@@ -302,8 +365,8 @@ class SampleServer(_ServerBase):
 
 
 def _http_serve(server, port, host='127.0.0.1'):
-    """stdlib HTTP front: GET /healthz (JSON), GET /sample?n=16&seed=3 (PNG).
-    Binds localhost by default (there is no auth)."""
+    """stdlib HTTP front: GET /healthz (JSON), GET /sample?n=16&seed=3 or
+    ?n=16&y=3 (PNG). Binds localhost by default (there is no auth)."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
     from urllib.parse import parse_qs, urlparse
 

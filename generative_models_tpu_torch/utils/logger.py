@@ -175,15 +175,18 @@ def gif_encode_gray(frames, fps, loop=0):
 
 def _tile_u8(x):
     """(25, H, W, 1) float [0, 1] -> (5H, 5W) uint8, rounded to nearest as
-    the JAX package's native tile_grid_u8."""
+    the JAX package's native tile_grid_u8; uint8 frames are tiled as they
+    are."""
     img = grid_image(x)[..., 0]
+    if img.dtype == np.uint8:
+        return img
     return (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
 
 def write_gridvid(writer, tag, x, epoch, logdir=None):
-    """(T, 25, H, W, 1) sampling-process video -> <logdir>/<tag>_<epoch>.gif
-    (5x5 grid a frame), and a filmstrip of 8 evenly spaced frames to
-    TensorBoard."""
+    """(T, 25, H, W, 1) sampling-process video (float in [0, 1] or uint8)
+    -> <logdir>/<tag>_<epoch>.gif (5x5 grid a frame), and a filmstrip of 8
+    evenly spaced frames to TensorBoard."""
     x = to_numpy(x)
     T = x.shape[0]
     frames = np.stack([_tile_u8(x[t]) for t in range(T)])

@@ -10,7 +10,7 @@ _REGISTRY = {}
 # the names the JAX package registers that are not ported yet
 JAX_MODELS = (
     'rnn', 'wavenet', 'pixel_cnn', 'gated_pixel_cnn', 'vae', 'gan',
-    'diffusion_model', 'autoencoder', 'classifier',
+    'autoencoder', 'classifier',
 )
 
 

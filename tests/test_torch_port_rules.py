@@ -414,6 +414,9 @@ def test_unported_models_and_flags_raise():
     from generative_models_tpu_torch.utils.config import parse_args
 
     with pytest.raises(NotImplementedError, match='not ported yet'):
+        parse_args(['--model=gan', '--device=cpu'])
+    # diffusion is ported, but its default --eval_heavy=1 is refused by name
+    with pytest.raises(NotImplementedError, match='--eval_heavy=1 is not ported yet'):
         parse_args(['--model=diffusion_model', '--device=cpu'])
     with pytest.raises(KeyError):
         parse_args(['--model=no_such_model', '--device=cpu'])
@@ -425,6 +428,34 @@ def test_unported_models_and_flags_raise():
                            '--moe_experts=2', '--n_embed=16'])
     with pytest.raises(NotImplementedError, match='moe_experts'):
         Model(G)
+
+
+def test_diffusion_is_ported_and_imports_no_jax():
+    """diffusion_model left JAX_MODELS for the registry; its modules are
+    among those the import rules above scan."""
+    from generative_models_tpu_torch.serve import load_server
+    from generative_models_tpu_torch.utils.registry import JAX_MODELS, discover_models
+
+    assert 'diffusion_model' not in JAX_MODELS
+    assert 'diffusion_model' in discover_models()
+    mods = set(_port_modules())
+    for m in ('schedules', 'gaussian_diffusion', 'unet', 'model'):
+        assert f'generative_models_tpu_torch.models.diffusion.{m}' in mods
+    with pytest.raises(NotImplementedError, match='--quantize is not ported yet for diffusion_model'):
+        load_server(['--model=diffusion_model', '--device=cpu', '--eval_heavy=0',
+                     '--hidden_size=32', '--quantize=int8', '--serve_bs=1'])
+
+
+def test_diffusion_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp_path):
+    from generative_models_tpu_torch import main, serve
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    flags = ['--model=diffusion_model', '--eval_heavy=0', '--hidden_size=32']
+    with pytest.raises(RuntimeError, match='--device=cpu'):
+        main.main(flags + ['--epochs=0', f'--logdir={tmp_path}'])
+    with pytest.raises(RuntimeError, match='--device=cpu'):
+        serve.main(flags + ['--n=1', f'--out={tmp_path / "d.png"}'])
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_mesh_rules():
