@@ -135,7 +135,30 @@ failure exits non-zero before the result lines:
                 student, its EMA and the teacher equal the teacher
                 checkpoint but for the student's cond_w_embed; the teacher
                 bitwise unchanged after training; finite losses.
-  21. profile -- device time by kernel over one request and one train step
+  21. arb_load -- the shipped arbiters (weights/autoencoder.pt,
+                weights/classifier.pt) decoded by the port's msgpack reader
+                and loaded on the card; their features and logits of 64
+                synthetic images at 28x28 and 32x32 against a CPU f32 copy.
+  22. arb_train -- autoencoder and classifier, each one epoch through
+                main.main at its default width (10 steps at bs=64): finite
+                metrics, model.jit.pt read back by load_arbiter on the card
+                and held against a CPU copy.
+  23. eval_heavy -- diffusion_model at its defaults (--eval_heavy=1,
+                --class_cond=1) through main's load_model_and_data and
+                train, --epochs=0, the shipped arbiters, dpm2m at 25 steps
+                for eval_heavy's samples and 512 test images (all 8 rounds,
+                512 samples a side): every eval/* value finite, the FIDs
+                against a float64 scipy recomputation from the phase's own
+                features, the seconds split into sampling, arbiter forwards
+                and metrics; no kernel of ops/.
+  24. vae    -- vae at its default width through main.main (one epoch, 10
+                steps at bs=64), 64 samples served through load_server, one
+                step's gradients against a CPU f32 copy, a profiled train
+                step and request; no kernel of ops/.
+  25. gan    -- the same for gan (the twin step's gradients, and both nets'
+                batch statistics after it, against the CPU copy; samples
+                served in [0, 1]).
+  26. profile -- device time by kernel over one request and one train step
                 of each model, one pixel_transformer scoring forward, one
                 seq:4 train step, one quantized request of vqvae and of made
                 in each mode, 32 decode steps of a quantized
@@ -181,7 +204,7 @@ NO_RING = dict.fromkeys(RING_KERNELS, 0)  # the ring's kernels run only under --
 SEQ_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_seq'
 SEQ = 4  # the seq_train phase's ring: --mesh=seq:4
 PT_DECODE_WINDOW = range(392, 424)  # the profiled steps of a quantized pixel_transformer request
-DIFF_FLAGS = ['--model=diffusion_model', '--eval_heavy=0']  # --eval_heavy=1 is not ported yet
+DIFF_FLAGS = ['--model=diffusion_model', '--eval_heavy=0']  # eval_heavy has a phase of its own
 DIFF_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_diffusion'
 DIFF_DISTILL_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_distill'
 DIFF_LABELS = [i % 11 - 1 for i in range(64)]  # every class and -1 (unconditional)
@@ -205,6 +228,25 @@ DIFF_FWD_REL, DIFF_CHAIN_REL, DIFF_FUSED_REL, DIFF_ADAM_REL = 0.03, 0.03, 1e-3, 
 # DIFF_CONV_REL of f32 arithmetic on the same bf16 operands (2^-9, the
 # rounding of its bf16 output, and the bias added after it, rounded again)
 DIFF_GRAD_F32, DIFF_GRAD_BF16, DIFF_CONV_REL = (1e-3, 1e-5), (0.25, 5e-3), 3e-3
+ROOT = Path(__file__).resolve().parent
+EH_DIR = ROOT / 'build' / 'chip_smoke_eval_heavy'
+# eval_heavy stops at 500 samples or where a full batch no longer fits in
+# the test set: 512 test images give it all 8 rounds of bs=64
+EH_TEST_N = 512
+EH_FLAGS = ['--model=diffusion_model', '--eval_sampler=dpm2m', '--eval_sample_steps=25']
+# the card's arbiter features and logits against a CPU f32 copy of the same
+# file (f32, TF32 off: relative Frobenius); eval_heavy's FIDs against a
+# float64 recomputation from the phase's own features (scipy's sqrtm of the
+# covariance product, the reference's formula); vae's and gan's f32
+# gradients and gan's batch statistics after a step against a CPU f32 copy
+# (grad_check: rel of each norm, floor of the whole gradient's). gan's
+# against a float64 CPU copy instead: every gradient upstream of a
+# train-mode BatchNorm passes its backward, which cancels most of what it
+# sums, so two f32 twin steps (the card's and the CPU's) can sit 1e-3 of a
+# gradient's norm apart though each is close to float64; the phase logs
+# the CPU f32 copy's own error beside the card's
+ARB_REL, EH_FID_REL, SMALL_GRAD, GAN_STATS_REL = 1e-4, 1e-3, (1e-3, 1e-5), 1e-4
+GAN_GRAD = (1e-2, 1e-5)
 
 
 def log(*a):
@@ -1476,7 +1518,7 @@ def phase_grads(seq=1):
     from generative_models_tpu_torch.main import load_model_and_data
 
     logdir = TRAIN_DIR if seq == 1 else SEQ_TRAIN_DIR
-    model, dataset, G = load_model_and_data([
+    model, dataset, _, _, G = load_model_and_data([
         f'--weights_from={logdir / "model.pt"}', '--data_source=synthetic',
     ])
     if model.net.ring != seq:
@@ -1632,7 +1674,7 @@ def phase_vq_grads():
     differently."""
     from generative_models_tpu_torch.main import load_model_and_data
 
-    model, dataset, G = load_model_and_data([
+    model, dataset, _, _, G = load_model_and_data([
         f'--weights_from={VQ_TRAIN_DIR / "model.pt"}', '--data_source=synthetic',
     ])
     x = dataset.first_test_batch(0)[0]
@@ -1797,7 +1839,7 @@ def phase_made_grads():
     within the bf16 tolerance, and dW exactly 0 off the mask on both."""
     from generative_models_tpu_torch.main import load_model_and_data
 
-    model, dataset, G = load_model_and_data([
+    model, dataset, _, _, G = load_model_and_data([
         f'--weights_from={MADE_TRAIN_DIR / "model.pt"}', '--data_source=synthetic',
     ])
     if not model.net.use_kernel:
@@ -1996,7 +2038,7 @@ def phase_diff_train():
         f'dt/train {history[1]["dt/train"]:.3f}s for {train_n // bs} steps, '
         f'dt/eval {history[1]["dt/eval"]:.3f}s')
 
-    model, dataset, G = load_model_and_data([
+    model, dataset, _, _, G = load_model_and_data([
         f'--weights_from={DIFF_TRAIN_DIR / "model.pt"}', '--data_source=synthetic',
     ])
     on = {st['step'].device.type for st in model.opt.state.values()}
@@ -2108,7 +2150,7 @@ def phase_diff_distill():
     for mode in ('step1', 'step2'):
         logdir = DIFF_DISTILL_DIR / mode
         shutil.rmtree(logdir, ignore_errors=True)
-        model, dataset, G = load_model_and_data(DIFF_FLAGS + [
+        model, dataset, _, _, G = load_model_and_data(DIFF_FLAGS + [
             '--bs=64', '--epochs=1', '--save_n=1', '--ema=0.999', '--data_source=synthetic',
             f'--teacher_path={teacher_path}', f'--teacher_mode={mode}', f'--logdir={logdir}',
         ])
@@ -2124,7 +2166,7 @@ def phase_diff_distill():
                 if not torch.equal(sd[k].cpu(), v):
                     raise AssertionError(f'diff_distill {mode}: {name} {k} != the teacher\'s at step 0')
         t0 = time.time()
-        history = train(model, dataset, G)
+        history = train(model, dataset, None, None, G)
         torch.cuda.synchronize()
         for k, v in model.teacher_net.state_dict().items():
             if k in teacher and not torch.equal(v.cpu(), teacher[k]):
@@ -2139,6 +2181,280 @@ def phase_diff_distill():
     if any(launches.values()):
         raise AssertionError(f'diff_distill launched kernels of ops/: {launches}')
     return out
+
+
+def phase_arb_load():
+    """The shipped arbiters (weights/autoencoder.pt, weights/classifier.pt)
+    decoded by the port's msgpack reader and loaded on the card, their
+    features and logits of 64 synthetic images at 28x28 and 32x32 against a
+    CPU f32 copy of the same file (ARB_REL); no kernel of ops/."""
+    from generative_models_tpu_torch.models.arbiters import load_arbiter
+
+    counters = _counters()
+    _reset(counters)
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for name in ('autoencoder', 'classifier'):
+        path = ROOT / 'weights' / f'{name}.pt'
+        t0 = time.time()
+        card = load_arbiter(path, 'cuda')
+        torch.cuda.synchronize()
+        res = dict(load_sec=time.time() - t0)
+        cpu = load_arbiter(path, 'cpu')
+        for size in (28, 32):
+            x = torch.clamp(torch.randn((64, size, size, 1), generator=gen), -1, 1)
+            xd = x.cuda()
+            got, ref = card.apply(xd), cpu.apply(x)
+            res[str(size)] = dict(shape=list(got.shape), rel_err=_rel(got, ref),
+                                  max_abs_err=float((got.cpu() - ref).abs().max()),
+                                  forward_ms=eager_ms(lambda: card.apply(xd), 20))
+            if not res[str(size)]['rel_err'] <= ARB_REL:
+                raise AssertionError(f'arb_load {name} {size}x{size}: {res[str(size)]}')
+        out[name] = res
+        log(f'[arb_load] {name}: {json.dumps(res)} (bound {ARB_REL})')
+    launches = _read(counters)
+    if any(launches.values()):
+        raise AssertionError(f'arb_load launched kernels of ops/: {launches}')
+    return out
+
+
+def phase_arb_train():
+    """The arbiters' own path: autoencoder and classifier, each one epoch
+    through main.main at its default width (hidden_size=256, z_size=64) and
+    bs=64 on the synthetic set cut to 640/128 (10 steps): finite metrics,
+    the evaluate image in the event file, model.jit.pt written, and read
+    back by load_arbiter on the card, its features of 64 images within
+    ARB_REL of a CPU copy's; no kernel of ops/."""
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch.main import main as train_main
+    from generative_models_tpu_torch.models.arbiters import load_arbiter
+
+    mnist.TRAIN_N, mnist.TEST_N = 640, 128
+    counters = _counters()
+    _reset(counters)
+    x = torch.clamp(torch.randn((64, 28, 28, 1), generator=torch.Generator().manual_seed(1)),
+                    -1, 1)
+    out = {}
+    for name in ('autoencoder', 'classifier'):
+        logdir = ROOT / 'build' / f'chip_smoke_{name}'
+        shutil.rmtree(logdir, ignore_errors=True)
+        t0 = time.time()
+        history = train_main([f'--model={name}', '--bs=64', '--epochs=1', '--save_n=1',
+                              '--data_source=synthetic', f'--logdir={logdir}'])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if not (logdir / 'model.jit.pt').is_file() or not list(logdir.glob('events.out.tfevents.*')):
+            raise AssertionError(f'arb_train {name}: no model.jit.pt or no event file')
+        bad = {k: v for h in history for k, v in h.items() if not np.isfinite(v)}
+        if bad or not any(k.startswith(f'{name}/train/') for k in history[1]):
+            raise AssertionError(f'arb_train {name}: metrics {history[1]}')
+        rel = _rel(load_arbiter(logdir, 'cuda').apply(x.cuda()), load_arbiter(logdir, 'cpu').apply(x))
+        if not rel <= ARB_REL:
+            raise AssertionError(f'arb_train {name}: saved features vs CPU {rel}')
+        out[name] = dict(wall_sec=wall, steps=640 // 64, epoch_1=history[1], rel_err=rel)
+        log(f'[arb_train] {name}: main.main {wall:.2f}s; epoch 1 {json.dumps(history[1])}; '
+            f'its model.jit.pt on the card vs a CPU copy {rel:.3g} (bound {ARB_REL})')
+    launches = _read(counters)
+    if any(launches.values()):
+        raise AssertionError(f'arb_train launched kernels of ops/: {launches}')
+    return out
+
+
+def _fid64(x, y, mean_of_sq):
+    """FID in float64: scipy's sqrtm of the covariance product (the
+    reference's formula), the mean of squares or the sum of squares."""
+    from scipy import linalg
+
+    diff = x.mean(0) - y.mean(0)
+    c1, c2 = np.cov(x, rowvar=False), np.cov(y, rowvar=False)
+    covmean = np.real(linalg.sqrtm(c1 @ c2))
+    mean_term = np.mean(diff ** 2) if mean_of_sq else np.sum(diff ** 2)
+    return float(mean_term + np.trace(c1) + np.trace(c2) - 2 * np.trace(covmean))
+
+
+def _prf64(real, gen, k=3):
+    """k-NN precision / recall in float64 (scipy's cdist)."""
+    from scipy.spatial.distance import cdist
+
+    def est(a, b):
+        radii = np.sort(cdist(a, a), axis=1)[:, k:k + 1]
+        return float(np.mean(np.any(cdist(a, b) < radii, axis=0)))
+    return {'precision': est(real, gen), 'recall': est(gen, real)}
+
+
+def phase_eval_heavy():
+    """diffusion_model at its defaults (--eval_heavy=1, --class_cond=1,
+    hidden_size=128, bf16, random weights from seed 0 with live ResBlocks)
+    through main's load_model_and_data and train with --epochs=0, the
+    shipped arbiters, --eval_sampler=dpm2m --eval_sample_steps=25 and
+    EH_TEST_N test images: all 8 rounds of a conditional and an
+    unconditional batch of 64 (512 samples a side). Every eval/* value
+    finite, FID >= 0; the FIDs within EH_FID_REL of a float64
+    recomputation from the phase's own features, precision and recall
+    beside theirs; the seconds split into sampling, arbiter forwards and
+    metrics (each timed call synchronised); no kernel of ops/."""
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch.main import load_model_and_data, train
+
+    mnist.TRAIN_N, mnist.TEST_N = 640, EH_TEST_N
+    shutil.rmtree(EH_DIR, ignore_errors=True)
+    counters = _counters()
+    _reset(counters)
+    model, dataset, ae, cls, G = load_model_and_data(EH_FLAGS + [
+        '--epochs=0', '--data_source=synthetic', f'--logdir={EH_DIR}'])
+    if not (G.eval_heavy and G.class_cond and ae is not None and cls is not None):
+        raise AssertionError(f'eval_heavy: defaults eval_heavy={G.eval_heavy} '
+                             f'class_cond={G.class_cond}, arbiters {ae}, {cls}')
+    _live_resblocks(model)
+    spent, feats = dict(sampling=0.0, arbiters=0.0), dict(autoencoder=[], classifier=[])
+
+    def timed_call(key, fn, keep=None):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.time() - t0
+            if keep is not None:
+                keep.append(out)
+            return out
+        return call
+
+    model.sample_images = timed_call('sampling', model.sample_images)
+    ae.apply = timed_call('arbiters', ae.apply, feats['autoencoder'])
+    cls.apply = timed_call('arbiters', cls.apply, feats['classifier'])
+    history = train(model, dataset, ae, cls, G)
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    if any(launches.values()):
+        raise AssertionError(f'eval_heavy launched kernels of ops/: {launches}')
+    h = history[0]
+    keys = ['fid', 'ignite_fid', 'precision', 'recall', 'f1', 'classifier_loss', 'cond_fid',
+            'cond_precision', 'cond_recall', 'cond_f1']
+    vals = {k: h.get(f'eval/{k}') for k in keys}
+    if any(v is None or not np.isfinite(v) for v in vals.values()) or vals['fid'] < 0:
+        raise AssertionError(f'eval_heavy: {vals}')
+    rounds = len(feats['classifier'])
+    if rounds != 8 or len(feats['autoencoder']) != 3 * rounds:
+        raise AssertionError(f'eval_heavy: {rounds} rounds, {len(feats["autoencoder"])} '
+                             'autoencoder calls (want 8 and 24)')
+    # a round's autoencoder calls: the conditional samples, the test batch,
+    # the unconditional samples
+    z_cond, z_real, z_samp = (torch.cat(feats['autoencoder'][i::3]).double().cpu().numpy()
+                              for i in range(3))
+    ref = dict(fid=_fid64(z_samp, z_real, True), ignite_fid=_fid64(z_samp, z_real, False),
+               cond_fid=_fid64(z_cond, z_real, True), **_prf64(z_real, z_samp),
+               **{f'cond_{k}': v for k, v in _prf64(z_real, z_cond).items()})
+    diff = {k: vals[k] - v for k, v in ref.items()}
+    sec = h['dt/eval_heavy']
+    split = dict(total=sec, sampling=spent['sampling'], arbiters=spent['arbiters'],
+                 metrics_and_rest=sec - spent['sampling'] - spent['arbiters'])
+    log(f'[eval_heavy] {rounds} rounds, {z_samp.shape[0]} samples a side; '
+        f'{json.dumps({k: vals[k] for k in keys})}')
+    log(f'[eval_heavy] float64 recomputation {json.dumps(ref)}; this minus it {json.dumps(diff)}')
+    log(f'[eval_heavy] seconds {json.dumps(split)}; dt/eval {h["dt/eval"]:.2f}')
+    for k in ('fid', 'ignite_fid', 'cond_fid'):
+        if not abs(diff[k]) <= EH_FID_REL * abs(ref[k]):
+            raise AssertionError(f'eval_heavy {k}: {vals[k]} vs float64 {ref[k]}')
+    return dict(values=vals, float64=ref, diff=diff, seconds=split, rounds=rounds,
+                samples_a_side=int(z_samp.shape[0]), launches=launches)
+
+
+def phase_small_model(name):
+    """vae or gan at its default width (hidden_size=256; vae z_size=128,
+    gan noise_size=128): one epoch through main.main at bs=64 on the
+    synthetic set cut to 640/128 (10 steps), its artifacts and finite
+    metrics; 64 samples served through load_server at serve_bs=64 (warm,
+    seed=7 twice equal, 25 unseeded), in [0, 1] (gan's mapped from [-1,
+    1]); from the trained model.pt one step's gradients against a CPU
+    copy from the same batch, noise and optimizer state (vae: f32,
+    SMALL_GRAD; gan: the twin step's, and the batch statistics after it,
+    against a float64 copy, GAN_GRAD, beside the CPU f32 copy's own error);
+    a profiled train step and request. No kernel of ops/."""
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch.main import load_model_and_data
+    from generative_models_tpu_torch.main import main as train_main
+    from generative_models_tpu_torch.serve import load_server
+
+    logdir = ROOT / 'build' / f'chip_smoke_{name}'
+    mnist.TRAIN_N, mnist.TEST_N = 640, 128
+    shutil.rmtree(logdir, ignore_errors=True)
+    counters = _counters()
+    _reset(counters)
+    t0 = time.time()
+    history = train_main([f'--model={name}', '--bs=64', '--epochs=1', '--save_n=1',
+                          '--data_source=synthetic', f'--logdir={logdir}'])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    for f in ('model.pt', 'hps.yaml'):
+        if not (logdir / f).is_file():
+            raise AssertionError(f'{name}: {f} was not written')
+    if not list(logdir.glob('events.out.tfevents.*')):
+        raise AssertionError(f'{name}: no TensorBoard event file (the grids)')
+    bad = {k: v for h in history for k, v in h.items() if not np.isfinite(v)}
+    if bad or not any(k.startswith(f'{name}/train/') for k in history[1]):
+        raise AssertionError(f'{name}: metrics {history[1]}')
+    log(f'[{name}] main.main {wall:.2f}s; epoch 1 {json.dumps(history[1])}')
+
+    server, _ = load_server([f'--weights_from={logdir / "model.pt"}', '--serve_bs=64'])
+    warm = server.warm()
+    a, b, c = server.sample(64, seed=7), server.sample(64, seed=7), server.sample(25)
+    for label, s, n in (('seed=7', a, 64), ('n=25', c, 25)):
+        _check_samples(f'{name} {label}', s, n)
+    if not np.array_equal(a, b):
+        raise AssertionError(f'{name}: seed=7 twice gave different batches '
+                             f'(max |a - b| {float(np.abs(a - b).max()):.3g})')
+    if name == 'vae' and not set(np.unique(a)) <= {0.0, 1.0}:
+        raise AssertionError('vae: samples not in {0, 1}')
+    lat = list(server.latencies)
+    log(f'[{name}] served: warm {warm:.3f}s, requests (s) {[round(v, 5) for v in lat]}')
+    launches = _read(counters)
+    if any(launches.values()):
+        raise AssertionError(f'{name} launched kernels of ops/: {launches}')
+
+    model, dataset, _, _, G = load_model_and_data([f'--weights_from={logdir / "model.pt"}',
+                                                   '--data_source=synthetic'])
+    cpu = _cpu_copy(model, G)
+    for key, o in model.optimizers().items():
+        cpu.optimizers()[key].load_state_dict(copy.deepcopy(o.state_dict()))
+    x = dataset.first_test_batch(0)[0]
+    gen = torch.Generator().manual_seed(1)
+    if name == 'vae':
+        eps = torch.randn((64, int(G.z_size)), generator=gen)
+        model.backward(x, eps=eps.cuda())
+        cpu.backward(x.cpu(), eps=eps)
+        grads = grad_check(f'{name}_grads', model, cpu, *SMALL_GRAD)
+    else:
+        cpu64 = _cpu_copy(model, G)
+        cpu64.net.double()
+        for key, o in model.optimizers().items():  # the moments cast to float64
+            cpu64.optimizers()[key].load_state_dict(copy.deepcopy(o.state_dict()))
+        cpu64._as_input = lambda a: torch.as_tensor(a).double()
+        noise = torch.randn((64, int(G.noise_size)), generator=gen)
+        model.train_step(x, noise=noise.cuda())
+        cpu.train_step(x.cpu(), noise=noise)
+        cpu64.train_step(x.cpu(), noise=noise.double())
+        cpu_f32 = grad_check('gan_grads CPU f32 vs float64', cpu, cpu64, *GAN_GRAD)
+        grads = grad_check(f'{name}_grads card vs float64', model, cpu64, *GAN_GRAD)
+        grads['cpu_f32_max_rel_err'] = max(cpu_f32['rel_err'].values())
+        ref = cpu64.net.state_dict()
+        stats = {k: _rel(v, ref[k]) for k, v in model.net.state_dict().items()
+                 if k.endswith(('.mean', '.var'))}
+        log(f'[gan_grads] batch statistics after the step vs the float64 copy\'s (relative '
+            f'Frobenius): {json.dumps(stats)} (bound {GAN_STATS_REL})')
+        if max(stats.values()) > GAN_STATS_REL:
+            raise AssertionError(f'gan: batch statistics {stats}')
+        grads['batch_stats_rel_err'] = stats
+
+    bx = dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
+    model.train_step(bx[0])
+    torch.cuda.synchronize()
+    prof = dict(train_step=_profile(f'one {name} train step', lambda: model.train_step(bx[1]), 10),
+                request=_profile(f'one {name} request', lambda: server.sample(64, seed=11), 10))
+    return dict(wall_sec=wall, steps=640 // 64, history=history, warm_sec=warm, request_sec=lat,
+                grads_rel_err=grads['rel_err'],
+                **{k: grads[k] for k in ('batch_stats_rel_err', 'cpu_f32_max_rel_err')
+                   if k in grads}, profile=prof)
 
 
 def _guided_step(model, n=64):
@@ -2569,6 +2885,11 @@ def main():
     dt = timed('diff_train', phase_diff_train)
     dg = timed('diff_grads', phase_diff_grads, dt['model'], dt['dataset'], dt['G'])
     dd = timed('diff_distill', phase_diff_distill)
+    ab = timed('arb_load', phase_arb_load)
+    at = timed('arb_train', phase_arb_train)
+    eh = timed('eval_heavy', phase_eval_heavy)
+    va = timed('vae', phase_small_model, 'vae')
+    ga = timed('gan', phase_small_model, 'gan')
     prof = timed('profile', phase_profile, sl['server'], sl['x'], model, dataset,
                  vs['server'], vq_model, vq_dataset, ms['server'], made_model, made_dataset, qs,
                  seq_model, seq_dataset,
@@ -2668,6 +2989,10 @@ def main():
             grads_max_rel_err=max(dg['rel_err'].values()),
             adam_update_rel_err=dg['adam_update_rel_err'], distill=dd, power=smi,
         ),
+        arbiters=dict(ab, train=at, power=smi),
+        eval_heavy=dict(eh, power=smi),
+        vae=dict(va, power=smi),
+        gan=dict(ga, power=smi),
         phase_sec=phase_sec,
     )))
     log(json.dumps({'kernels': kernels}))

@@ -12,6 +12,11 @@ training (main.py: Adam with the trainer knobs, the data pipeline, the
 logger, checkpoints), with the flash-attention backward on the card; and
 vqvae training, eval and serving (models/vqvae.py: the codebook search
 kernel, the joint AE and transformer-prior step with two optimizers); made;
-and diffusion_model (models/diffusion/: the UNet, the samplers, --ema,
-distillation, class-conditional serving), which runs no kernel of ops/.
+diffusion_model (models/diffusion/: the UNet, the samplers, --ema,
+distillation, class-conditional serving); vae and gan (models/vae.py,
+models/gan.py); and the arbiters (models/arbiters/: the autoencoder and the
+classifier, whose files either package reads and writes through
+utils/msgpack.py) with main.py's --eval_heavy (FID, precision, recall and
+the conditional metrics, utils/metrics.py). Diffusion, vae, gan and the
+arbiters run no kernel of ops/.
 """

@@ -10,6 +10,11 @@ ae/decoder/ConvTranspose_{0..3}, ae/codebook and prior/<TransformerNet>. A
 MADE has w0..w3 (in, out) and b0..b3, which the port keeps as they are. A
 diffusion SimpleUnet has flax's auto-names (time_embed, guide_embed,
 cond_w_embed, Downsample_i, ResBlock_i, Upsample_i, GroupNorm_0, Conv_0).
+A VAENet or an Autoencoder arbiter has encoder/Conv_{0..3} and
+decoder/ConvTranspose_{0..3}, a Classifier arbiter Conv_{0..3}; a GAN has
+gen/{ConvTranspose_{0..3}, BatchNorm_{0..2}} and disc/{Conv_{0..3},
+BatchNorm_{0..1}}, with BatchNorm's running mean and var in a batch_stats
+tree beside the params.
 
 Layouts: a flax Dense kernel is (in, out), a torch Linear weight (out, in);
 a flax Conv kernel is HWIO, a torch Conv2d weight OIHW. A flax
@@ -142,4 +147,89 @@ def diffusion_params_from_jax(tree):
         i += 1
     sd.update(_layernorm(tree['GroupNorm_0'], 'norm_out'))
     sd.update(_conv(tree['Conv_0'], 'conv_out'))
+    return sd
+
+
+def conv_tree_from_jax(tree, prefix=''):
+    """A flax tree of Conv_i / ConvTranspose_i modules (in sub-dicts that
+    keep their names) -> state dict: Conv_i -> convs.i, ConvTranspose_i ->
+    deconvs.i (flipped in both spatial axes). The layout of the port's
+    ConvEncoder and ConvDecoder (models/vae.py)."""
+    sd = {}
+    for key, v in tree.items():
+        m = re.fullmatch(r'(Conv|ConvTranspose)_(\d+)', key)
+        if m is None:
+            sd.update(conv_tree_from_jax(v, f'{prefix}{key}.'))
+            continue
+        transpose = m.group(1) == 'ConvTranspose'
+        name = f'{prefix}{"deconvs" if transpose else "convs"}.{m.group(2)}'
+        sd.update(_conv(v, name, transpose=transpose))
+    return sd
+
+
+def conv_tree_to_jax(sd):
+    """The inverse of conv_tree_from_jax: a state dict of convs.i /
+    deconvs.i -> the flax tree of numpy float32 arrays (HWIO kernels,
+    ConvTranspose kernels (kh, kw, in, out) unflipped)."""
+    tree = {}
+    for key, v in sd.items():
+        *mods, kind, i, leaf = key.split('.')
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        transpose = kind == 'deconvs'
+        entry = node.setdefault(f'{"ConvTranspose" if transpose else "Conv"}_{i}', {})
+        a = v.detach().cpu().float().numpy()
+        if leaf == 'weight':
+            a = a.transpose(2, 3, 0, 1)[::-1, ::-1] if transpose else a.transpose(2, 3, 1, 0)
+            entry['kernel'] = np.ascontiguousarray(a)
+        else:
+            entry['bias'] = np.ascontiguousarray(a)
+    return tree
+
+
+ARBITERS = ('Autoencoder', 'Classifier')
+
+
+def arbiter_params_from_jax(tree, class_name):
+    """A JAX arbiter's params -> state dict of the port's arbiter net: an
+    Autoencoder's AENet (encoder/Conv_i, decoder/ConvTranspose_i ->
+    encoder.convs.i, decoder.deconvs.i), a Classifier's ConvEncoder (Conv_i
+    -> convs.i)."""
+    if class_name not in ARBITERS:
+        raise ValueError(f'{class_name!r} is not an arbiter ({ARBITERS})')
+    return conv_tree_from_jax(tree)
+
+
+def arbiter_params_to_jax(sd, class_name):
+    """The inverse of arbiter_params_from_jax (Arbiter.save's params)."""
+    if class_name not in ARBITERS:
+        raise ValueError(f'{class_name!r} is not an arbiter ({ARBITERS})')
+    return conv_tree_to_jax(sd)
+
+
+def vae_params_from_jax(tree):
+    """JAX VAENet params (encoder/Conv_i, decoder/ConvTranspose_i) -> state
+    dict of the port's VAENet."""
+    return conv_tree_from_jax(tree)
+
+
+def gan_params_from_jax(params, batch_stats=None):
+    """JAX GAN params {'gen': ConvTranspose_i, BatchNorm_i; 'disc': Conv_i,
+    BatchNorm_i} and their batch_stats -> state dict of the port's GAN net:
+    gen.deconvs.i, disc.convs.i, and {gen,disc}.bns.i.{weight, bias} from
+    BatchNorm_i's scale and bias, .{mean, var} from its batch_stats.
+    batch_stats=None converts a params-shaped tree alone (an optimizer's
+    moments)."""
+    sd = {}
+    for net in ('gen', 'disc'):
+        tree = params[net]
+        sd.update(conv_tree_from_jax(
+            {k: v for k, v in tree.items() if not k.startswith('BatchNorm_')}, f'{net}.'))
+        for key in (k for k in tree if k.startswith('BatchNorm_')):
+            pre = f'{net}.bns.{key.split("_")[1]}'
+            sd[f'{pre}.weight'], sd[f'{pre}.bias'] = _t(tree[key]['scale']), _t(tree[key]['bias'])
+            if batch_stats is not None:
+                st = batch_stats[net][key]
+                sd[f'{pre}.mean'], sd[f'{pre}.var'] = _t(st['mean']), _t(st['var'])
     return sd

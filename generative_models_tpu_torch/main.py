@@ -3,21 +3,33 @@
     python -m generative_models_tpu_torch.main --model=<name> [--flag=val ...]
 
 Same two-phase flag parsing, same epoch structure (eval first, evaluate,
-save every --save_n, train, a final eval after the last epoch), same logger
-keys (eval/nlogp, eval/bits_per_dim, train/nlogp, <model>/train/<k>,
-<model>/test/<k>, dt/train, dt/eval, num_vars), same artifacts (model.pt,
-hps.yaml, sampling_process_<epoch>.gif for the autoregressive models),
+save every --save_n, eval_heavy after each save, train, a final eval after
+the last epoch), same logger keys (eval/nlogp, eval/bits_per_dim,
+train/nlogp, <model>/train/<k>, <model>/test/<k>, dt/train, dt/eval,
+dt/eval_heavy, num_vars, and eval_heavy's eval/*), same artifacts
+(model.pt, or model.jit.pt for an arbiter, hps.yaml,
+sampling_process_<epoch>.gif for the autoregressive models),
 --weights_from, --keep_best with best.json, --nan_guard and
---skip_training. Models: pixel_transformer, vqvae, made and
-diffusion_model (with --eval_heavy=0: its default of 1 is refused until the
-arbiters are ported); pixel_transformer also under --mesh=seq:N (ring
-attention, all N ring positions on the one card: parallel/mesh.py).
+--skip_training. Models: pixel_transformer, vqvae, made, diffusion_model,
+vae, gan and the arbiters autoencoder and classifier; pixel_transformer
+also under --mesh=seq:N (ring attention, all N ring positions on the one
+card: parallel/mesh.py).
+
+--eval_heavy=1 loads the arbiters (--autoencoder always, --classifier with
+--class_cond=1; a model.jit.pt of either package, models/arbiters/) and
+after each save draws >= 500 samples (fewer where the test set runs out)
+and scores them in the autoencoder's features against as many test images:
+FID (the reference's mean-of-squares form and the standard one,
+eval/ignite_fid), k-NN precision, recall and F1, and with --class_cond=1
+the classifier's loss on samples drawn with the test labels and the cond_*
+metrics of those samples (utils/metrics.py). Samples are compared in the
+model's native range (SAMPLE_RANGE), as the test set's.
 
 Runs on the card unless given --device=cpu, and raises without CUDA. An
 epoch is a Python loop of train steps whose metrics stay on the device
-until its end (one sync an epoch). Not ported yet, and refused by
-utils/config.py: --eval_heavy, --stream_data, --resume, --profile,
---ckpt=orbax.
+until its end (one sync an epoch); eval_heavy syncs once, at its end. Not
+ported yet, and refused by utils/config.py: --stream_data, --resume,
+--profile, --ckpt=orbax.
 """
 
 import json
@@ -30,13 +42,17 @@ import torch
 
 from generative_models_tpu_torch import data as data_lib
 from generative_models_tpu_torch.utils import (
-    count_vars, dump_logger, make_logger, make_writer, parse_args,
+    count_vars, dump_logger, make_logger, make_writer, parse_args, prefix_dict,
 )
+
+TOTAL_HEAVY_SAMPLES = 500  # the reference's sample count for eval_heavy
 
 
 def load_model_and_data(argv=None):
-    """Two-phase parse, then the model (with --weights_from loaded) and the
-    dataset on the model's device."""
+    """Two-phase parse, then the model (with --weights_from loaded), the
+    dataset on the model's device and, with --eval_heavy, the arbiters
+    (the classifier only with --class_cond). Returns (model, dataset,
+    autoencoder, classifier, G)."""
     G, Model = parse_args(argv)
     G.logdir = Path(G.logdir)
     model = Model(G=G)
@@ -44,7 +60,59 @@ def load_model_and_data(argv=None):
         model.load_weights(G.weights_from)
     dataset = data_lib.load_mnist(G, model.device)
     print('num_vars', count_vars(model.params))
-    return model, dataset, G
+    autoencoder = classifier = None
+    if G.eval_heavy:
+        from generative_models_tpu_torch.models.arbiters import load_arbiter
+
+        autoencoder = load_arbiter(G.autoencoder, model.device)
+        if G.class_cond:
+            classifier = load_arbiter(G.classifier, model.device)
+    return model, dataset, autoencoder, classifier, G
+
+
+def eval_heavy(logger, model, dataset, autoencoder, classifier, G):
+    """Draw >= TOTAL_HEAVY_SAMPLES samples in batches of --bs, one a test
+    batch, until the test set runs out, and log eval/{fid, ignite_fid,
+    precision, recall, f1} of their autoencoder features against the test
+    batches'; with --class_cond=1 the samples are drawn unconditionally
+    (labels -1) and a second set with the test labels, which adds
+    eval/classifier_loss and eval/cond_{fid, precision, recall, f1}. The
+    features and losses stay on the device; one sync at the end."""
+    from generative_models_tpu_torch.utils import metrics as M
+
+    bs, n_test = int(G.bs), dataset.test_x.shape[0]
+    z_samp, z_real, z_cond, cls_losses = [], [], [], []
+    sample_ct = offset = 0
+    while sample_ct < TOTAL_HEAVY_SAMPLES:
+        test_x = dataset.test_x[offset:offset + bs]
+        test_y = dataset.test_y[offset:offset + bs]
+        offset += bs
+        if test_x.shape[0] < bs or offset > n_test:
+            break
+        if G.class_cond:
+            cond = model.sample_images(bs, y=test_y)
+            cls_losses.append(M.cross_entropy(classifier.apply(cond), test_y))
+            z_cond.append(autoencoder.apply(cond))
+            samp = model.sample_images(bs, y=-torch.ones_like(test_y))
+        else:
+            samp = model.sample_images(bs)
+        z_real.append(autoencoder.apply(test_x))
+        z_samp.append(autoencoder.apply(samp))
+        sample_ct += bs
+
+    z_samp, z_real = torch.cat(z_samp), torch.cat(z_real)
+    results = {'ignite_fid': M.frechet_distance(z_samp, z_real, mean_of_sq=False),
+               'fid': M.compute_fid(z_samp, z_real)}
+    results.update(M.precision_recall_f1(real=z_real, gen=z_samp))
+    if G.class_cond:
+        results['classifier_loss'] = torch.stack(cls_losses).mean()
+        z_cond = torch.cat(z_cond)
+        cond = M.precision_recall_f1(real=z_real, gen=z_cond)
+        cond['fid'] = M.compute_fid(z_cond, z_real)
+        results.update(prefix_dict('cond_', cond))
+    values = torch.stack([v.float() for v in results.values()]).cpu().tolist()
+    for key, val in zip(results, values):
+        logger[f'eval/{key}'].append(val)
 
 
 def _log_metrics(logger, metrics, G, split):
@@ -55,7 +123,7 @@ def _log_metrics(logger, metrics, G, split):
             logger[f'{G.model}/{split}/{key}'].append(val)
 
 
-def train(model, dataset, G):
+def train(model, dataset, autoencoder, classifier, G):
     """The epoch loop. Returns what dump_logger printed at each epoch: its
     eval metrics and the train metrics of the epoch before, as in the JAX
     package's logs."""
@@ -88,11 +156,17 @@ def train(model, dataset, G):
         model.evaluate(writer, test_x, test_y, epoch)
         logger['dt/eval'] = [time.time() - eval_time]
 
-        # ---- LOGGING / SAVE ----
+        # ---- LOGGING / SAVE / HEAVY EVAL ----
         logger['num_vars'] = [count_vars(model.params)]
         if epoch % G.save_n == 0:
             model.save(G.logdir)
             print('SAVED MODEL', G.logdir)
+            if G.eval_heavy:
+                print('RUNNING HEAVY EVAL...')
+                t0 = time.time()
+                eval_heavy(logger, model, dataset, autoencoder, classifier, G)
+                logger['dt/eval_heavy'] = [time.time() - t0]
+                print('DONE HEAVY EVAL')
         if best_metric and logger.get(best_metric):
             val = float(np.mean(logger[best_metric]))
             if val < float(best['value']):
@@ -128,8 +202,8 @@ def train(model, dataset, G):
 
 
 def main(argv=None):
-    model, dataset, G = load_model_and_data(argv)
-    return train(model, dataset, G)
+    model, dataset, autoencoder, classifier, G = load_model_and_data(argv)
+    return train(model, dataset, autoencoder, classifier, G)
 
 
 if __name__ == '__main__':

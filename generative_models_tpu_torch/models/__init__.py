@@ -1,2 +1,4 @@
 # importing a model module runs its @register
-from generative_models_tpu_torch.models import diffusion, made, pixel_transformer, vqvae  # noqa: F401
+from generative_models_tpu_torch.models import (  # noqa: F401
+    arbiters, diffusion, gan, made, pixel_transformer, vae, vqvae,
+)

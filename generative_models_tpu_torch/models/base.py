@@ -1,5 +1,5 @@
 """GM base class. Counterpart of generative_models_tpu/models/base.py
-(GM/Autoreg, :113-457).
+(GM/Autoreg/Arbiter, :113-479).
 
 Every model owns a torch module (self.net) on self.device, initialised from
 G.seed with flax's initializer families, and the host API of the JAX
@@ -29,9 +29,15 @@ both packages read; load_weights also reads a params-only state dict. A
 restored optimizer keeps Adam's step counters on the CPU, as a fresh one
 does, so its steps make no device-to-host copy. A JAX checkpoint's params
 are carried over with convert.params_from_jax, convert.vqvae_params_from_jax,
-convert.made_params_from_jax or convert.diffusion_params_from_jax.
+convert.made_params_from_jax, convert.diffusion_params_from_jax,
+convert.vae_params_from_jax or convert.gan_params_from_jax. An Arbiter
+saves and loads the JAX package's model.jit.pt payload instead
+(models/arbiters/).
+
+SAMPLE_RANGE is the range of a model's samples; serving maps it to [0, 1].
 """
 
+import contextlib
 import math
 from pathlib import Path
 
@@ -79,6 +85,20 @@ def flax_init_(module, generator):
                 nn.init.zeros_(m.bias)
 
 
+@contextlib.contextmanager
+def deterministic_convs():
+    """A context in which cuDNN takes deterministic algorithms only, its
+    other flags (TF32 off on the card) untouched: its transposed convs may
+    otherwise not be, and a seeded request would not give the same batch
+    twice."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 def read_checkpoint(path):
     """A model.pt written by GM.save (or a params-only state dict), read
     on the CPU; a JAX msgpack checkpoint is refused."""
@@ -99,6 +119,11 @@ class GM:
     DG = AttrDict()  # model-specific config defaults
     supports_ring = False  # whether --mesh=seq:N (N > 1) is ported
     supports_quantize = True  # whether serve.py --quantize is ported
+    # the native range of sample_fn / sample_images: eval_heavy compares
+    # samples with the test set in that range; serving maps it to [0, 1]
+    # (_serving_unit_range). gan's tanh generator and diffusion's clipped
+    # x_hat are in [-1, 1].
+    SAMPLE_RANGE = (0.0, 1.0)
 
     def __init__(self, G):
         self.G = G
@@ -331,8 +356,13 @@ class GM:
         raise NotImplementedError
 
     def _draw(self, n, generator, quant=None):
-        """n samples (n, H, W, 1) in [0, 1] and nothing else."""
+        """n samples (n, H, W, 1) in SAMPLE_RANGE and nothing else."""
         return self.sample_fn(n, generator=generator, quant=quant)
+
+    def _serving_unit_range(self, x):
+        """A batch in SAMPLE_RANGE mapped to the serving range [0, 1]."""
+        lo, hi = self.SAMPLE_RANGE
+        return x if (lo, hi) == (0.0, 1.0) else (x - lo) / (hi - lo)
 
     @torch.no_grad()
     def sample(self, n):
@@ -342,6 +372,7 @@ class GM:
 
     @torch.no_grad()
     def sample_images(self, n, y=None):
+        """n samples (n, H, W, 1) in SAMPLE_RANGE, for eval_heavy."""
         if y is not None:
             raise TypeError(f'{type(self).__name__}.sample takes no labels')
         self.net.eval()
@@ -357,7 +388,7 @@ class GM:
         def fn(seed):
             gen = torch.Generator(self.device).manual_seed(int(seed))
             self.net.eval()
-            return self._draw(n, gen, quant).cpu().numpy()
+            return self._serving_unit_range(self._draw(n, gen, quant)).cpu().numpy()
 
         return fn
 
@@ -377,3 +408,36 @@ class Autoreg(GM):
 
     def _draw(self, n, generator, quant=None):
         return self.sample_fn(n, generator=generator, with_frames=False, quant=quant)
+
+
+class Arbiter(GM):
+    """Eval models (autoencoder, classifier): feature_fn(x) is what
+    eval_heavy scores samples with. save writes model.jit.pt in the JAX
+    package's payload format, a pickle of {'class_name', 'G' (Paths as
+    str), 'params' (flax-layout params as flax msgpack bytes)}, so either
+    package's arbiters.load_arbiter reads the other's files."""
+
+    is_arbiter = True
+
+    def feature_fn(self, x):
+        """NHWC images -> (N, features)."""
+        raise NotImplementedError
+
+    def save(self, path, tag=''):
+        import pickle
+
+        from generative_models_tpu_torch.convert import arbiter_params_to_jax
+        from generative_models_tpu_torch.utils import msgpack
+
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        suffix = f'_{tag}' if tag else ''
+        name = type(self).__name__
+        params = arbiter_params_to_jax(self.net.state_dict(), name)
+        payload = {
+            'class_name': name,
+            'G': {k: str(v) if isinstance(v, Path) else v for k, v in self.G.items()},
+            'params': msgpack.encode(params),
+        }
+        with open(path / f'model{suffix}.jit.pt', 'wb') as f:
+            pickle.dump(payload, f)

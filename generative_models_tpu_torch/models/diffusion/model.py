@@ -43,7 +43,7 @@ class DiffusionModel(GM):
     DG.sampler = 'ddim'  # ddim | noisy (ancestral) | dpm2m (DPM-Solver++(2M)) | teacher_test
     DG.sample_steps = 0  # the chain's length; 0 = --timesteps
     DG.mean_type = 'v'
-    DG.eval_heavy = 1  # refused by utils/config.py until the arbiters are ported
+    DG.eval_heavy = 1
     DG.class_cond = 1
     DG.sample_cond_w = -1.0
     DG.cf_drop_prob = 0.1
@@ -239,12 +239,10 @@ class DiffusionModel(GM):
         --class_cond=1 (y: n labels, -1 unconditional), (seed) otherwise.
         The seed becomes torch.Generator(device).manual_seed(seed). quant
         is refused before it gets here (supports_quantize)."""
-        lo, hi = self.SAMPLE_RANGE
 
         def fn(seed, y=None):
             gen = torch.Generator(self.device).manual_seed(int(seed))
-            out = self.sample_fn(n, y, generator=gen)
-            return ((out - lo) / (hi - lo)).cpu().numpy()
+            return self._serving_unit_range(self.sample_fn(n, y, generator=gen)).cpu().numpy()
 
         if not self.G.get('class_cond', 0):
             return lambda seed: fn(seed)

@@ -12,7 +12,8 @@ Counterpart of generative_models_tpu/serve.py:
   python -m generative_models_tpu_torch.serve --model=made --quantize=int8 \
       --n=25 --out=made8.png                       # w8a8 through Kernel I
   python -m generative_models_tpu_torch.serve --model=diffusion_model \
-      --eval_heavy=0 --port=8000                   # /sample?n=16&y=3
+      --port=8000                                  # /sample?n=16&y=3
+  python -m generative_models_tpu_torch.serve --model=gan --n=25 --out=gan.png
 
 Serving shape, as in the JAX package:
   * requests are padded up to a fixed --serve_bs and sliced back down, so
@@ -40,8 +41,10 @@ activations, int8 weights widened on chip). The table is passed to the
 model's serving fn as quant=; pixel_transformer's and the vqvae prior's
 decode steps then run module by module, without Kernels A and B.
 
-A seed becomes torch.Generator(device).manual_seed(seed): the same seed
-(and labels) gives the same batch on the same card. --quantize is refused
+Every served batch is in [0, 1]: a model whose samples are in another
+range (SAMPLE_RANGE: gan's and diffusion's [-1, 1]) is mapped to it by
+its serving fn. A seed becomes torch.Generator(device).manual_seed(seed):
+the same seed (and labels) gives the same batch on the same card. --quantize is refused
 for diffusion_model (not ported yet). --mesh=seq:N serves
 pixel_transformer with its scoring forward through the ring (sampling
 takes the per-op decode chain) and refuses --quantize, as the JAX package

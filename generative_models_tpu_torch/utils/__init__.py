@@ -6,6 +6,7 @@ from generative_models_tpu_torch.utils.config import (  # noqa: F401
     prefix_dict,
 )
 from generative_models_tpu_torch.utils.logger import (  # noqa: F401
+    combine_imgs,
     count_vars,
     dump_logger,
     grid_image,

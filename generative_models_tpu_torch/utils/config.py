@@ -91,10 +91,7 @@ def global_defaults():
 
 # flags whose JAX implementation has no counterpart here yet: setting one
 # raises rather than running something other than what was asked for
-NOT_PORTED = (
-    'fsdp', 'export', 'from_export',
-    'eval_heavy', 'stream_data', 'resume', 'profile',
-)
+NOT_PORTED = ('fsdp', 'export', 'from_export', 'stream_data', 'resume', 'profile')
 
 
 def check_ported(G):

@@ -1,9 +1,9 @@
 """Metrics logging and visualisation sink. Counterpart of
 generative_models_tpu/utils/logger.py, with the same conventions: buffered
 per-epoch scalar lists flushed by dump_logger (mean -> TensorBoard when it
-imports + stdout + hps.yaml), tiled sample grids (grid_image is the JAX
-package's combine_imgs for a batch of images; write_grid, write_image) and
-sampling-process GIFs.
+imports + stdout + hps.yaml), tiled sample grids (grid_image for a batch
+of images, combine_imgs for a batch of images or videos; write_grid,
+write_image) and sampling-process GIFs.
 
 Differences: the GIF encoder is the port's own numpy one (gif_encode_gray;
 no imageio, PIL or native library), and TensorBoard gets a filmstrip of the
@@ -92,6 +92,22 @@ def grid_image(x, n1=5, n2=5):
     if n != n1 * n2:
         raise ValueError(f'grid_image: {n} images do not fill {n1}x{n2}')
     return x.reshape(n1, n2, h, w, c).transpose(0, 2, 1, 3, 4).reshape(n1 * h, n2 * w, c)
+
+
+def combine_imgs(arr, row=5, col=5):
+    """A batch of images (B, H, W, C) -> one (row * H, col * W, C) canvas,
+    or of videos (B, T, H, W, C) -> (T, row * H, col * W, C); B = row *
+    col."""
+    arr = to_numpy(arr)
+    if arr.ndim == 4:
+        return grid_image(arr, row, col)
+    if arr.ndim == 5:
+        bs, t, h, w, _ = arr.shape
+        if bs != row * col:
+            raise ValueError(f'combine_imgs: {bs} videos do not fill {row}x{col}')
+        x = arr.reshape(row, col, t, h, w, -1).transpose(2, 0, 3, 1, 4, 5)
+        return x.reshape(t, row * h, col * w, -1)
+    raise NotImplementedError(arr.shape)
 
 
 def write_image(writer, tag, img, epoch):

@@ -8,10 +8,7 @@ import re
 _REGISTRY = {}
 
 # the names the JAX package registers that are not ported yet
-JAX_MODELS = (
-    'rnn', 'wavenet', 'pixel_cnn', 'gated_pixel_cnn', 'vae', 'gan',
-    'autoencoder', 'classifier',
-)
+JAX_MODELS = ('rnn', 'wavenet', 'pixel_cnn', 'gated_pixel_cnn')
 
 
 def convert_camel_to_snake(name):

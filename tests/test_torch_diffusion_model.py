@@ -10,7 +10,7 @@ sampling from it, and its checkpoint; a restored train state that steps
 exactly as an uninterrupted one, with Adam's step counters on the CPU; the
 training CLI's artifacts (model.pt, hps.yaml, the grid's TensorBoard event
 file and the three chain GIFs), hps.yaml read by both packages, and the
-default --eval_heavy=1 refused by name.
+default --eval_heavy=1 parsed as the JAX package's.
 
 Tolerances (f32 on both sides): losses rtol 1e-5; each gradient within
 1e-4 of its own norm plus 1e-6 of the whole gradient's; the port's Adam
@@ -310,7 +310,12 @@ def test_hps_yaml_round_trips_between_the_packages(cli_run, tmp_path):
 
 
 def test_default_eval_heavy_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match='--eval_heavy=1 is not ported yet'):
-        parse_args(['--model=diffusion_model', '--device=cpu'])
+    """No longer refused: the arbiters are ported, so diffusion's defaults
+    (--eval_heavy=1, --class_cond=1) parse as the JAX package's, and
+    --eval_heavy=0 still turns it off (tests/test_torch_eval_heavy.py runs
+    the default CLI)."""
+    G, _ = parse_args(['--model=diffusion_model', '--device=cpu'])
+    jG, _ = jax_parse_args(['--model=diffusion_model'], discover_models=jax_models)
+    assert G.eval_heavy == jG.eval_heavy == 1 and G.class_cond == jG.class_cond == 1
     G, _ = parse_args(FLAGS + ['--device=cpu'])
     assert G.eval_heavy == 0 and G.class_cond == 1

@@ -69,7 +69,7 @@ def test_keep_best_writes_model_best_and_best_json(run):
 
 def test_weights_from_restores_the_full_train_state(run, small_data):
     logdir, _, _ = run
-    model, dataset, G = load_model_and_data([f'--weights_from={logdir / "model.pt"}',
+    model, dataset, _, _, G = load_model_and_data([f'--weights_from={logdir / "model.pt"}',
                                              '--device=cpu'])
     saved = torch.load(logdir / 'model.pt', weights_only=True)
     assert (model.step, model.updates) == (8, 8) == (saved['step'], saved['updates'])
@@ -95,8 +95,8 @@ def test_nan_guard_raises_on_a_nan(tmp_path, small_data, monkeypatch):
             main(TINY + ['--epochs=1', '--lr=1e30', f'--logdir={tmp_path}'])
 
 
-@pytest.mark.parametrize('flag', ['--eval_heavy=1', '--stream_data=1', '--resume=1',
-                                  '--profile=1', '--ckpt=orbax'])
+@pytest.mark.parametrize('flag', ['--stream_data=1', '--resume=1', '--profile=1',
+                                  '--ckpt=orbax'])
 def test_unported_training_flags_raise(flag):
     with pytest.raises(NotImplementedError, match='not ported yet'):
         parse_args(TINY + [flag])

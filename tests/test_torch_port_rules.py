@@ -1,6 +1,6 @@
 """Rules of the PyTorch port (generative_models_tpu_torch/ and chip_smoke.py):
-it imports nothing of JAX, flax or the JAX package, and asking for CUDA on a
-machine without it raises instead of running on the CPU."""
+it imports nothing of JAX, flax, msgpack or the JAX package, and asking for
+CUDA on a machine without it raises instead of running on the CPU."""
 
 import ast
 import subprocess
@@ -14,7 +14,7 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / 'generative_models_tpu_torch'
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'generative_models_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'generative_models_tpu')
 
 
 def _forbidden(name):
@@ -414,10 +414,11 @@ def test_unported_models_and_flags_raise():
     from generative_models_tpu_torch.utils.config import parse_args
 
     with pytest.raises(NotImplementedError, match='not ported yet'):
-        parse_args(['--model=gan', '--device=cpu'])
-    # diffusion is ported, but its default --eval_heavy=1 is refused by name
-    with pytest.raises(NotImplementedError, match='--eval_heavy=1 is not ported yet'):
-        parse_args(['--model=diffusion_model', '--device=cpu'])
+        parse_args(['--model=rnn', '--device=cpu'])
+    # diffusion's default --eval_heavy=1 is ported, and so is the global
+    # default model (vae)
+    assert parse_args(['--model=diffusion_model', '--device=cpu'])[0].eval_heavy == 1
+    assert parse_args(['--device=cpu'])[1].__name__ == 'VAE'
     with pytest.raises(KeyError):
         parse_args(['--model=no_such_model', '--device=cpu'])
     for flag in ('--mesh=data:2', '--fsdp=1', '--export=a.bin', '--from_export=a.bin'):
@@ -444,6 +445,34 @@ def test_diffusion_is_ported_and_imports_no_jax():
     with pytest.raises(NotImplementedError, match='--quantize is not ported yet for diffusion_model'):
         load_server(['--model=diffusion_model', '--device=cpu', '--eval_heavy=0',
                      '--hidden_size=32', '--quantize=int8', '--serve_bs=1'])
+
+
+def test_vae_gan_and_the_arbiters_are_ported_and_import_no_jax(monkeypatch, tmp_path):
+    """vae, gan, autoencoder and classifier left JAX_MODELS for the
+    registry; their modules and the msgpack decoder are among those the
+    import rules above scan; without CUDA their entry points raise, and so
+    does loading an arbiter for the card."""
+    from generative_models_tpu_torch import main, serve
+    from generative_models_tpu_torch.models.arbiters import load_arbiter
+    from generative_models_tpu_torch.utils.registry import JAX_MODELS, discover_models
+
+    names = ('vae', 'gan', 'autoencoder', 'classifier')
+    assert not set(names) & set(JAX_MODELS) and set(names) <= set(discover_models())
+    mods = set(_port_modules())
+    for m in ('models.vae', 'models.gan', 'models.arbiters', 'models.arbiters.autoencoder',
+              'models.arbiters.classifier', 'utils.metrics', 'utils.msgpack'):
+        assert f'generative_models_tpu_torch.{m}' in mods, m
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for name in ('vae', 'gan'):
+        with pytest.raises(RuntimeError, match='--device=cpu'):
+            main.main([f'--model={name}', '--hidden_size=8', '--epochs=0',
+                       f'--logdir={tmp_path}'])
+        with pytest.raises(RuntimeError, match='--device=cpu'):
+            serve.main([f'--model={name}', '--hidden_size=8', '--n=1',
+                        f'--out={tmp_path / "s.png"}'])
+    with pytest.raises(RuntimeError, match='--device=cpu'):
+        load_arbiter(REPO / 'weights' / 'classifier.pt', 'cuda')
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_diffusion_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp_path):

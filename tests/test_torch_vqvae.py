@@ -246,7 +246,7 @@ def test_cli_trains_and_reloads(cli_run):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tm, 'TEST_N', 16)
         with contextlib.redirect_stdout(io.StringIO()):
-            model, dataset, G = load_model_and_data([f'--weights_from={logdir / "model.pt"}',
+            model, dataset, _, _, G = load_model_and_data([f'--weights_from={logdir / "model.pt"}',
                                                      '--device=cpu'])
     assert G.model == 'vqvae' and G.vqK == K and model.step == 4
     # the harness's eval stream: epoch 1 draws the second shuffle
