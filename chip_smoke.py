@@ -29,7 +29,9 @@ failure exits non-zero before the result lines:
                 version's); Kernel H exactly 0
                 off its mask, and Kernel I (int8 x int8 -> int32) bitwise
                 equal; I and J (the dequantizing product) at every product
-                of the quantized serving paths and at four ragged shapes, I
+                of the quantized serving paths (rnn's wh is the vqvae
+                prior's fc1 shape; wavenet's res1x1, (64,320)->320, with L2
+                flushed too) and at four ragged shapes, I
                 also at K=100000; G at six ragged ones (both layouts), H at
                 five (K 1 to 200, an x at an odd offset); B (the decode
                 step's second half) at both path widths, three ragged row
@@ -94,10 +96,11 @@ failure exits non-zero before the result lines:
   15. made_grads -- phase 6 for made, against a CPU copy on the
                 fold-the-mask route; dW exactly 0 off the mask on both.
   16. quant_serve -- --quantize serving of each model at its default width
-                (pixel_transformer, vqvae, made at hidden_size=1024), w8a8
-                and w8a16, through load_server (warm, seed=7 twice):
-                Kernel I (w8a8) or J (w8a16) once a quantized Linear or
-                masked layer a step, nothing else; the /healthz fields; the
+                (pixel_transformer, vqvae, made at hidden_size=1024, rnn at
+                256, wavenet at 320), w8a8 and w8a16, through load_server
+                (warm, seed=7 twice): Kernel I (w8a8) or J (w8a16) once a
+                quantized Linear or masked layer a step (rnn's wh: 784 a
+                pass; wavenet's nine res1x1: 7056), nothing else; the /healthz fields; the
                 request redrawn through the quantized chain; the card's
                 int8 table bitwise equal to a CPU copy's; teacher-forced
                 quantized logits against a CPU f32 copy of the unquantized
@@ -158,11 +161,23 @@ failure exits non-zero before the result lines:
   25. gan    -- the same for gan (the twin step's gradients, and both nets'
                 batch statistics after it, against the CPU copy; samples
                 served in [0, 1]).
-  26. profile -- device time by kernel over one request and one train step
+  26-29. rnn, wavenet, pixel_cnn, gated_pixel_cnn -- each at its default
+                width (rnn hidden 256; wavenet hidden 320, bf16 on the card;
+                pixel_cnn 128 filters, gated_pixel_cnn 96, 5 layers, 7x7)
+                through main.main (one epoch, 10 steps at bs=64): finite
+                metrics, model.pt, hps.yaml, the event file and a sampling
+                GIF each epoch; 64 samples served through load_server
+                (warm, seed=7 twice equal, 25 unseeded), in {0, 1}; from the
+                model.pt, the full forward's logits of 8 test images and
+                one step's gradients against a CPU copy (wavenet's against
+                the port's CPU bf16 net, CPU f32 logged beside); a profiled
+                train step and a request's launches; every ops/ counter 0.
+  30. profile -- device time by kernel over one request and one train step
                 of each model, one pixel_transformer scoring forward, one
                 seq:4 train step, one quantized request of vqvae and of made
                 in each mode, 32 decode steps of a quantized
-                pixel_transformer request in each mode, one guided DDIM
+                pixel_transformer, rnn and wavenet request in each mode,
+                one guided DDIM
                 step of a diffusion request, a whole dpm2m request and one
                 diffusion train step; the device-to-host copies of one
                 vqvae and one diffusion train step, counted, each with the
@@ -247,6 +262,18 @@ EH_FLAGS = ['--model=diffusion_model', '--eval_sampler=dpm2m', '--eval_sample_st
 # the CPU f32 copy's own error beside the card's
 ARB_REL, EH_FID_REL, SMALL_GRAD, GAN_STATS_REL = 1e-4, 1e-3, (1e-3, 1e-5), 1e-4
 GAN_GRAD = (1e-2, 1e-5)
+# rnn, wavenet, pixel_cnn and gated_pixel_cnn at their default widths: the
+# card's full-forward logits on 8 test images (relative Frobenius) and one
+# step's gradients (grad_check's rel of each norm, floor of the whole
+# gradient's) against a CPU copy. rnn's products take bf16 operands on the
+# card (the port's policy), held against CPU f32 as pixel_transformer's;
+# wavenet computes in bf16 on the card, held against the port's CPU bf16
+# net (its error against CPU f32 logged beside it); the pixel CNNs run f32
+# convs and LayerNorms (TF32 off) against CPU f32
+RASTER = ('rnn', 'wavenet', 'pixel_cnn', 'gated_pixel_cnn')
+RASTER_FWD_REL = {'rnn': 3e-2, 'wavenet': 3e-2, 'pixel_cnn': 1e-4, 'gated_pixel_cnn': 1e-4}
+RASTER_GRAD = {'rnn': (5e-2, 1e-4), 'wavenet': (5e-2, 1e-4), 'pixel_cnn': SMALL_GRAD,
+               'gated_pixel_cnn': SMALL_GRAD}
 
 
 def log(*a):
@@ -1185,15 +1212,17 @@ def _f32_out_mm_ms(xb, gb):
 def int8_cases(rng, dev):
     """Kernels I and J vs their plain versions at every product of the
     quantized serving paths at serve_bs=64 (pixel_transformer's, the vqvae
-    prior's, made's at hidden_size=1024) and at four ragged shapes, the
+    prior's, made's at hidden_size=1024, rnn's wh, which is the prior's fc1
+    shape, and wavenet's res1x1) and at four ragged shapes, the
     ragged ones untimed, and I alone at K=100000 (a deep split, sums of
     1.6e9 near int32's limit). I must be bitwise equal (integer sums; the
     plain version in float64 is exact); J within atol 1e-3 + rtol 1e-3 (the
     same bf16 x and int8 q on both sides, f32 sums of up to 1024 products
     in another order); both launched twice on the same inputs bitwise equal
     (their K splits are summed in a fixed order). ms_l2_cold for I at made's
-    three products: with L2 flushed before each launch, as in a made
-    request, whose layers' weights pass through L2 in turn. Bound: I reads
+    three products and for I and J at wavenet's res1x1 (320 x 320): with L2
+    flushed before each launch, as in a made request, whose layers' weights
+    pass through L2 in turn. Bound: I reads
     int8 x and q and writes int32, J reads
     f32 x (it rounds x to bf16 itself) and int8 q and writes f32; their
     operations at the int8 and the bf16 peak. library_ms: torch._int_mm for
@@ -1208,9 +1237,10 @@ def int8_cases(rng, dev):
               ((64, 128, 512), 'pixel_transformer fc1'), ((64, 512, 128), 'pixel_transformer fc2'),
               ((64, 64, 256), 'vqvae prior embed'),
               ((64, 256, 256), 'vqvae prior query/key/value/proj'),
-              ((64, 256, 1024), 'vqvae prior fc1'), ((64, 1024, 256), 'vqvae prior fc2'),
+              ((64, 256, 1024), 'vqvae prior fc1, rnn wh'), ((64, 1024, 256), 'vqvae prior fc2'),
               ((64, 256, 64), 'vqvae prior head'), ((64, 784, 1024), 'made layer 0'),
               ((64, 1024, 1024), 'made layers 1, 2'), ((64, 1024, 784), 'made layer 3'),
+              ((64, 320, 320), 'wavenet res1x1'),
               ((10, 72, 136), 'ragged'), ((6, 130, 70), 'ragged'), ((80, 130, 70), 'ragged'),
               ((72, 40, 130), 'ragged'))
     i8 = lambda *s: torch.tensor(rng.randint(-127, 128, s), dtype=torch.int8, device=dev)
@@ -1232,8 +1262,11 @@ def int8_cases(rng, dev):
         if path != 'ragged':
             xb, wb = xf.to(torch.bfloat16), q.to(torch.bfloat16)
             bms, by = bound(M * K + K * N + 4 * M * N, 2 * M * K * N, peak=H100_INT8_OPS)
-            if path.startswith('made'):
+            if path.startswith(('made', 'wavenet')):
                 ci['ms_l2_cold'] = l2_cold_ms(lambda: int8_gemm(x8, q), 'int8_gemm_kernel', flush)
+            if path.startswith('wavenet'):
+                cj['ms_l2_cold'] = l2_cold_ms(lambda: dequant_gemm(xf, q), 'dequant_gemm_kernel',
+                                              flush)
             ci.update(bound_ms=bms, bound_by=by, library_covers='torch._int_mm', **timings(
                 lambda: int8_gemm(x8, q), lambda: int8_gemm_plain(x8, q),
                 lambda: torch._int_mm(x8, q), iters=50))
@@ -1470,13 +1503,16 @@ def phase_train(seq=1):
     return dict(launches=launches, wall_sec=wall, steps=steps, history=history)
 
 
-def _cpu_copy(model, G, **over):
+def _cpu_copy(model, G, dtype=None, **over):
     """The same model on the CPU (f32 throughout) with the card's weights;
-    over sets flags of the copy."""
+    over sets flags of the copy; dtype: wavenet's compute dtype, which the
+    CPU copy otherwise takes as f32."""
     Gc = type(G)(G)
     Gc.device = 'cpu'
     Gc.update(over)
     cpu = type(model)(Gc)
+    if dtype is not None:
+        cpu.net = cpu.build(dtype)
     cpu.net.load_state_dict({k: v.cpu() for k, v in model.net.state_dict().items()})
     return cpu
 
@@ -1485,15 +1521,19 @@ def grad_check(label, model, cpu, rel=5e-2, floor=1e-4):
     """Every parameter's gradient on the card (already in p.grad) against
     the CPU copy's: finite, non-zero, and within a bf16 tolerance."""
     ref = dict(cpu.net.named_parameters())
-    total = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in ref.values())))
+    total = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in ref.values()
+                                 if p.grad is not None)))
     # bf16 operands round each product's inputs by up to 2^-8 relative, and
     # a gradient passes ~10 such products: its relative error sits near
     # 1e-2, so rel = 5e-2 of its own norm, plus floor = 1e-4 of the whole
     # gradient's norm for key.bias, whose exact gradient is 0 (softmax is
     # shift-invariant)
-    out = {}
+    out, off_graph = {}, []
     for name, p in model.net.named_parameters():
         g = p.grad
+        if g is None and ref[name].grad is None:
+            off_graph.append(name)  # on neither side's graph (the gated net's last ln_v)
+            continue
         if g is None or not torch.isfinite(g).all() or not g.any():
             raise AssertionError(f'{label}: {name} has no finite non-zero gradient on the card')
         gr = ref[name].grad.double()
@@ -1503,11 +1543,12 @@ def grad_check(label, model, cpu, rel=5e-2, floor=1e-4):
             raise AssertionError(f'{label}: {name} |card - cpu| {err:.3g} vs |cpu| {ref_norm:.3g}')
         out[name] = err / max(ref_norm, 1e-30)
     worst = max(out, key=out.get)
-    log(f'[{label}] {len(out)} parameters finite and non-zero; relative error vs CPU f32 '
+    log(f'[{label}] {len(out)} parameters finite and non-zero; relative error vs the CPU copy '
         f'max {out[worst]:.3g} ({worst}), median {sorted(out.values())[len(out) // 2]:.3g}; '
         f'tolerance {rel} of the norm + {floor} of |all grads| = {total:.4g}; worst: '
-        f'{json.dumps({k: round(out[k], 5) for k in sorted(out, key=out.get)[-4:]})}')
-    return dict(rel_err=out, rtol_norm=rel, atol_of_total=floor)
+        f'{json.dumps({k: round(out[k], 5) for k in sorted(out, key=out.get)[-4:]})}'
+        + (f'; no gradient on either side: {off_graph}' if off_graph else ''))
+    return dict(rel_err=out, rtol_norm=rel, atol_of_total=floor, off_graph=off_graph)
 
 
 def phase_grads(seq=1):
@@ -2360,19 +2401,14 @@ def phase_eval_heavy():
                 samples_a_side=int(z_samp.shape[0]), launches=launches)
 
 
-def phase_small_model(name):
-    """vae or gan at its default width (hidden_size=256; vae z_size=128,
-    gan noise_size=128): one epoch through main.main at bs=64 on the
-    synthetic set cut to 640/128 (10 steps), its artifacts and finite
-    metrics; 64 samples served through load_server at serve_bs=64 (warm,
-    seed=7 twice equal, 25 unseeded), in [0, 1] (gan's mapped from [-1,
-    1]); from the trained model.pt one step's gradients against a CPU
-    copy from the same batch, noise and optimizer state (vae: f32,
-    SMALL_GRAD; gan: the twin step's, and the batch statistics after it,
-    against a float64 copy, GAN_GRAD, beside the CPU f32 copy's own error);
-    a profiled train step and request. No kernel of ops/."""
+def _train_and_serve(name):
+    """name at its default width: one epoch through main.main at bs=64 on
+    the synthetic set cut to 640/128 (10 steps), its model.pt, hps.yaml and
+    event file (the grids) and finite metrics; then load_server from the
+    model.pt at serve_bs=64: warm, seed=7 twice equal, 25 unseeded, each in
+    [0, 1]; no kernel of ops/ launched in any of it. Returns (logdir,
+    history, wall seconds, server, warm seconds, the seed=7 batch)."""
     import generative_models_tpu_torch.data.mnist as mnist
-    from generative_models_tpu_torch.main import load_model_and_data
     from generative_models_tpu_torch.main import main as train_main
     from generative_models_tpu_torch.serve import load_server
 
@@ -2392,7 +2428,7 @@ def phase_small_model(name):
     if not list(logdir.glob('events.out.tfevents.*')):
         raise AssertionError(f'{name}: no TensorBoard event file (the grids)')
     bad = {k: v for h in history for k, v in h.items() if not np.isfinite(v)}
-    if bad or not any(k.startswith(f'{name}/train/') for k in history[1]):
+    if bad or not any(k.startswith((f'{name}/train/', 'train/')) for k in history[1]):
         raise AssertionError(f'{name}: metrics {history[1]}')
     log(f'[{name}] main.main {wall:.2f}s; epoch 1 {json.dumps(history[1])}')
 
@@ -2404,13 +2440,29 @@ def phase_small_model(name):
     if not np.array_equal(a, b):
         raise AssertionError(f'{name}: seed=7 twice gave different batches '
                              f'(max |a - b| {float(np.abs(a - b).max()):.3g})')
-    if name == 'vae' and not set(np.unique(a)) <= {0.0, 1.0}:
-        raise AssertionError('vae: samples not in {0, 1}')
-    lat = list(server.latencies)
-    log(f'[{name}] served: warm {warm:.3f}s, requests (s) {[round(v, 5) for v in lat]}')
+    log(f'[{name}] served: warm {warm:.3f}s, requests (s) '
+        f'{[round(v, 5) for v in server.latencies]}')
     launches = _read(counters)
     if any(launches.values()):
         raise AssertionError(f'{name} launched kernels of ops/: {launches}')
+    return logdir, history, wall, server, warm, a
+
+
+def phase_small_model(name):
+    """vae or gan at its default width (hidden_size=256; vae z_size=128,
+    gan noise_size=128) through _train_and_serve (gan's samples mapped from
+    [-1, 1]; vae's in {0, 1}); from the trained model.pt one step's
+    gradients against a CPU copy from the same batch, noise and optimizer
+    state (vae: f32, SMALL_GRAD; gan: the twin step's, and the batch
+    statistics after it, against a float64 copy, GAN_GRAD, beside the CPU
+    f32 copy's own error); a profiled train step and request. No kernel of
+    ops/."""
+    from generative_models_tpu_torch.main import load_model_and_data
+
+    logdir, history, wall, server, warm, a = _train_and_serve(name)
+    if name == 'vae' and not set(np.unique(a)) <= {0.0, 1.0}:
+        raise AssertionError('vae: samples not in {0, 1}')
+    lat = list(server.latencies)
 
     model, dataset, _, _, G = load_model_and_data([f'--weights_from={logdir / "model.pt"}',
                                                    '--data_source=synthetic'])
@@ -2455,6 +2507,59 @@ def phase_small_model(name):
                 grads_rel_err=grads['rel_err'],
                 **{k: grads[k] for k in ('batch_stats_rel_err', 'cpu_f32_max_rel_err')
                    if k in grads}, profile=prof)
+
+
+def phase_raster_model(name):
+    """rnn, wavenet, pixel_cnn or gated_pixel_cnn at its default width
+    through _train_and_serve (the samples in {0, 1}, a sampling GIF each
+    epoch); from the trained model.pt, on 8 test images, the full forward's
+    logits and one step's gradients against a CPU copy (RASTER_FWD_REL,
+    RASTER_GRAD; wavenet's against the port's CPU bf16 net, its error
+    against CPU f32 logged beside); a profiled train step, and a request's
+    launches and device time (CUDA activity alone: a request is 784 decode
+    steps, tens of thousands of launches). No kernel of ops/."""
+    from generative_models_tpu_torch.main import load_model_and_data
+
+    logdir, history, wall, server, warm, a = _train_and_serve(name)
+    lat = list(server.latencies)
+    if not set(np.unique(a)) <= {0.0, 1.0}:
+        raise AssertionError(f'{name}: samples not in {{0, 1}}')
+    for epoch in (0, 1):
+        if not (logdir / f'sampling_process_{epoch}.gif').is_file():
+            raise AssertionError(f'{name}: no sampling_process_{epoch}.gif')
+
+    model, dataset, _, _, G = load_model_and_data([f'--weights_from={logdir / "model.pt"}',
+                                                   '--data_source=synthetic'])
+    x = dataset.first_test_batch(0)[0][:8]
+    bf16_ref = name == 'wavenet'  # the card computes it in bf16
+    cpu = _cpu_copy(model, G, dtype=torch.bfloat16 if bf16_ref else None)
+    cpu32 = _cpu_copy(model, G) if bf16_ref else cpu
+    with torch.no_grad():
+        got = model.logits(x)
+        fwd = dict(rel_err=_rel(got, cpu.logits(x.cpu())), bound=RASTER_FWD_REL[name],
+                   reference='CPU bf16' if bf16_ref else 'CPU f32',
+                   rel_err_vs_cpu_f32=_rel(got, cpu32.logits(x.cpu())))
+    log(f'[{name}] full forward on 8 test images vs the CPU copy: {json.dumps(fwd)}')
+    if not fwd['rel_err'] <= RASTER_FWD_REL[name]:
+        raise AssertionError(f'{name}: logits {fwd}')
+    model.backward(x)
+    cpu.backward(x.cpu())
+    grads = grad_check(f'{name}_grads vs {fwd["reference"]}', model, cpu, *RASTER_GRAD[name])
+    out = dict(grads_rel_err=grads['rel_err'], grads_off_graph=grads['off_graph'])
+    if bf16_ref:
+        cpu32.backward(x.cpu())
+        out['grads_rel_err_vs_cpu_f32'] = grad_check(
+            f'{name}_grads vs CPU f32 (logged, not bounded)', model, cpu32,
+            float('inf'), 0.0)['rel_err']
+
+    bx = dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
+    model.train_step(bx[0])
+    torch.cuda.synchronize()
+    prof = dict(train_step=_profile(f'one {name} train step', lambda: model.train_step(bx[1]), 10),
+                request=_count_launches(f'one {name} request',
+                                        lambda: server.sample(64, seed=11)))
+    return dict(wall_sec=wall, steps=640 // 64, history=history, warm_sec=warm, request_sec=lat,
+                forward=fwd, profile=prof, **out)
 
 
 def _guided_step(model, n=64):
@@ -2519,7 +2624,7 @@ def phase_quant_serve():
     held against do not depend on the mode: they are computed once a model,
     on the first mode's request, and shared."""
     out = {}
-    for name in ('pixel_transformer', 'vqvae', 'made'):
+    for name in ('pixel_transformer', 'vqvae', 'made', 'rnn', 'wavenet'):
         ref = {}
         for mode in QUANT_MODES:
             out[f'{name}_{mode}'] = quant_serve_one(name, mode, ref)
@@ -2530,7 +2635,8 @@ def quant_serve_one(name, mode, ref):
     """One model in one mode through load_server (warm and seed=7 twice),
     with exact launch counts: the mode's kernel once a quantized weight a
     step (a decode step, or a made forward), every other kernel 0 times: no
-    Kernel A or B in the decode steps, no G in made's forwards. ref: the
+    Kernel A or B in the decode steps, no G in made's forwards; rnn's wh
+    once a step and wavenet's nine res1x1 nine times. ref: the
     model's unquantized chains, shared between its modes (quant_checks)."""
     from generative_models_tpu_torch.serve import load_server
 
@@ -2546,8 +2652,8 @@ def quant_serve_one(name, mode, ref):
     launches = _read(counters)
     log(f'[{label}] load_server + warm {time.time() - t0:.2f}s (warm {warm:.2f}s); '
         f'launches {launches}')
-    steps = {'pixel_transformer': 784, 'vqvae': 49, 'made': 784}[name]
-    n_q = {'pixel_transformer': 12, 'vqvae': 14, 'made': 4}[name]
+    steps = {'pixel_transformer': 784, 'vqvae': 49, 'made': 784, 'rnn': 784, 'wavenet': 784}[name]
+    n_q = {'pixel_transformer': 12, 'vqvae': 14, 'made': 4, 'rnn': 1, 'wavenet': 9}[name]
     passes = 3  # warm + 2 requests
     if server.quant_kernels != n_q or server.quant_mode != mode:
         raise AssertionError(f'{label}: {server.quant_kernels} quantized weights in mode '
@@ -2592,7 +2698,10 @@ def quant_checks(name, mode, server, G, batch, ref):
         every logit downstream: those logits are counted, and at most 0.5 %
         of them may lie outside the tolerance (none under w8a16).
     made: causality under w8a16 bitwise, and under w8a8 the count of logits
-    <= i that move when inputs >= i change."""
+    <= i that move when inputs >= i change. rnn and wavenet: the chain is
+    their decode chain (teacher_forced_logits); the CPU f32 reference is
+    the full forward, which the CPU tests hold equal to the chain; wavenet's
+    CPU copy of the quantized chain computes in bf16, as the card does."""
     from generative_models_tpu_torch.models.pixel_transformer import (
         teacher_forced_logits, transformer_sample_scan,
     )
@@ -2644,7 +2753,7 @@ def quant_checks(name, mode, server, G, batch, ref):
             else:
                 lq = teacher_forced_logits(prior, ref['x'], 1, pq)
             lc = teacher_forced_logits(cpu.net.prior, ref['x'][:8].cpu(), 1, cquant.sub('prior'))
-        else:
+        elif name == 'made':
             x = torch.as_tensor(batch, device=dev).reshape(64, model.nin)
             if not ref:
                 ref.update(x=x, lu=model.net(x), lf=cpu.net(x[:8].cpu()))
@@ -2652,6 +2761,19 @@ def quant_checks(name, mode, server, G, batch, ref):
             lc = cpu.net(ref['x'][:8].cpu(), quant=cquant)
             flips = 0  # each forward is one step of sampling: nothing to redraw
             out['causality'] = made_quant_causality(model, quant, mode)
+        else:  # rnn, wavenet
+            T = model.canvas_size
+            x = torch.as_tensor(batch, device=dev)
+            u = torch.rand((T, 64), generator=gen, device=dev)
+            lq = model.teacher_forced_logits(x, quant)
+            flips = int((Bernoulli(logits=lq).sample(uniforms=u.t()) != x.reshape(64, T)).sum())
+            if not ref:
+                ref.update(x=x, lu=model.teacher_forced_logits(x), lf=cpu.logits(x[:8].cpu()))
+            else:
+                lq = model.teacher_forced_logits(ref['x'], quant)
+            if name == 'wavenet':
+                cpu = _cpu_copy(model, G, dtype=torch.bfloat16)
+            lc = cpu.logits(ref['x'][:8].cpu(), cquant)
     if flips:
         raise AssertionError(f'{name} {mode}: the quantized chain redraws {flips} tokens differently')
     lu, lf = ref['lu'], ref['lf']
@@ -2763,16 +2885,27 @@ def _dtoh_copies(label, fn, top_n=12):
 
 def _decode_window(server, steps):
     """A call running the quantized decode steps `steps` of a request at
-    serve_bs=64 (server.model.net with server.quant, on a fresh KV cache),
-    as sampling runs them, without the rest of the request."""
-    net, quant = server.model.net, server.quant
-    caches = net.init_cache(64)
-    prev = torch.zeros((64, net.in_size), device=net.pos_emb.device)
+    serve_bs=64 (server.model.net with server.quant, on a fresh KV cache,
+    LSTM state or set of wavenet rings), as sampling runs them, without the
+    rest of the request."""
+    model, quant = server.model, server.quant
+    net, name, dev = model.net, model.G.model, model.device
+    if name == 'pixel_transformer':
+        caches, prev = net.init_cache(64), torch.zeros((64, net.in_size), device=dev)
+        step = lambda t: net.decode_step(prev, caches, t, None, quant)
+    elif name == 'rnn':
+        products = net.products(quant)
+        h = torch.zeros((64, net.hidden), device=dev)
+        x = torch.zeros((64, model.in_channels), device=dev)
+        step = lambda t: net.step(h, h, x, products)
+    else:
+        buffers, s = net.init_buffers(64), torch.zeros((64, 3), device=dev)
+        step = lambda t: net.decode_step(buffers, s, t, quant)
 
     @torch.no_grad()
     def run():
         for t in steps:
-            net.decode_step(prev, caches, t, None, quant)
+            step(t)
     return run
 
 
@@ -2783,8 +2916,8 @@ def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
     vqvae and for made at hidden_size=2048; one (warm) pixel_transformer
     train step under --mesh=seq:4; one seeded quantized request of vqvae and
     made in each mode; and a window of PT_DECODE_WINDOW decode steps of a
-    quantized pixel_transformer request in each mode (a whole request's
-    trace, 100k-200k launches, took 60-100 s to process). For diffusion
+    quantized pixel_transformer, rnn and wavenet request in each mode (a
+    whole request's trace, 100k-250k launches, took 40-100 s to process). For diffusion
     (diff: its server, and its restored model and dataset): one guided
     DDIM step of a request (two UNet forwards: a 250-step request is 250
     of them, plus 21 launches), a whole 25-step dpm2m request's launches
@@ -2819,12 +2952,12 @@ def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
                                  lambda: made_model.train_step(made_bx[1]), 15),
         **{f'{key}_request': _profile(f'one {key} request',
                                       lambda srv=q['server']: srv.sample(64, seed=11), 12)
-           for key, q in quant.items() if not key.startswith('pixel_transformer')},
+           for key, q in quant.items() if key.startswith(('vqvae', 'made'))},
         **{f'{key}_decode_window': dict(
             steps=[PT_DECODE_WINDOW.start, PT_DECODE_WINDOW.stop],
             **_profile(f'{len(PT_DECODE_WINDOW)} decode steps of a {key} request',
                        _decode_window(q['server'], PT_DECODE_WINDOW), 12))
-           for key, q in quant.items() if key.startswith('pixel_transformer')},
+           for key, q in quant.items() if key.startswith(('pixel_transformer', 'rnn', 'wavenet'))},
         diffusion_guided_step=_profile('one guided DDIM step of a diffusion request '
                                        '(two UNet forwards)', _guided_step(diff['server'].model), 15),
         diffusion_dpm2m_request=_count_launches(
@@ -2890,6 +3023,7 @@ def main():
     eh = timed('eval_heavy', phase_eval_heavy)
     va = timed('vae', phase_small_model, 'vae')
     ga = timed('gan', phase_small_model, 'gan')
+    raster = {name: timed(name, phase_raster_model, name) for name in RASTER}
     prof = timed('profile', phase_profile, sl['server'], sl['x'], model, dataset,
                  vs['server'], vq_model, vq_dataset, ms['server'], made_model, made_dataset, qs,
                  seq_model, seq_dataset,
@@ -2993,6 +3127,7 @@ def main():
         eval_heavy=dict(eh, power=smi),
         vae=dict(va, power=smi),
         gan=dict(ga, power=smi),
+        **{name: dict(r, power=smi) for name, r in raster.items()},
         phase_sec=phase_sec,
     )))
     log(json.dumps({'kernels': kernels}))

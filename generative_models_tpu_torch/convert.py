@@ -14,7 +14,11 @@ A VAENet or an Autoencoder arbiter has encoder/Conv_{0..3} and
 decoder/ConvTranspose_{0..3}, a Classifier arbiter Conv_{0..3}; a GAN has
 gen/{ConvTranspose_{0..3}, BatchNorm_{0..2}} and disc/{Conv_{0..3},
 BatchNorm_{0..1}}, with BatchNorm's running mean and var in a batch_stats
-tree beside the params.
+tree beside the params. An LSTMPixelNet has wi, wh (no bias) and fc; a
+WavenetNet causal, block{i}/{dilated,res1x1} (or conv{i}) and out_dense; a
+PixelCNNNet and a GatedPixelCNNNet flax's auto-names (MaskConv2d_i,
+LayerNorm_i, PixelResBlock_i, GatedConv2d_i with its v_kernel, h_kernel,
+Conv_0 and Conv_1, StackLayerNorm_i).
 
 Layouts: a flax Dense kernel is (in, out), a torch Linear weight (out, in);
 a flax Conv kernel is HWIO, a torch Conv2d weight OIHW. A flax
@@ -232,4 +236,83 @@ def gan_params_from_jax(params, batch_stats=None):
             if batch_stats is not None:
                 st = batch_stats[net][key]
                 sd[f'{pre}.mean'], sd[f'{pre}.var'] = _t(st['mean']), _t(st['var'])
+    return sd
+
+
+def rnn_params_from_jax(tree):
+    """JAX LSTMPixelNet params -> state dict of the port's LSTMPixelNet."""
+    sd = {}
+    for name in ('wi', 'wh', 'fc'):
+        sd.update(_linear(tree[name], name))
+    return sd
+
+
+def _causal_conv(p, name):
+    """A CausalConv1x2's (2, C, F) kernel as its two (C, F) taps."""
+    k = _t(p['kernel'])
+    return {f'{name}.k0': k[0].contiguous(), f'{name}.k1': k[1].contiguous(),
+            f'{name}.bias': _t(p['bias'])}
+
+
+def wavenet_params_from_jax(tree):
+    """JAX WavenetNet params -> state dict of the port's WavenetNet:
+    block{i}/{dilated,res1x1} and conv{i} -> blocks.{i}."""
+    sd = {**_causal_conv(tree['causal'], 'causal'), **_linear(tree['out_dense'], 'out_dense')}
+    for key, p in tree.items():
+        m = re.fullmatch(r'(block|conv)(\d+)', key)
+        if m is None:
+            continue
+        pre = f'blocks.{m.group(2)}'
+        if m.group(1) == 'conv':
+            sd.update(_causal_conv(p, pre))
+        else:
+            sd.update(_causal_conv(p['dilated'], f'{pre}.dilated'))
+            sd.update(_linear(p['res1x1'], f'{pre}.res1x1'))
+    return sd
+
+
+def _conv_weight(kernel):
+    """A flax HWIO kernel as a torch OIHW weight."""
+    return _t(np.array(kernel, dtype=np.float32).transpose(3, 2, 0, 1).copy())
+
+
+def pixel_cnn_params_from_jax(tree):
+    """JAX PixelCNNNet params -> state dict of the port's PixelCNNNet:
+    MaskConv2d_0 -> conv_in; LayerNorm_i -> lns.i; PixelResBlock_i's
+    MaskConv2d_0..2 -> blocks.i.conv_a, conv_mid, conv_b, then MaskConv2d_1,
+    _2 -> conv_out1, conv_out2; without resblocks MaskConv2d_{1..n} ->
+    blocks.{0..n-1}, then MaskConv2d_{n+1}, _{n+2} -> conv_out1, conv_out2."""
+    n = sum(1 for k in tree if k.startswith('LayerNorm_'))
+    res = 'PixelResBlock_0' in tree
+    names = ['conv_in'] + ([] if res else [f'blocks.{i}' for i in range(n)]) + [
+        'conv_out1', 'conv_out2']
+    sd = {}
+    for j, name in enumerate(names):
+        sd.update(_conv(tree[f'MaskConv2d_{j}'], name))
+    for i in range(n):
+        sd.update(_layernorm(tree[f'LayerNorm_{i}'], f'lns.{i}'))
+        if res:
+            for j, part in enumerate(('conv_a', 'conv_mid', 'conv_b')):
+                sd.update(_conv(tree[f'PixelResBlock_{i}'][f'MaskConv2d_{j}'], f'blocks.{i}.{part}'))
+    return sd
+
+
+def gated_pixel_cnn_params_from_jax(tree):
+    """JAX GatedPixelCNNNet params -> state dict of the port's
+    GatedPixelCNNNet: MaskConv2d_0, _1 -> conv_in, conv_out; GatedConv2d_i's
+    v_kernel, h_kernel, Conv_0, Conv_1 -> gated.i.{v_conv, h_conv, link,
+    out1x1}.weight; StackLayerNorm_i's LayerNorm_0, _1 -> stack_lns.i.ln_v,
+    ln_h."""
+    sd = {**_conv(tree['MaskConv2d_0'], 'conv_in'), **_conv(tree['MaskConv2d_1'], 'conv_out')}
+    i = 0
+    while f'GatedConv2d_{i}' in tree:
+        g, pre = tree[f'GatedConv2d_{i}'], f'gated.{i}'
+        sd[f'{pre}.v_conv.weight'] = _conv_weight(g['v_kernel'])
+        sd[f'{pre}.h_conv.weight'] = _conv_weight(g['h_kernel'])
+        sd[f'{pre}.link.weight'] = _conv_weight(g['Conv_0']['kernel'])
+        sd[f'{pre}.out1x1.weight'] = _conv_weight(g['Conv_1']['kernel'])
+        ln = tree[f'StackLayerNorm_{i}']
+        sd.update(_layernorm(ln['LayerNorm_0'], f'stack_lns.{i}.ln_v'))
+        sd.update(_layernorm(ln['LayerNorm_1'], f'stack_lns.{i}.ln_h'))
+        i += 1
     return sd

@@ -10,8 +10,9 @@ dt/eval_heavy, num_vars, and eval_heavy's eval/*), same artifacts
 (model.pt, or model.jit.pt for an arbiter, hps.yaml,
 sampling_process_<epoch>.gif for the autoregressive models),
 --weights_from, --keep_best with best.json, --nan_guard and
---skip_training. Models: pixel_transformer, vqvae, made, diffusion_model,
-vae, gan and the arbiters autoencoder and classifier; pixel_transformer
+--skip_training. Models: every model of the JAX package (pixel_transformer,
+vqvae, made, rnn, wavenet, pixel_cnn, gated_pixel_cnn, diffusion_model,
+vae, gan and the arbiters autoencoder and classifier); pixel_transformer
 also under --mesh=seq:N (ring attention, all N ring positions on the one
 card: parallel/mesh.py).
 

@@ -29,7 +29,9 @@ both packages read; load_weights also reads a params-only state dict. A
 restored optimizer keeps Adam's step counters on the CPU, as a fresh one
 does, so its steps make no device-to-host copy. A JAX checkpoint's params
 are carried over with convert.params_from_jax, convert.vqvae_params_from_jax,
-convert.made_params_from_jax, convert.diffusion_params_from_jax,
+convert.made_params_from_jax, convert.rnn_params_from_jax,
+convert.wavenet_params_from_jax, convert.pixel_cnn_params_from_jax,
+convert.gated_pixel_cnn_params_from_jax, convert.diffusion_params_from_jax,
 convert.vae_params_from_jax or convert.gan_params_from_jax. An Arbiter
 saves and loads the JAX package's model.jit.pt payload instead
 (models/arbiters/).
@@ -46,6 +48,7 @@ from torch import nn
 
 from generative_models_tpu_torch.ops.common import resolve_device
 from generative_models_tpu_torch.parallel.mesh import seq_size
+from generative_models_tpu_torch.utils import dists
 from generative_models_tpu_torch.utils.config import AttrDict, dump_hps
 from generative_models_tpu_torch.utils.logger import write_grid, write_gridvid
 
@@ -408,6 +411,56 @@ class Autoreg(GM):
 
     def _draw(self, n, generator, quant=None):
         return self.sample_fn(n, generator=generator, with_frames=False, quant=quant)
+
+
+class RasterAutoreg(Autoreg):
+    """Autoregressive models whose sampler draws the side x side pixels in
+    raster order, one a step, through decode_chain (rnn, wavenet and the
+    pixel CNNs). side is 28, or 32 with --pad32."""
+
+    def __init__(self, G):
+        self.side = 32 if G.get('pad32', 0) else 28
+        self.canvas_size = self.side * self.side
+        super().__init__(G)
+
+    def decode_chain(self, n, next_pixel, quant=None):
+        """Run the T = canvas_size decode steps on a batch of n: step t
+        computes the logits of pixel t (n,) and next_pixel(t, logits)
+        returns the pixel (n,) that the chain reads from then on. quant: a
+        QuantTable over self.net."""
+        raise NotImplementedError
+
+    def teacher_forced_logits(self, x, quant=None):
+        """(B, T) logits of the decode chain fed the pixels of x (B, side,
+        side, 1): what sampling computed at each position when it drew x."""
+        flat = x.reshape(x.shape[0], self.canvas_size)
+        logits = []
+        self.decode_chain(x.shape[0], lambda t, lg: logits.append(lg) or flat[:, t], quant)
+        return torch.stack(logits, 1)
+
+    def sample_fn(self, n, generator=None, uniforms=None, with_frames=True, quant=None):
+        """Raster-order sampling through decode_chain, pixel t set to u_t <
+        sigmoid(logit_t). uniforms (T, n), the draws of step t in row t,
+        replace the generator's; quant: a QuantTable over self.net. Returns
+        the samples (n, side, side, 1) and, with with_frames, the (T, n,
+        side, side, 1) canvas after each step (the pixels after t still
+        0)."""
+        T, side = self.canvas_size, self.side
+        if uniforms is None:
+            uniforms = torch.rand((T, n), generator=generator, device=self.device)
+        pixels = torch.empty((T, n), device=self.device)
+
+        def next_pixel(t, logit):
+            pixels[t] = dists.Bernoulli(logits=logit).sample(uniforms=uniforms[t])
+            return pixels[t]
+
+        self.decode_chain(n, next_pixel, quant)
+        flat = pixels.t()
+        samples = flat.reshape(n, side, side, 1)
+        if not with_frames:
+            return samples
+        tri = torch.ones((T, T), device=self.device).tril()
+        return samples, (tri[:, None, :] * flat[None]).reshape(T, n, side, side, 1)
 
 
 class Arbiter(GM):

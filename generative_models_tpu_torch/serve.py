@@ -14,6 +14,8 @@ Counterpart of generative_models_tpu/serve.py:
   python -m generative_models_tpu_torch.serve --model=diffusion_model \
       --port=8000                                  # /sample?n=16&y=3
   python -m generative_models_tpu_torch.serve --model=gan --n=25 --out=gan.png
+  python -m generative_models_tpu_torch.serve --model=wavenet --quantize=w8a16 \
+      --n=25 --out=wn.png                          # nine res1x1 through Kernel J
 
 Serving shape, as in the JAX package:
   * requests are padded up to a fixed --serve_bs and sliced back down, so
@@ -39,7 +41,10 @@ build_quant_table); every pass then runs those products through Kernel I
 (w8a8: int8 activations and weights, int32 sums) or Kernel J (w8a16: bf16
 activations, int8 weights widened on chip). The table is passed to the
 model's serving fn as quant=; pixel_transformer's and the vqvae prior's
-decode steps then run module by module, without Kernels A and B.
+decode steps then run module by module, without Kernels A and B. rnn's
+table holds wh and wavenet's its nine res1x1 (blocks.{i}.res1x1); the
+pixel CNNs and wavenet --use_resblock=0 have nothing large enough, and
+exit, as the JAX package's server does.
 
 Every served batch is in [0, 1]: a model whose samples are in another
 range (SAMPLE_RANGE: gan's and diffusion's [-1, 1]) is mapped to it by

@@ -1,14 +1,10 @@
 """Model registry: @register adds a model under its snake-cased class name,
-the same names as generative_models_tpu/utils/registry.py. Only the models
-this port has are registered; asking for one of the JAX package's others
-raises a clear 'not ported yet'."""
+the same names as generative_models_tpu/utils/registry.py: every model the
+JAX package registers is registered here too."""
 
 import re
 
 _REGISTRY = {}
-
-# the names the JAX package registers that are not ported yet
-JAX_MODELS = ('rnn', 'wavenet', 'pixel_cnn', 'gated_pixel_cnn')
 
 
 def convert_camel_to_snake(name):
@@ -27,18 +23,8 @@ def register(cls=None, *, name=None):
     return wrap if cls is None else wrap(cls)
 
 
-class _Models(dict):
-    def __missing__(self, key):
-        if key in JAX_MODELS:
-            raise NotImplementedError(
-                f'model {key!r} is not ported yet to generative_models_tpu_torch '
-                f'(ported: {sorted(self)})'
-            )
-        raise KeyError(key)
-
-
 def discover_models():
-    """{snake_name: ModelClass} of the ported models."""
+    """{snake_name: ModelClass} of every model."""
     import generative_models_tpu_torch.models  # noqa: F401  (runs @register)
 
-    return _Models(_REGISTRY)
+    return dict(_REGISTRY)

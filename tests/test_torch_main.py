@@ -126,3 +126,54 @@ def test_sampling_process_gif_decodes_to_the_jax_frames(tmp_path):
     got = _gif_frames(tmp_path / 'port' / 'sampling_process_3.gif')
     assert got.shape == ref.shape == (6, 140, 140)
     np.testing.assert_array_equal(got, ref)
+
+
+# tests/test_smoke.py's sizes for the models whose samplers decode a pixel
+# a step (784 steps)
+AR_FLAGS = {
+    'rnn': ['--hidden_size=16'],
+    'wavenet': ['--hidden_size=8'],
+    'pixel_cnn': ['--n_filters=8', '--n_layers=2', '--kernel_size=3'],
+    'gated_pixel_cnn': ['--n_filters=8', '--n_layers=3', '--kernel_size=3'],
+}
+# each model's own defaults (its DG), which hps.yaml must carry back
+AR_DG = {
+    'rnn': {'append_loc': 1, 'hidden_size': 256},
+    'wavenet': {'use_resblock': 1, 'hidden_size': 320},
+    'pixel_cnn': {'use_resblock': 0, 'n_filters': 128, 'bf16': 0, 'lr': 1e-4},
+    'gated_pixel_cnn': {'use_resblock': 0, 'n_filters': 96, 'bf16': 0, 'lr': 1e-4},
+}
+
+
+@pytest.mark.parametrize('name', sorted(AR_FLAGS))
+def test_raster_models_train_save_reload_and_draw_the_gif(name, tmp_path, small_data):
+    """One epoch of rnn, wavenet, pixel_cnn or gated_pixel_cnn through the
+    CLI: the logger keys and artifacts of the autoregressive models, a
+    falling eval/nlogp, hps.yaml reloaded with the model's own defaults,
+    and the sampling GIF: one 5x5 grid a decode step, its last frame the
+    grid of a complete sample (binary)."""
+    G0, _ = parse_args([f'--model={name}', '--device=cpu'])
+    assert {k: G0[k] for k in AR_DG[name]} == AR_DG[name]
+    with contextlib.redirect_stdout(io.StringIO()):
+        history = main([f'--model={name}', '--device=cpu', '--bs=8', '--epochs=1', '--save_n=1',
+                        '--data_source=synthetic', f'--logdir={tmp_path}'] + AR_FLAGS[name])
+    assert set(history[1]) == {'eval/nlogp', 'eval/bits_per_dim', 'dt/eval', 'num_vars',
+                               'train/nlogp', 'dt/train'}
+    assert all(np.isfinite(v) for h in history for v in h.values())
+    assert history[1]['eval/nlogp'] < history[0]['eval/nlogp']
+    for f in ('model.pt', 'hps.yaml', 'sampling_process_0.gif', 'sampling_process_1.gif'):
+        assert (tmp_path / f).is_file(), f
+    model, _, _, _, G = load_model_and_data([f'--weights_from={tmp_path / "model.pt"}',
+                                             '--device=cpu'])
+    assert G.model == name and type(model).__name__ == type(parse_args(
+        [f'--model={name}', '--device=cpu'])[1](G0)).__name__
+    for flag in AR_FLAGS[name]:
+        key, val = flag[2:].split('=')
+        assert G[key] == int(val), key
+    assert {k: G[k] for k in AR_DG[name] if k not in dict(f[2:].split('=') for f in AR_FLAGS[name])
+            } == {k: v for k, v in AR_DG[name].items()
+                  if k not in dict(f[2:].split('=') for f in AR_FLAGS[name])}
+    assert (model.step, model.updates) == (8, 8)
+    frames = _gif_frames(tmp_path / 'sampling_process_1.gif')
+    assert frames.shape == (784, 140, 140)
+    assert set(np.unique(frames[-1])) <= {0, 255} and frames[0].sum() <= frames[-1].sum()

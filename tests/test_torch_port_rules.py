@@ -386,7 +386,7 @@ def test_made_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp_path
     assert list(tmp_path.iterdir()) == []
 
 
-@pytest.mark.parametrize('model', ['pixel_transformer', 'made'])
+@pytest.mark.parametrize('model', ['pixel_transformer', 'made', 'rnn', 'wavenet'])
 def test_quantize_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp_path, model):
     """--quantize serves on the card like every entry point: without CUDA
     it raises unless --device=cpu, before any weight is quantized."""
@@ -410,11 +410,18 @@ def test_device_rule():
 
 
 def test_unported_models_and_flags_raise():
+    from generative_models_tpu.utils.registry import discover_models as jax_models
     from generative_models_tpu_torch.serve import serve_defaults
     from generative_models_tpu_torch.utils.config import parse_args
+    from generative_models_tpu_torch.utils.registry import discover_models
 
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        parse_args(['--model=rnn', '--device=cpu'])
+    # every model the JAX package registers is in the port's registry and
+    # builds on the CPU at its defaults
+    ported = discover_models()
+    assert set(jax_models()) <= set(ported)
+    for name in sorted(jax_models()):
+        G, Model = parse_args([f'--model={name}', '--device=cpu'])
+        assert Model is ported[name] and Model(G).net is not None, name
     # diffusion's default --eval_heavy=1 is ported, and so is the global
     # default model (vae)
     assert parse_args(['--model=diffusion_model', '--device=cpu'])[0].eval_heavy == 1
@@ -432,12 +439,11 @@ def test_unported_models_and_flags_raise():
 
 
 def test_diffusion_is_ported_and_imports_no_jax():
-    """diffusion_model left JAX_MODELS for the registry; its modules are
-    among those the import rules above scan."""
+    """diffusion_model is in the registry; its modules are among those the
+    import rules above scan."""
     from generative_models_tpu_torch.serve import load_server
-    from generative_models_tpu_torch.utils.registry import JAX_MODELS, discover_models
+    from generative_models_tpu_torch.utils.registry import discover_models
 
-    assert 'diffusion_model' not in JAX_MODELS
     assert 'diffusion_model' in discover_models()
     mods = set(_port_modules())
     for m in ('schedules', 'gaussian_diffusion', 'unet', 'model'):
@@ -448,16 +454,16 @@ def test_diffusion_is_ported_and_imports_no_jax():
 
 
 def test_vae_gan_and_the_arbiters_are_ported_and_import_no_jax(monkeypatch, tmp_path):
-    """vae, gan, autoencoder and classifier left JAX_MODELS for the
-    registry; their modules and the msgpack decoder are among those the
+    """vae, gan, autoencoder and classifier are in the registry; their
+    modules and the msgpack decoder are among those the
     import rules above scan; without CUDA their entry points raise, and so
     does loading an arbiter for the card."""
     from generative_models_tpu_torch import main, serve
     from generative_models_tpu_torch.models.arbiters import load_arbiter
-    from generative_models_tpu_torch.utils.registry import JAX_MODELS, discover_models
+    from generative_models_tpu_torch.utils.registry import discover_models
 
     names = ('vae', 'gan', 'autoencoder', 'classifier')
-    assert not set(names) & set(JAX_MODELS) and set(names) <= set(discover_models())
+    assert set(names) <= set(discover_models())
     mods = set(_port_modules())
     for m in ('models.vae', 'models.gan', 'models.arbiters', 'models.arbiters.autoencoder',
               'models.arbiters.classifier', 'utils.metrics', 'utils.msgpack'):
