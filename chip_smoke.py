@@ -170,7 +170,9 @@ failure exits non-zero before the result lines:
                 (warm, seed=7 twice equal, 25 unseeded), in {0, 1}; from the
                 model.pt, the full forward's logits of 8 test images and
                 one step's gradients against a CPU copy (wavenet's against
-                the port's CPU bf16 net, CPU f32 logged beside); a profiled
+                the port's CPU bf16 net, CPU f32 logged beside; the pixel
+                CNNs' against a float64 copy, the CPU f32 copy's error
+                logged beside); a profiled
                 train step and a request's launches; every ops/ counter 0.
   30. profile -- device time by kernel over one request and one train step
                 of each model, one pixel_transformer scoring forward, one
@@ -184,7 +186,31 @@ failure exits non-zero before the result lines:
                 op and the Python lines that issued it (both models'
                 optimizers restored from model.pt: none may come from
                 Adam.step).
+  31. diff_quant -- diffusion_model's --quantize from diff_train's
+                model.pt: a UNet forward quantized on the card (w8a8 and
+                w8a16) against a CPU f32 unquantized one, on the trained
+                weights and with every ResBlock's output conv drawn; a
+                guided dpm2m-25 request through load_server in each mode, I
+                or J exactly 750 launches a request, profiled.
+  32. gan_sn -- phase 25 with --spectral_norm=1 (each SpectralNorm's u and
+                sigma held with the batch statistics).
+  33. resume -- --resume=1 through main.main, made at 2048: a run cut
+                after one epoch and resumed, bitwise the uninterrupted run;
+                the first resumed step makes no device-to-host copy.
+  34. jax_ckpt -- made at 2048 and pixel_transformer written on the card
+                as the JAX package's TrainState (flax msgpack, the port's
+                writer) and read back: bitwise, on the card, Adam's counters
+                on the CPU, no device-to-host copy in the first step.
+  35. stream -- --stream_data=1 at --stream_chunk 1 and 16 for made at 2048
+                and diffusion: the on-device run's params, the epochs' walls.
+  36. cli_profile -- --profile=1 through main.main (made at 2048): a Chrome
+                trace under logdir/profile/ naming Kernels G and H.
+  37. parity -- the twelve reference loss curves (reference_cpu_baseline
+                .json) trained on the card and held to the JAX package's
+                parity contract (data/parity.py).
 Then the kernels line, the nvidia-smi line and, last, the device line.
+`--only=<phase>,...` runs the build and those phases alone (diff_quant
+after diff_train), for work on them: it prints no kernels or device line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -274,6 +300,9 @@ RASTER = ('rnn', 'wavenet', 'pixel_cnn', 'gated_pixel_cnn')
 RASTER_FWD_REL = {'rnn': 3e-2, 'wavenet': 3e-2, 'pixel_cnn': 1e-4, 'gated_pixel_cnn': 1e-4}
 RASTER_GRAD = {'rnn': (5e-2, 1e-4), 'wavenet': (5e-2, 1e-4), 'pixel_cnn': SMALL_GRAD,
                'gated_pixel_cnn': SMALL_GRAD}
+# the models whose card gradients are held against a float64 CPU copy (the
+# CPU f32 copy's own error logged beside), at the same bound
+RASTER_GRAD_F64 = ('pixel_cnn', 'gated_pixel_cnn')
 
 
 def log(*a):
@@ -1213,16 +1242,19 @@ def int8_cases(rng, dev):
     """Kernels I and J vs their plain versions at every product of the
     quantized serving paths at serve_bs=64 (pixel_transformer's, the vqvae
     prior's, made's at hidden_size=1024, rnn's wh, which is the prior's fc1
-    shape, and wavenet's res1x1) and at four ragged shapes, the
+    shape, wavenet's res1x1, and the diffusion UNet's: the ResBlocks' emb
+    projections (64,256)->128, its embedding MLPs' (64,64)->256 and
+    (64,256)->256 being the vqvae prior's shapes, and all three at M=128,
+    where --fused_cfg=1 doubles the batch) and at four ragged shapes, the
     ragged ones untimed, and I alone at K=100000 (a deep split, sums of
     1.6e9 near int32's limit). I must be bitwise equal (integer sums; the
     plain version in float64 is exact); J within atol 1e-3 + rtol 1e-3 (the
     same bf16 x and int8 q on both sides, f32 sums of up to 1024 products
     in another order); both launched twice on the same inputs bitwise equal
     (their K splits are summed in a fixed order). ms_l2_cold for I at made's
-    three products and for I and J at wavenet's res1x1 (320 x 320): with L2
-    flushed before each launch, as in a made request, whose layers' weights
-    pass through L2 in turn. Bound: I reads
+    three products and for I and J at wavenet's res1x1 (320 x 320) and at
+    the diffusion shapes: with L2 flushed before each launch, as in a made
+    request, whose layers' weights pass through L2 in turn. Bound: I reads
     int8 x and q and writes int32, J reads
     f32 x (it rounds x to bf16 itself) and int8 q and writes f32; their
     operations at the int8 and the bf16 peak. library_ms: torch._int_mm for
@@ -1241,6 +1273,10 @@ def int8_cases(rng, dev):
               ((64, 256, 64), 'vqvae prior head'), ((64, 784, 1024), 'made layer 0'),
               ((64, 1024, 1024), 'made layers 1, 2'), ((64, 1024, 784), 'made layer 3'),
               ((64, 320, 320), 'wavenet res1x1'),
+              ((64, 256, 128), 'diffusion emb projection'),
+              ((128, 64, 256), 'diffusion time_embed dense0, fused_cfg'),
+              ((128, 256, 256), 'diffusion embedding dense1, fused_cfg'),
+              ((128, 256, 128), 'diffusion emb projection, fused_cfg'),
               ((10, 72, 136), 'ragged'), ((6, 130, 70), 'ragged'), ((80, 130, 70), 'ragged'),
               ((72, 40, 130), 'ragged'))
     i8 = lambda *s: torch.tensor(rng.randint(-127, 128, s), dtype=torch.int8, device=dev)
@@ -1262,9 +1298,9 @@ def int8_cases(rng, dev):
         if path != 'ragged':
             xb, wb = xf.to(torch.bfloat16), q.to(torch.bfloat16)
             bms, by = bound(M * K + K * N + 4 * M * N, 2 * M * K * N, peak=H100_INT8_OPS)
-            if path.startswith(('made', 'wavenet')):
+            if path.startswith(('made', 'wavenet', 'diffusion')):
                 ci['ms_l2_cold'] = l2_cold_ms(lambda: int8_gemm(x8, q), 'int8_gemm_kernel', flush)
-            if path.startswith('wavenet'):
+            if path.startswith(('wavenet', 'diffusion')):
                 cj['ms_l2_cold'] = l2_cold_ms(lambda: dequant_gemm(xf, q), 'dequant_gemm_kernel',
                                               flush)
             ci.update(bound_ms=bms, bound_by=by, library_covers='torch._int_mm', **timings(
@@ -2401,25 +2437,28 @@ def phase_eval_heavy():
                 samples_a_side=int(z_samp.shape[0]), launches=launches)
 
 
-def _train_and_serve(name):
+def _train_and_serve(name, flags=(), tag=None):
     """name at its default width: one epoch through main.main at bs=64 on
     the synthetic set cut to 640/128 (10 steps), its model.pt, hps.yaml and
     event file (the grids) and finite metrics; then load_server from the
     model.pt at serve_bs=64: warm, seed=7 twice equal, 25 unseeded, each in
-    [0, 1]; no kernel of ops/ launched in any of it. Returns (logdir,
-    history, wall seconds, server, warm seconds, the seed=7 batch)."""
+    [0, 1]; no kernel of ops/ launched in any of it. flags: more training
+    flags; tag: the logdir's and the log's name (default name). Returns
+    (logdir, history, wall seconds, server, warm seconds, the seed=7
+    batch)."""
     import generative_models_tpu_torch.data.mnist as mnist
     from generative_models_tpu_torch.main import main as train_main
     from generative_models_tpu_torch.serve import load_server
 
-    logdir = ROOT / 'build' / f'chip_smoke_{name}'
+    tag = tag or name
+    logdir = ROOT / 'build' / f'chip_smoke_{tag}'
     mnist.TRAIN_N, mnist.TEST_N = 640, 128
     shutil.rmtree(logdir, ignore_errors=True)
     counters = _counters()
     _reset(counters)
     t0 = time.time()
     history = train_main([f'--model={name}', '--bs=64', '--epochs=1', '--save_n=1',
-                          '--data_source=synthetic', f'--logdir={logdir}'])
+                          '--data_source=synthetic', f'--logdir={logdir}', *flags])
     torch.cuda.synchronize()
     wall = time.time() - t0
     for f in ('model.pt', 'hps.yaml'):
@@ -2448,7 +2487,7 @@ def _train_and_serve(name):
     return logdir, history, wall, server, warm, a
 
 
-def phase_small_model(name):
+def phase_small_model(name, flags=(), tag=None):
     """vae or gan at its default width (hidden_size=256; vae z_size=128,
     gan noise_size=128) through _train_and_serve (gan's samples mapped from
     [-1, 1]; vae's in {0, 1}); from the trained model.pt one step's
@@ -2456,10 +2495,12 @@ def phase_small_model(name):
     state (vae: f32, SMALL_GRAD; gan: the twin step's, and the batch
     statistics after it, against a float64 copy, GAN_GRAD, beside the CPU
     f32 copy's own error); a profiled train step and request. No kernel of
-    ops/."""
+    ops/. flags, tag: as _train_and_serve's (gan_sn: --spectral_norm=1,
+    whose u and sigma are held with the batch statistics)."""
     from generative_models_tpu_torch.main import load_model_and_data
 
-    logdir, history, wall, server, warm, a = _train_and_serve(name)
+    logdir, history, wall, server, warm, a = _train_and_serve(name, flags, tag)
+    tag = tag or name
     if name == 'vae' and not set(np.unique(a)) <= {0.0, 1.0}:
         raise AssertionError('vae: samples not in {0, 1}')
     lat = list(server.latencies)
@@ -2486,23 +2527,23 @@ def phase_small_model(name):
         model.train_step(x, noise=noise.cuda())
         cpu.train_step(x.cpu(), noise=noise)
         cpu64.train_step(x.cpu(), noise=noise.double())
-        cpu_f32 = grad_check('gan_grads CPU f32 vs float64', cpu, cpu64, *GAN_GRAD)
-        grads = grad_check(f'{name}_grads card vs float64', model, cpu64, *GAN_GRAD)
+        cpu_f32 = grad_check(f'{tag}_grads CPU f32 vs float64', cpu, cpu64, *GAN_GRAD)
+        grads = grad_check(f'{tag}_grads card vs float64', model, cpu64, *GAN_GRAD)
         grads['cpu_f32_max_rel_err'] = max(cpu_f32['rel_err'].values())
         ref = cpu64.net.state_dict()
         stats = {k: _rel(v, ref[k]) for k, v in model.net.state_dict().items()
-                 if k.endswith(('.mean', '.var'))}
-        log(f'[gan_grads] batch statistics after the step vs the float64 copy\'s (relative '
-            f'Frobenius): {json.dumps(stats)} (bound {GAN_STATS_REL})')
+                 if k.endswith(('.mean', '.var', '.u', '.sigma'))}
+        log(f'[{tag}_grads] batch statistics (and spectral norm state) after the step vs the '
+            f'float64 copy\'s (relative Frobenius): {json.dumps(stats)} (bound {GAN_STATS_REL})')
         if max(stats.values()) > GAN_STATS_REL:
-            raise AssertionError(f'gan: batch statistics {stats}')
+            raise AssertionError(f'{tag}: batch statistics {stats}')
         grads['batch_stats_rel_err'] = stats
 
     bx = dataset.epoch_batches(torch.Generator().manual_seed(0))[0]
     model.train_step(bx[0])
     torch.cuda.synchronize()
-    prof = dict(train_step=_profile(f'one {name} train step', lambda: model.train_step(bx[1]), 10),
-                request=_profile(f'one {name} request', lambda: server.sample(64, seed=11), 10))
+    prof = dict(train_step=_profile(f'one {tag} train step', lambda: model.train_step(bx[1]), 10),
+                request=_profile(f'one {tag} request', lambda: server.sample(64, seed=11), 10))
     return dict(wall_sec=wall, steps=640 // 64, history=history, warm_sec=warm, request_sec=lat,
                 grads_rel_err=grads['rel_err'],
                 **{k: grads[k] for k in ('batch_stats_rel_err', 'cpu_f32_max_rel_err')
@@ -2515,7 +2556,8 @@ def phase_raster_model(name):
     epoch); from the trained model.pt, on 8 test images, the full forward's
     logits and one step's gradients against a CPU copy (RASTER_FWD_REL,
     RASTER_GRAD; wavenet's against the port's CPU bf16 net, its error
-    against CPU f32 logged beside); a profiled train step, and a request's
+    against CPU f32 logged beside; the pixel CNNs' gradients against a
+    float64 copy, the CPU f32 copy's error logged beside); a profiled train step, and a request's
     launches and device time (CUDA activity alone: a request is 784 decode
     steps, tens of thousands of launches). No kernel of ops/."""
     from generative_models_tpu_torch.main import load_model_and_data
@@ -2544,8 +2586,32 @@ def phase_raster_model(name):
         raise AssertionError(f'{name}: logits {fwd}')
     model.backward(x)
     cpu.backward(x.cpu())
-    grads = grad_check(f'{name}_grads vs {fwd["reference"]}', model, cpu, *RASTER_GRAD[name])
-    out = dict(grads_rel_err=grads['rel_err'], grads_off_graph=grads['off_graph'])
+    if name in RASTER_GRAD_F64:
+        # the pixel CNNs' gradients against a float64 copy: a LayerNorm at
+        # a context-free position normalises a near-constant vector (eps
+        # 1e-6), which amplifies f32 rounding; the CPU f32 copy's error and
+        # the card's with cuDNN's TF32 on (which the port turns off) are
+        # logged beside
+        ref = _cpu_copy(model, G)
+        ref.net.double()
+        ref._as_input = lambda a: torch.as_tensor(a).double()
+        ref.backward(x.cpu().double())
+        grads = grad_check(f'{name}_grads vs CPU float64', model, ref, *RASTER_GRAD[name])
+        grads['cpu_f32_rel_err'] = grad_check(
+            f'{name}_grads CPU f32 vs float64 (logged, not bounded)', cpu, ref,
+            float('inf'), 0.0)['rel_err']
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            model.backward(x)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        grads['card_tf32_rel_err'] = grad_check(
+            f'{name}_grads card with cuDNN TF32 on vs float64 (logged, not bounded)', model, ref,
+            float('inf'), 0.0)['rel_err']
+    else:
+        grads = grad_check(f'{name}_grads vs {fwd["reference"]}', model, cpu, *RASTER_GRAD[name])
+    out = dict(grads_rel_err=grads['rel_err'], grads_off_graph=grads['off_graph'],
+               **{k: grads[k] for k in ('cpu_f32_rel_err', 'card_tf32_rel_err') if k in grads})
     if bf16_ref:
         cpu32.backward(x.cpu())
         out['grads_rel_err_vs_cpu_f32'] = grad_check(
@@ -2976,7 +3042,468 @@ def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
     return out
 
 
-def main():
+# ---------------------------------------------------------------------- #
+# --resume, a JAX package's TrainState, --stream_data, --profile,
+# --spectral_norm=1, diffusion --quantize and the reference's loss curves
+# ---------------------------------------------------------------------- #
+RESUME_DIR = ROOT / 'build' / 'chip_smoke_resume'
+JAX_CKPT_DIR = ROOT / 'build' / 'chip_smoke_jax_ckpt'
+STREAM_DIR = ROOT / 'build' / 'chip_smoke_stream'
+CLI_PROFILE_DIR = ROOT / 'build' / 'chip_smoke_cli_profile'
+# a quantized UNet forward against the CPU f32 unquantized one (relative
+# Frobenius): the bound of the other quantized paths, the JAX package's
+DIFF_QUANT_REL = 0.05
+# the UNet's Linears that --quantize holds at the default width (time_embed's
+# two, guide_embed's second, the twelve ResBlock emb projections), and the
+# UNet calls of a guided dpm2m request at 25 steps (two a step)
+DIFF_QUANT_N, DPM2M_25_CALLS = 15, 50
+
+
+def _run_main(argv):
+    """main.main(argv) with its printed lines kept: (history, the text)."""
+    import contextlib
+    import io
+
+    from generative_models_tpu_torch.main import main as train_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        history = train_main(argv)
+    return history, out.getvalue()
+
+
+def _state_diff(a, b):
+    """Entries of two model.pt dicts (net, optimizer states, counters,
+    generator state) that are not bitwise equal, as {key: max |a - b|}."""
+    out = {}
+    for k, v in a['net'].items():
+        if not torch.equal(v, b['net'][k]):
+            out[f'net.{k}'] = float((v.double() - b['net'][k].double()).abs().max())
+    for i, (sa, sb) in enumerate(zip(a['opt']['state'].values(), b['opt']['state'].values())):
+        for key in ('step', 'exp_avg', 'exp_avg_sq'):
+            if not torch.equal(sa[key], sb[key]):
+                out[f'opt.{i}.{key}'] = float((sa[key].double() - sb[key].double()).abs().max())
+    for key in ('step', 'updates', 'mini_step'):
+        if a[key] != b[key]:
+            out[key] = abs(a[key] - b[key])
+    if not torch.equal(a['gen_state'], b['gen_state']):
+        out['gen_state'] = 1.0
+    return out
+
+
+def phase_resume():
+    """--resume=1 through main.main, made at --hidden_size=2048 (Kernels G
+    and H), 10 steps an epoch at bs=64: one epoch into a logdir, then the
+    same command with --epochs=2, against an uninterrupted two-epoch run:
+    RESUMED at step 10 and RESUMING at epoch 1 printed, the params, every
+    Adam state, the counters and the generator state bitwise equal, the
+    eval metrics of epochs 1 and 2 equal. Then the model restored by
+    load_model_and_data(--resume=1) takes its first step with no
+    device-to-host copy, and a step of it and of a fresh model are
+    profiled."""
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch.main import epoch_generator, load_model_and_data
+
+    mnist.TRAIN_N, mnist.TEST_N = 640, 128
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    flags = MADE_FLAGS + ['--bs=64', '--save_n=1', '--data_source=synthetic']
+    straight, cut = RESUME_DIR / 'straight', RESUME_DIR / 'cut'
+    t0 = time.time()
+    ref, _ = _run_main(flags + ['--epochs=2', f'--logdir={straight}'])
+    t_straight = time.time() - t0
+    _, out1 = _run_main(flags + ['--epochs=1', '--resume=1', f'--logdir={cut}'])
+    t1 = time.time()
+    hist, out2 = _run_main(flags + ['--epochs=2', '--resume=1', f'--logdir={cut}'])
+    t_resumed = time.time() - t1
+    said = [ln for ln in out2.splitlines() if ln.startswith(('RESUMED', 'RESUMING'))]
+    log(f'[resume] uninterrupted 2 epochs {t_straight:.2f}s; resumed run {t_resumed:.2f}s: {said}')
+    if 'RESUMED' in out1 or said != [f'RESUMED {cut} at step 10', 'RESUMING at epoch 1']:
+        raise AssertionError(f'resume: printed {said} (first run resumed: {"RESUMED" in out1})')
+    diff = _state_diff(torch.load(straight / 'model.pt', weights_only=True),
+                       torch.load(cut / 'model.pt', weights_only=True))
+    if diff:
+        raise AssertionError(f'resume: the resumed run differs from the uninterrupted one: '
+                             f'{json.dumps(dict(list(diff.items())[:8]))}')
+    evals = lambda h: {k: v for k, v in h.items() if k.startswith('eval/')}
+    if [evals(h) for h in hist] != [evals(h) for h in ref[1:]]:
+        raise AssertionError(f'resume: eval metrics {hist} vs {ref[1:]}')
+
+    model, dataset, _, _, G = load_model_and_data(flags + ['--resume=1', f'--logdir={cut}'])
+    if model.step != 20 or {st['step'].device.type for st in model.opt.state.values()} != {'cpu'}:
+        raise AssertionError(f'resume: restored step {model.step}, Adam step counters not on '
+                             'the CPU')
+    bx, _ = dataset.epoch_batches(epoch_generator(0, 2))
+    dtoh = _dtoh_copies('the first resumed made step', lambda: model.train_step(bx[0]))
+    if dtoh['copies']:
+        raise AssertionError(f'resume: the first resumed step made {dtoh["copies"]} '
+                             'device-to-host copies')
+    fresh = type(model)(G)
+    fresh.train_step(bx[0])
+    prof = dict(resumed=_profile('a resumed made step', lambda: model.train_step(bx[1]), 6),
+                fresh=_profile('a fresh made step', lambda: fresh.train_step(bx[1]), 6))
+    return dict(uninterrupted_sec=t_straight, resumed_run_sec=t_resumed, printed=said,
+                bitwise=True, first_step_dtoh=dtoh['copies'], profile=prof)
+
+
+def _flax_tree(d):
+    """A dict of port tensors (already in flax's names) as flax writes it:
+    numpy leaves, every dict's keys sorted."""
+    if isinstance(d, dict):
+        return {k: _flax_tree(d[k]) for k in sorted(d)}
+    return d.detach().cpu().float().numpy() if isinstance(d, torch.Tensor) else d
+
+
+def made_params_to_flax(sd):
+    """MADE: w0..w3 (in, out) and b0..b3, flax's own names and layout."""
+    return _flax_tree(dict(sd))
+
+
+def pixel_transformer_params_to_flax(sd):
+    """The inverse of convert.params_from_jax: Linear weight (out, in) ->
+    Dense kernel (in, out) (the transpose), LayerNorm weight -> scale,
+    blocks.{i} -> block{i}, head_layer.dense -> head_layer/Dense_0."""
+    tree = {}
+    for key, v in sd.items():
+        parts = key.split('.')
+        if parts[0] == 'blocks':
+            parts = [f'block{parts[1]}'] + parts[2:]
+        if parts[:2] == ['head_layer', 'dense']:
+            parts = ['head_layer', 'Dense_0'] + parts[2:]
+        *mods, leaf = parts
+        if not mods:  # pos_emb
+            tree[leaf] = v
+            continue
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        norm = mods[-1] in ('ln1', 'ln2', 'ln_f')
+        if leaf == 'weight':
+            node['scale' if norm else 'kernel'] = v if norm else v.t()
+        else:
+            node[leaf] = v
+    return _flax_tree(tree)
+
+
+def flax_train_state_bytes(model, params_to_flax, rng=(0, 0)):
+    """The port model's train state as the JAX package's save writes a
+    TrainState (flax's to_bytes: params, opt_state, step, rng, extra in
+    that order; optax.adam's state as (ScaleByAdamState(count, mu, nu),
+    EmptyState)), encoded by the port's msgpack writer. model trains with
+    plain Adam (no --grad_clip, no --grad_accum); rng: the TrainState's
+    raw key (two uint32), which the port does not carry."""
+    from generative_models_tpu_torch.utils import msgpack
+
+    names = {id(p): n for n, p in model.net.named_parameters()}
+    params = [p for g in model.opt.param_groups for p in g['params']]
+    st = model.opt.state
+    counts = {int(st[p]['step']) for p in params}
+    if len(counts) != 1:
+        raise ValueError(f'Adam step counters differ: {counts}')
+    moment = lambda key: params_to_flax({names[id(p)]: st[p][key] for p in params})
+    tree = {
+        'params': params_to_flax(model.net.state_dict()),
+        'opt_state': {'0': {'count': np.array(counts.pop(), np.int32),
+                            'mu': moment('exp_avg'), 'nu': moment('exp_avg_sq')},
+                      '1': {}},
+        'step': np.array(model.step, np.int32),
+        'rng': np.array(rng, np.uint32),
+        'extra': None,
+    }
+    return msgpack.encode(tree, sort_keys=False)
+
+
+def phase_jax_ckpt():
+    """A JAX package's TrainState read on the card: made at 2048 (the
+    kernel route) and pixel_transformer at its default width take two
+    steps on the card; their state is written as the JAX package's save
+    writes it (flax_train_state_bytes; a CPU test holds those bytes equal
+    to the JAX package's for the same weights) and read into a fresh model
+    by load_weights. Every param and moment equal to the source's, bitwise,
+    on the card; Adam's step counters on the CPU, equal to the count; the
+    first step of the restored model makes no device-to-host copy and
+    lands on the source's next step bitwise."""
+    from generative_models_tpu_torch.utils.config import parse_args
+
+    out = {}
+    for name, flags, to_flax in (('made', MADE_FLAGS, made_params_to_flax),
+                                 ('pixel_transformer', ['--model=pixel_transformer'],
+                                  pixel_transformer_params_to_flax)):
+        G, Model = parse_args(flags + ['--bs=64'])
+        src = Model(G)
+        gen = torch.Generator().manual_seed(3)
+        xs = (torch.rand((3, 64, 28, 28, 1), generator=gen) > 0.5).float().cuda()
+        src.train_step(xs[0])
+        src.train_step(xs[1])
+        path = JAX_CKPT_DIR / name / 'model.pt'
+        path.parent.mkdir(parents=True, exist_ok=True)
+        blob = flax_train_state_bytes(src, to_flax, rng=(0, 17))
+        path.write_bytes(blob)
+        got = Model(G)
+        got.load_weights(path)
+        if (got.step, got.updates) != (2, 2):
+            raise AssertionError(f'jax_ckpt {name}: restored step {got.step}, {got.updates}')
+        for (k, p), q in zip(src.net.named_parameters(), got.net.parameters()):
+            sa, sb = src.opt.state[p], got.opt.state[q]
+            if q.device.type != 'cuda' or sb['exp_avg'].device.type != 'cuda':
+                raise AssertionError(f'jax_ckpt {name}: {k} restored off the card')
+            if sb['step'].device.type != 'cpu' or float(sb['step']) != 2:
+                raise AssertionError(f'jax_ckpt {name}: {k} Adam step {sb["step"]}')
+            if not (torch.equal(p, q) and torch.equal(sa['exp_avg'], sb['exp_avg'])
+                    and torch.equal(sa['exp_avg_sq'], sb['exp_avg_sq'])):
+                raise AssertionError(f'jax_ckpt {name}: {k} or its moments differ')
+        dtoh = _dtoh_copies(f'the first step of a {name} read from a JAX TrainState',
+                            lambda: got.train_step(xs[2]))
+        src.train_step(xs[2])
+        moved = {k: float((p - q).abs().max()) for (k, p), q in
+                 zip(src.net.named_parameters(), got.net.parameters()) if not torch.equal(p, q)}
+        log(f'[jax_ckpt] {name}: {len(blob)} bytes of flax msgpack read, '
+            f'{len(list(got.net.parameters()))} params and moments on the card, bitwise; first '
+            f'step {dtoh["copies"]} device-to-host copies; next step vs the source: '
+            f'{"bitwise" if not moved else moved}')
+        if dtoh['copies'] or moved:
+            raise AssertionError(f'jax_ckpt {name}: {dtoh["copies"]} copies, moved {moved}')
+        out[name] = dict(bytes=len(blob), first_step_dtoh=dtoh['copies'], next_step='bitwise')
+    return out
+
+
+def _stream_run(flags, chunk, tag):
+    """One epoch of a fresh model (seed 0) through load_model_and_data and
+    the epoch functions main.train calls: on the device's split (chunk
+    None) or streamed at chunk. Returns (state dict after, before, metrics,
+    epoch wall seconds)."""
+    from generative_models_tpu_torch.main import (
+        epoch_generator, load_model_and_data, train_epoch_streamed,
+    )
+
+    extra = [] if chunk is None else ['--stream_data=1', f'--stream_chunk={chunk}']
+    model, dataset, _, _, G = load_model_and_data(
+        flags + ['--bs=64', '--data_source=synthetic', f'--logdir={STREAM_DIR / tag}'] + extra)
+    before = {k: v.clone() for k, v in model.net.state_dict().items()}
+    gen = epoch_generator(int(G.seed) + 2000, 0)
+    threads = threading.active_count()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    if chunk is None:
+        metrics = model.train_epoch(*dataset.epoch_batches(gen, train=True))
+    else:
+        metrics = train_epoch_streamed(model, dataset, gen, chunk)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if threading.active_count() != threads:
+        raise AssertionError(f'stream {tag}: the producer thread was not joined')
+    return model.net.state_dict(), before, metrics, wall
+
+
+def phase_stream():
+    """--stream_data=1 on the card (data/stream.py: pinned host batches
+    copied on a side stream, the step's stream waiting on each copy's
+    event): made at 2048 and diffusion at its defaults, one epoch of 20
+    steps at bs=64 from a fresh model (seed 0) on the device's split, then
+    streamed at --stream_chunk 1 and 16 (16 and a partial 4), then on the
+    device's split again. The streamed runs' params against the first
+    on-device run's, as the relative Frobenius distance over every
+    parameter against that run's update: within twice the second on-device
+    run's own distance (bitwise where the card repeats a run bitwise);
+    every producer thread joined. The epochs' walls printed side by
+    side."""
+    import generative_models_tpu_torch.data.mnist as mnist
+
+    mnist.TRAIN_N, mnist.TEST_N = 1280, 128
+    out = {}
+    for name, flags in (('made', MADE_FLAGS), ('diffusion', DIFF_FLAGS)):
+        runs = {key: _stream_run(flags, chunk, f'{name}_{key}') for key, chunk in
+                (('device', None), ('stream_1', 1), ('stream_16', 16), ('device_again', None))}
+        ref, init, ref_m, _ = runs['device']
+        upd = float(torch.sqrt(sum(((ref[k].double() - init[k].double()) ** 2).sum()
+                                   for k in ref)))
+        dist = {key: float(torch.sqrt(sum(((r[0][k].double() - ref[k].double()) ** 2).sum()
+                                          for k in ref))) / upd
+                for key, r in runs.items() if key != 'device'}
+        wall = {key: r[3] for key, r in runs.items()}
+        log(f'[stream] {name}: params vs the on-device run (relative to its update) '
+            f'{json.dumps(dist)}; epoch wall (s) {json.dumps(wall)}; metrics '
+            f'{json.dumps({k: r[2] for k, r in runs.items()})}')
+        for key in ('stream_1', 'stream_16'):
+            if dist[key] > 2 * dist['device_again']:
+                raise AssertionError(f'stream {name} {key}: {dist[key]:.3g} from the on-device '
+                                     f'run, which repeats within {dist["device_again"]:.3g}')
+        out[name] = dict(rel_dist=dist, epoch_wall_sec=wall, steps=20)
+    return out
+
+
+def phase_cli_profile():
+    """--profile=1 through main.main: made at 2048, one epoch (10 steps at
+    bs=64, a save and evaluate each epoch): a Chrome trace under
+    logdir/profile/ whose kernel events name Kernels G and H, counted."""
+    import generative_models_tpu_torch.data.mnist as mnist
+
+    mnist.TRAIN_N, mnist.TEST_N = 640, 128
+    shutil.rmtree(CLI_PROFILE_DIR, ignore_errors=True)
+    t0 = time.time()
+    _, text = _run_main(MADE_FLAGS + ['--bs=64', '--epochs=1', '--save_n=1', '--profile=1',
+                                      '--data_source=synthetic', f'--logdir={CLI_PROFILE_DIR}'])
+    wall = time.time() - t0
+    traces = sorted((CLI_PROFILE_DIR / 'profile').glob('*.json'))
+    if len(traces) != 1:
+        raise AssertionError(f'cli_profile: traces {traces}; printed {text[-400:]}')
+    events = json.loads(traces[0].read_text())['traceEvents']
+    kernels = [e['name'] for e in events if e.get('cat') == 'kernel']
+    counts = {k: sum(k in n for n in kernels) for k in ('masked_matmul_kernel',
+                                                        'mask_out_matmul_kernel')}
+    size = traces[0].stat().st_size
+    log(f'[cli_profile] main.main with --profile=1 {wall:.2f}s; trace {size / 2**20:.1f} MiB, '
+        f'{len(events)} events, {len(kernels)} kernels; Kernels G and H in it: {counts}')
+    if not all(counts.values()):
+        raise AssertionError(f'cli_profile: the trace does not name Kernels G and H: {counts}')
+    return dict(wall_sec=wall, trace_mib=size / 2**20, events=len(events),
+                kernel_events=len(kernels), named=counts)
+
+
+def phase_diff_quant():
+    """diffusion_model's --quantize on the card, w8a8 (Kernel I) and w8a16
+    (Kernel J), from diff_train's model.pt (10 trained steps, --ema):
+      * one UNet forward at batch 4 through a table over the trained net,
+        against a CPU f32 copy's unquantized forward (DIFF_QUANT_REL): on
+        the weights as trained, and with every ResBlock's output conv drawn
+        (_live_resblocks: the time and class embeddings reach the output
+        only through it, so on the trained weights, 10 steps from zero, the
+        quantized layers can barely show); the card's quantized forward
+        against its own unquantized one reported;
+      * load_server at serve_bs=64 with --sampler=dpm2m --sample_steps=25:
+        warm and one guided request with labels, I or J exactly
+        DIFF_QUANT_N x DPM2M_25_CALLS launches a pass and nothing else, the
+        table over the EMA copy that sampling reads; a request profiled."""
+    from generative_models_tpu_torch.main import load_model_and_data
+    from generative_models_tpu_torch.ops.int8 import QuantTable, quantize_dense_modules
+    from generative_models_tpu_torch.serve import load_server
+
+    model, _, _, _, G = load_model_and_data([f'--weights_from={DIFF_TRAIN_DIR / "model.pt"}',
+                                             '--data_source=synthetic'])
+    gen = torch.Generator().manual_seed(0)
+    z = torch.randn((4, 28, 28, 1), generator=gen)
+    ls = torch.tensor([-15.0, -2.0, 3.0, 12.0])
+    y = torch.tensor([1, -1, 5, 9], dtype=torch.int32)
+    dev = model.device
+    out = {}
+    for weights in ('trained', 'live_resblocks'):
+        if weights == 'live_resblocks':
+            _live_resblocks(model)
+        cpu = _cpu_copy(model, G, bf16=0)
+        with torch.no_grad():
+            ref = cpu.net.eval()(z, ls, guide=y)
+            plain = model.net.eval()(z.to(dev), ls.to(dev), guide=y.to(dev))
+        for mode in QUANT_MODES:
+            quant = QuantTable(mode, quantize_dense_modules(model.net))
+            if len(quant) != DIFF_QUANT_N:
+                raise AssertionError(f'diff_quant: {len(quant)} quantized Linears')
+            with torch.no_grad():
+                got = model.net(z.to(dev), ls.to(dev), guide=y.to(dev), quant=quant)
+            out[f'{weights}_{mode}'] = dict(vs_cpu_f32=_rel(got, ref),
+                                            vs_card_plain=_rel(got, plain))
+        out[f'{weights}_card_plain_vs_cpu_f32'] = _rel(plain, ref)
+    log(f'[diff_quant] UNet forward, quantized on the card, vs a CPU f32 unquantized one '
+        f'(relative Frobenius; bound {DIFF_QUANT_REL}): {json.dumps(out)}')
+    for key, v in out.items():
+        if isinstance(v, dict) and not v['vs_cpu_f32'] < DIFF_QUANT_REL:
+            raise AssertionError(f'diff_quant {key}: {v}')
+
+    serve = {}
+    counters = _counters()
+    for mode in QUANT_MODES:
+        _reset(counters)
+        srv, _ = load_server([f'--weights_from={DIFF_TRAIN_DIR / "model.pt"}', '--serve_bs=64',
+                              '--sampler=dpm2m', '--sample_steps=25', f'--quantize={mode}'])
+        warm = srv.warm()
+        s = srv.sample(64, y=DIFF_LABELS, seed=7)
+        torch.cuda.synchronize()
+        launches = _read(counters)
+        per_pass = DIFF_QUANT_N * DPM2M_25_CALLS
+        expected = dict.fromkeys(launches, 0)
+        expected[QUANT_KERNEL[mode]] = 2 * per_pass  # warm + the request
+        _check_samples(f'diff_quant {mode}', s, 64)
+        if srv.quant_kernels != DIFF_QUANT_N or launches != expected:
+            raise AssertionError(f'diff_quant {mode}: {srv.quant_kernels} quantized, launches '
+                                 f'{launches} != {expected}')
+        prof = _profile(f'a quantized ({mode}) guided dpm2m-25 diffusion request',
+                        lambda: srv.sample(64, y=DIFF_LABELS, seed=8), 8)
+        serve[mode] = dict(warm_sec=warm, request_sec=list(srv.latencies), launches=launches,
+                           launches_per_request=per_pass, profile=prof)
+        log(f'[diff_quant] {mode}: warm {warm:.2f}s, requests (s) '
+            f'{[round(v, 4) for v in srv.latencies]}; {QUANT_KERNEL[mode]} {per_pass} a request')
+    return dict(forward=out, serve=serve)
+
+
+def phase_parity():
+    """The original reference's loss curves (reference_cpu_baseline.json:
+    twelve models, 20-48 steps at bs=32) against the port's on the card:
+    each port model at its registry defaults (and the recorder's
+    overrides), seed 0, trained on the same sequential digits batches
+    (data/parity.py parity_batches) for the reference's whole length, and
+    held to the JAX package's parity contract (check_parity: learns and
+    descends where the reference does, the converged window within TOL of
+    the reference's, gan inside BAND). Each model's converged-window excess
+    is printed beside its tolerance. A model of parity.TRACED is run from
+    each of parity.SEEDS and held to the whole contract with
+    parity.TRACED_BOUND in place of TOL; its readings' spread is printed.
+    Any curve outside the contract fails the phase."""
+    from generative_models_tpu_torch.data import parity
+
+    refs = parity.reference_curves()
+    out, failed = {}, {}
+    for name in sorted(refs):
+        seeds = parity.SEEDS if name in parity.TRACED else (0,)
+        lim = parity.BAND.get(name, parity.TRACED_BOUND.get(name, parity.TOL.get(name)))
+        runs = []
+        for seed in seeds:
+            t0 = time.time()
+            ours, ref = parity.run_curve(name, 'cuda', refs, seed=seed)
+            ex = parity.excess(name, ours, ref)
+            try:
+                parity.check_parity(name, ours, ref, tol=parity.TRACED_BOUND.get(name))
+            except AssertionError as e:
+                failed[f'{name}@{seed}'] = str(e)[:300]
+            runs.append(dict(seed=seed, steps=len(ours), excess=ex, sec=time.time() - t0,
+                             first=ours[0], last_window=parity.window_mean(ours),
+                             within_tol=ex <= parity.TOL[name] if name in parity.TOL else None))
+            log(f'[parity] {name} seed {seed}: {len(ours)} steps in {runs[-1]["sec"]:.1f}s; '
+                f'converged window {runs[-1]["last_window"]:.4f} vs the reference\'s '
+                f'{parity.window_mean(ref):.4f} ({"ratio" if name in parity.BAND else "excess"} '
+                f'{ex:+.4f}, limit {lim}{", TOL " + str(parity.TOL[name]) if name in parity.TRACED else ""}); '
+                f'{"OUTSIDE" if f"{name}@{seed}" in failed else "within"} the contract')
+        out[name] = dict(runs=runs, limit=lim, ref_last_window=parity.window_mean(ref),
+                         traced=name in parity.TRACED)
+        if len(runs) > 1:
+            exs = [r['excess'] for r in runs]
+            log(f'[parity] {name}: excess over seeds {list(seeds)} from {min(exs):+.4f} to '
+                f'{max(exs):+.4f} (mean {np.mean(exs):+.4f}), bound {lim}, TOL '
+                f'{parity.TOL[name]}; traced: {parity.TRACED[name]}')
+    if failed:
+        raise AssertionError(f'parity: outside the contract: {json.dumps(failed)}')
+    return out
+
+
+ONLY = {  # --only: these phases alone, in this order, after the build
+    'kernels': lambda dev: phase_kernels(dev),
+    'int8': lambda dev: int8_cases(np.random.RandomState(0), dev),
+    'diff_train': lambda dev: phase_diff_train(),
+    'diff_quant': lambda dev: phase_diff_quant(),
+    'gan_sn': lambda dev: phase_small_model('gan', ['--spectral_norm=1'], 'gan_sn'),
+    'resume': lambda dev: phase_resume(),
+    'jax_ckpt': lambda dev: phase_jax_ckpt(),
+    'stream': lambda dev: phase_stream(),
+    'cli_profile': lambda dev: phase_cli_profile(),
+    'parity': lambda dev: phase_parity(),
+    **{name: (lambda dev, name=name: phase_raster_model(name)) for name in RASTER},
+}
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    only = [a.split('=', 1)[1].split(',') for a in argv if a.startswith('--only=')]
+    if len(only) != len(argv) or any(n not in ONLY for names in only for n in names):
+        print(f'usage: chip_smoke.py [--only=<{"|".join(ONLY)},...>] (no argument: every '
+              'phase)', file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this needs a GPU',
               file=sys.stderr)
@@ -3000,6 +3527,16 @@ def main():
         return out
 
     ptxas = timed('build', phase_build)
+    if only:
+        # a part of the run, for working on it: no kernels line, no device
+        # line, so it cannot pass for the whole
+        res = {name: timed(name, ONLY[name], dev) for name in only[0]}
+        log(f'[time] phases {json.dumps(phase_sec)}')
+        log(json.dumps({k: v for k, v in res.items() if k not in ('kernels', 'diff_train')},
+                       default=str))
+        if 'kernels' in res:
+            log(json.dumps({'kernel_cases': res['kernels'][0]}, default=str))
+        return 0
     cases, ring = timed('kernels', phase_kernels, dev)
     sl = timed('slice', phase_slice)
     tr = timed('train', phase_train)
@@ -3021,8 +3558,10 @@ def main():
     ab = timed('arb_load', phase_arb_load)
     at = timed('arb_train', phase_arb_train)
     eh = timed('eval_heavy', phase_eval_heavy)
+    dq = timed('diff_quant', phase_diff_quant)
     va = timed('vae', phase_small_model, 'vae')
     ga = timed('gan', phase_small_model, 'gan')
+    gs = timed('gan_sn', phase_small_model, 'gan', ['--spectral_norm=1'], 'gan_sn')
     raster = {name: timed(name, phase_raster_model, name) for name in RASTER}
     prof = timed('profile', phase_profile, sl['server'], sl['x'], model, dataset,
                  vs['server'], vq_model, vq_dataset, ms['server'], made_model, made_dataset, qs,
@@ -3030,6 +3569,11 @@ def main():
                  dict(server=ds['server'], dpm2m_server=ds['other']['dpm2m_25'].pop('server'),
                       model=dt['model'], dataset=dt['dataset']))
     ds['other']['fused_cfg'].pop('server')
+    rs = timed('resume', phase_resume)
+    jc = timed('jax_ckpt', phase_jax_ckpt)
+    sm = timed('stream', phase_stream)
+    cp = timed('cli_profile', phase_cli_profile)
+    pa = timed('parity', phase_parity)
     phase_sec['total'] = time.time() - t_start
     log(f'[time] phases {json.dumps(phase_sec)}')
 
@@ -3059,7 +3603,9 @@ def main():
         by_path = {'serve': sl['launches'][name], 'train': tr['launches'][name],
                    'seq_train': st['launches'][name], 'vqvae_serve': vs['launches'][name], 'vqvae_train': vt['launches'][name],
                    'made_serve': ms['launches'][name], 'made_train': mt['launches'][name],
-                   **{f'{key}_serve': q['launches'][name] for key, q in qs.items()}}
+                   **{f'{key}_serve': q['launches'][name] for key, q in qs.items()},
+                   **{f'diffusion_{mode}_serve': q['launches'][name]
+                      for mode, q in dq['serve'].items()}}
         if sum(by_path.values()) == 0:
             raise AssertionError(f'{name} was not launched on a main path')
         kernels.append(dict(
@@ -3127,6 +3673,13 @@ def main():
         eval_heavy=dict(eh, power=smi),
         vae=dict(va, power=smi),
         gan=dict(ga, power=smi),
+        gan_sn=dict(gs, power=smi),
+        diffusion_quant=dict(dq, power=smi),
+        resume=dict(rs, power=smi),
+        jax_ckpt=dict(jc, power=smi),
+        stream=dict(sm, power=smi),
+        cli_profile=dict(cp, power=smi),
+        parity=dict(pa, power=smi),
         **{name: dict(r, power=smi) for name, r in raster.items()},
         phase_sec=phase_sec,
     )))

@@ -73,17 +73,27 @@ def _conv(p, name, transpose=False):
     return {f'{name}.weight': _t(k.copy()), f'{name}.bias': _t(p['bias'])}
 
 
-def vqvae_params_from_jax(tree):
-    """JAX VQVAE params {'ae': ..., 'prior': ...} -> state dict of the
-    port's VQVAE net (keys ae.* and prior.*)."""
-    ae = tree['ae']
+def vqvae_ae_params_from_jax(ae):
+    """The JAX VQVAE's 'ae' tree -> the port's ae.* entries."""
     sd = {'ae.codebook': _t(ae['codebook'])}
     for i in range(4):
         sd.update(_conv(ae['encoder'][f'Conv_{i}'], f'ae.encoder.convs.{i}'))
         sd.update(_conv(ae['decoder'][f'ConvTranspose_{i}'], f'ae.decoder.deconvs.{i}',
                         transpose=True))
-    sd.update({f'prior.{k}': v for k, v in params_from_jax(tree['prior']).items()})
     return sd
+
+
+def vqvae_prior_params_from_jax(prior):
+    """The JAX VQVAE's 'prior' TransformerNet tree -> the port's prior.*
+    entries."""
+    return {f'prior.{k}': v for k, v in params_from_jax(prior).items()}
+
+
+def vqvae_params_from_jax(tree):
+    """JAX VQVAE params {'ae': ..., 'prior': ...} -> state dict of the
+    port's VQVAE net (keys ae.* and prior.*)."""
+    return {**vqvae_ae_params_from_jax(tree['ae']),
+            **vqvae_prior_params_from_jax(tree['prior'])}
 
 
 def made_params_from_jax(tree):
@@ -222,11 +232,16 @@ def gan_params_from_jax(params, batch_stats=None):
     """JAX GAN params {'gen': ConvTranspose_i, BatchNorm_i; 'disc': Conv_i,
     BatchNorm_i} and their batch_stats -> state dict of the port's GAN net:
     gen.deconvs.i, disc.convs.i, and {gen,disc}.bns.i.{weight, bias} from
-    BatchNorm_i's scale and bias, .{mean, var} from its batch_stats.
-    batch_stats=None converts a params-shaped tree alone (an optimizer's
-    moments)."""
+    BatchNorm_i's scale and bias, .{mean, var} from its batch_stats; with
+    --spectral_norm=1 the discriminator's batch_stats also hold
+    SpectralNorm_i's Conv_i/kernel/u (1, out) and Conv_i/kernel/sigma (),
+    which become disc.sns.i.{u, sigma}. batch_stats=None converts a
+    params-shaped tree alone (an optimizer's moments); a net missing from
+    params is skipped (one optimizer's moments)."""
     sd = {}
     for net in ('gen', 'disc'):
+        if net not in params:
+            continue
         tree = params[net]
         sd.update(conv_tree_from_jax(
             {k: v for k, v in tree.items() if not k.startswith('BatchNorm_')}, f'{net}.'))
@@ -236,6 +251,11 @@ def gan_params_from_jax(params, batch_stats=None):
             if batch_stats is not None:
                 st = batch_stats[net][key]
                 sd[f'{pre}.mean'], sd[f'{pre}.var'] = _t(st['mean']), _t(st['var'])
+        for key, st in (batch_stats or {}).get(net, {}).items():
+            m = re.fullmatch(r'SpectralNorm_(\d+)', key)
+            if m:
+                sd[f'{net}.sns.{m.group(1)}.u'] = _t(st[f'Conv_{m.group(1)}/kernel/u'])
+                sd[f'{net}.sns.{m.group(1)}.sigma'] = _t(st[f'Conv_{m.group(1)}/kernel/sigma'])
     return sd
 
 

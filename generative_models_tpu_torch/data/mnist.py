@@ -7,10 +7,10 @@ Data sources, resolved in order by 'auto':
   1. 'mnist'     -- real MNIST idx files under --data_dir (raw or .gz; the
      directory itself, its MNIST/raw or its mnist). Nothing is downloaded.
   2. 'digits'    -- sklearn's 1797 8x8 digits, upsampled to 24x24 and placed
-     at random offsets in a 28x28 canvas, up to TRAIN_N/TEST_N. Needs
-     scikit-learn, imported only here.
+     at random offsets in a 28x28 canvas, up to TRAIN_N/TEST_N, read from
+     digits.npz (no scikit-learn needed).
   3. 'synthetic' -- procedural rectangles per class, pure numpy.
-The arrays are the JAX package's, bit for bit (digits to float rounding).
+The arrays are the JAX package's, bit for bit.
 
 Difference: an epoch's order comes from torch.randperm with an explicit
 torch.Generator, not jax.random.permutation, so the batches differ from the
@@ -79,34 +79,29 @@ def _load_mnist_idx(data_dir):
     return train_x[..., None], train_y, test_x[..., None], test_y
 
 
-def _bilinear_matrix(n_in, n_out):
-    """(n_out, n_in) weights of a bilinear resize with half-pixel centres,
-    clamped at the edges (jax.image.resize 'bilinear' when upsampling)."""
-    x = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
-    x = np.clip(x, 0, n_in - 1)
-    lo = np.floor(x).astype(int)
-    hi = np.minimum(lo + 1, n_in - 1)
-    w = np.zeros((n_out, n_in))
-    np.add.at(w, (np.arange(n_out), lo), 1 - (x - lo))
-    np.add.at(w, (np.arange(n_out), hi), x - lo)
-    return w
+DIGITS = Path(__file__).resolve().with_name('digits.npz')
 
 
-def _load_digits_upsampled():
-    """sklearn's 1797 real 8x8 handwritten digits -> 28x28, replicated with
-    deterministic placement up to TRAIN_N/TEST_N."""
-    from sklearn.datasets import load_digits
+def load_digits():
+    """sklearn's 1797 8x8 hand-written digits (the UCI ML hand-written
+    digits set that scikit-learn bundles) upsampled to (1797, 24, 24) f32 as
+    the JAX package's loader upsamples them (jax.image.resize, bilinear),
+    and their labels, from digits.npz beside this module: the port needs
+    neither scikit-learn nor JAX for them."""
+    with np.load(DIGITS) as f:
+        return f['up'], f['target'].astype(np.int32)
 
-    d = load_digits()
-    imgs = d.images.astype(np.float32) / 16.0  # (1797, 8, 8) in [0,1]
-    labels = d.target.astype(np.int32)
-    test_mask = np.arange(len(imgs)) % 7 == 0  # every 7th example to test
-    W = _bilinear_matrix(8, 24)
 
-    def expand(split_imgs, split_labels, n, seed):
+def _load_digits_upsampled(train_n=None, test_n=None):
+    """The upsampled digits -> 28x28, replicated with deterministic
+    placement up to train_n / test_n (TRAIN_N / TEST_N)."""
+    up_all, labels = load_digits()
+    test_mask = np.arange(len(up_all)) % 7 == 0  # every 7th example to test
+
+    def expand(split_up, split_labels, n, seed):
         rng = np.random.RandomState(seed)
-        idx = rng.randint(0, len(split_imgs), size=n)
-        up = np.einsum('ij,njk,lk->nil', W, split_imgs[idx].astype(np.float64), W)
+        idx = rng.randint(0, len(split_up), size=n)
+        up = split_up[idx]
         out = np.zeros((n, 28, 28, 1), np.float32)
         offs = rng.randint(0, 5, size=(n, 2))
         for dy in range(5):
@@ -115,8 +110,8 @@ def _load_digits_upsampled():
                 out[m, dy:dy + 24, dx:dx + 24, 0] = up[m]
         return np.clip(out, 0.0, 1.0), split_labels[idx].astype(np.int32)
 
-    train_x, train_y = expand(imgs[~test_mask], labels[~test_mask], TRAIN_N, seed=0)
-    test_x, test_y = expand(imgs[test_mask], labels[test_mask], TEST_N, seed=1)
+    train_x, train_y = expand(up_all[~test_mask], labels[~test_mask], train_n or TRAIN_N, seed=0)
+    test_x, test_y = expand(up_all[test_mask], labels[test_mask], test_n or TEST_N, seed=1)
     return train_x, train_y, test_x, test_y
 
 
@@ -181,7 +176,9 @@ class Dataset:
 
 def load_mnist(G, device):
     """Load per --data_source / --data_dir, apply the transforms, move to
-    device. Returns a Dataset."""
+    device. Returns a Dataset, or with --stream_data=1 a StreamingDataset
+    (data/stream.py: the training split stays on the host, each batch
+    transformed as it is staged, --prefetch_depth batches ahead)."""
     source = G.get('data_source', 'auto')
     loaded = None
     chosen = source
@@ -189,16 +186,20 @@ def load_mnist(G, device):
         loaded = _load_mnist_idx(G.get('data_dir', Path('./data/')))
         chosen = 'mnist' if loaded is not None else source
     if loaded is None and source in ('auto', 'digits'):
-        try:
-            loaded = _load_digits_upsampled()
-            chosen = 'digits'
-        except ImportError:
-            loaded = None
+        loaded = _load_digits_upsampled()
+        chosen = 'digits'
     if loaded is None:
         loaded = _load_synthetic()
         chosen = 'synthetic'
     if chosen != 'mnist':
         print(f'[data] MNIST idx files not found; using fallback source: {chosen}')
     train_x, train_y, test_x, test_y = loaded
+    if int(G.get('stream_data', 0)):
+        from generative_models_tpu_torch.data.stream import StreamingDataset
+
+        return StreamingDataset(
+            train_x, train_y, test_x, test_y, G.bs, device,
+            prefetch=int(G.get('prefetch_depth', 2)),
+            transform=lambda b: apply_transforms(b, G.binarize, G.pad32))
     return Dataset(apply_transforms(train_x, G.binarize, G.pad32), train_y,
                    apply_transforms(test_x, G.binarize, G.pad32), test_y, G.bs, device)

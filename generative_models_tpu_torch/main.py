@@ -9,8 +9,9 @@ train/nlogp, <model>/train/<k>, <model>/test/<k>, dt/train, dt/eval,
 dt/eval_heavy, num_vars, and eval_heavy's eval/*), same artifacts
 (model.pt, or model.jit.pt for an arbiter, hps.yaml,
 sampling_process_<epoch>.gif for the autoregressive models),
---weights_from, --keep_best with best.json, --nan_guard and
---skip_training. Models: every model of the JAX package (pixel_transformer,
+--weights_from (a port model.pt or a JAX package's), --keep_best with
+best.json, --nan_guard, --skip_training, --resume, --stream_data and
+--profile. Models: every model of the JAX package (pixel_transformer,
 vqvae, made, rnn, wavenet, pixel_cnn, gated_pixel_cnn, diffusion_model,
 vae, gan and the arbiters autoencoder and classifier); pixel_transformer
 also under --mesh=seq:N (ring attention, all N ring positions on the one
@@ -26,13 +27,32 @@ the classifier's loss on samples drawn with the test labels and the cond_*
 metrics of those samples (utils/metrics.py). Samples are compared in the
 model's native range (SAMPLE_RANGE), as the test set's.
 
+--resume=1 reloads logdir/model.pt when there is one (RESUMED <logdir> at
+step N; --weights_from takes precedence) and starts at epoch step //
+steps_per_epoch (RESUMING at epoch E; the step counts micro-steps, so
+--grad_accum does not divide it), keeping best.json when it tracks the
+same metric. Each epoch's shuffle (and the test sweep's) comes from a
+generator seeded from (seed, epoch), as the JAX package folds the epoch
+into its keys, and model.pt keeps the model's own training draws' stream,
+so a resumed run trains exactly the uninterrupted one.
+
+--stream_data=1 keeps the training split on the host (data/stream.py,
+--prefetch_depth batches staged ahead) and trains on the same batches in
+the same order as the on-device split; --stream_chunk=k stages (k, bs, ...)
+blocks, the last one partial, and every step weighs the same in the
+epoch's metrics (a partial block as much as its steps).
+
+--profile=1 runs the epoch loop under torch.profiler (the CPU, and CUDA on
+the card) and writes a Chrome trace under logdir/profile/, also when the
+loop raises; where the platform cannot trace, it says so and trains on.
+
 Runs on the card unless given --device=cpu, and raises without CUDA. An
 epoch is a Python loop of train steps whose metrics stay on the device
 until its end (one sync an epoch); eval_heavy syncs once, at its end. Not
-ported yet, and refused by utils/config.py: --stream_data, --resume,
---profile, --ckpt=orbax.
+ported, and refused by utils/config.py: --ckpt=orbax.
 """
 
+import contextlib
 import json
 import time
 from itertools import count
@@ -42,6 +62,7 @@ import numpy as np
 import torch
 
 from generative_models_tpu_torch import data as data_lib
+from generative_models_tpu_torch.models.base import mean_metrics
 from generative_models_tpu_torch.utils import (
     count_vars, dump_logger, make_logger, make_writer, parse_args, prefix_dict,
 )
@@ -59,6 +80,11 @@ def load_model_and_data(argv=None):
     model = Model(G=G)
     if G.weights_from != Path('.'):
         model.load_weights(G.weights_from)
+    elif int(G.get('resume', 0)) and (G.logdir / 'model.pt').exists():
+        # the same command again after an interruption: pick up the
+        # logdir's own checkpoint; the first run starts fresh
+        model.load_weights(G.logdir / 'model.pt')
+        print(f'RESUMED {G.logdir} at step {model.step}')
     dataset = data_lib.load_mnist(G, model.device)
     print('num_vars', count_vars(model.params))
     autoencoder = classifier = None
@@ -124,6 +150,58 @@ def _log_metrics(logger, metrics, G, split):
             logger[f'{G.model}/{split}/{key}'].append(val)
 
 
+def epoch_generator(seed, epoch):
+    """A CPU generator for one epoch, seeded from (seed, epoch), as the JAX
+    package takes fold_in(key, epoch): an epoch's order does not depend on
+    the epochs drawn before it in this process."""
+    state = np.random.SeedSequence([int(seed), int(epoch)]).generate_state(2, np.uint32)
+    return torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
+
+
+def train_epoch_streamed(model, dataset, generator, chunk):
+    """One epoch from a StreamingDataset: a train step a batch, or a block
+    of chunk, the steps' metrics kept on the device and averaged at the
+    end, every step weighing the same."""
+    ms = []
+    with dataset.stream_epoch(generator, chunk=chunk) as batches:
+        for bx, by in batches:
+            if chunk == 1:
+                ms.append(model.train_step(bx, by))
+            else:
+                ms.extend(model.train_step(bx[i], by[i]) for i in range(len(bx)))
+    return mean_metrics(ms)
+
+
+@contextlib.contextmanager
+def profiled(G, device):
+    """torch.profiler around the block when --profile=1 (CUDA activity too
+    on the card): the Chrome trace is written to logdir/profile/ when the
+    block ends, also by an exception. Where tracing cannot start, it says
+    so and runs the block unprofiled."""
+    if not int(G.get('profile', 0)):
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    out = Path(G.logdir) / 'profile'
+    out.mkdir(parents=True, exist_ok=True)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == 'cuda' else [])
+    try:
+        prof = profile(activities=acts)
+        prof.__enter__()
+    except Exception as e:  # a platform that cannot trace
+        print(f'[profiler] trace unavailable: {e}')
+        yield None
+        return
+    try:
+        yield prof
+    finally:
+        prof.__exit__(None, None, None)
+        path = out / f'trace_{int(time.time())}.json'
+        prof.export_chrome_trace(str(path))
+        print(f'[profiler] trace written to {path}')
+
+
 def train(model, dataset, autoencoder, classifier, G):
     """The epoch loop. Returns what dump_logger printed at each epoch: its
     eval metrics and the train metrics of the epoch before, as in the JAX
@@ -132,71 +210,84 @@ def train(model, dataset, autoencoder, classifier, G):
     dump_logger(make_logger(), writer, 0, G)
     logger, history = make_logger(), []
     seed = int(G.get('seed', 0))
-    # one shuffling stream each for eval and train, as the JAX package's
-    # eval_key / data_key
-    eval_gen = torch.Generator().manual_seed(seed + 1000)
-    data_gen = torch.Generator().manual_seed(seed + 2000)
+    resume = int(G.get('resume', 0))
 
     best_metric = {'nlogp': 'eval/nlogp', 'fid': 'eval/fid'}.get(
         str(G.get('keep_best', '')), str(G.get('keep_best', ''))
     )
     best_path = Path(G.logdir) / 'best.json'
     best = {'metric': best_metric, 'value': float('inf'), 'epoch': -1}
+    if best_metric and resume and best_path.exists():
+        prev = json.loads(best_path.read_text())
+        if prev.get('metric') == best_metric:
+            best = prev  # the best checkpoint does not regress across resumes
 
-    for epoch in count():
-        # ---- TEST (eval first) ----
-        if model.has_loss():
-            bx, by = dataset.epoch_batches(eval_gen, train=False)
-            test_metrics = model.eval_epoch(bx, by)
-            _log_metrics(logger, test_metrics, G, 'test')
-            if getattr(model, 'is_autoreg', False) and 'nlogp' in test_metrics:
-                # the AR losses are mean per-pixel Bernoulli NLL in nats
-                logger['eval/bits_per_dim'].append(test_metrics['nlogp'] / np.log(2.0))
-        test_x, test_y = dataset.first_test_batch(epoch)
-        eval_time = time.time()
-        model.evaluate(writer, test_x, test_y, epoch)
-        logger['dt/eval'] = [time.time() - eval_time]
+    start_epoch = 0
+    if resume and model.step > 0:
+        start_epoch = model.step // max(1, dataset.steps_per_epoch)
+        print(f'RESUMING at epoch {start_epoch}')
 
-        # ---- LOGGING / SAVE / HEAVY EVAL ----
-        logger['num_vars'] = [count_vars(model.params)]
-        if epoch % G.save_n == 0:
-            model.save(G.logdir)
-            print('SAVED MODEL', G.logdir)
-            if G.eval_heavy:
-                print('RUNNING HEAVY EVAL...')
-                t0 = time.time()
-                eval_heavy(logger, model, dataset, autoencoder, classifier, G)
-                logger['dt/eval_heavy'] = [time.time() - t0]
-                print('DONE HEAVY EVAL')
-        if best_metric and logger.get(best_metric):
-            val = float(np.mean(logger[best_metric]))
-            if val < float(best['value']):
-                best = {'metric': best_metric, 'value': val, 'epoch': epoch}
-                model.save(G.logdir, tag='best')
-                best_path.write_text(json.dumps(best))
-                print(f'SAVED BEST ({best_metric}={val:.4f} @ epoch {epoch})')
-        history.append(dump_logger(logger, writer, epoch, G))
-        logger = make_logger()
+    with profiled(G, model.device):
+        for epoch in count(start_epoch):
+            # ---- TEST (eval first) ----
+            if model.has_loss():
+                bx, by = dataset.epoch_batches(epoch_generator(seed + 1000, epoch), train=False)
+                test_metrics = model.eval_epoch(bx, by)
+                _log_metrics(logger, test_metrics, G, 'test')
+                if getattr(model, 'is_autoreg', False) and 'nlogp' in test_metrics:
+                    # the AR losses are mean per-pixel Bernoulli NLL in nats
+                    logger['eval/bits_per_dim'].append(test_metrics['nlogp'] / np.log(2.0))
+            test_x, test_y = dataset.first_test_batch(epoch)
+            eval_time = time.time()
+            model.evaluate(writer, test_x, test_y, epoch)
+            logger['dt/eval'] = [time.time() - eval_time]
 
-        if epoch >= G.epochs:
-            break
+            # ---- LOGGING / SAVE / HEAVY EVAL ----
+            logger['num_vars'] = [count_vars(model.params)]
+            if epoch % G.save_n == 0:
+                model.save(G.logdir)
+                print('SAVED MODEL', G.logdir)
+                if G.eval_heavy:
+                    print('RUNNING HEAVY EVAL...')
+                    t0 = time.time()
+                    eval_heavy(logger, model, dataset, autoencoder, classifier, G)
+                    logger['dt/eval_heavy'] = [time.time() - t0]
+                    print('DONE HEAVY EVAL')
+            if best_metric and logger.get(best_metric):
+                val = float(np.mean(logger[best_metric]))
+                if val < float(best['value']):
+                    best = {'metric': best_metric, 'value': val, 'epoch': epoch}
+                    model.save(G.logdir, tag='best')
+                    best_path.write_text(json.dumps(best))
+                    print(f'SAVED BEST ({best_metric}={val:.4f} @ epoch {epoch})')
+            history.append(dump_logger(logger, writer, epoch, G))
+            logger = make_logger()
 
-        # ---- TRAIN ----
-        train_time = time.time()
-        if not G.skip_training:
-            bx, by = dataset.epoch_batches(data_gen, train=True)
-            _log_metrics(logger, model.train_epoch(bx, by), G, 'train')
-        logger['dt/train'] = [time.time() - train_time]
+            if epoch >= G.epochs:
+                break
 
-        if int(G.get('nan_guard', 1)):
-            # fail fast on a blown-up run: every later epoch would be wasted
-            bad = sorted(k for k, v in logger.items()
-                         if k.split('/')[-2:-1] == ['train'] and not np.all(np.isfinite(v)))
-            if bad:
-                raise FloatingPointError(
-                    f'non-finite train metrics at epoch {epoch}: {bad} '
-                    '(set --nan_guard=0 to train through)'
-                )
+            # ---- TRAIN ----
+            train_time = time.time()
+            if not G.skip_training:
+                data_gen = epoch_generator(seed + 2000, epoch)
+                if getattr(dataset, 'is_streaming', False):
+                    metrics = train_epoch_streamed(model, dataset, data_gen,
+                                                   max(1, int(G.get('stream_chunk', 1))))
+                else:
+                    bx, by = dataset.epoch_batches(data_gen, train=True)
+                    metrics = model.train_epoch(bx, by)
+                _log_metrics(logger, metrics, G, 'train')
+            logger['dt/train'] = [time.time() - train_time]
+
+            if int(G.get('nan_guard', 1)):
+                # fail fast on a blown-up run: every later epoch would be wasted
+                bad = sorted(k for k, v in logger.items()
+                             if k.split('/')[-2:-1] == ['train'] and not np.all(np.isfinite(v)))
+                if bad:
+                    raise FloatingPointError(
+                        f'non-finite train metrics at epoch {epoch}: {bad} '
+                        '(set --nan_guard=0 to train through)'
+                    )
     if writer is not None:
         writer.close()
     return history

@@ -21,20 +21,21 @@ A model may own a second optimizer beside self.opt (the VQ-VAE prior's
 Adam): optimizers() names every one whose state a checkpoint keeps, and
 trained_params() the parameters self.opt steps.
 
-Checkpoints are the port's own: model.pt holds the full train state (net,
-every optimizer's state, step counters, and what extra_state() names: the
-diffusion model's EMA copy and frozen teacher, as the JAX package's
-TrainState.extra) as a torch pickle of tensors, beside an hps.yaml that
-both packages read; load_weights also reads a params-only state dict. A
-restored optimizer keeps Adam's step counters on the CPU, as a fresh one
-does, so its steps make no device-to-host copy. A JAX checkpoint's params
-are carried over with convert.params_from_jax, convert.vqvae_params_from_jax,
-convert.made_params_from_jax, convert.rnn_params_from_jax,
-convert.wavenet_params_from_jax, convert.pixel_cnn_params_from_jax,
-convert.gated_pixel_cnn_params_from_jax, convert.diffusion_params_from_jax,
-convert.vae_params_from_jax or convert.gan_params_from_jax. An Arbiter
-saves and loads the JAX package's model.jit.pt payload instead
-(models/arbiters/).
+Checkpoints: model.pt holds the full train state (net, every optimizer's
+state, step counters, the training draws' generator state, and what
+extra_state() names: the diffusion model's EMA copy and frozen teacher, as
+the JAX package's TrainState.extra) as a torch pickle of tensors, beside an
+hps.yaml that both packages read; load_weights also reads a params-only
+state dict, and a JAX package's model.pt (flax msgpack of its TrainState,
+read by utils/msgpack.py): the params and each Adam's moments through the
+model's params_from_jax (convert.*_from_jax), optax's count as torch
+Adam's step counters, the --grad_clip chain and the --grad_accum
+MultiSteps window, step and extra (load_jax_state). TrainState.rng has no
+torch counterpart: the model's generators keep their --seed streams.
+Every checkpoint is read on the CPU, so a restored optimizer keeps Adam's
+step counters there, as a fresh one does, and its steps make no
+device-to-host copy. An Arbiter saves and loads the JAX package's
+model.jit.pt payload instead (models/arbiters/).
 
 SAMPLE_RANGE is the range of a model's samples; serving maps it to [0, 1].
 """
@@ -102,18 +103,50 @@ def deterministic_convs():
         torch.backends.cudnn.deterministic = prev
 
 
+def mean_metrics(ms):
+    """Step metrics (dicts of device scalars) -> each one's mean over the
+    steps, as floats (one sync)."""
+    return {k: float(torch.stack([m[k] for m in ms]).mean()) for k in ms[0]}
+
+
+class JaxTrainState(dict):
+    """A JAX package's model.pt as read_checkpoint reads it: the flax
+    msgpack tree of its TrainState (step, params, opt_state, rng, extra),
+    leaves as numpy arrays."""
+
+
 def read_checkpoint(path):
-    """A model.pt written by GM.save (or a params-only state dict), read
-    on the CPU; a JAX msgpack checkpoint is refused."""
+    """A model.pt read on the CPU: one written by GM.save (or a params-only
+    state dict), a torch zip archive, as a dict of tensors; or a JAX
+    package's (flax msgpack of its TrainState) as a JaxTrainState."""
     path = Path(path)
     with open(path, 'rb') as f:
-        if f.read(2) != b'PK':  # torch.save writes a zip archive
-            raise NotImplementedError(
-                f'{path} is not a torch checkpoint (a JAX msgpack checkpoint?); '
-                'reading JAX checkpoints is not ported yet: carry params '
-                'over with generative_models_tpu_torch.convert.params_from_jax'
-            )
-    return torch.load(path, map_location='cpu', weights_only=True)
+        head = f.read(2)
+    if head == b'PK':  # torch.save writes a zip archive
+        return torch.load(path, map_location='cpu', weights_only=True)
+    if head and (0x80 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):  # a msgpack map
+        from generative_models_tpu_torch.utils import msgpack
+
+        tree = msgpack.decode(path.read_bytes())
+        if isinstance(tree, dict):
+            return JaxTrainState(tree)
+    raise ValueError(f'{path} is neither a torch checkpoint nor a JAX (flax msgpack) one')
+
+
+def jax_adam_state(tree):
+    """optax's ScaleByAdamState (count, mu, nu) inside an optax state tree:
+    adam's (ScaleByAdamState, EmptyState) pair, under
+    chain(clip_by_global_norm, adam) ({'0': {}, '1': adam's}) or under
+    MultiSteps' inner_opt_state."""
+    if not isinstance(tree, dict):
+        return None
+    if {'count', 'mu', 'nu'} <= set(tree):
+        return tree
+    for key in sorted(k for k in tree if k != 'acc_grads'):
+        found = jax_adam_state(tree[key])
+        if found is not None:
+            return found
+    return None
 
 
 class GM:
@@ -121,7 +154,6 @@ class GM:
 
     DG = AttrDict()  # model-specific config defaults
     supports_ring = False  # whether --mesh=seq:N (N > 1) is ported
-    supports_quantize = True  # whether serve.py --quantize is ported
     # the native range of sample_fn / sample_images: eval_heavy compares
     # samples with the test set in that range; serving maps it to [0, 1]
     # (_serving_unit_range). gan's tanh generator and diffusion's clipped
@@ -143,7 +175,11 @@ class GM:
         # weights whatever the device
         flax_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(self.device).eval()
+        # the training draws (noise, label drops), kept in model.pt so a
+        # resumed run draws what an uninterrupted one would; sampling draws
+        # from a stream of its own, as the JAX package's host key
         self._gen = torch.Generator(self.device).manual_seed(seed)
+        self._sample_gen = torch.Generator(self.device).manual_seed(seed)
         self.opt = torch.optim.Adam(
             self.trained_params(), lr=self.lr_at(0), betas=(0.9, 0.999), eps=1e-8
         )
@@ -284,7 +320,7 @@ class GM:
         """(steps, bs, ...) batches -> the mean of each metric over the
         steps, as floats (one sync at the end)."""
         ms = [self.train_step(bx[i], None if by is None else by[i]) for i in range(len(bx))]
-        return {k: float(torch.stack([m[k] for m in ms]).mean()) for k in ms[0]}
+        return mean_metrics(ms)
 
     @torch.no_grad()
     def eval_loss(self, x, y=None):
@@ -299,7 +335,7 @@ class GM:
         self.net.eval()
         ms = [self.loss(self._as_input(bx[i]), None if by is None else by[i])[1]
               for i in range(len(bx))]
-        return {k: float(torch.stack([m[k] for m in ms]).mean()) for k in ms[0]}
+        return mean_metrics(ms)
 
     # ------------------------------------------------------------------ #
     # checkpoints: the full train state, as the JAX package's
@@ -313,6 +349,7 @@ class GM:
         state = dict(
             net=self.net.state_dict(), step=self.step, updates=self.updates,
             mini_step=self.mini_step, acc=self._acc, extra=self.extra_state(),
+            gen_state=self._gen.get_state(),
             **{name: o.state_dict() for name, o in self.optimizers().items()},
         )
         torch.save(state, path / f'model{suffix}.pt')
@@ -328,9 +365,13 @@ class GM:
         """Restore what extra_state() saved (extra may be {})."""
 
     def load_weights(self, path):
-        """Restore a model.pt written by save (the full train state), or a
-        params-only torch state dict."""
+        """Restore a model.pt written by save (the full train state), a
+        params-only torch state dict, or a JAX package's model.pt
+        (load_jax_state)."""
         state = read_checkpoint(path)
+        if isinstance(state, JaxTrainState):
+            self.load_jax_state(state, path)
+            return
         if 'net' not in state:  # params only
             self.net.load_state_dict(state)
             return
@@ -346,11 +387,103 @@ class GM:
         acc = state['acc']
         self._acc = None if acc is None else [a.to(self.device) for a in acc]
         self.load_extra_state(state.get('extra', {}))
+        gen = state.get('gen_state')  # absent from checkpoints before it was kept
+        # a generator's state has one size a device kind: a checkpoint of
+        # the card restored on the CPU (or back) keeps the seeded stream
+        if gen is not None and gen.numel() == self._gen.get_state().numel():
+            self._gen.set_state(gen)
+
+    # ------------------------------------------------------------------ #
+    # a JAX package's model.pt
+    # ------------------------------------------------------------------ #
+    def params_from_jax(self, tree):
+        """A JAX params-shaped tree (the params, an Adam moment) -> the
+        entries of self.net's state dict it holds (convert.*_from_jax)."""
+        raise NotImplementedError(f'{type(self).__name__} reads no JAX checkpoint')
+
+    def net_state_from_jax(self, tree):
+        """A JAX TrainState tree -> self.net's state dict: its params, and
+        what the model keeps beside them (gan: the batch_stats in extra)."""
+        return self.params_from_jax(tree['params'])
+
+    def jax_optimizers(self, opt_state):
+        """[(torch optimizer, its optax state, params_from_jax of its
+        params-shaped trees)], the one with the trainer knobs (self.opt)
+        first."""
+        return [(self.opt, opt_state, self.params_from_jax)]
+
+    def load_jax_extra(self, extra):
+        """Restore what the JAX TrainState's extra holds beside the params
+        (diffusion's EMA and teacher); nothing by default."""
+
+    def _opt_names(self, opt):
+        """The net's names of opt's parameters, in its state dict's order."""
+        names = {id(p): n for n, p in self.net.named_parameters()}
+        return [names[id(p)] for group in opt.param_groups for p in group['params']]
+
+    def _load_jax_adam(self, opt, adam, params_from_jax):
+        """optax's ScaleByAdamState into a torch Adam: mu and nu as
+        exp_avg and exp_avg_sq, count as each step counter, on the CPU,
+        where a fresh Adam keeps it. Returns the count."""
+        mu, nu = params_from_jax(adam['mu']), params_from_jax(adam['nu'])
+        count = float(adam['count'])
+        state = {i: {'step': torch.tensor(count), 'exp_avg': mu[n], 'exp_avg_sq': nu[n]}
+                 for i, n in enumerate(self._opt_names(opt))}
+        opt.load_state_dict({'state': state, 'param_groups': opt.state_dict()['param_groups']})
+        return int(count)
+
+    def load_jax_state(self, tree, path=''):
+        """Restore a JAX package's TrainState (read_checkpoint's
+        JaxTrainState): the params through params_from_jax, each Adam's
+        moments through the same converter and its count as torch Adam's
+        step counters; plain adam, chain(clip_by_global_norm, adam) and
+        MultiSteps (mini_step, gradient_step and acc_grads become
+        mini_step, updates and the --grad_accum window); step; extra
+        (load_jax_extra). TrainState.rng has no torch counterpart: the
+        model's generators keep their --seed streams. A tree that does not
+        fit the model is refused with a ValueError."""
+        missing = sorted({'params', 'opt_state', 'step'} - set(tree))
+        if missing:
+            raise ValueError(f'{path}: not a JAX TrainState (no {", ".join(missing)})')
+        try:
+            sd = self.net_state_from_jax(tree)
+            own = self.net.state_dict()
+            absent = sorted(set(own) - set(sd))
+            if absent:
+                raise KeyError(f'no entry for {absent[:4]}')
+            # the other way round flax's strict=False merge keeps: entries
+            # the model lacks (a student's cond_w_embed) are not read
+            self.net.load_state_dict({k: sd[k] for k in own})
+            opts = self.jax_optimizers(tree['opt_state'])
+            counts = []
+            for opt, opt_state, conv in opts:
+                adam = jax_adam_state(opt_state)
+                if adam is None:
+                    raise KeyError(f'no Adam state in {sorted(opt_state)}')
+                counts.append(self._load_jax_adam(opt, adam, conv))
+            self.step, self.updates = int(tree['step']), counts[0]
+            self.mini_step, self._acc = 0, None
+            _, window, conv = opts[0]
+            if 'mini_step' in window:  # optax.MultiSteps around self.opt's chain
+                self.updates = int(window['gradient_step'])
+                self.mini_step = int(window['mini_step'])
+                acc = conv(window['acc_grads'])
+                self._acc = [acc[n].to(self.device) for n in self._opt_names(self.opt)]
+            self.load_jax_extra(tree.get('extra') or {})
+        except (KeyError, TypeError, RuntimeError) as e:
+            raise ValueError(
+                f'{path}: a JAX TrainState that does not fit {type(self).__name__} '
+                f'at these flags: {e}') from e
 
 
     # ------------------------------------------------------------------ #
     # sampling and serving
     # ------------------------------------------------------------------ #
+    def quant_net(self):
+        """The module whose Linears serve.py --quantize quantizes (the
+        QuantTable's root): the net the serving fn runs."""
+        return self.net
+
     def sample_fn(self, n, generator=None, uniforms=None, quant=None):
         """n samples from the generator's draws, or from the random numbers
         given (uniforms), so a test can hand both packages the same draws.
@@ -369,9 +502,9 @@ class GM:
 
     @torch.no_grad()
     def sample(self, n):
-        """sample_fn's output from the model's own generator stream."""
+        """sample_fn's output from the model's own sampling stream."""
         self.net.eval()
-        return self.sample_fn(n, generator=self._gen)
+        return self.sample_fn(n, generator=self._sample_gen)
 
     @torch.no_grad()
     def sample_images(self, n, y=None):
@@ -379,7 +512,7 @@ class GM:
         if y is not None:
             raise TypeError(f'{type(self).__name__}.sample takes no labels')
         self.net.eval()
-        return self._draw(n, self._gen)
+        return self._draw(n, self._sample_gen)
 
     def pure_serving_fn(self, n, quant=None):
         """(seed) -> (n, H, W, 1) float32 numpy samples in [0, 1]. The seed

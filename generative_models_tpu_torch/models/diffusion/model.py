@@ -8,7 +8,9 @@ that writes the 25-sample grid and the z / x_hat / eps_hat chain GIFs.
 
 No kernel of ops/ lies on this path: the UNet's convs, GroupNorm and
 Linears are stock PyTorch ops (the JAX package leaves them to XLA), in bf16
-under --bf16=1 as flax's dtype computes them (unet.py).
+under --bf16=1 as flax's dtype computes them (unet.py). Serving under
+--quantize runs the UNet's large Linears through Kernels I and J, from a
+table over the net that sampling reads (quant_net).
 
 Random draws: training takes, in order, the label-drop uniforms, eps, u
 (or i) and w from the model's generator unless train_step is handed them
@@ -23,7 +25,8 @@ from pathlib import Path
 
 import torch
 
-from generative_models_tpu_torch.models.base import GM, read_checkpoint
+from generative_models_tpu_torch import convert
+from generative_models_tpu_torch.models.base import GM, JaxTrainState, read_checkpoint
 from generative_models_tpu_torch.models.diffusion.gaussian_diffusion import GaussianDiffusion
 from generative_models_tpu_torch.models.diffusion.unet import SimpleUnet
 from generative_models_tpu_torch.utils import register, write_grid, write_gridvid
@@ -34,6 +37,7 @@ EVAL_SEED_TAG = 0x7FFFFFFF  # the eval loss's generator seed, beside G.seed
 
 @register
 class DiffusionModel(GM):
+    params_from_jax = staticmethod(convert.diffusion_params_from_jax)  # a JAX model.pt
     DG = AttrDict()
     SAMPLE_RANGE = (-1.0, 1.0)  # sampling clips x_hat to [-1, 1]
     DG.binarize = 0
@@ -55,7 +59,6 @@ class DiffusionModel(GM):
     DG.fused_cfg = 0  # guided sampling: 1 = one doubled-batch call a step, 0 = two
     DG.eval_sampler = ''  # sample_images' sampler ('' = --sampler)
     DG.eval_sample_steps = 0  # sample_images' chain length (0 = --sample_steps)
-    supports_quantize = False
 
     def __init__(self, G):
         self.size = 32 if G.get('pad32', 0) else 28
@@ -101,7 +104,10 @@ class DiffusionModel(GM):
         if path.is_dir():
             path = path / 'model.pt'
         state = read_checkpoint(path)
-        teacher = state.get('net', state)
+        if isinstance(state, JaxTrainState):
+            teacher = convert.diffusion_params_from_jax(state['params'])
+        else:
+            teacher = state.get('net', state)
         merged = self.net.state_dict()
         for k, v in teacher.items():
             if k in merged and merged[k].shape == v.shape:
@@ -126,11 +132,18 @@ class DiffusionModel(GM):
         if self.teacher_net is not None and 'teacher' in extra:
             self.teacher_net.load_state_dict(extra['teacher'])
 
+    def load_jax_extra(self, extra):
+        """The JAX TrainState's extra['ema'] and extra['teacher'] (params
+        trees) into the EMA copy and the teacher."""
+        self.load_extra_state({k: convert.diffusion_params_from_jax(v) for k, v in extra.items()
+                               if k in ('ema', 'teacher')})
+
     # ---------------------------------------------------------------- #
-    def _make_net(self, net, guide):
+    def _make_net(self, net, guide, quant=None):
         """The closure net(z, logsnr, cond_w=None, uncond=False,
         uncond_second_half=False) of the diffusion core, over the UNet net
-        with labels guide (-1: unconditional)."""
+        with labels guide (-1: unconditional); quant: a QuantTable over
+        net."""
 
         def fn(z, logsnr, cond_w=None, uncond=False, uncond_second_half=False):
             B, dev = z.shape[0], z.device
@@ -145,7 +158,7 @@ class DiffusionModel(GM):
                 g = -torch.ones_like(guide) if uncond else guide
             if cond_w is not None:
                 cond_w = torch.as_tensor(cond_w, dtype=torch.float32, device=dev).expand(B)
-            return net(z, logsnr, guide=g, cond_w=cond_w)
+            return net(z, logsnr, guide=g, cond_w=cond_w, quant=quant)
 
         return fn
 
@@ -197,52 +210,63 @@ class DiffusionModel(GM):
         """Sampling reads the EMA copy when --ema is on."""
         return (self.ema_net if self.ema_net is not None else self.net).eval()
 
+    def quant_net(self):
+        """The net whose Linears serve.py --quantize quantizes: the one
+        sampling reads (the EMA copy under --ema). The JAX package
+        quantizes TrainState.params even then, and its sampler reads the
+        EMA (ROADMAP.md queue 3)."""
+        return self._sample_net()
+
     @torch.no_grad()
     def sample_chain(self, noise, y, generator=None, cond_w=None, return_history=True,
-                     w=None, step_noise=None, diffusion=None):
+                     w=None, step_noise=None, diffusion=None, quant=None):
         """The chain from noise (n, H, W, 1) under labels y (n,): see
-        GaussianDiffusion.sample."""
+        GaussianDiffusion.sample. quant: a QuantTable over the sampling
+        net (quant_net)."""
         teacher = None
         if self.teacher_net is not None:
             teacher = self._make_net(self.teacher_net.eval(), y)
         return (diffusion or self.diffusion).sample(
-            net=self._make_net(self._sample_net(), y), init_x=noise, generator=generator,
+            net=self._make_net(self._sample_net(), y, quant), init_x=noise, generator=generator,
             cond_w=cond_w, teacher_net=teacher, return_history=return_history, w=w,
             step_noise=step_noise,
         )
 
     def sample_fn(self, n, y=None, generator=None, noise=None, w=None, step_noise=None,
-                  diffusion=None):
+                  diffusion=None, quant=None):
         """n samples (n, H, W, 1) in [-1, 1] under labels y (None: -1,
         unconditional): noise from generator (unless given), then the
         guided chain. cond_w=0.5 is only the flag that turns guidance on:
-        each sample's weight is 4 w, w uniform (the JAX package's quirk)."""
+        each sample's weight is 4 w, w uniform (the JAX package's quirk).
+        quant: a QuantTable over quant_net()."""
         if noise is None:
             noise = torch.randn((n, self.size, self.size, 1), generator=generator,
                                 device=self.device)
         return self.sample_chain(noise, self._labels(y, n), generator, cond_w=0.5,
                                  return_history=False, w=w, step_noise=step_noise,
-                                 diffusion=diffusion)
+                                 diffusion=diffusion, quant=quant)
 
     @torch.no_grad()
     def sample(self, n, y=None):
-        return self.sample_fn(n, y, generator=self._gen)
+        return self.sample_fn(n, y, generator=self._sample_gen)
 
     @torch.no_grad()
     def sample_images(self, n, y=None):
         """n samples under labels y, through the --eval_sampler /
         --eval_sample_steps chain where those are set."""
-        return self.sample_fn(n, y, generator=self._gen, diffusion=self._eval_diffusion)
+        return self.sample_fn(n, y, generator=self._sample_gen, diffusion=self._eval_diffusion)
 
     def pure_serving_fn(self, n, quant=None):
         """(seed, y) -> (n, H, W, 1) float32 numpy samples in [0, 1] with
         --class_cond=1 (y: n labels, -1 unconditional), (seed) otherwise.
-        The seed becomes torch.Generator(device).manual_seed(seed). quant
-        is refused before it gets here (supports_quantize)."""
+        The seed becomes torch.Generator(device).manual_seed(seed). quant:
+        a QuantTable over quant_net() (serve.py --quantize), which every
+        UNet call of the chain applies."""
 
         def fn(seed, y=None):
             gen = torch.Generator(self.device).manual_seed(int(seed))
-            return self._serving_unit_range(self.sample_fn(n, y, generator=gen)).cpu().numpy()
+            out = self.sample_fn(n, y, generator=gen, quant=quant)
+            return self._serving_unit_range(out).cpu().numpy()
 
         if not self.G.get('class_cond', 0):
             return lambda seed: fn(seed)

@@ -9,10 +9,21 @@ output conv starts at zero.
 The public tensors are NHWC, as the JAX package's; the convs run NCHW. The
 compute dtype is the JAX package's flax dtype: with bfloat16 every Conv and
 Linear casts its input, weight and bias to bf16 (the parameters stay f32),
-GroupNorm takes its statistics and affine in f32 from the bf16 input and
-returns bf16, and the output is cast back to the input's dtype. Module
+GroupNorm takes its statistics and affine in f32 and returns bf16, whatever
+its input's dtype (a quantized Linear's f32 output, added to a bf16 map,
+goes back to bf16 at the next GroupNorm, as in flax), and the output is
+cast back to the input's dtype. Module
 names follow flax's (Downsample_i -> down.i, ResBlock_i -> blocks.i,
 Upsample_i -> ups.i; convert.diffusion_params_from_jax).
+
+Quantized serving (serve.py --quantize): forward takes a QuantTable
+(ops/int8.py) over the net as quant=; every Linear it holds (the embedding
+MLPs' and each ResBlock's emb projection that pass the size thresholds:
+at the default width 128, time_embed's two, guide_embed's second,
+cond_w_embed's two and the twelve (256 -> 128) projections) runs through
+Kernel I (w8a8) or J (w8a16), in f32, plus its f32 bias: the f32 result
+promotes what it is added to, as the JAX package's interceptor returns
+f32 from a bf16 net.
 """
 
 import math
@@ -41,18 +52,33 @@ def timestep_embedding(timesteps, dim, max_period):
 
 
 class Linear(nn.Linear):
-    """flax Dense(dtype=...): input, weight and bias in the input's dtype."""
+    """flax Dense(dtype=...): input, weight and bias in dtype (SimpleUnet
+    sets the net's; None: the input's)."""
+
+    dtype = None
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        dt = self.dtype or x.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def _linear(layer, x, quant, name):
+    """layer(x), or the QuantTable's int8 product (f32) where it holds
+    name."""
+    if quant is None or name not in quant.dense:
+        return layer(x)
+    return quant.linear(x, name, layer)
 
 
 class Conv(nn.Conv2d):
     """flax Conv(padding='SAME', dtype=...) on NCHW: input, weight and bias
-    in the input's dtype; SAME pads (k - 1) / 2 a side at stride 1, and an
+    in dtype (as Linear's); SAME pads (k - 1) / 2 a side at stride 1, and an
     odd total after the image at stride 2."""
 
+    dtype = None
+
     def forward(self, x):
+        x = x.to(self.dtype or x.dtype)
         (k, _), (s, _) = self.kernel_size, self.stride
         top, bottom = same_pad(x.shape[2], k, s)
         left, right = same_pad(x.shape[3], k, s)
@@ -72,10 +98,12 @@ class ZeroConv(Conv):
 
 
 class GroupNorm(nn.Module):
-    """flax GroupNorm(num_groups=min(32, C), epsilon=1e-6) on NCHW: the
-    statistics in f32 with the fast variance max(0, E[x^2] - E[x]^2), then
-    (x - mean) * rsqrt(var + eps) * scale + bias in f32, returned in the
-    input's dtype."""
+    """flax GroupNorm(num_groups=min(32, C), epsilon=1e-6, dtype=...) on
+    NCHW: the statistics in f32 with the fast variance max(0, E[x^2] -
+    E[x]^2), then (x - mean) * rsqrt(var + eps) * scale + bias in f32,
+    returned in dtype (as Linear's)."""
+
+    dtype = None
 
     def __init__(self, channels, eps=1e-6):
         super().__init__()
@@ -92,7 +120,7 @@ class GroupNorm(nn.Module):
         var = torch.clamp_min(mean2 - mean.square(), 0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.reshape(G, C // G, 1)
         y = (xg - mean) * mul + self.bias.reshape(G, C // G, 1)
-        return y.reshape(x.shape).to(x.dtype)
+        return y.reshape(x.shape).to(self.dtype or x.dtype)
 
 
 class EmbedMLP(nn.Module):
@@ -101,8 +129,9 @@ class EmbedMLP(nn.Module):
         self.dense0 = Linear(in_dim, out_dim)
         self.dense1 = Linear(out_dim, out_dim)
 
-    def forward(self, x):
-        return self.dense1(F.silu(self.dense0(x)))
+    def forward(self, x, quant=None, name=''):
+        h = F.silu(_linear(self.dense0, x, quant, f'{name}.dense0'))
+        return _linear(self.dense1, h, quant, f'{name}.dense1')
 
 
 class ResBlock(nn.Module):
@@ -119,9 +148,9 @@ class ResBlock(nn.Module):
         self.conv1 = ZeroConv(out_channels, out_channels, 3)
         self.skip = Conv(in_channels, out_channels, 1) if in_channels != out_channels else None
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, quant=None, name=''):
         h = self.conv0(F.silu(self.norm0(x)))
-        h = h + self.dense(F.silu(emb))[:, :, None, None]
+        h = h + _linear(self.dense, F.silu(emb), quant, f'{name}.dense')[:, :, None, None]
         h = F.silu(self.norm1(h))
         h = F.dropout(h, self.dropout, self.training)
         h = self.conv1(h)
@@ -146,7 +175,7 @@ class SimpleUnet(nn.Module):
     (B,) or None) -> (B, H, W, out_channels). cond_w needs a net built with
     cond_w=True (a distilled student's guidance-weight embedding). remat
     recomputes each ResBlock in the backward (torch.utils.checkpoint) under
-    grad."""
+    grad. quant: a QuantTable over this net (serving)."""
 
     def __init__(self, channels, dropout=0.0, out_channels=1, dtype=torch.float32,
                  remat=False, cond_w=False):
@@ -165,39 +194,44 @@ class SimpleUnet(nn.Module):
         self.ups = nn.ModuleList([Upsample(C) for _ in range(2)])
         self.norm_out = GroupNorm(C)
         self.conv_out = Conv(C, out_channels, 3)
+        for m in self.modules():  # flax's dtype= on every layer
+            if isinstance(m, (Linear, Conv, GroupNorm)):
+                m.dtype = dtype
 
-    def _block(self, i, h, emb):
+    def _block(self, i, h, emb, quant=None):
         block = self.blocks[i]
         if self.remat and torch.is_grad_enabled():
             return checkpoint(block, h, emb, use_reentrant=False)
-        return block(h, emb)
+        return block(h, emb, quant, f'blocks.{i}')
 
-    def forward(self, x, logsnr, guide=None, cond_w=None):
+    def forward(self, x, logsnr, guide=None, cond_w=None, quant=None):
         dt, in_dtype = self.dtype, x.dtype
-        emb = self.time_embed(timestep_embedding(logsnr, 64, MAX_TIMESTEPS).to(dt))
+        emb = self.time_embed(timestep_embedding(logsnr, 64, MAX_TIMESTEPS).to(dt), quant,
+                              'time_embed')
         if guide is not None:
             mask = guide == -1
             safe = torch.where(mask, 0, guide)
             # an out-of-range label one-hots to zeros, as jax.nn.one_hot
             classes = torch.arange(N_CLASSES, device=guide.device)
             g = (safe[:, None] == classes).to(dt)
-            emb = emb + torch.where(mask[:, None], 0.0, self.guide_embed(g))
+            emb = emb + torch.where(mask[:, None], 0.0, self.guide_embed(g, quant, 'guide_embed'))
         if cond_w is not None:
             if self.cond_w_embed is None:
                 raise ValueError('cond_w given to a UNet built without cond_w_embed')
-            emb = emb + self.cond_w_embed(timestep_embedding(cond_w, 64, 4).to(dt))
+            emb = emb + self.cond_w_embed(timestep_embedding(cond_w, 64, 4).to(dt), quant,
+                                          'cond_w_embed')
 
         h = self.down[0](x.permute(0, 3, 1, 2).to(dt))
         cache = [h]
         for stage in range(2):
             for j in range(2):
-                h = self._block(2 * stage + j, h, emb)
+                h = self._block(2 * stage + j, h, emb, quant)
                 cache.append(h)
             h = self.down[stage + 1](h)
             cache.append(h)
-        h = self._block(4, h, emb)  # turn
+        h = self._block(4, h, emb, quant)  # turn
         for i, skip in enumerate(cache[::-1]):
-            h = self._block(5 + i, torch.cat([h, skip], dim=1), emb)
+            h = self._block(5 + i, torch.cat([h, skip], dim=1), emb, quant)
             if i in (0, 3):
                 h = self.ups[0 if i == 0 else 1](h)
         h = self.conv_out(F.silu(self.norm_out(h)))

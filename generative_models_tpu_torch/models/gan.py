@@ -17,7 +17,15 @@ that makes the fake batch (the JAX step discards that pass's update and
 takes the same batch statistics again in its generator-loss pass: the same
 weights and noise); the discriminator's move twice, real then fake; the
 discriminator pass inside the generator loss updates nothing.
---spectral_norm=1 (flax SpectralNorm) is not ported and is refused.
+
+--spectral_norm=1 wraps each discriminator conv in flax's SpectralNorm,
+written out (SpectralNorm below; torch.nn.utils.spectral_norm differs in
+its eval mode, init and eps): one power-iteration step on every call, from
+the stored u, whose result u and sigma are stored only by a pass that
+updates its statistics. A step's real and fake passes store theirs; the
+pass inside the generator loss iterates once more from the fake pass's u,
+against the updated weights, and stores nothing, as the JAX step discards
+that pass's batch_stats.
 
 Random draws: a step's noise (train_step(x, noise=...)) and a sample's
 (sample_fn(n, noise=...)) can be passed in; otherwise they come from the
@@ -30,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.base import GM, deterministic_convs
 from generative_models_tpu_torch.utils import register, write_grid
 from generative_models_tpu_torch.utils.config import AttrDict
@@ -86,6 +95,41 @@ class BatchNorm(nn.Module):
         return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
+def _l2_normalize(x, eps):
+    return x * torch.rsqrt((x * x).sum() + eps)
+
+
+class SpectralNorm(nn.Module):
+    """flax SpectralNorm(n_steps=1, epsilon=1e-12) of one conv's kernel.
+    The kernel is read as flax's (kh * kw * in, out) matrix W; u (1, out)
+    starts as a unit normal draw and sigma at 1. Each call: v = l2n(u W^T),
+    u' = l2n(v W), both without gradient, sigma = v W u'^T (with its
+    gradient), and the kernel divided by sigma (by 1 where sigma is 0);
+    u' and sigma are stored when update_stats."""
+
+    def __init__(self, out_channels, eps=1e-12):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer('u', torch.zeros(1, out_channels))
+        self.register_buffer('sigma', torch.ones(()))
+
+    def flax_init(self, generator):
+        self.u.copy_(torch.randn(self.u.shape, generator=generator))
+
+    def forward(self, weight, update_stats):
+        """weight (out, in, kh, kw) -> weight / sigma."""
+        w = weight.permute(2, 3, 1, 0).reshape(-1, weight.shape[0])
+        with torch.no_grad():
+            v = _l2_normalize(self.u @ w.t(), self.eps)
+            u = _l2_normalize(v @ w, self.eps)
+        sigma = (v @ w @ u.t())[0, 0]
+        if update_stats:
+            with torch.no_grad():
+                self.u.copy_(u)
+                self.sigma.copy_(sigma)
+        return weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+
+
 class Generator(nn.Module):
     """noise (B, noise_size) -> NHWC (B, 28, 28, 1) in [-1, 1]: 1 -> 5 ->
     12 -> 26 VALID deconvs, each with BatchNorm and a ReLU, then a 3x3
@@ -110,9 +154,10 @@ class Generator(nn.Module):
 class Discriminator(nn.Module):
     """NHWC (B, 28, 28, 1) -> (B,) logits: 28 -> 13 -> 6 -> 4 -> 1 VALID 3x3
     convs (strides 2, 2, 1, 2), leaky ReLUs (slope 0.01) between, BatchNorm
-    after the second and third."""
+    after the second and third; spectral: each conv's kernel through its
+    SpectralNorm (sns)."""
 
-    def __init__(self, hidden):
+    def __init__(self, hidden, spectral=False):
         super().__init__()
         H = hidden
         self.convs = nn.ModuleList([
@@ -120,12 +165,22 @@ class Discriminator(nn.Module):
             DCGANConv(H, H, 3, stride=1), DCGANConv(H, 1, 3, stride=2),
         ])
         self.bns = nn.ModuleList([BatchNorm(H) for _ in range(2)])
+        # registered last, so that the other modules draw their init as
+        # without spectral norm
+        self.sns = nn.ModuleList(
+            [SpectralNorm(c.out_channels) for c in self.convs]) if spectral else None
+
+    def _conv(self, i, x, update_stats):
+        conv = self.convs[i]
+        if self.sns is None:
+            return conv(x)
+        return F.conv2d(x, self.sns[i](conv.weight, update_stats), conv.bias, conv.stride)
 
     def forward(self, x, train=True, update_stats=False):
-        x = F.leaky_relu(self.convs[0](x.permute(0, 3, 1, 2)), 0.01)
-        for conv, bn in zip(self.convs[1:], self.bns):
-            x = F.leaky_relu(bn(conv(x), train, update_stats), 0.01)
-        x = self.convs[-1](x)
+        x = F.leaky_relu(self._conv(0, x.permute(0, 3, 1, 2), update_stats), 0.01)
+        for i, bn in enumerate(self.bns, 1):
+            x = F.leaky_relu(bn(self._conv(i, x, update_stats), train, update_stats), 0.01)
+        x = self._conv(3, x, update_stats)
         return x.reshape(x.shape[0])
 
 
@@ -141,16 +196,11 @@ class GAN(GM):
     DG.lr = 5e-5
     DG.binarize = 0  # trains on [-1, 1] data
     DG.disc_lr = 0.0  # the discriminator's lr (0 = --lr)
-    DG.spectral_norm = 0  # refused: not ported
+    DG.spectral_norm = 0  # 1: flax SpectralNorm around every discriminator conv
     DG.label_smooth = 0.0  # one-sided: the discriminator's real target is 1 - label_smooth
     SAMPLE_RANGE = (-1.0, 1.0)  # the generator ends in tanh
 
     def __init__(self, G):
-        if int(G.get('spectral_norm', 0)):
-            raise NotImplementedError(
-                f'--spectral_norm={G.spectral_norm} is not ported yet to '
-                'generative_models_tpu_torch (flax SpectralNorm)'
-            )
         super().__init__(G)
         betas = (0.5, 0.999)
         lr = float(G.lr)
@@ -164,10 +214,18 @@ class GAN(GM):
     def build(self):
         H = int(self.G.hidden_size)
         return nn.ModuleDict(dict(gen=Generator(int(self.G.noise_size), H),
-                                  disc=Discriminator(H)))
+                                  disc=Discriminator(H, bool(int(self.G.spectral_norm)))))
 
     def optimizers(self):
         return {'opt': self.opt, 'disc_opt': self.disc_opt}
+
+    def net_state_from_jax(self, tree):
+        return convert.gan_params_from_jax(tree['params'], tree['extra'])
+
+    def jax_optimizers(self, opt_state):
+        return [(self.opt, opt_state['gen'], lambda t: convert.gan_params_from_jax({'gen': t})),
+                (self.disc_opt, opt_state['disc'],
+                 lambda t: convert.gan_params_from_jax({'disc': t}))]
 
     def train_step(self, x, y=None, noise=None):
         """The twin step; noise (B, noise_size) replaces the generator's

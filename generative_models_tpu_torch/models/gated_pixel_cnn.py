@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.pixel_cnn import (
     LN_EPS, MaskConv2d, PixelCNN, layer_norm, nhwc_conv, window_product,
 )
@@ -199,6 +200,7 @@ class GatedPixelCNNNet(nn.Module):
 
 @register
 class GatedPixelCNN(PixelCNN):
+    params_from_jax = staticmethod(convert.gated_pixel_cnn_params_from_jax)  # a JAX model.pt
     DG = AttrDict()
     DG.n_filters = 96
     DG.n_layers = 5

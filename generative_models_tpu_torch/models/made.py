@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.base import Autoreg, _lecun_normal_
 from generative_models_tpu_torch.ops.common import matmul_dtype
 from generative_models_tpu_torch.ops.int8 import int8_matmul
@@ -110,6 +111,7 @@ class MaskedMLP(nn.Module):
 
 @register
 class MADE(Autoreg):
+    params_from_jax = staticmethod(convert.made_params_from_jax)  # a JAX model.pt
     DG = AttrDict()
     DG.hidden_size = 1024
     DG.premasked = 1  # masks live in the weights; 0 = the fold-the-mask

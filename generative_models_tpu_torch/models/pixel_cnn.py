@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.base import RasterAutoreg
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
@@ -62,10 +63,16 @@ def window_product(x, w):
     return x.reshape(x.shape[0], -1) @ w.permute(2, 3, 1, 0).reshape(-1, w.shape[0])
 
 
+def f32_or_wider(x):
+    """x in f32, or in its own dtype where that is wider (a float64 copy of
+    the net, which checks hold the card's f32 gradients against)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def layer_norm(ln, x, dtype=None):
-    """flax's LayerNorm (dtype=dtype): statistics and normalisation in f32,
-    the output in dtype (f32 when None)."""
-    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+    """flax's LayerNorm (dtype=dtype): statistics and normalisation in f32
+    (f32_or_wider), the output in dtype (that dtype when None)."""
+    y = F.layer_norm(f32_or_wider(x), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
     return y if dtype is None else y.to(dtype)
 
 
@@ -196,6 +203,7 @@ class PixelCNNNet(nn.Module):
 
 @register
 class PixelCNN(RasterAutoreg):
+    params_from_jax = staticmethod(convert.pixel_cnn_params_from_jax)  # a JAX model.pt
     DG = AttrDict()
     DG.n_filters = 128
     DG.n_layers = 5
@@ -212,8 +220,8 @@ class PixelCNN(RasterAutoreg):
 
     def logits(self, x):
         """The full forward's logits (B, H, W, 1), in f32 whatever the
-        net's compute dtype."""
-        return self.net(x).float()
+        net's compute dtype (f32_or_wider)."""
+        return f32_or_wider(self.net(x))
 
     def loss(self, x, y=None):
         logits = self.logits(x)  # an f32 loss

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.base import Autoreg
 from generative_models_tpu_torch.models.heads import BinaryHead, CategoricalHead
 from generative_models_tpu_torch.ops.attention import (
@@ -279,6 +280,7 @@ def teacher_forced_logits(net, x, segments=1, quant=None):
 
 @register
 class PixelTransformer(Autoreg):
+    params_from_jax = staticmethod(convert.params_from_jax)  # a JAX model.pt
     DG = AttrDict()
     DG.n_layer = 2
     DG.n_head = 4

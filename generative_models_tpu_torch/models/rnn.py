@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.base import RasterAutoreg
 from generative_models_tpu_torch.ops.common import matmul_dtype
 from generative_models_tpu_torch.utils import dists, register
@@ -114,6 +115,7 @@ class LSTMPixelNet(nn.Module):
 
 @register
 class RNN(RasterAutoreg):
+    params_from_jax = staticmethod(convert.rnn_params_from_jax)  # a JAX model.pt
     DG = AttrDict()
     DG.append_loc = 1  # the reference's default (hidden_size stays 256)
 

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.base import GM, deterministic_convs
 from generative_models_tpu_torch.utils import (
     combine_imgs, dists, register, write_grid, write_image,
@@ -110,6 +111,7 @@ class VAENet(nn.Module):
 
 @register
 class VAE(GM):
+    params_from_jax = staticmethod(convert.vae_params_from_jax)  # a JAX model.pt
     DG = AttrDict()
     DG.z_size = 128
     DG.beta = 1.0

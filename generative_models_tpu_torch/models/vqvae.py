@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.base import GM
 from generative_models_tpu_torch.models.pixel_transformer import (
     TransformerNet, transformer_sample_scan,
@@ -153,6 +154,12 @@ class VQVAE(GM):
 
     def optimizers(self):
         return {'opt': self.opt, 'prior_opt': self.prior_opt}
+
+    params_from_jax = staticmethod(convert.vqvae_params_from_jax)  # a JAX model.pt
+
+    def jax_optimizers(self, opt_state):
+        return [(self.opt, opt_state['ae'], convert.vqvae_ae_params_from_jax),
+                (self.prior_opt, opt_state['prior'], convert.vqvae_prior_params_from_jax)]
 
     def _losses(self, x):
         """(AE loss, prior loss on the detached codes, metrics)."""

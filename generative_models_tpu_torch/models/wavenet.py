@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.base import RasterAutoreg, _lecun_normal_
 from generative_models_tpu_torch.models.rnn import append_location, location_grid
 from generative_models_tpu_torch.utils import dists, register
@@ -154,6 +155,7 @@ class WavenetNet(nn.Module):
 
 @register
 class Wavenet(RasterAutoreg):
+    params_from_jax = staticmethod(convert.wavenet_params_from_jax)  # a JAX model.pt
     DG = AttrDict()
     DG.use_resblock = 1
     DG.hidden_size = 320

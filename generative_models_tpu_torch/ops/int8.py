@@ -218,7 +218,9 @@ class QuantTable:
 
 
 def build_quant_table(model, mode='w8a8'):
-    """(QuantTable over model.net, number of quantized weights), both
-    surfaces: every large nn.Linear and MADE's folded masked layers."""
-    table = QuantTable(mode, quantize_dense_modules(model.net), quantize_masked_mlp(model))
+    """(QuantTable over model.quant_net(), number of quantized weights),
+    both surfaces: every large nn.Linear and MADE's folded masked
+    layers."""
+    table = QuantTable(mode, quantize_dense_modules(model.quant_net()),
+                       quantize_masked_mlp(model))
     return table, len(table)

@@ -49,8 +49,10 @@ exit, as the JAX package's server does.
 Every served batch is in [0, 1]: a model whose samples are in another
 range (SAMPLE_RANGE: gan's and diffusion's [-1, 1]) is mapped to it by
 its serving fn. A seed becomes torch.Generator(device).manual_seed(seed):
-the same seed (and labels) gives the same batch on the same card. --quantize is refused
-for diffusion_model (not ported yet). --mesh=seq:N serves
+the same seed (and labels) gives the same batch on the same card.
+diffusion_model's --quantize holds the UNet's embedding MLPs and ResBlock
+emb projections (models/diffusion/unet.py), from the net sampling reads
+(the EMA copy under --ema). --mesh=seq:N serves
 pixel_transformer with its scoring forward through the ring (sampling
 takes the per-op decode chain) and refuses --quantize, as the JAX package
 does. Not ported yet: --export and --from_export (utils/config.py refuses
@@ -345,8 +347,6 @@ class SampleServer(_ServerBase):
         if self.quant_mode not in ('', 'w8a8', 'w8a16'):
             raise SystemExit(f'--quantize={quantize}: choose int8|w8a8|w8a16')
         self.quant = None  # the QuantTable every pass applies
-        if self.quant_mode and not model.supports_quantize:
-            raise NotImplementedError(f'--quantize is not ported yet for {model.G.model}')
         if self.quant_mode:
             from generative_models_tpu_torch.ops.int8 import build_quant_table
             from generative_models_tpu_torch.parallel import DATA_AXIS, parse_mesh_spec

@@ -46,7 +46,7 @@ def args_type(default):
 def global_defaults():
     """Global default config: the JAX package's keys, so hps.yaml
     round-trips. Keys that only the JAX harness reads (jit_epoch,
-    compile_cache, the streaming knobs) are kept for that round-trip."""
+    compile_cache) are kept for that round-trip."""
     DG = AttrDict()
     DG.model = 'vae'
     DG.bs = 64
@@ -91,7 +91,7 @@ def global_defaults():
 
 # flags whose JAX implementation has no counterpart here yet: setting one
 # raises rather than running something other than what was asked for
-NOT_PORTED = ('fsdp', 'export', 'from_export', 'stream_data', 'resume', 'profile')
+NOT_PORTED = ('fsdp', 'export', 'from_export')
 
 
 def check_ported(G):
@@ -110,6 +110,8 @@ def check_ported(G):
                 '(only seq:N, on a model with ring attention)'
             )
     if G.get('ckpt', 'flax') != 'flax':
+        # the card's machine has no orbax: model.pt (the port's, or a JAX
+        # package's flax msgpack) holds the full train state
         raise NotImplementedError(
             f'--ckpt={G.ckpt} is not ported yet to generative_models_tpu_torch '
             '(model.pt holds the full train state)'

@@ -2,13 +2,17 @@
 write and read, decoded and encoded with struct and numpy alone (no
 msgpack, flax or jax package): the arbiters' shipped weights
 (weights/autoencoder.pt, weights/classifier.pt) hold their params as such
-bytes, and the port's Arbiter.save writes them back in the same form.
+bytes, and the port's Arbiter.save writes them back in the same form; a
+JAX package's model.pt is its whole TrainState in them
+(models/base.py read_checkpoint).
 
 Types: nil, bools, ints, floats (32 and 64 bit), str, bin, arrays, maps
 (fix, 16 and 32 bit forms of each), and flax's ext type 1, an ndarray as a
 msgpack array (shape, dtype name, C-order bytes). The encoder picks the
 smallest form of each value, as the msgpack package does, and writes a
-map's keys sorted, as flax does, so a tree encodes to flax's bytes for it.
+map's keys sorted, as flax does, so a tree encodes to flax's bytes for it
+(or, with sort_keys=False, in the tree's own order, as flax keeps a
+dataclass's fields).
 Arrays decode as lists; an ndarray leaf decodes as a writable numpy array.
 flax's chunked form of leaves past 2**30 bytes is not read or written (no
 arbiter comes near it).
@@ -156,7 +160,7 @@ def _array_bytes(a):
     return encode([list(a.shape), a.dtype.name, a.tobytes('C')])
 
 
-def _write(out, v):
+def _write(out, v, sort_keys=True):
     if v is None:
         out.append(b'\xc0')
     elif v is True or v is False:
@@ -177,20 +181,25 @@ def _write(out, v):
     elif isinstance(v, (list, tuple)):
         _head(out, len(v), 0x90, 15, (None, 0xDC, 0xDD))
         for x in v:
-            _write(out, x)
+            _write(out, x, sort_keys)
     elif isinstance(v, dict):
         _head(out, len(v), 0x80, 15, (None, 0xDE, 0xDF))
-        for k, x in sorted(v.items()):  # flax's tree_map sorts a dict's keys
+        # flax's tree_map sorts a dict's keys; a dataclass's (TrainState) and
+        # a namedtuple's fields keep their order
+        for k, x in (sorted(v.items()) if sort_keys else v.items()):
             _write(out, k)
-            _write(out, x)
+            _write(out, x, sort_keys)
     else:
         raise TypeError(f'msgpack: cannot encode {type(v).__name__}')
 
 
-def encode(tree):
+def encode(tree, sort_keys=True):
     """A tree of dicts (str keys), lists, numpy arrays, ints, floats, str,
     bytes, bools and None -> msgpack bytes, ndarrays as flax's ext type 1
-    (what flax.serialization.msgpack_restore reads)."""
+    (what flax.serialization.msgpack_restore reads). sort_keys=False
+    writes each dict in its own order: a flax state dict whose dataclass
+    and namedtuple fields keep theirs (a TrainState's params, opt_state,
+    step, rng, extra), the caller sorting the dicts that flax sorts."""
     out = []
-    _write(out, tree)
+    _write(out, tree, sort_keys)
     return b''.join(out)

@@ -1,6 +1,6 @@
 """The port's data pipeline (generative_models_tpu_torch/data/mnist.py)
 against the JAX package's on the CPU: the checked-in idx fixture and the
-synthetic set bit for bit, the digits fallback to float rounding, the
+synthetic set and the digits fallback bit for bit, the
 transforms, first_test_batch's indices, and drop-last epochs. About 7 s
 here."""
 
@@ -59,16 +59,18 @@ def test_synthetic_is_bit_equal(small_splits):
 
 
 def test_digits_within_float_rounding(small_splits):
+    """The port reads jax.image.resize's upsampled values from
+    data/digits.npz, so every pixel is the JAX package's, binarised or
+    not."""
     pytest.importorskip('sklearn')
-    jx, _, jt, _ = jm._load_digits_upsampled()
-    tx, _, tt, _ = tm._load_digits_upsampled()
-    np.testing.assert_allclose(tx, jx, atol=1e-6, rtol=0)
-    np.testing.assert_allclose(tt, jt, atol=1e-6, rtol=0)
-    # through the pipeline unbinarised: binarising at 0.5 flips the pixels
-    # that sit within a rounding of 0.5 (interpolated between 8/16 values)
-    jd, td = _both('digits', binarize=0)
-    for a, b in zip(_splits(jd), _splits(td)):
-        np.testing.assert_allclose(a, b, atol=2e-6, rtol=0)
+    jx, jy, jt, jty = jm._load_digits_upsampled()
+    tx, ty, tt, tty = tm._load_digits_upsampled()
+    for a, b in ((tx, jx), (ty, jy), (tt, jt), (tty, jty)):
+        np.testing.assert_array_equal(a, b)
+    for binarize in (0, 1):
+        jd, td = _both('digits', binarize=binarize)
+        for a, b in zip(_splits(jd), _splits(td)):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize('layout', ['flat', 'MNIST/raw', 'mnist'])

@@ -10,8 +10,13 @@ JAX package's threading, by hand: the generator's running mean and var
 moved once (a second move, or torch's unbiased running variance, misses
 the tolerance tenfold), the discriminator's twice, real then fake. Then sample_fn in eval mode from the same noise, the
 served batch mapped from [-1, 1] to [0, 1], the training CLI (model.pt with
-both optimizers and the batch statistics, the two grids), and
---spectral_norm=1 refused by name.
+both optimizers and the batch statistics, the two grids), also with
+--spectral_norm=1. --spectral_norm=1 (flax SpectralNorm written out): one
+twin step as above, with each SpectralNorm's u and sigma after it
+(rtol 1e-5, atol 1e-6); and from the same u, one discriminator pass in
+train mode: its logits (rtol 1e-5), the u and sigma it stores, and every
+gradient of the real-batch loss (within 1e-5 of its norm plus 1e-7 of the
+whole), sigma's own gradient path included.
 
 Tolerances (f32 on both sides): losses rtol 1e-5; params atol 1e-6 (one
 Adam step moves each by up to lr = 5e-5); the moments within 1e-5 of each
@@ -30,6 +35,7 @@ import pytest
 import torch
 
 import generative_models_tpu_torch.data.mnist as tm
+from generative_models_tpu.models.gan import bce_with_logits as bce_with_logits_jax
 from generative_models_tpu.utils import discover_models as jax_models
 from generative_models_tpu.utils.config import parse_args as jax_parse_args
 from generative_models_tpu_torch.convert import gan_params_from_jax
@@ -74,7 +80,8 @@ def _adam_moments(opt, params):
     return {name: (opt.state[p]['exp_avg'], opt.state[p]['exp_avg_sq']) for name, p in params}
 
 
-@pytest.mark.parametrize('flags', [(), ('--disc_lr=1e-4', '--label_smooth=0.1')])
+@pytest.mark.parametrize('flags', [(), ('--disc_lr=1e-4', '--label_smooth=0.1'),
+                                   ('--spectral_norm=1',)])
 def test_one_twin_step_matches_jax(flags):
     jm = _jax_model(*flags)
     state = jm.state
@@ -93,7 +100,7 @@ def test_one_twin_step_matches_jax(flags):
     for name, ref in ref_sd.items():
         if name in BN_FED:
             continue
-        tol = (dict(rtol=1e-5, atol=1e-6) if name.endswith(('.mean', '.var'))
+        tol = (dict(rtol=1e-5, atol=1e-6) if name.endswith(('.mean', '.var', '.u', '.sigma'))
                else dict(rtol=0, atol=1e-6))
         np.testing.assert_allclose(got_sd[name].numpy(), ref.numpy(), err_msg=name, **tol)
 
@@ -205,5 +212,51 @@ def test_gan_trains_through_the_cli_and_spectral_norm_is_refused(tmp_path, monke
     model.load_weights(G.weights_from)
     for k, v in model.net.state_dict().items():
         assert torch.equal(v, state['net'][k]), k
-    with pytest.raises(NotImplementedError, match='--spectral_norm=1 is not ported yet'):
-        Model(parse_args(FLAGS + ['--device=cpu', '--spectral_norm=1'])[0])
+    # --spectral_norm=1 trains through the CLI too, and its u and sigma
+    # round-trip through model.pt
+    with contextlib.redirect_stdout(io.StringIO()):
+        main(FLAGS + ['--device=cpu', '--bs=8', '--epochs=1', '--save_n=1', '--spectral_norm=1',
+                      '--data_source=synthetic', f'--logdir={tmp_path / "sn"}'])
+    state = torch.load(tmp_path / 'sn' / 'model.pt', weights_only=True)
+    assert not torch.equal(state['net']['disc.sns.1.sigma'], torch.ones(()))
+    G, Model = parse_args([f'--weights_from={tmp_path / "sn" / "model.pt"}', '--device=cpu'])
+    model = Model(G)
+    model.load_weights(G.weights_from)
+    for k, v in model.net.state_dict().items():
+        assert torch.equal(v, state['net'][k]), k
+
+
+def test_spectral_norm_pass_and_gradients_match_jax():
+    """One discriminator pass in train mode from the JAX init's u: logits,
+    the u and sigma it stores, and every gradient of the real-batch BCE."""
+    jm = _jax_model('--spectral_norm=1')
+    state = jm.state
+    model = _port(state, '--spectral_norm=1')
+    x = _batch(seed=3)
+
+    def loss_fn(p):
+        logits, mut = jm._disc_apply(p, state.extra['disc'], jnp.asarray(x), True)
+        return bce_with_logits_jax(logits, jnp.ones(8)), (logits, mut['batch_stats'])
+
+    (ref_loss, (ref_logits, ref_stats)), ref_grads = jax.value_and_grad(loss_fn, has_aux=True)(
+        state.params['disc'])
+    disc = model.net.disc
+    logits = disc(torch.from_numpy(x), True, True)
+    loss = torch.mean(-torch.nn.functional.logsigmoid(logits))
+    loss.backward()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(ref_logits), rtol=1e-5,
+                               atol=1e-6)
+    assert float(loss.detach()) == pytest.approx(float(ref_loss), rel=1e-5)
+    ref = gan_params_from_jax({'disc': _np(ref_grads)}, {'disc': _np(ref_stats)})
+    sd = model.net.state_dict()
+    for i in range(4):
+        for leaf in ('u', 'sigma'):
+            key = f'disc.sns.{i}.{leaf}'
+            np.testing.assert_allclose(sd[key].numpy(), ref[key].numpy(), rtol=1e-5, atol=1e-6,
+                                       err_msg=key)
+    total = float(torch.sqrt(sum((ref[f'disc.{n}'].double() ** 2).sum()
+                                 for n, _ in disc.named_parameters())))
+    for name, p in disc.named_parameters():
+        want = ref[f'disc.{name}'].double()
+        err = float(torch.linalg.vector_norm(p.grad.double() - want))
+        assert err <= 1e-5 * float(torch.linalg.vector_norm(want)) + 1e-7 * total, name

@@ -2,7 +2,7 @@
 at a tiny size (n_layer=1, n_embed=16, bs=8, one epoch on 64 synthetic
 images): the artifacts and logger keys of the JAX package's CLI,
 --keep_best, --weights_from of the full train state and of a params-only
-state dict, --nan_guard, the refused flags, and the sampling-process GIF
+state dict, --nan_guard, the flags still refused, and the sampling-process GIF
 against the JAX package's. About 30 s here."""
 
 import contextlib
@@ -95,11 +95,15 @@ def test_nan_guard_raises_on_a_nan(tmp_path, small_data, monkeypatch):
             main(TINY + ['--epochs=1', '--lr=1e30', f'--logdir={tmp_path}'])
 
 
-@pytest.mark.parametrize('flag', ['--stream_data=1', '--resume=1', '--profile=1',
-                                  '--ckpt=orbax'])
+@pytest.mark.parametrize('flag', ['--ckpt=orbax', '--fsdp=1', '--export=a.bin',
+                                  '--from_export=a.bin'])
 def test_unported_training_flags_raise(flag):
+    """The flags still refused by name (--export and --from_export are
+    serving flags, parsed with the server's defaults)."""
+    from generative_models_tpu_torch.serve import serve_defaults
+
     with pytest.raises(NotImplementedError, match='not ported yet'):
-        parse_args(TINY + [flag])
+        parse_args(TINY + [flag], DG=serve_defaults())
 
 
 def test_jit_epoch_is_accepted():

@@ -448,9 +448,14 @@ def test_diffusion_is_ported_and_imports_no_jax():
     mods = set(_port_modules())
     for m in ('schedules', 'gaussian_diffusion', 'unet', 'model'):
         assert f'generative_models_tpu_torch.models.diffusion.{m}' in mods
-    with pytest.raises(NotImplementedError, match='--quantize is not ported yet for diffusion_model'):
-        load_server(['--model=diffusion_model', '--device=cpu', '--eval_heavy=0',
-                     '--hidden_size=32', '--quantize=int8', '--serve_bs=1'])
+    # --quantize is ported: at the default width the table holds the
+    # embedding MLPs' Linears that pass the thresholds (time_embed's two,
+    # guide_embed's second) and the twelve ResBlock emb projections
+    server, _ = load_server(['--model=diffusion_model', '--device=cpu', '--eval_heavy=0',
+                             '--quantize=int8', '--serve_bs=1'])
+    assert server.quant_kernels == 15 and server.quant.mode == 'w8a8'
+    assert sorted(server.quant.dense)[:3] == ['blocks.0.dense', 'blocks.1.dense',
+                                              'blocks.10.dense']
 
 
 def test_vae_gan_and_the_arbiters_are_ported_and_import_no_jax(monkeypatch, tmp_path):

@@ -189,9 +189,17 @@ def test_hps_yaml_round_trips_between_packages(tmp_path):
         DG=tserve.serve_defaults(),
     )
     assert PT3 is PixelTransformer and G3.n_embed == 40 and G3.serve_bs == 64
-    # a JAX msgpack checkpoint is refused with a pointer to the converter
+    # a JAX run's model.pt (flax msgpack of its TrainState) is read
+    jm = jax_models()['pixel_transformer'](G)
+    jm.save(tmp_path / 'jax')
+    served = PT3(G3)
+    served.load_weights(tmp_path / 'jax' / 'model.pt')
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, jm.state.params))
+    for k, v in served.net.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    # and a msgpack tree that is not a TrainState is refused, saying so
     (tmp_path / 'jax' / 'model.pt').write_bytes(b'\x81\xa6params\x80')
-    with pytest.raises(NotImplementedError, match='params_from_jax'):
+    with pytest.raises(ValueError, match='not a JAX TrainState'):
         PT3(G3).load_weights(tmp_path / 'jax' / 'model.pt')
 
 

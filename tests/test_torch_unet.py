@@ -21,12 +21,15 @@ import pytest
 import torch
 from flax import linen as fnn
 
+from generative_models_tpu.models.base import intercept_ctx
 from generative_models_tpu.models.diffusion import unet as junet
+from generative_models_tpu.ops import int8 as jint8
 from generative_models_tpu.utils import count_vars as jax_count_vars
 from generative_models_tpu.utils import discover_models as jax_models
 from generative_models_tpu.utils.config import parse_args as jax_parse_args
 from generative_models_tpu_torch.convert import diffusion_params_from_jax
 from generative_models_tpu_torch.models.diffusion import unet as tunet
+from generative_models_tpu_torch.ops.int8 import QuantTable, quantize_dense_modules
 from generative_models_tpu_torch.utils import count_vars
 from generative_models_tpu_torch.utils.config import parse_args
 
@@ -205,3 +208,56 @@ def test_init_and_num_vars_match_jax(tmp_path, teacher):
     if not teacher:
         jG, jModel = jax_parse_args(jflags, discover_models=jax_models)
         assert count_vars(model.params) == jax_count_vars(jModel(jG).state.params)
+
+
+@pytest.mark.parametrize('mode', ['w8a8', 'w8a16'])
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+def test_quantized_forward_matches_the_jax_interceptor(mode, dtype):
+    """serve.py --quantize's UNet forward against the JAX package's under
+    its interceptor (ops/int8.py make_dense_interceptor, the plain XLA
+    product), at hidden_size=64: at 32, GroupNorm's one-channel groups
+    take out every embedding, and nothing quantized could show. Every
+    parameter is drawn afresh, N(0, 0.2): at the init each ResBlock's zero
+    conv1 hides the embeddings too. Both sides quantize with the
+    thresholds lowered to both dims >= 16 and >= 256 elements, so that the
+    same 17 Dense layers quantize as the default thresholds pick at 128
+    (time_embed's and cond_w_embed's two, guide_embed's second, the twelve
+    emb projections). Relative Frobenius error: f32 < 1e-3, bf16 < 2e-2
+    (as the plain bf16 forward); the quantized forward moves off the plain
+    one by more than a fifth of that. Under bf16 each ResBlock still
+    returns bf16, as flax's GroupNorm and Conv with dtype=bf16 do: the
+    quantized products' f32 output goes back to bf16 at the next
+    GroupNorm."""
+    width = 64
+    init = junet.SimpleUnet(channels=width)
+    p = jax.jit(lambda r: init.init(
+        r, jnp.zeros((1, 28, 28, 1)), jnp.zeros((1,)), guide=jnp.zeros((1,), jnp.int32),
+        cond_w=jnp.zeros((1,)), train=False)['params'])(jax.random.key(5))
+    rng = np.random.RandomState(7)
+    p = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(0.2 * rng.randn(*a.shape).astype(np.float32)), p)
+    z, ls, guide, cw = _inputs(B=2, seed=6)
+    table = jint8.quantize_dense_tree(p, min_dim=16, min_size=256)
+    jdt, tdt, tol = ((jnp.float32, torch.float32, 1e-3) if dtype == 'f32'
+                     else (jnp.bfloat16, torch.bfloat16, BF16_REL))
+    net = junet.SimpleUnet(channels=width, dtype=jdt)
+    fn = jax.jit(lambda p, z, ls, g, cw: net.apply({'params': p}, z, ls, guide=g, cond_w=cw,
+                                                   train=False))
+    with intercept_ctx(jint8.make_dense_interceptor(table, mode, use_pallas=False)):
+        ref = np.asarray(fn(p, *map(jnp.asarray, (z, ls, guide, cw))))
+    port = tunet.SimpleUnet(width, dtype=tdt, cond_w=True)
+    port.load_state_dict(diffusion_params_from_jax(_np(p)))
+    quant = QuantTable(mode, quantize_dense_modules(port, min_dim=16, min_size=256))
+    assert len(quant) == len(table) == 17
+    dtypes = set()
+    for block in port.blocks:
+        block.register_forward_hook(lambda m, a, out: dtypes.add(out.dtype))
+    with torch.no_grad():
+        args = (torch.from_numpy(z), torch.from_numpy(ls))
+        kw = dict(guide=torch.from_numpy(guide), cond_w=torch.from_numpy(cw))
+        got = port.eval()(*args, **kw, quant=quant).numpy()
+        plain = port(*args, **kw).numpy()
+    assert dtypes == {tdt}
+    rel = lambda a, b: np.linalg.norm(a - b) / np.linalg.norm(b)
+    assert rel(got, ref) < tol, rel(got, ref)
+    assert rel(plain, ref) > tol / 5, (rel(plain, ref), rel(got, ref))

@@ -23,7 +23,7 @@ from generative_models_tpu.utils import discover_models as jax_models
 from generative_models_tpu.utils import dists as jax_dists
 from generative_models_tpu.utils.config import parse_args as jax_parse_args
 from generative_models_tpu_torch.convert import vqvae_params_from_jax
-from generative_models_tpu_torch.main import load_model_and_data, main
+from generative_models_tpu_torch.main import epoch_generator, load_model_and_data, main
 from generative_models_tpu_torch.models.pixel_transformer import transformer_sample_scan
 from generative_models_tpu_torch.serve import SampleServer
 from generative_models_tpu_torch.utils.config import parse_args
@@ -249,9 +249,8 @@ def test_cli_trains_and_reloads(cli_run):
             model, dataset, _, _, G = load_model_and_data([f'--weights_from={logdir / "model.pt"}',
                                                      '--device=cpu'])
     assert G.model == 'vqvae' and G.vqK == K and model.step == 4
-    # the harness's eval stream: epoch 1 draws the second shuffle
-    gen = torch.Generator().manual_seed(int(G.seed) + 1000)
-    dataset.epoch_batches(gen, train=False)
+    # the harness's eval stream: epoch 1's shuffle, from its own generator
+    gen = epoch_generator(int(G.seed) + 1000, 1)
     got = model.eval_epoch(*dataset.epoch_batches(gen, train=False))
     for k in metrics:
         assert got[k] == pytest.approx(history[1][f'vqvae/test/{k}'], rel=1e-6), k
