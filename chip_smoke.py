@@ -98,7 +98,7 @@ failure exits non-zero before the result lines:
   16. quant_serve -- --quantize serving of each model at its default width
                 (pixel_transformer, vqvae, made at hidden_size=1024, rnn at
                 256, wavenet at 320), w8a8 and w8a16, through load_server
-                (warm, seed=7 twice): Kernel I (w8a8) or J (w8a16) once a
+                (warm, seed=7 once): Kernel I (w8a8) or J (w8a16) once a
                 quantized Linear or masked layer a step (rnn's wh: 784 a
                 pass; wavenet's nine res1x1: 7056), nothing else; the /healthz fields; the
                 request redrawn through the quantized chain; the card's
@@ -177,7 +177,7 @@ failure exits non-zero before the result lines:
   30. profile -- device time by kernel over one request and one train step
                 of each model, one pixel_transformer scoring forward, one
                 seq:4 train step, one quantized request of vqvae and of made
-                in each mode, 32 decode steps of a quantized
+                in each mode, 8 decode steps of a quantized
                 pixel_transformer, rnn and wavenet request in each mode,
                 one guided DDIM
                 step of a diffusion request, a whole dpm2m request and one
@@ -208,6 +208,19 @@ failure exits non-zero before the result lines:
   37. parity -- the twelve reference loss curves (reference_cpu_baseline
                 .json) trained on the card and held to the JAX package's
                 parity contract (data/parity.py).
+  38. export -- every model's deployment artifact (serve.py --export) at
+                its serve phase's width, pixel_transformer and rnn also in
+                w8a8 and w8a16, diffusion guided DDIM 250 and dpm2m-25:
+                the artifact's seed=7 batch bitwise the live server's, each
+                kernel's launches the live request's (A and B, G, I, J > 0
+                where the model runs them), one synchronizing call a
+                request (the batch's copy; traced as one device-to-host
+                copy for vqvae, made, vae and gan); export, load and
+                request seconds, the bytes; the pixel_transformer
+                artifact's request profiled beside the live one's (CUDA
+                activity); vae's artifact through a --from_export CLI
+                subprocess; the gmt:: ops' dispatch cost against their CUDA
+                implementations.
 Then the kernels line, the nvidia-smi line and, last, the device line.
 `--only=<phase>,...` runs the build and those phases alone (diff_quant
 after diff_train), for work on them: it prints no kernels or device line.
@@ -244,7 +257,7 @@ RING_KERNELS = ('ring_chunk_fwd', 'ring_chunk_bwd_dq', 'ring_chunk_bwd_dkv')
 NO_RING = dict.fromkeys(RING_KERNELS, 0)  # the ring's kernels run only under --mesh=seq:N
 SEQ_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_seq'
 SEQ = 4  # the seq_train phase's ring: --mesh=seq:4
-PT_DECODE_WINDOW = range(392, 424)  # the profiled steps of a quantized pixel_transformer request
+PT_DECODE_WINDOW = range(392, 400)  # the profiled steps of a quantized pixel_transformer request
 DIFF_FLAGS = ['--model=diffusion_model', '--eval_heavy=0']  # eval_heavy has a phase of its own
 DIFF_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_diffusion'
 DIFF_DISTILL_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_distill'
@@ -2698,7 +2711,8 @@ def phase_quant_serve():
 
 
 def quant_serve_one(name, mode, ref):
-    """One model in one mode through load_server (warm and seed=7 twice),
+    """One model in one mode through load_server (warm and seed=7, whose
+    batch quant_checks redraws through the quantized chain),
     with exact launch counts: the mode's kernel once a quantized weight a
     step (a decode step, or a made forward), every other kernel 0 times: no
     Kernel A or B in the decode steps, no G in made's forwards; rnn's wh
@@ -2713,14 +2727,13 @@ def quant_serve_one(name, mode, ref):
     server, G = load_server([f'--model={name}', '--serve_bs=64', f'--quantize={mode}'])
     warm = server.warm()
     a = server.sample(64, seed=7)
-    b = server.sample(64, seed=7)
     torch.cuda.synchronize()
     launches = _read(counters)
     log(f'[{label}] load_server + warm {time.time() - t0:.2f}s (warm {warm:.2f}s); '
         f'launches {launches}')
     steps = {'pixel_transformer': 784, 'vqvae': 49, 'made': 784, 'rnn': 784, 'wavenet': 784}[name]
     n_q = {'pixel_transformer': 12, 'vqvae': 14, 'made': 4, 'rnn': 1, 'wavenet': 9}[name]
-    passes = 3  # warm + 2 requests
+    passes = 2  # warm + 1 request (the seed's batch is redrawn by quant_checks)
     if server.quant_kernels != n_q or server.quant_mode != mode:
         raise AssertionError(f'{label}: {server.quant_kernels} quantized weights in mode '
                              f'{server.quant_mode}, expected {n_q} in {mode}')
@@ -2729,12 +2742,10 @@ def quant_serve_one(name, mode, ref):
     if launches != expected:
         raise AssertionError(f'{label} launch counts {launches} != expected {expected}')
     stats = _healthz(server)
-    if (stats['quantize'], stats['quantized_kernels'], stats['requests']) != (mode, n_q, 2):
+    if (stats['quantize'], stats['quantized_kernels'], stats['requests']) != (mode, n_q, 1):
         raise AssertionError(f'{label}: /healthz {stats}')
     if a.shape != (64, 28, 28, 1) or not np.isin(a, (0.0, 1.0)).all():
         raise AssertionError(f'{label} seed=7: shape {a.shape} or values outside {{0, 1}}')
-    if not np.array_equal(a, b):
-        raise AssertionError(f'{label}: seed=7 twice gave different batches')
     log(f'[{label}] request latencies (s): {[round(v, 4) for v in server.latencies]}')
     checks = quant_checks(name, mode, server, G, a, ref)
     return dict(launches=launches, passes=passes, per_pass=n_q * steps,
@@ -2886,14 +2897,17 @@ def made_quant_causality(model, quant, mode):
     return dict(logits_moved_at_or_before_i=moved, bitwise=mode == 'w8a16')
 
 
-def _profile(label, fn, top_n):
+def _profile(label, fn, top_n, device_only=False):
     """Wall and device time of one call of fn under torch.profiler, and the
     kernels that took the most device time; traced_sec is the whole cost,
-    the trace's processing included."""
+    the trace's processing included. device_only: CUDA activity alone (no
+    host op events), a several times smaller trace to process."""
     from torch.profiler import ProfilerActivity, profile
 
     t_trace = time.time()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] if device_only else [ProfilerActivity.CPU,
+                                                         ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
@@ -3482,6 +3496,289 @@ def phase_parity():
     return out
 
 
+# the export phase's artifacts: (label, load_server flags, labels of a
+# request, the kernels a request must launch); each model at its serve
+# phase's width, pixel_transformer and rnn also in both quantized modes,
+# diffusion at its default (guided 250-step DDIM) and at dpm2m-25; in the
+# order their artifacts come from EXPORT_WORKERS, the quick ones first
+EXPORT_DIR = ROOT / 'build' / 'chip_smoke_export'
+EXPORT_CASES = (
+    ('rnn', ['--model=rnn'], None, ()),
+    ('made_2048', MADE_FLAGS, None, ('masked_matmul',)),
+    ('vqvae', ['--model=vqvae'], None, ('ln_matmul', 'block_tail')),
+    *((f'rnn_{m}', ['--model=rnn', f'--quantize={m}'], None, (QUANT_KERNEL[m],))
+      for m in QUANT_MODES),
+    ('gan', ['--model=gan'], None, ()),
+    ('vae', ['--model=vae'], None, ()),
+    ('pixel_cnn', ['--model=pixel_cnn'], None, ()),
+    ('gated_pixel_cnn', ['--model=gated_pixel_cnn'], None, ()),
+    ('wavenet', ['--model=wavenet'], None, ()),
+    ('pixel_transformer', ['--model=pixel_transformer'], None, ('ln_matmul', 'block_tail')),
+    *((f'pixel_transformer_{m}', ['--model=pixel_transformer', f'--quantize={m}'], None,
+       (QUANT_KERNEL[m],)) for m in QUANT_MODES),
+    ('diffusion', DIFF_FLAGS, DIFF_LABELS, ()),
+    ('diffusion_dpm2m_25', DIFF_FLAGS + ['--sampler=dpm2m', '--sample_steps=25'], DIFF_LABELS,
+     ()),
+)
+# the export phase's exporting processes, each its artifacts in order: the
+# tracing is host work (0.4 to ~50 s an artifact), so five processes trace
+# beside the phase's requests, each the quick ones first; each builds the
+# case's server from the same flags and seed, so the same weights, as the
+# phase's live one
+EXPORT_WORKERS = (
+    ('rnn', 'pixel_cnn', 'pixel_transformer'),
+    ('made_2048', 'gated_pixel_cnn', 'pixel_transformer_w8a8'),
+    ('vqvae', 'wavenet', 'pixel_transformer_w8a16'),
+    ('rnn_w8a8', 'rnn_w8a16', 'gan', 'vae', 'diffusion_dpm2m_25'),
+    ('diffusion',),
+)
+# the serving shapes of the five gmt:: ops, for their dispatch cost: A and
+# B at pixel_transformer's decode step, G at made's 2048 layer, I and J at
+# its w8a8 / w8a16 fc1 product
+EXPORT_OP_SHAPES = dict(ln_matmul=(64, 128, 384), block_tail=(64, 128),
+                        masked_matmul=(64, 2048, 2048), int8_gemm=(64, 128, 512),
+                        dequant_gemm=(64, 128, 512))
+
+
+def _op_dispatch_us(reps=5, calls=300):
+    """Host microseconds a call of each gmt:: op through the dispatcher
+    (torch.ops.gmt.<op>, what the live and exported paths call) and of its
+    CUDA implementation called directly, at the serving shapes, alternated
+    reps times; the median of each and their difference."""
+    from generative_models_tpu_torch.ops import decode_fused as df
+    from generative_models_tpu_torch.ops import int8 as i8
+    from generative_models_tpu_torch.ops import masked_dense as md
+
+    g = torch.Generator(device='cuda').manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g, device='cuda')
+    q = lambda *s: torch.randint(-127, 128, s, generator=g, device='cuda', dtype=torch.int8)
+    B, C, N = EXPORT_OP_SHAPES['ln_matmul']
+    bt_w = [r(C, C).bfloat16(), r(C), r(C), r(C), r(C, 4 * C).bfloat16(), r(4 * C),
+            r(4 * C, C).bfloat16(), r(C)]
+    M, K, Nm = EXPORT_OP_SHAPES['masked_matmul']
+    Mi, Ki, Ni = EXPORT_OP_SHAPES['int8_gemm']
+    cases = {
+        'ln_matmul': (torch.ops.gmt.ln_matmul, df._ln_matmul_cuda,
+                      (r(B, C), r(C), r(C), r(C, N).bfloat16(), r(N))),
+        'block_tail': (torch.ops.gmt.block_tail, df._block_tail_cuda, (r(B, C), r(B, C), *bt_w)),
+        'masked_matmul': (torch.ops.gmt.masked_matmul, md._masked_matmul_cuda,
+                          (r(M, K), r(K, Nm), (r(K, Nm) > 0).to(torch.uint8), False)),
+        'int8_gemm': (torch.ops.gmt.int8_gemm, i8._int8_gemm_cuda, (q(Mi, Ki), q(Ki, Ni))),
+        'dequant_gemm': (torch.ops.gmt.dequant_gemm, i8._dequant_gemm_cuda,
+                         (r(Mi, Ki), q(Ki, Ni))),
+    }
+    out = {}
+    for name, (op, direct, args) in cases.items():
+        times = {'op': [], 'direct': []}
+        for _ in range(reps):
+            for key, fn in (('op', op), ('direct', direct)):
+                fn(*args)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn(*args)
+                times[key].append((time.perf_counter() - t0) / calls * 1e6)
+                torch.cuda.synchronize()
+        op_us, direct_us = float(np.median(times['op'])), float(np.median(times['direct']))
+        out[name] = dict(op_us=op_us, direct_us=direct_us, overhead_us=op_us - direct_us,
+                         shape=EXPORT_OP_SHAPES[name])
+        log(f'[export] dispatch {name} {EXPORT_OP_SHAPES[name]}: torch.ops.gmt {op_us:.2f} us '
+            f'a call, its CUDA implementation directly {direct_us:.2f} us '
+            f'(+{op_us - direct_us:.2f} us)')
+    return out
+
+
+def _syncs(fn):
+    """(fn's result, where each synchronizing CUDA call it made was
+    issued): each one warns
+    under torch.cuda.set_sync_debug_mode('warn'), every device-to-host
+    copy among them; the count costs a request nothing, where a profiler
+    trace of a 250-step guided request takes a minute to process."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [f'{Path(w.filename).name}:{w.lineno}' for w in caught
+                 if 'synchronizing' in str(w.message)]
+
+
+# the artifacts whose request is traced with Python stacks for its
+# device-to-host copies (_dtoh_copies): a few thousand launches
+# (pixel_transformer's 34k took ~25 s), and long enough that the trace
+# keeps its events (vae's 3 ms request came back without its copy)
+EXPORT_TRACED = ('vqvae', 'made_2048')
+
+
+def export_worker(labels):
+    """An exporting process (EXPORT_WORKERS): for each label, its case's
+    server from load_server at serve_bs=64 and export_serving into
+    EXPORT_DIR, then <label>.json: the export's seconds and bytes (or the
+    error)."""
+    import traceback
+
+    from generative_models_tpu_torch.serve import load_server
+
+    cases = {label: flags for label, flags, _, _ in EXPORT_CASES}
+    for label in labels:
+        try:
+            server, _ = load_server(cases[label] + ['--serve_bs=64'])
+            t0 = time.time()
+            nbytes = server.export_serving(EXPORT_DIR / f'{label}.pt2')
+            res = dict(export_sec=time.time() - t0, bytes=nbytes)
+        except BaseException:  # argparse's refusals are SystemExit
+            res = dict(error=traceback.format_exc())
+        tmp = EXPORT_DIR / f'{label}.json.tmp'
+        tmp.write_text(json.dumps(res))
+        tmp.rename(EXPORT_DIR / f'{label}.json')  # whole, or not there
+        if 'error' in res:
+            sys.exit(1)
+
+
+def _exported(label, worker, timeout=900):
+    """The result of label's exporting process (a Popen), waited for."""
+    t0 = time.time()
+    done = EXPORT_DIR / f'{label}.json'
+    while not done.exists():
+        if time.time() - t0 > timeout or worker.poll() is not None:
+            if done.exists():
+                break
+            raise AssertionError(f'export {label}: no artifact from its exporting process '
+                                 f'(exit {worker.poll()})')
+        time.sleep(0.1)
+    res = json.loads(done.read_text())
+    if 'error' in res:
+        raise AssertionError(f'export {label} failed:\n{res["error"]}')
+    return res, time.time() - t0
+
+
+def export_one(label, flags, y, kernels, workers):
+    """One artifact: a live server from load_server at serve_bs=64 (random
+    weights from seed 0), its seed=7 request (timed, launches counted);
+    the artifact its exporting process wrote from the same flags
+    (export_sec, bytes; waited for), ExportedServer (load timed), and the
+    artifact's seed=7 request (timed): bitwise the live batch, each
+    kernel's launches the live request's and > 0 for the kernels given,
+    and one synchronizing call (the batch's copy to the host); for the
+    EXPORT_TRACED artifacts a second request under the profiler: one
+    device-to-host copy on the card's timeline."""
+    from generative_models_tpu_torch.serve import ExportedServer, load_server
+
+    counters = _counters()
+    server, _ = load_server(flags + ['--serve_bs=64'])
+    _reset(counters)
+    t0 = time.time()
+    live, live_syncs = _syncs(lambda: server.sample(64, y=y, seed=7))
+    live_sec = time.time() - t0
+    live_launches = _read(counters)
+    path = EXPORT_DIR / f'{label}.pt2'
+    owner = next(w for w, labels in zip(workers, EXPORT_WORKERS) if label in labels)
+    exported, waited = _exported(label, owner)
+    t0 = time.time()
+    ex = ExportedServer(path)
+    load_sec = time.time() - t0
+    _reset(counters)
+    t0 = time.time()
+    got, syncs = _syncs(lambda: ex.sample(64, y=y, seed=7))
+    request_sec = time.time() - t0
+    launches = _read(counters)
+    if not np.array_equal(got, live):
+        raise AssertionError(f'export {label}: the artifact\'s seed=7 batch is not the live '
+                             f'one (max |diff| {float(np.abs(got - live).max()):.3g})')
+    if launches != live_launches or any(launches[k] == 0 for k in kernels):
+        raise AssertionError(f'export {label}: launches {launches}, live {live_launches}, '
+                             f'expected > 0 for {kernels}')
+    if len(syncs) != 1:
+        raise AssertionError(f'export {label}: {len(syncs)} synchronizing calls in a request '
+                             f'({syncs}; the live request\'s: {live_syncs}), expected 1 (the '
+                             'batch\'s copy to the host)')
+    res = dict(exported, waited_sec=waited, load_sec=load_sec, live_request_sec=live_sec,
+               request_sec=request_sec, launches={k: v for k, v in launches.items() if v},
+               syncs=len(syncs), live_syncs=len(live_syncs))
+    if label in EXPORT_TRACED:
+        copies = _dtoh_copies(f'export {label} request', lambda: ex.sample(64, y=y, seed=9), 4)
+        if copies['copies'] != 1:
+            raise AssertionError(f'export {label}: {copies["copies"]} device-to-host copies in '
+                                 'a request, expected 1 (the batch)')
+        res['dtoh_copies'] = copies['copies']
+    log(f'[export] {label}: {json.dumps(res)}')
+    return res, server, ex
+
+
+def phase_export():
+    """Every model's deployment artifact (EXPORT_CASES, export_one),
+    exported by EXPORT_WORKERS' processes while this one serves; the
+    pixel_transformer artifact's request profiled beside the live one's
+    (the out-of-place cache writes' cost, predicted 24 ms of device time);
+    vae's artifact served by a --from_export CLI subprocess on the card (a
+    PNG); the gmt:: ops' dispatch cost (_op_dispatch_us)."""
+    import warnings
+
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    EXPORT_DIR.mkdir(parents=True)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True):  # the mode's first setting warns once
+        torch.cuda.set_sync_debug_mode('warn')
+        torch.cuda.set_sync_debug_mode(0)
+    out = {}
+    logs = [open(EXPORT_DIR / f'worker{i}.log', 'w') for i in range(len(EXPORT_WORKERS))]
+    workers = [subprocess.Popen(
+        [sys.executable, '-c', f'import chip_smoke; chip_smoke.export_worker({list(labels)!r})'],
+        cwd=ROOT, stdout=f, stderr=subprocess.STDOUT) for labels, f in zip(EXPORT_WORKERS, logs)]
+    others = []  # the CLI's process, started by _export_cases
+    try:
+        out.update(_export_cases(workers, others))
+    finally:
+        for w in workers + others:
+            if w.poll() is None:
+                w.kill()
+            w.wait()
+        for f in logs:
+            f.close()
+    if any(w.returncode for w in workers):
+        raise AssertionError(f'export: exporting processes exited {[w.returncode for w in workers]}')
+    out['dispatch'] = _op_dispatch_us()
+    return out
+
+
+def _export_cases(workers, others):
+    """export_one over EXPORT_CASES; the pixel_transformer artifact's
+    request profiled beside the live one's; vae's artifact through the
+    --from_export CLI, whose process joins others."""
+    out, png, cli = {}, EXPORT_DIR / 'cli.png', None
+    for label, flags, y, kernels in EXPORT_CASES:
+        out[label], server, ex = export_one(label, flags, y, kernels, workers)
+        if label == 'vae':  # the CLI serves vae's artifact beside the next cases
+            t_cli = time.time()
+            cli = subprocess.Popen([sys.executable, '-m', 'generative_models_tpu_torch.serve',
+                                    f'--from_export={EXPORT_DIR / "vae.pt2"}', '--n=4',
+                                    f'--out={png}'], cwd=ROOT, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+            others.append(cli)
+        if label == 'pixel_transformer':
+            prof = dict(live=_profile('live pixel_transformer request',
+                                      lambda: server.sample(64, seed=11), 8, True),
+                        exported=_profile('exported pixel_transformer request',
+                                          lambda: ex.sample(64, seed=11), 8, True))
+            prof['added_device_ms'] = prof['exported']['device_ms'] - prof['live']['device_ms']
+            log(f'[export] pixel_transformer: the artifact\'s request takes '
+                f'{prof["added_device_ms"]:.1f} ms more device time than the live one '
+                f'(predicted 24 ms: 2 layers x 784 steps x 51.4 MB copied)')
+            out[label]['profile'] = prof
+        del server, ex
+    stdout, stderr = cli.communicate(timeout=300)
+    if cli.returncode != 0 or png.read_bytes()[:8] != b'\x89PNG\r\n\x1a\n':
+        raise AssertionError(f'export: --from_export CLI rc {cli.returncode}: {stderr[-2000:]}')
+    out['cli_sec'] = time.time() - t_cli
+    log(f'[export] --from_export CLI subprocess {out["cli_sec"]:.1f}s (beside the cases after '
+        f'vae): {stdout.strip().splitlines()[-2]}')
+    return out
+
+
 ONLY = {  # --only: these phases alone, in this order, after the build
     'kernels': lambda dev: phase_kernels(dev),
     'int8': lambda dev: int8_cases(np.random.RandomState(0), dev),
@@ -3493,6 +3790,7 @@ ONLY = {  # --only: these phases alone, in this order, after the build
     'stream': lambda dev: phase_stream(),
     'cli_profile': lambda dev: phase_cli_profile(),
     'parity': lambda dev: phase_parity(),
+    'export': lambda dev: phase_export(),
     **{name: (lambda dev, name=name: phase_raster_model(name)) for name in RASTER},
 }
 
@@ -3574,6 +3872,7 @@ def main(argv=None):
     sm = timed('stream', phase_stream)
     cp = timed('cli_profile', phase_cli_profile)
     pa = timed('parity', phase_parity)
+    xp = timed('export', phase_export)
     phase_sec['total'] = time.time() - t_start
     log(f'[time] phases {json.dumps(phase_sec)}')
 
@@ -3605,7 +3904,9 @@ def main(argv=None):
                    'made_serve': ms['launches'][name], 'made_train': mt['launches'][name],
                    **{f'{key}_serve': q['launches'][name] for key, q in qs.items()},
                    **{f'diffusion_{mode}_serve': q['launches'][name]
-                      for mode, q in dq['serve'].items()}}
+                      for mode, q in dq['serve'].items()},
+                   **{f'export_{label}': xp[label]['launches'].get(name, 0)
+                      for label, *_ in EXPORT_CASES}}
         if sum(by_path.values()) == 0:
             raise AssertionError(f'{name} was not launched on a main path')
         kernels.append(dict(
@@ -3680,6 +3981,7 @@ def main(argv=None):
         stream=dict(sm, power=smi),
         cli_profile=dict(cp, power=smi),
         parity=dict(pa, power=smi),
+        export=dict(xp, power=smi),
         **{name: dict(r, power=smi) for name, r in raster.items()},
         phase_sec=phase_sec,
     )))

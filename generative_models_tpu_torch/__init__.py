@@ -18,5 +18,8 @@ models/gan.py); and the arbiters (models/arbiters/: the autoencoder and the
 classifier, whose files either package reads and writes through
 utils/msgpack.py) with main.py's --eval_heavy (FID, precision, recall and
 the conditional metrics, utils/metrics.py). Diffusion, vae, gan and the
-arbiters run no kernel of ops/.
+arbiters run no kernel of ops/. serve.py --export writes any model's
+serving program as a torch.export artifact (the serving kernels are
+torch.library ops, the sampling loops utils/loop.py's), which
+--from_export serves with no model code.
 """

@@ -40,18 +40,18 @@ model.jit.pt payload instead (models/arbiters/).
 SAMPLE_RANGE is the range of a model's samples; serving maps it to [0, 1].
 """
 
-import contextlib
 import math
 from pathlib import Path
 
 import torch
 from torch import nn
 
-from generative_models_tpu_torch.ops.common import resolve_device
+from generative_models_tpu_torch.ops.common import deterministic_convs, resolve_device  # noqa: F401
 from generative_models_tpu_torch.parallel.mesh import seq_size
 from generative_models_tpu_torch.utils import dists
 from generative_models_tpu_torch.utils.config import AttrDict, dump_hps
 from generative_models_tpu_torch.utils.logger import write_grid, write_gridvid
+from generative_models_tpu_torch.utils.loop import write
 
 # std of a unit normal truncated to [-2, 2]: flax's variance_scaling divides
 # by it so the truncated draw keeps the requested variance
@@ -87,20 +87,6 @@ def flax_init_(module, generator):
                 continue
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
-
-
-@contextlib.contextmanager
-def deterministic_convs():
-    """A context in which cuDNN takes deterministic algorithms only, its
-    other flags (TF32 off on the card) untouched: its transposed convs may
-    otherwise not be, and a seeded request would not give the same batch
-    twice."""
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = prev
 
 
 def mean_metrics(ms):
@@ -159,6 +145,9 @@ class GM:
     # (_serving_unit_range). gan's tanh generator and diffusion's clipped
     # x_hat are in [-1, 1].
     SAMPLE_RANGE = (0.0, 1.0)
+    # whether serving runs on cuDNN's deterministic algorithms (vae's and
+    # gan's transposed convs), which an artifact records for its server
+    SERVE_DETERMINISTIC_CONVS = False
 
     def __init__(self, G):
         self.G = G
@@ -491,9 +480,28 @@ class GM:
         serving."""
         raise NotImplementedError
 
+    def draw_spec(self, n):
+        """[(name, shape, kind)] of the random draws that one serving pass
+        of n samples takes, in the order a generator gives them (kind
+        'uniform': torch.rand, 'normal': torch.randn; float32 both), as
+        dists.draw makes them."""
+        raise NotImplementedError
+
+    def sample_from_draws(self, n, draws, y=None, quant=None):
+        """n samples (n, H, W, 1) in SAMPLE_RANGE from draws, the tensors
+        of draw_spec(n) in its order, under labels y (a class-conditional
+        model's (n,) int32, -1 unconditional). quant: a QuantTable over
+        quant_net()."""
+        raise NotImplementedError
+
+    def serving_modules(self):
+        """The modules a serving pass reads."""
+        return [self.net]
+
     def _draw(self, n, generator, quant=None):
         """n samples (n, H, W, 1) in SAMPLE_RANGE and nothing else."""
-        return self.sample_fn(n, generator=generator, quant=quant)
+        return self.sample_from_draws(n, dists.draw(self.draw_spec(n), generator, self.device),
+                                      quant=quant)
 
     def _serving_unit_range(self, x):
         """A batch in SAMPLE_RANGE mapped to the serving range [0, 1]."""
@@ -514,19 +522,47 @@ class GM:
         self.net.eval()
         return self._draw(n, self._sample_gen)
 
+    def serving_program(self, n, quant=None):
+        """The ServingProgram of a pass of n: what the live server runs and
+        serve.py --export writes."""
+        return ServingProgram(self, n, quant)
+
     def pure_serving_fn(self, n, quant=None):
-        """(seed) -> (n, H, W, 1) float32 numpy samples in [0, 1]. The seed
-        becomes torch.Generator(device).manual_seed(seed), so the same seed
-        gives the same batch. quant: a QuantTable over self.net (serve.py
+        """(seed[, y]) -> (n, H, W, 1) float32 numpy samples in [0, 1]: the
+        draws of draw_spec(n) from torch.Generator(device).manual_seed(seed)
+        (the same seed, and labels, give the same batch), then the serving
+        program. quant: a QuantTable over quant_net() (serve.py
         --quantize), which every pass applies."""
+        from generative_models_tpu_torch.serve import program_fn
 
-        @torch.no_grad()
-        def fn(seed):
-            gen = torch.Generator(self.device).manual_seed(int(seed))
-            self.net.eval()
-            return self._serving_unit_range(self._draw(n, gen, quant)).cpu().numpy()
+        program = self.serving_program(n, quant)
+        return program_fn(program.eval(), self.draw_spec(n), self.device, n,
+                          program.class_cond, self.SERVE_DETERMINISTIC_CONVS)
 
-        return fn
+
+class ServingProgram(nn.Module):
+    """forward(*draws[, y]) -> (n, H, W, 1) in [0, 1]: one serving pass of
+    model on the draws of model.draw_spec(n), and the labels y (n,) int32
+    of a class-conditional model, mapped from SAMPLE_RANGE. The modules the
+    pass reads are its submodules and the QuantTable's tensors its buffers,
+    so torch.export bakes the weights (the EMA copy under --ema, the int8
+    table under --quantize) into an artifact (serve.py export_serving)."""
+
+    def __init__(self, model, n, quant=None):
+        super().__init__()
+        self.model, self.n, self.quant = model, n, quant
+        self.class_cond = bool(model.G.get('class_cond', 0))
+        self.nets = nn.ModuleList(model.serving_modules())
+        if quant is not None:
+            leaves = [t for v in (*quant.dense.values(), *quant.masked.values())
+                      for t in torch.utils._pytree.tree_leaves(v)]
+            for i, t in enumerate(leaves):
+                self.register_buffer(f'quant{i}', t)
+
+    def forward(self, *inputs):
+        draws, y = (inputs[:-1], inputs[-1]) if self.class_cond else (inputs, None)
+        out = self.model.sample_from_draws(self.n, draws, y, self.quant)
+        return self.model._serving_unit_range(out)
 
 
 class Autoreg(GM):
@@ -542,8 +578,15 @@ class Autoreg(GM):
         write_grid(writer, 'samples', samples, epoch)
         write_gridvid(writer, 'sampling_process', frames, epoch, logdir=self.G.logdir)
 
-    def _draw(self, n, generator, quant=None):
-        return self.sample_fn(n, generator=generator, with_frames=False, quant=quant)
+    def draw_spec(self, n):
+        return [('uniforms', self.uniform_shape(n), 'uniform')]
+
+    def uniform_shape(self, n):
+        """The shape of a pass's uniforms: sample_fn's, step t's in row t."""
+        raise NotImplementedError
+
+    def sample_from_draws(self, n, draws, y=None, quant=None):
+        return self.sample_fn(n, uniforms=draws[0], with_frames=False, quant=quant)
 
 
 class RasterAutoreg(Autoreg):
@@ -556,20 +599,28 @@ class RasterAutoreg(Autoreg):
         self.canvas_size = self.side * self.side
         super().__init__(G)
 
-    def decode_chain(self, n, next_pixel, quant=None):
-        """Run the T = canvas_size decode steps on a batch of n: step t
-        computes the logits of pixel t (n,) and next_pixel(t, logits)
-        returns the pixel (n,) that the chain reads from then on. quant: a
-        QuantTable over self.net."""
+    def uniform_shape(self, n):
+        return (self.canvas_size, n)
+
+    def decode_chain(self, n, next_pixel, state=(), quant=None):
+        """Run the T = canvas_size decode steps on a batch of n, one step a
+        body of utils/loop.py fori_loop: step t computes the logits of
+        pixel t (n,) and next_pixel(t, logits, state) returns the pixel (n,)
+        that the chain reads from then on and the state; returns the last
+        state. quant: a QuantTable over self.net."""
         raise NotImplementedError
 
+    @torch.no_grad()
     def teacher_forced_logits(self, x, quant=None):
         """(B, T) logits of the decode chain fed the pixels of x (B, side,
         side, 1): what sampling computed at each position when it drew x."""
         flat = x.reshape(x.shape[0], self.canvas_size)
-        logits = []
-        self.decode_chain(x.shape[0], lambda t, lg: logits.append(lg) or flat[:, t], quant)
-        return torch.stack(logits, 1)
+
+        def next_pixel(t, logit, logits):
+            logits.append(logit)
+            return flat[:, t], logits
+
+        return torch.stack(self.decode_chain(x.shape[0], next_pixel, [], quant), 1)
 
     def sample_fn(self, n, generator=None, uniforms=None, with_frames=True, quant=None):
         """Raster-order sampling through decode_chain, pixel t set to u_t <
@@ -581,13 +632,12 @@ class RasterAutoreg(Autoreg):
         T, side = self.canvas_size, self.side
         if uniforms is None:
             uniforms = torch.rand((T, n), generator=generator, device=self.device)
-        pixels = torch.empty((T, n), device=self.device)
 
-        def next_pixel(t, logit):
-            pixels[t] = dists.Bernoulli(logits=logit).sample(uniforms=uniforms[t])
-            return pixels[t]
+        def next_pixel(t, logit, pixels):
+            pixel = dists.Bernoulli(logits=logit).sample(uniforms=uniforms[t])
+            return pixel, write(pixels, t, pixel)
 
-        self.decode_chain(n, next_pixel, quant)
+        pixels = self.decode_chain(n, next_pixel, torch.empty((T, n), device=self.device), quant)
         flat = pixels.t()
         samples = flat.reshape(n, side, side, 1)
         if not with_frames:

@@ -7,8 +7,10 @@ two net calls or one doubled batch, DDIM, the ancestral ('noisy') sampler,
 DPM-Solver++(2M), and the 1- and 2-step progressive-distillation teacher
 targets.
 
-The sampling chain is a Python loop on the device (the JAX package's
-lax.scan); with return_history=False it keeps only the current state.
+The sampling chain is utils/loop.py fori_loop over its steps (a Python
+loop, or one while_loop in an exported program; the JAX package's
+lax.scan), the first and last steps' branches through pick; with
+return_history=False it keeps only the current state.
 Every random draw comes from an explicit torch.Generator or is passed in,
 so a test can hand the JAX package's draws to the port: the training eps,
 u (or i for step2) and w, the per-sample guidance weights w and the noisy
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from generative_models_tpu_torch.models.diffusion.schedules import get_logsnr_schedule
+from generative_models_tpu_torch.utils.loop import fori_loop, pick
 
 
 def _f32(x, like):
@@ -306,9 +309,11 @@ class GaussianDiffusion:
         logsnr_ts = self.logsnr_schedule_fn((steps + 1.0) / S)
         logsnr_ss = self.logsnr_schedule_fn(steps / S)
         hist = ([], [], [])
-        z, x_prev, h_prev = init_x, None, None
-        for k in range(S):
-            i = S - 1 - k
+
+        def step(k, carry):
+            """Step k of the chain (t = S-1-k); carry (z,), or (z, x_prev,
+            h_prev) for dpm2m (the first step reads neither)."""
+            z = carry[0]
             logsnr_t, logsnr_s = logsnr_ts[k], logsnr_ss[k]
             if self.sampler == 'dpm2m':
                 # DPM-Solver++(2M) in half-logSNR time: D = x + (x - x_prev)
@@ -316,25 +321,33 @@ class GaussianDiffusion:
                 x_pred, eps_pred = self._predict(net=body_net, z_t=z, logsnr_t=logsnr_t,
                                                  cond_w=cond_w)
                 h = 0.5 * (logsnr_s - logsnr_t)
-                D = x_pred if k == 0 else x_pred + (x_pred - x_prev) / (2.0 * (h_prev / h))
+                x_prev, h_prev = carry[1:]
+                D = pick(k == 0, x_pred, lambda: x_pred + (x_pred - x_prev) / (2.0 * (h_prev / h)))
                 sig_ratio = torch.sqrt(torch.sigmoid(-logsnr_s) / torch.sigmoid(-logsnr_t))
                 alpha_s = torch.sqrt(torch.sigmoid(logsnr_s))
                 z_s = sig_ratio * z - (alpha_s * torch.expm1(-h)) * D
-                x_prev, h_prev = x_pred, h
+                rest = (x_pred, h)
             elif stochastic:
                 noise = (step_noise[k] if step_noise is not None
                          else torch.randn(shape, generator=generator, device=dev))
                 z_s, x_pred, eps_pred = self.reverse_dpm_step(
                     net=body_net, logsnr_t=logsnr_t, logsnr_s=logsnr_s, z_t=z, noise=noise,
                     cond_w=cond_w)
+                rest = ()
             else:
                 z_s, x_pred, eps_pred = self.ddim_step(
                     net=body_net, logsnr_t=logsnr_t, logsnr_s=logsnr_s, z_t=z, cond_w=cond_w)
+                rest = ()
             # the last step returns x_hat
-            z = x_pred if i == 0 else z_s
+            z = pick(k == S - 1, x_pred, lambda: z_s)
             if return_history:
                 for acc, v in zip(hist, (z, x_pred, eps_pred)):
                     acc.append(v)
+            return (z, *rest)
+
+        # dpm2m's first carry: x_prev and h_prev stand in, unread (views)
+        first = (init_x, init_x, logsnr_ts[0]) if self.sampler == 'dpm2m' else (init_x,)
+        z = fori_loop(0, S, step, first)[0]
         if not return_history:
             return z
         return tuple(torch.stack(acc) for acc in hist)

@@ -17,7 +17,7 @@ Random draws: training takes, in order, the label-drop uniforms, eps, u
 (draws=dict(drop=, eps=, u=, w=)); the eval loss draws from a generator
 seeded afresh each call, as the JAX package folds one fixed tag into its
 key; serving from torch.Generator(device).manual_seed(seed), the noise
-first, then w.
+first, then w, then the noisy sampler's step normals (draw_spec).
 """
 
 import copy
@@ -256,21 +256,22 @@ class DiffusionModel(GM):
         --eval_sample_steps chain where those are set."""
         return self.sample_fn(n, y, generator=self._sample_gen, diffusion=self._eval_diffusion)
 
-    def pure_serving_fn(self, n, quant=None):
-        """(seed, y) -> (n, H, W, 1) float32 numpy samples in [0, 1] with
-        --class_cond=1 (y: n labels, -1 unconditional), (seed) otherwise.
-        The seed becomes torch.Generator(device).manual_seed(seed). quant:
-        a QuantTable over quant_net() (serve.py --quantize), which every
-        UNet call of the chain applies."""
+    def draw_spec(self, n):
+        """The noise, then w, then (the noisy sampler) the (S, n, H, W, 1)
+        normals of its steps, drawn up front."""
+        img = (n, self.size, self.size, 1)
+        spec = [('noise', img, 'normal'), ('w', (n,), 'uniform')]
+        if self.diffusion.sampler == 'noisy':
+            spec.append(('step_noise', (self.diffusion.sample_steps, *img), 'normal'))
+        return spec
 
-        def fn(seed, y=None):
-            gen = torch.Generator(self.device).manual_seed(int(seed))
-            out = self.sample_fn(n, y, generator=gen, quant=quant)
-            return self._serving_unit_range(out).cpu().numpy()
+    def sample_from_draws(self, n, draws, y=None, quant=None):
+        noise, w, *step_noise = draws
+        return self.sample_fn(n, y, noise=noise, w=w, step_noise=(step_noise or [None])[0],
+                              quant=quant)
 
-        if not self.G.get('class_cond', 0):
-            return lambda seed: fn(seed)
-        return fn
+    def serving_modules(self):
+        return [self._sample_net()] + ([self.teacher_net] if self.teacher_net is not None else [])
 
     @torch.no_grad()
     def evaluate(self, writer, x, y, epoch):

@@ -256,6 +256,17 @@ class GAN(GM):
         return {'disc/loss': d_loss.detach(), 'disc/loss_fake': loss_fake.detach(),
                 'disc/loss_real': loss_real.detach(), 'gen/loss': g_loss.detach()}
 
+    SERVE_DETERMINISTIC_CONVS = True
+
+    def draw_spec(self, n):
+        return [('noise', (n, int(self.G.noise_size)), 'normal')]
+
+    def sample_from_draws(self, n, draws, y=None, quant=None):
+        return self.sample_fn(n, noise=draws[0])
+
+    def serving_modules(self):
+        return [self.net.gen]
+
     def sample_fn(self, n, generator=None, noise=None, quant=None):
         """n samples (n, 28, 28, 1) in [-1, 1]: the generator in eval mode
         (running statistics) on N(0, 1) noise (or noise given), its deconvs

@@ -16,7 +16,8 @@ Sampling is a hybrid wavefront: the h stack is raster-causal, so each step
 computes one position a layer against cached canvases; the v stack's mask
 spans its whole centre row, so its activations are only row-causal and are
 computed a row at a time, for row r - 1, as the cursor enters row r (the
-JAX package's lax.cond on c == 0; a Python if here).
+JAX package's lax.cond on c == 0; utils/loop.py when here: a Python if,
+or torch.cond in an exported program).
 """
 
 import numpy as np
@@ -30,6 +31,7 @@ from generative_models_tpu_torch.models.pixel_cnn import (
 )
 from generative_models_tpu_torch.utils import register
 from generative_models_tpu_torch.utils.config import AttrDict
+from generative_models_tpu_torch.utils.loop import when, write
 
 
 def vstack_mask(k):
@@ -161,37 +163,61 @@ class GatedPixelCNNNet(nn.Module):
                     h=[z(Fn) for _ in range(n_gated - 1)], hfin=z(Fn))
 
     def _row_update(self, cv, r):
-        """The v-stack activations of row r - 1, every layer in order,
-        written into vo[i] and v[i]."""
+        """cv with the v-stack activations of row r - 1 (r >= 1), every
+        layer in order, written into vo[i] and v[i]."""
         p = self.kernel_size // 2
-        row_out, side = r - 1 + p, cv['c0'].shape[2] - 2 * p
-        src = cv['s0'][:, r - 1:r + p]  # the p + 1 rows that end at the output row
+        above = torch.sym_max(r - 1, 0)  # r - 1, known >= 0 under export
+        row_out, side = above + p, cv['c0'].shape[2] - 2 * p
+        cols = (slice(None), row_out, slice(p, p + side))
+        src = cv['s0'].narrow(1, above, p + 1)  # the p + 1 rows that end at the output row
+        vo, v = list(cv['vo']), list(cv['v'])
         for i, (gated, lns) in enumerate(zip(self.gated, self.stack_lns)):
             vo_row = gated.v_row(F.relu(src))  # (n, side, 2F)
-            cv['vo'][i][:, row_out, p:p + side] = vo_row
+            vo[i] = write(vo[i], cols, vo_row)
             if i + 1 < len(self.gated):
-                cv['v'][i][:, row_out, p:p + side] = layer_norm(lns.ln_v, gate(vo_row))
-                src = cv['v'][i][:, r - 1:r + p]
+                v[i] = write(v[i], cols, layer_norm(lns.ln_v, gate(vo_row)))
+                src = v[i].narrow(1, above, p + 1)
+        return dict(cv, vo=vo, v=v)
 
     def decode_step(self, cv, r, c):
         """The logit (n,) of position (r, c): the row update on entering a
         new row, then the per-pixel h chain; the canvases are written in
         place."""
+        return self.step(cv, r, c)[0]
+
+    def step(self, cv, r, c):
+        """(The logit (n,) of position (r, c), the canvases written as
+        PixelCNNNet.step writes them.) The row update is utils/loop.py
+        when: an if when eager, torch.cond under export."""
         k = self.kernel_size
         p = k // 2
-        if c == 0 and r > 0:
-            self._row_update(cv, r)
-        h = self.conv_in.window(cv['c0'][:, r:r + k, c:c + k])  # strictly-before pixels
-        cv['s0'][:, r + p, c + p] = h
+        n_vo = len(cv['vo'])
+
+        def row_update(*bufs):
+            out = self._row_update(dict(cv, vo=list(bufs[:n_vo]), v=list(bufs[n_vo:])), r)
+            return (*out['vo'], *out['v'])
+
+        bufs = when((c == 0) & (r > 0), row_update, (*cv['vo'], *cv['v']))
+        cv = dict(cv, vo=list(bufs[:n_vo]), v=list(bufs[n_vo:]))
+        pos = (slice(None), r + p, c + p)
+        h = self.conv_in.window(cv['c0'].narrow(1, r, k).narrow(2, c, k))  # strictly-before pixels
+        cv['s0'] = write(cv['s0'], pos, h)
+        hs = list(cv['h'])
         for i, (gated, lns) in enumerate(zip(self.gated, self.stack_lns)):
-            canvas = cv['s0'] if i == 0 else cv['h'][i - 1]
             if i:
-                canvas[:, r + p, c + p] = h
-            hw = canvas[:, r + p:r + p + 1, c:c + p + 1]  # the row's window up to the centre
-            raw = gated.h_step(F.relu(hw), cv['vo'][i][:, r + p - 1, c + p])
+                hs[i - 1] = write(hs[i - 1], pos, h)
+            canvas = cv['s0'] if i == 0 else hs[i - 1]
+            hw = canvas.narrow(1, r + p, 1).narrow(2, c, p + 1)  # the row's window up to the centre
+            raw = gated.h_step(F.relu(hw), cv['vo'][i].select(1, r + p - 1).select(1, c + p))
             h = layer_norm(lns.ln_h, gated.h_out(F.relu(h), raw))
-        cv['hfin'][:, r + p, c + p] = h
-        return self.conv_out.window(cv['hfin'][:, r:r + k, c:c + k])[:, 0]
+        cv['h'] = hs
+        cv['hfin'] = write(cv['hfin'], pos, h)
+        return self.conv_out.window(cv['hfin'].narrow(1, r, k).narrow(2, c, k))[:, 0], cv
+
+    def write_input(self, cv, r, c, pixel):
+        """cv with pixel (n,) at (r, c) of the input canvas."""
+        p = self.kernel_size // 2
+        return dict(cv, c0=write(cv['c0'], (slice(None), r + p, c + p, 0), pixel))
 
     @staticmethod
     def input_canvas(cv):

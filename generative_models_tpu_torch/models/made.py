@@ -35,6 +35,7 @@ from generative_models_tpu_torch.ops.int8 import int8_matmul
 from generative_models_tpu_torch.ops.masked_dense import masked_dense, prefer_kernel
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
+from generative_models_tpu_torch.utils.loop import fori_loop, write
 
 
 def create_made_masks(nin, hidden_sizes, seed=42):
@@ -169,8 +170,12 @@ class MADE(Autoreg):
         loss = -dists.Bernoulli(logits=logits).log_prob(x).mean()
         return loss, {'nlogp': loss}
 
+    def uniform_shape(self, n):
+        return (self.nin, n)
+
     def sample_fn(self, n, generator=None, uniforms=None, with_frames=True, quant=None):
-        """Raster-order sampling: nin steps of one full forward each, pixel i
+        """Raster-order sampling: nin steps, one body of utils/loop.py
+        fori_loop each of one full forward each, pixel i
         set to u_i < sigmoid(logit_i). uniforms (nin, n), the draws of step
         i in row i, replace the generator's; quant: a QuantTable over
         self.net. Returns the samples (n, H, W, 1) and, with with_frames,
@@ -178,10 +183,13 @@ class MADE(Autoreg):
         side = math.isqrt(self.nin)
         if uniforms is None:
             uniforms = torch.rand((self.nin, n), generator=generator, device=self.device)
-        samples = torch.zeros((n, self.nin), device=self.device)
-        for i in range(self.nin):
+
+        def step(i, samples):
             logits = self.net(samples, quant=quant)
-            samples[:, i] = dists.Bernoulli(logits=logits[:, i]).sample(uniforms=uniforms[i])
+            pixel = dists.Bernoulli(logits=logits.select(1, i)).sample(uniforms=uniforms[i])
+            return write(samples, (slice(None), i), pixel)
+
+        samples = fori_loop(0, self.nin, step, torch.zeros((n, self.nin), device=self.device))
         out = samples.reshape(n, side, side, 1)
         if not with_frames:
             return out

@@ -36,6 +36,7 @@ from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.base import RasterAutoreg
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
+from generative_models_tpu_torch.utils.loop import fori_loop, write
 
 LN_EPS = 1e-6  # flax LayerNorm's epsilon
 
@@ -182,19 +183,34 @@ class PixelCNNNet(nn.Module):
     def decode_step(self, canvases, r, c):
         """The logit (n,) of position (r, c), writing this position's
         activations into the canvases (in place)."""
+        return self.step(canvases, r, c)[0]
+
+    def step(self, canvases, r, c):
+        """(The logit (n,) of position (r, c), the canvases with this
+        position's activations written: in place when eager, as new
+        tensors under torch.export, utils/loop.py write.) Windows are
+        narrowed views, as r and c are symbolic under export."""
         k, km = self.kernel_size, self._mid_kernel_size()
         pm = km // 2
         c0, layers = canvases
         # the window centred on (r + p, c + p) in padded coordinates starts at (r, c)
-        x = self.conv_in.window(c0[:, r:r + k, c:c + k])
+        x = self.conv_in.window(c0.narrow(1, r, k).narrow(2, c, k))
+        written = []
         for ln, block, canvas in zip(self.lns, self.blocks, layers):
             x = F.relu(layer_norm(ln, x))
             v = block.step_pre(x) if self.use_resblock else x
-            canvas[:, r + pm, c + pm] = v
-            w = canvas[:, r:r + km, c:c + km]
+            canvas = write(canvas, (slice(None), r + pm, c + pm), v)
+            w = canvas.narrow(1, r, km).narrow(2, c, km)
             x = block.step_post(x, w) if self.use_resblock else block.window(w)
+            written.append(canvas)
         x = self.conv_out1.point(F.relu(x))
-        return self.conv_out2.point(F.relu(x))[:, 0]
+        return self.conv_out2.point(F.relu(x))[:, 0], (c0, written)
+
+    def write_input(self, canvases, r, c, pixel):
+        """The canvases with pixel (n,) at (r, c) of the input canvas."""
+        p = self.kernel_size // 2
+        c0, layers = canvases
+        return write(c0, (slice(None), r + p, c + p, 0), pixel), layers
 
     @staticmethod
     def input_canvas(canvases):
@@ -228,15 +244,20 @@ class PixelCNN(RasterAutoreg):
         loss = -dists.Bernoulli(logits=logits).log_prob(x).mean()
         return loss, {'nlogp': loss}
 
-    @torch.no_grad()
-    def decode_chain(self, n, next_pixel, quant=None):
-        """The wavefront decode: pixel t is written into the input canvas.
-        quant is unused: no layer is an nn.Linear, so --quantize has nothing
-        to quantize and exits."""
+    def decode_chain(self, n, next_pixel, state=(), quant=None):
+        """The wavefront decode, one net.step a step: pixel t is written
+        into the input canvas. quant is unused: no layer is an nn.Linear,
+        so --quantize has nothing to quantize and exits. Its callers turn
+        autograd off: a no_grad region here would put grad-mode nodes
+        around the gated row update's torch.cond in an exported program,
+        which torch.export's pass over them refuses."""
         net, side = self.net, self.side
-        p = net.kernel_size // 2
-        canvases = net.init_canvases(n, side)
-        c0 = net.input_canvas(canvases)
-        for t in range(self.canvas_size):
-            r, c = divmod(t, side)
-            c0[:, r + p, c + p, 0] = next_pixel(t, net.decode_step(canvases, r, c))
+
+        def step(t, carry):
+            canvases, state = carry
+            r, c = t // side, t % side
+            logit, canvases = net.step(canvases, r, c)
+            pix, state = next_pixel(t, logit, state)
+            return net.write_input(canvases, r, c, pix), state
+
+        return fori_loop(0, self.canvas_size, step, (net.init_canvases(n, side), state))[1]

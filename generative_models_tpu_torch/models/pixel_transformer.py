@@ -50,6 +50,7 @@ from generative_models_tpu_torch.parallel import ring_size
 from generative_models_tpu_torch.parallel.ring_attention import ring_causal_attention
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
+from generative_models_tpu_torch.utils.loop import fori_loop, write
 
 
 def _kernel_weight(*layers, dtype):
@@ -179,12 +180,21 @@ class TransformerNet(nn.Module):
         )
 
     def decode_step(self, prev_token, caches, t, params=None, quant=None):
-        """prev_token: (B, in_size) (zeros at t=0); caches from init_cache
-        (or leading-row views of them), updated in place at row t. Returns
-        the logits (B, in_size). quant: a QuantTable keyed from this net,
-        which takes the quantized per-module step instead."""
+        """prev_token: (B, in_size) (zeros at t=0); caches from init_cache,
+        updated in place at row t. Returns the logits (B, in_size). quant:
+        a QuantTable keyed from this net, which takes the quantized
+        per-module step instead."""
+        return self.step(prev_token, caches, t, params, quant)[0]
+
+    def step(self, prev_token, caches, t, params=None, quant=None, rows=None, pos=None):
+        """One decode step, the body of the sampling loop: (logits (B,
+        in_size), the caches with row t written), in place when eager and
+        as new tensors under torch.export (utils/loop.py write). rows:
+        attention reads each cache's first rows only (a segment's view;
+        None: all); pos: torch.arange(block_size) on the device, made once
+        a pass (None: made here)."""
         if quant is not None:
-            return self._quant_step(prev_token, caches, t, quant)
+            return self._quant_step(prev_token, caches, t, quant, rows, pos)
         if params is None:
             params = self.decode_params()
         if self.use_fused_decode:
@@ -194,43 +204,50 @@ class TransformerNet(nn.Module):
             lm = functools.partial(ln_matmul_plain, dtype=dt)
             bt = functools.partial(block_tail_plain, dtype=dt)
         C = self.n_embed
-        h = dense(prev_token, self.embed) + self.pos_emb[0, t]
+        h = dense(prev_token, self.embed) + self.pos_emb[0].select(0, t)
+        written = []
         for lp, cache in zip(params['layers'], caches):
             qkv = lm(h, lp['ln1_scale'], lp['ln1_bias'], lp['wqkv'], lp['bqkv'])
-            cache[t] = qkv[:, C:].reshape(-1, 2, C)  # K at [:, 0], V at [:, 1]
-            y = decode_step_attention(qkv[:, :C], cache, t, self.n_head)
+            cache = write(cache, t, qkv[:, C:].reshape(-1, 2, C))  # K at [:, 0], V at [:, 1]
+            y = decode_step_attention(qkv[:, :C], cache[:rows], t, self.n_head, pos)
             h = bt(h, y, lp)
+            written.append(cache)
         return lm(h, params['ln_f_scale'], params['ln_f_bias'],
-                  params['whead'], params['bhead'])
+                  params['whead'], params['bhead']), written
 
-    def _quant_step(self, prev_token, caches, t, quant):
+    def _quant_step(self, prev_token, caches, t, quant, rows=None, pos=None):
         """One decode step module by module (the JAX package's
         CausalSelfAttention.step, Block.step and decode_step under its
         quantization interceptor): LayerNorm, query, key and value, the cache
         write, attention, proj, fc1, gelu(tanh), fc2, ln_f, the head. Each
         Linear goes through quant.linear: int8_matmul + bias where the table
-        holds it, the plain dense product elsewhere."""
+        holds it, the plain dense product elsewhere. Returns as step."""
         lin = quant.linear
-        h = lin(prev_token, 'embed', self.embed) + self.pos_emb[0, t]
+        h = lin(prev_token, 'embed', self.embed) + self.pos_emb[0].select(0, t)
+        written = []
         for i, (blk, cache) in enumerate(zip(self.blocks, caches)):
             pre, a = f'blocks.{i}.', blk.attn
             x = _ln(h, blk.ln1.weight, blk.ln1.bias)
             q = lin(x, pre + 'attn.query', a.query)
-            cache[t] = torch.stack([lin(x, pre + 'attn.key', a.key),
-                                    lin(x, pre + 'attn.value', a.value)], 1)
-            y = decode_step_attention(q, cache, t, self.n_head)
+            cache = write(cache, t, torch.stack([lin(x, pre + 'attn.key', a.key),
+                                                 lin(x, pre + 'attn.value', a.value)], 1))
+            y = decode_step_attention(q, cache[:rows], t, self.n_head, pos)
             h = h + lin(y, pre + 'attn.proj', a.proj)
             g = lin(_ln(h, blk.ln2.weight, blk.ln2.bias), pre + 'fc1', blk.fc1)
             h = h + lin(F.gelu(g, approximate='tanh'), pre + 'fc2', blk.fc2)
+            written.append(cache)
         hf = _ln(h, self.ln_f.weight, self.ln_f.bias)
-        return lin(hf, 'head_layer.dense', self.head_layer.dense)
+        return lin(hf, 'head_layer.dense', self.head_layer.dense), written
 
 
 @torch.no_grad()
-def decode_loop(net, n, next_token, segments=1, quant=None):
-    """Run the T-step KV-cached decode chain on a batch of n. next_token(t,
-    logits_t) returns the (n, in_size) token that step t+1 is fed. quant: a
-    QuantTable keyed from net (the quantized per-module step).
+def decode_loop(net, n, next_token, state=(), segments=1, quant=None):
+    """Run the T-step KV-cached decode chain on a batch of n, one
+    net.step a step through utils/loop.py fori_loop (a Python loop, or one
+    while_loop a segment under torch.export). next_token(t, logits_t,
+    state) returns the (n, in_size) token that step t+1 is fed and the
+    state; returns the last state. quant: a QuantTable keyed from net (the
+    quantized per-module step).
 
     segments > 1 splits the T steps into S runs where run k attends over
     only the first (k+1)*T/S cache rows, so the attention read per step
@@ -238,29 +255,36 @@ def decode_loop(net, n, next_token, segments=1, quant=None):
     weight either way, so the tokens do not depend on S (the CPU tests hold
     this bitwise)."""
     T = net.block_size
-    caches = net.init_cache(n)
+    dev = net.pos_emb.device
     params = None if quant is not None else net.decode_params()
-    prev = torch.zeros((n, net.in_size), device=net.pos_emb.device)
+    pos = torch.arange(T, device=dev)
     seg = T // segments if segments > 1 and T % segments == 0 else T
+
+    def body(rows):
+        def run(t, carry):
+            prev, caches, state = carry
+            logits, caches = net.step(prev, caches, t, params, quant, rows, pos)
+            prev, state = next_token(t, logits, state)
+            return prev, caches, state
+        return run
+
+    carry = (torch.zeros((n, net.in_size), device=dev), net.init_cache(n), state)
     for start in range(0, T, seg):
-        # leading-row views: decode_step's in-place writes land in caches
-        view = [c[: start + seg] for c in caches]
-        for t in range(start, start + seg):
-            prev = next_token(t, net.decode_step(prev, view, t, params, quant))
+        carry = fori_loop(start, start + seg, body(start + seg), carry)
+    return carry[2]
 
 
 def transformer_sample_scan(net, n, sample_token, uniforms, segments=1, quant=None):
     """KV-cached AR sampling. sample_token(logits, u_t) -> (n, in_size)
     token; uniforms: (T, n, in_size), the draws of step t in row t; quant as
     decode_loop. Returns the tokens (T, n, in_size)."""
+
+    def next_token(t, logits, tokens):
+        token = sample_token(logits, uniforms[t])
+        return token, write(tokens, t, token)
+
     tokens = torch.empty((net.block_size, n, net.in_size), device=uniforms.device)
-
-    def next_token(t, logits):
-        tokens[t] = sample_token(logits, uniforms[t])
-        return tokens[t]
-
-    decode_loop(net, n, next_token, segments, quant)
-    return tokens
+    return decode_loop(net, n, next_token, tokens, segments, quant)
 
 
 def teacher_forced_logits(net, x, segments=1, quant=None):
@@ -268,14 +292,12 @@ def teacher_forced_logits(net, x, segments=1, quant=None):
     in_size) shifted right: what sampling computed at each position when it
     drew x (bitwise, at the same segments and quant). Unquantized, equals
     net(x).logits up to rounding."""
-    logits = []
 
-    def next_token(t, logits_t):
+    def next_token(t, logits_t, logits):
         logits.append(logits_t)
-        return x[:, t].contiguous()
+        return x[:, t].contiguous(), logits
 
-    decode_loop(net, x.shape[0], next_token, segments, quant)
-    return torch.stack(logits, dim=1)
+    return torch.stack(decode_loop(net, x.shape[0], next_token, [], segments, quant), dim=1)
 
 
 @register
@@ -325,6 +347,9 @@ class PixelTransformer(Autoreg):
         x = x.reshape(x.shape[0], self.block_size, 1)
         loss = -self.net(x).log_prob(x).mean()
         return loss, {'nlogp': loss}
+
+    def uniform_shape(self, n):
+        return (self.block_size, n, 1)
 
     def sample_fn(self, n, generator=None, uniforms=None, with_frames=True, quant=None):
         """n samples (n, H, W, 1); uniforms (T, n, 1) replace the draws from

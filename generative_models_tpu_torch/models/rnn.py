@@ -32,6 +32,7 @@ from generative_models_tpu_torch.models.base import RasterAutoreg
 from generative_models_tpu_torch.ops.common import matmul_dtype
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
+from generative_models_tpu_torch.utils.loop import fori_loop
 
 
 def location_grid(side=28, device='cpu'):
@@ -145,13 +146,18 @@ class RNN(RasterAutoreg):
         return loss, {'nlogp': loss}
 
     @torch.no_grad()
-    def decode_chain(self, n, next_pixel, quant=None):
+    def decode_chain(self, n, next_pixel, state=(), quant=None):
         """The LSTM chain: step t reads pixel t - 1 with its location."""
         net, products = self.net, self.net.products(quant)
         locs = sampling_locations(self.side, self.device) if self.G.append_loc else None
-        h = c = torch.zeros((n, net.hidden), device=self.device)
-        x = torch.zeros((n, self.in_channels), device=self.device)
-        for t in range(self.canvas_size):
+
+        def step(t, carry):
+            h, c, x, state = carry
             h, c, logit = net.step(h, c, x, products)
-            pix = next_pixel(t, logit)[:, None]
-            x = pix if locs is None else torch.cat([pix, locs[t].expand(n, 2)], 1)
+            pix, state = next_pixel(t, logit, state)
+            x = pix[:, None] if locs is None else torch.cat([pix[:, None], locs[t].expand(n, 2)], 1)
+            return h, c, x, state
+
+        zeros = lambda width: torch.zeros((n, width), device=self.device)
+        carry = (zeros(net.hidden), zeros(net.hidden), zeros(self.in_channels), state)
+        return fori_loop(0, self.canvas_size, step, carry)[3]

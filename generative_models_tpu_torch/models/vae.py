@@ -147,6 +147,14 @@ class VAE(GM):
     def train_loss(self, x, y=None, eps=None):
         return self._losses(x, self._eps(x, eps, self._gen))
 
+    SERVE_DETERMINISTIC_CONVS = True
+
+    def draw_spec(self, n):
+        return [('z', (n, int(self.G.z_size)), 'normal')]
+
+    def sample_from_draws(self, n, draws, y=None, quant=None):
+        return self.sample_fn(n, z=draws[0])
+
     def sample_fn(self, n, generator=None, z=None, quant=None):
         """n samples (n, H, W, 1) in {0, 1}: sigmoid(decode(z)) > 0.5, z
         from N(0, 1) (or given), the deconvs on cuDNN's deterministic

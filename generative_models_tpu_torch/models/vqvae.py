@@ -191,6 +191,12 @@ class VQVAE(GM):
         super().apply_grads()
         self.prior_opt.step()
 
+    def draw_spec(self, n):
+        return [('uniforms', (self.n_codes, n, int(self.G.vqK)), 'uniform')]
+
+    def sample_from_draws(self, n, draws, y=None, quant=None):
+        return self.sample_fn(n, uniforms=draws[0], quant=quant)
+
     def sample_fn(self, n, generator=None, uniforms=None, quant=None):
         """n samples (n, H, W, 1) in {0, 1}: a Gumbel-max categorical code
         at each of the prior's T decode steps, from uniforms (T, n, K) or

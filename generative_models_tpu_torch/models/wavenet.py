@@ -37,6 +37,7 @@ from generative_models_tpu_torch.models.base import RasterAutoreg, _lecun_normal
 from generative_models_tpu_torch.models.rnn import append_location, location_grid
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
+from generative_models_tpu_torch.utils.loop import fori_loop, write
 
 
 def _mm(x, k):
@@ -142,15 +143,17 @@ class WavenetNet(nn.Module):
     def decode_step(self, buffers, s_prev, t, quant=None):
         """Consume s_{t-1} (the input at position t-1) and return the logit
         for position t (B,) and the buffers, whose rings are updated in
-        place."""
+        place when eager and are new tensors under torch.export
+        (utils/loop.py write)."""
         a_buf, rings = buffers
         h = self.causal(s_prev, a_buf)  # K0 s_{t-2} + K1 s_{t-1}
+        written = []
         for i, ring in enumerate(rings):
             slot = t % ring.shape[1]
-            nxt = self._layer(i, h, ring[:, slot], quant)  # reads x_{t-d}
-            ring[:, slot] = h  # then stores x_t in its place
+            nxt = self._layer(i, h, ring.select(1, slot), quant)  # reads x_{t-d}
+            written.append(write(ring, (slice(None), slot), h))  # then stores x_t there
             h = nxt
-        return self._out(h), (s_prev, rings)
+        return self._out(h), (s_prev, written)
 
 
 @register
@@ -182,12 +185,16 @@ class Wavenet(RasterAutoreg):
         return loss, {'nlogp': loss}
 
     @torch.no_grad()
-    def decode_chain(self, n, next_pixel, quant=None):
+    def decode_chain(self, n, next_pixel, state=(), quant=None):
         """The incremental decode: step t reads pixel t - 1 with its
         location (location_grid's values)."""
         locs = location_grid(self.side, self.device).reshape(self.canvas_size, 2)
-        buffers = self.net.init_buffers(n)
-        s = torch.zeros((n, 3), device=self.device)
-        for t in range(self.canvas_size):
+
+        def step(t, carry):
+            buffers, s, state = carry
             logit, buffers = self.net.decode_step(buffers, s, t, quant)
-            s = torch.cat([next_pixel(t, logit)[:, None], locs[t].expand(n, 2)], 1)
+            pix, state = next_pixel(t, logit, state)
+            return buffers, torch.cat([pix[:, None], locs[t].expand(n, 2)], 1), state
+
+        carry = (self.net.init_buffers(n), torch.zeros((n, 3), device=self.device), state)
+        return fori_loop(0, self.canvas_size, step, carry)[2]

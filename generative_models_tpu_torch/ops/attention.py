@@ -240,13 +240,16 @@ def causal_attention(q, k, v):
     return CausalAttention.apply(q, k, v)
 
 
-def decode_step_attention(q1, kv_cache, t, n_head):
+def decode_step_attention(q1, kv_cache, t, n_head, pos=None):
     """Single-token attention against a packed T-major KV cache.
 
     q1: (B, H*D) the current token's query; kv_cache: (T, B, 2, H*D) with K
     at [:, :, 0] and V at [:, :, 1]; t: current index. Attends to positions
     0..t inclusive; returns (B, H*D) f32. Operands are rounded to the cache
-    dtype and products accumulate in f32, as in the JAX package.
+    dtype and products accumulate in f32, as in the JAX package. The rows
+    past t are masked through pos > t (pos: torch.arange of at least T on
+    the cache's device, made here when None), a shape that does not depend
+    on t, so torch.export keeps the step in its loop.
     """
     T, B, _, HD = kv_cache.shape
     D = HD // n_head
@@ -255,7 +258,9 @@ def decode_step_attention(q1, kv_cache, t, n_head):
     vc = kv_cache[:, :, 1].reshape(T, B, n_head, D).float()
     qh = q1.reshape(B, n_head, D).to(dt).float()
     s = torch.einsum('tbhd,bhd->bht', kc, qh) / math.sqrt(D)
-    s[..., t + 1:] = NEG_INF
+    if pos is None:
+        pos = torch.arange(T, device=kv_cache.device)
+    s = s.masked_fill(pos[:T] > t, NEG_INF)
     p = torch.softmax(s, dim=-1)
     y = torch.einsum('bht,tbhd->bhd', p.to(dt).float(), vc)
     return y.reshape(B, HD).contiguous()

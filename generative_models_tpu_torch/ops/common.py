@@ -12,8 +12,13 @@ ctypes. The build runs at first use into <repo>/build/torch_kernels/, one
 nvcc per source, all started together, and each library's file name carries
 a hash of its source, the shared headers and the flags, so an edited source
 is rebuilt and an unchanged one is reused.
+
+The kernels on the serving paths (A, B, G, I and J) are torch.library ops
+in the gmt namespace (register_op), so torch.export sees each as one node
+and an exported program launches them as the live one does.
 """
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -37,6 +42,7 @@ KERNEL_SOURCES = ('decode_fused', 'attention', 'attention_bwd', 'quantize', 'mas
 
 _LIBS = {}
 _LIBS_LOCK = threading.Lock()
+OPS = torch.library.Library('gmt', 'DEF')  # the namespace of register_op's ops
 
 
 def resolve_device(name=''):
@@ -61,6 +67,20 @@ def resolve_device(name=''):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """A context in which cuDNN takes deterministic algorithms only, its
+    other flags (TF32 off on the card) untouched: its transposed convs may
+    otherwise not be, and a seeded request would not give the same batch
+    twice."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
 
 
 def matmul_dtype(device):
@@ -184,6 +204,19 @@ def launch(lib_name, fn, *args):
     if rc != 0:
         msg = load_kernel(lib_name).gmt_error_string(rc).decode()
         raise RuntimeError(f'{lib_name} kernel launch failed: {msg} ({rc})')
+
+
+def register_op(name, schema, cuda, cpu, fake):
+    """Define the op gmt::<name><schema> with its CUDA implementation (the
+    kernel's launch), its CPU one (the plain version) and its fake one (the
+    output's shape and dtype, which torch.export traces). The lightest
+    registration export takes: the dispatcher calls the Python function
+    directly, with no custom_op wrapper around it. Returns the op."""
+    OPS.define(name + schema)
+    OPS.impl(name, cuda, 'CUDA')
+    OPS.impl(name, cpu, 'CPU')
+    torch.library.register_fake(f'gmt::{name}', fake, lib=OPS)
+    return getattr(torch.ops.gmt, name)
 
 
 def check_cuda(name, t, dtype, shape=None):

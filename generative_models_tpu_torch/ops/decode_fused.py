@@ -16,7 +16,9 @@ warp on the CUDA cores where N < 8, as plan_ln_matmul lays it out.
 block_tail runs one thread-block cluster a 16-row strip, the weights spread
 over the cluster's blocks as plan_block_tail lays them out. Each wrapper
 launches its kernel for CUDA tensors (and refuses what the kernel does not
-take), and runs the plain PyTorch version for CPU tensors. The plain
+take), and runs the plain PyTorch version for CPU tensors; each is the
+torch.library op gmt::ln_matmul or gmt::block_tail (ops/common.py
+register_op), whose CUDA implementation counts the launches. The plain
 versions take the matmul operand dtype, so on the card they repeat the
 kernel's arithmetic (bf16 operands, f32 accumulation) and isolate the
 kernel in a comparison.
@@ -31,7 +33,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from generative_models_tpu_torch.ops.common import c_function, check_cuda, launch, round_up
+from generative_models_tpu_torch.ops.common import (
+    c_function, check_cuda, launch, register_op, round_up,
+)
 
 LN_EPS = 1e-6  # flax LayerNorm's eps (torch's default is 1e-5)
 
@@ -182,12 +186,8 @@ def plan_ln_matmul(B, C, N, aligned=True):
                         LM_COLS, vec, vpl, stages, smem)
 
 
-def ln_matmul(x, scale, bias, w, b):
-    """LN(x) @ w + b in one kernel, laid out by plan_ln_matmul. x: (B, C)
-    f32, C <= 6096; scale, bias: (C,) f32; w: (C, N) bf16 on the card;
-    b: (N,) f32 -> (B, N) f32."""
-    if x.device.type == 'cpu':
-        return ln_matmul_plain(x, scale, bias, w, b)
+def _ln_matmul_cuda(x, scale, bias, w, b):
+    """gmt::ln_matmul on the card: Kernel A, laid out by plan_ln_matmul."""
     B, C = x.shape
     N = w.shape[1]
     check_cuda('ln_matmul x', x, torch.float32, (B, C))
@@ -206,17 +206,30 @@ def ln_matmul(x, scale, bias, w, b):
     return out
 
 
+_ln_matmul_op = register_op(
+    'ln_matmul', '(Tensor x, Tensor scale, Tensor bias, Tensor w, Tensor b) -> Tensor',
+    _ln_matmul_cuda, ln_matmul_plain,
+    lambda x, scale, bias, w, b: x.new_empty((x.shape[0], w.shape[1]), dtype=torch.float32))
+
+
+def ln_matmul(x, scale, bias, w, b):
+    """LN(x) @ w + b in one kernel (the op gmt::ln_matmul). x: (B, C) f32,
+    C <= 6096; scale, bias: (C,) f32; w: (C, N) bf16 on the card; b: (N,)
+    f32 -> (B, N) f32."""
+    if x.device.type not in ('cpu', 'cuda'):  # the kernel's checks refuse it
+        return _ln_matmul_cuda(x, scale, bias, w, b)
+    return _ln_matmul_op(x, scale, bias, w, b)
+
+
 ln_matmul.launches = 0
 
 _BT_VECS = ('bproj', 'ln2_scale', 'ln2_bias', 'bfc1', 'bfc2')
+_BT_ARGS = ('wproj', 'bproj', 'ln2_scale', 'ln2_bias', 'wfc1', 'bfc1', 'wfc2', 'bfc2')
 
 
-def block_tail(x, y, lp):
-    """The whole post-attention half of a Block step in one kernel, laid
-    out by plan_block_tail. x, y: (B, C) f32, C <= 512; lp as
-    block_tail_plain, weights bf16 on the card. Returns (B, C) f32."""
-    if x.device.type == 'cpu':
-        return block_tail_plain(x, y, lp)
+def _block_tail_cuda(x, y, *weights):
+    """gmt::block_tail on the card: Kernel B, laid out by plan_block_tail."""
+    lp = dict(zip(_BT_ARGS, weights))
     B, C = x.shape
     check_cuda('block_tail x', x, torch.float32, (B, C))
     check_cuda('block_tail y', y, torch.float32, (B, C))
@@ -237,6 +250,25 @@ def block_tail(x, y, lp):
                B, C, plan.cluster, plan.P, plan.F, plan.slots)
         block_tail.launches += 1
     return out
+
+
+_block_tail_op = register_op(
+    'block_tail', '(Tensor x, Tensor y, ' + ', '.join(f'Tensor {n}' for n in _BT_ARGS)
+    + ') -> Tensor',
+    _block_tail_cuda,
+    lambda x, y, *weights: block_tail_plain(x, y, dict(zip(_BT_ARGS, weights))),
+    lambda x, y, *weights: torch.empty_like(x, dtype=torch.float32))
+
+
+def block_tail(x, y, lp):
+    """The whole post-attention half of a Block step in one kernel (the op
+    gmt::block_tail, lp's eight tensors passed positionally). x, y: (B, C)
+    f32, C <= 512; lp as block_tail_plain, weights bf16 on the card.
+    Returns (B, C) f32."""
+    args = (x, y, *(lp[n] for n in _BT_ARGS))
+    if x.device.type not in ('cpu', 'cuda'):  # the kernel's checks refuse it
+        return _block_tail_cuda(*args)
+    return _block_tail_op(*args)
 
 
 block_tail.launches = 0

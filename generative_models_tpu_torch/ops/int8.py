@@ -21,7 +21,9 @@ Counterpart of generative_models_tpu/ops/int8.py:
                       built by build_quant_table.
 
 Each kernel wrapper launches its kernel for CUDA tensors (and refuses what
-the kernel does not take) and runs the plain version for CPU tensors. The
+the kernel does not take) and runs the plain version for CPU tensors; each
+is a torch.library op, gmt::int8_gemm or gmt::dequant_gemm (ops/common.py
+register_op), whose CUDA implementation counts the launches. The
 plain versions: int8_gemm_plain in float64, exact on the card too (f32 is
 exact only while K * 127^2 < 2^24, and torch.matmul has no int32 on CUDA);
 dequant_gemm_plain takes its operand dtype from matmul_dtype, as the
@@ -33,7 +35,7 @@ kernels, as the JAX package leaves it to XLA.
 import torch
 
 from generative_models_tpu_torch.ops.common import (
-    c_function, check_cuda, dense, launch, matmul_dtype, plan_split_k, sm_count,
+    c_function, check_cuda, dense, launch, matmul_dtype, plan_split_k, register_op, sm_count,
 )
 
 DEQUANT_GEMM_BN = 32  # Kernel J's output columns a block (DQ_BN in the source)
@@ -88,12 +90,8 @@ def dequant_gemm_plain(x, q):
     return x.to(matmul_dtype(x.device)).float() @ q.float()
 
 
-def int8_gemm(x, q):
-    """Kernel I. x (M, K) int8, q (K, N) int8, contiguous on the card,
-    K <= INT8_GEMM_MAX_K -> (M, N) int32. CPU tensors take
-    int8_gemm_plain."""
-    if x.device.type == 'cpu':
-        return int8_gemm_plain(x, q)
+def _int8_gemm_cuda(x, q):
+    """gmt::int8_gemm on the card: Kernel I, K split as plan_split_k says."""
     M, K = x.shape
     N = q.shape[1]
     check_cuda('int8_gemm x', x, torch.int8, (M, K))
@@ -110,14 +108,26 @@ def int8_gemm(x, q):
     return out
 
 
+_int8_gemm_op = register_op(
+    'int8_gemm', '(Tensor x, Tensor q) -> Tensor', _int8_gemm_cuda, int8_gemm_plain,
+    lambda x, q: x.new_empty((x.shape[0], q.shape[1]), dtype=torch.int32))
+
+
+def int8_gemm(x, q):
+    """Kernel I, the op gmt::int8_gemm. x (M, K) int8, q (K, N) int8,
+    contiguous on the card, K <= INT8_GEMM_MAX_K -> (M, N) int32. CPU
+    tensors take int8_gemm_plain."""
+    if x.device.type not in ('cpu', 'cuda'):  # the kernel's checks refuse it
+        return _int8_gemm_cuda(x, q)
+    return _int8_gemm_op(x, q)
+
+
 int8_gemm.launches = 0
 
 
-def dequant_gemm(x, q):
-    """Kernel J. x (M, K) f32, q (K, N) int8, contiguous on the card ->
-    bf16(x) @ q (M, N) f32. CPU tensors take dequant_gemm_plain."""
-    if x.device.type == 'cpu':
-        return dequant_gemm_plain(x, q)
+def _dequant_gemm_cuda(x, q):
+    """gmt::dequant_gemm on the card: Kernel J, K split as plan_split_k
+    says."""
     M, K = x.shape
     N = q.shape[1]
     check_cuda('dequant_gemm x', x, torch.float32, (M, K))
@@ -129,6 +139,20 @@ def dequant_gemm(x, q):
         launch('int8', fn, x.data_ptr(), q.data_ptr(), out.data_ptr(), M, K, N, splits, kper)
         dequant_gemm.launches += 1
     return out
+
+
+_dequant_gemm_op = register_op(
+    'dequant_gemm', '(Tensor x, Tensor q) -> Tensor', _dequant_gemm_cuda, dequant_gemm_plain,
+    lambda x, q: x.new_empty((x.shape[0], q.shape[1]), dtype=torch.float32))
+
+
+def dequant_gemm(x, q):
+    """Kernel J, the op gmt::dequant_gemm. x (M, K) f32, q (K, N) int8,
+    contiguous on the card -> bf16(x) @ q (M, N) f32. CPU tensors take
+    dequant_gemm_plain."""
+    if x.device.type not in ('cpu', 'cuda'):  # the kernel's checks refuse it
+        return _dequant_gemm_cuda(x, q)
+    return _dequant_gemm_op(x, q)
 
 
 dequant_gemm.launches = 0

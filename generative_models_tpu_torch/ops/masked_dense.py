@@ -22,7 +22,10 @@ Counterpart of generative_models_tpu/ops/masked_dense.py:
   prefer_kernel    -- the reference's shape gate, unchanged.
 
 Each wrapper launches its kernel for CUDA tensors (and refuses what it does
-not take) and runs the plain version for CPU tensors. The plain versions
+not take) and runs the plain version for CPU tensors. masked_matmul, on
+made's serving path, is the torch.library op gmt::masked_matmul
+(ops/common.py register_op), whose CUDA implementation counts the launches;
+mask_out_matmul, on the training path only, is a plain function. The plain versions
 take their operand dtype from matmul_dtype, as _pallas_masked_matmul does:
 bf16 on the card (f32 products and sums), f32 on the CPU. The kernels read
 f32 x, w, a and b and round them to bf16 themselves, and a uint8 {0, 1}
@@ -32,7 +35,7 @@ mask. Outputs are f32; the bias stays outside the kernels.
 import torch
 
 from generative_models_tpu_torch.ops.common import (
-    c_function, check_cuda, launch, matmul_dtype, plan_split_k, sm_count,
+    c_function, check_cuda, launch, matmul_dtype, plan_split_k, register_op, sm_count,
 )
 
 MASKED_MATMUL_BN = 64  # Kernel G's output columns a block (MM_BN in the source)
@@ -52,13 +55,9 @@ def mask_out_matmul_plain(a, b, m):
     return m * (a.to(dt).float() @ b.to(dt).float())
 
 
-def masked_matmul(x, w, m, trans_b=False):
-    """Kernel G. x (M, K) f32; w (K, N) f32 and m (K, N) uint8, or both
-    (N, K) with trans_b; contiguous on the card -> x @ (w * m) (M, N) f32.
-    CPU tensors take masked_matmul_plain."""
-    x, w, m = x.detach(), w.detach(), m.detach()
-    if x.device.type == 'cpu':
-        return masked_matmul_plain(x, w.t(), m.t()) if trans_b else masked_matmul_plain(x, w, m)
+def _masked_matmul_cuda(x, w, m, trans_b=False):
+    """gmt::masked_matmul on the card: Kernel G, K split as plan_split_k
+    says."""
     M, K = x.shape
     N = w.shape[0] if trans_b else w.shape[1]
     wshape = (N, K) if trans_b else (K, N)
@@ -73,6 +72,27 @@ def masked_matmul(x, w, m, trans_b=False):
                out.data_ptr(), M, K, N, int(trans_b), splits, kper)
         masked_matmul.launches += 1
     return out
+
+
+def _masked_matmul_cpu(x, w, m, trans_b=False):
+    return masked_matmul_plain(x, w.t(), m.t()) if trans_b else masked_matmul_plain(x, w, m)
+
+
+_masked_matmul_op = register_op(
+    'masked_matmul', '(Tensor x, Tensor w, Tensor m, bool trans_b=False) -> Tensor',
+    _masked_matmul_cuda, _masked_matmul_cpu,
+    lambda x, w, m, trans_b=False: x.new_empty(
+        (x.shape[0], w.shape[0] if trans_b else w.shape[1]), dtype=torch.float32))
+
+
+def masked_matmul(x, w, m, trans_b=False):
+    """Kernel G, the op gmt::masked_matmul. x (M, K) f32; w (K, N) f32 and
+    m (K, N) uint8, or both (N, K) with trans_b; contiguous on the card ->
+    x @ (w * m) (M, N) f32. CPU tensors take masked_matmul_plain."""
+    args = (x.detach(), w.detach(), m.detach(), trans_b)
+    if x.device.type not in ('cpu', 'cuda'):  # the kernel's checks refuse it
+        return _masked_matmul_cuda(*args)
+    return _masked_matmul_op(*args)
 
 
 masked_matmul.launches = 0
@@ -134,11 +154,14 @@ class MaskedDense(torch.autograd.Function):
 
 def masked_dense(x, w, b, m, use_kernel=True):
     """x (..., K) @ (w * m) + b -> (..., N) f32. use_kernel: MaskedDense
-    (Kernels G and H on the card); otherwise the fold-the-mask product under
+    (Kernels G and H on the card), or without autograd its forward, Kernel
+    G; otherwise the fold-the-mask product under
     the operand policy, which autograd differentiates."""
     x2d = x.reshape(-1, x.shape[-1])
-    if use_kernel:
+    if use_kernel and torch.is_grad_enabled():
         y = MaskedDense.apply(x2d, w, b, m)
+    elif use_kernel:  # MaskedDense's forward alone, which torch.export traces
+        y = masked_matmul(x2d.contiguous(), w, m) + b
     else:
         y = masked_matmul_plain(x2d, w, m) + b
     return y.reshape(*x.shape[:-1], w.shape[-1])

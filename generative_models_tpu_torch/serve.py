@@ -16,6 +16,10 @@ Counterpart of generative_models_tpu/serve.py:
   python -m generative_models_tpu_torch.serve --model=gan --n=25 --out=gan.png
   python -m generative_models_tpu_torch.serve --model=wavenet --quantize=w8a16 \
       --n=25 --out=wn.png                          # nine res1x1 through Kernel J
+  python -m generative_models_tpu_torch.serve --model=pixel_transformer \
+      --export=pt.pt2                              # write an artifact and exit
+  python -m generative_models_tpu_torch.serve --from_export=pt.pt2 \
+      --port=8000                                  # serve it, no model code
 
 Serving shape, as in the JAX package:
   * requests are padded up to a fixed --serve_bs and sliced back down, so
@@ -55,10 +59,28 @@ emb projections (models/diffusion/unet.py), from the net sampling reads
 (the EMA copy under --ema). --mesh=seq:N serves
 pixel_transformer with its scoring forward through the ring (sampling
 takes the per-op decode chain) and refuses --quantize, as the JAX package
-does. Not ported yet: --export and --from_export (utils/config.py refuses
-them).
+does.
+
+A pass is two parts (models/base.py): the draws of the model's
+draw_spec, from the seed's generator in a fixed order (uniforms (T, n) or
+(T, n, K); vae's z, gan's noise; diffusion's noise, then w, then the noisy
+sampler's (S, n, 28, 28, 1) step noise), and the ServingProgram, an
+nn.Module forward(*draws[, y]) -> (n, H, W, 1) in [0, 1] that holds the
+weights (the EMA copy under --ema, the int8 table under --quantize).
+
+Deployment artifacts: --export=path writes the live server's program
+through torch.export (export_serving: every sampling loop one while_loop
+node, every serving kernel a gmt:: op node) with a serving.json beside it
+in the archive (serve_bs, class_cond, the draw spec, model, quantize mode,
+device type), prints its byte count and exits; --from_export=path serves
+it (ExportedServer) with no model code: nothing of models/ is imported.
+An artifact serves on the device type that wrote it, and at the same seed
+(and labels) gives bitwise the live server's batch on the same device.
+The JAX artifact takes a raw PRNG key; this one's server makes the draws
+from the seed, as a torch.Generator cannot be an exported input.
 """
 
+import contextlib
 import json
 import os
 import struct
@@ -99,6 +121,34 @@ def png_encode(img):
         + chunk(b'IDAT', zlib.compress(raw, 6))
         + chunk(b'IEND', b'')
     )
+
+
+def program_fn(program, spec, device, n, class_cond, deterministic=False):
+    """(seed) -> (n, H, W, 1) float32 numpy, or (seed, y) with y the n
+    labels (None: -1, unconditional) of a class-conditional program: the
+    draws of spec from torch.Generator(device).manual_seed(seed)
+    (utils/dists.py draw), then program(*draws[, y]) without autograd;
+    deterministic: on cuDNN's deterministic algorithms. One device-to-host
+    copy, the batch."""
+    import torch
+
+    from generative_models_tpu_torch.ops.common import deterministic_convs
+    from generative_models_tpu_torch.utils.dists import draw
+
+    @torch.no_grad()
+    def run(seed, y=None):
+        args = draw(spec, torch.Generator(device).manual_seed(int(seed)), device)
+        if class_cond:
+            y = -np.ones((n,), np.int32) if y is None else np.asarray(y, np.int32)
+            # staged from pageable memory, so the host may reuse y at once;
+            # non_blocking: no stream sync, the batch's copy is the only one
+            args += (torch.from_numpy(y).to(device, non_blocking=True),)
+        with deterministic_convs() if deterministic else contextlib.nullcontext():
+            return program(*args).cpu().numpy()
+
+    if class_cond:
+        return run
+    return lambda seed: run(seed)
 
 
 def tile_grid(x, cols=None):
@@ -366,10 +416,80 @@ class SampleServer(_ServerBase):
                     f'--quantize: {model.G.model} has no Linear or masked layers '
                     'large enough to quantize (ops/int8.py thresholds)'
                 )
-        self._call = model.pure_serving_fn(self.serve_bs, quant=self.quant)
+        self.program = model.serving_program(self.serve_bs, quant=self.quant).eval()
+        self.draw_spec = model.draw_spec(self.serve_bs)
+        self._call = program_fn(self.program, self.draw_spec, model.device, self.serve_bs,
+                                self.class_cond, model.SERVE_DETERMINISTIC_CONVS)
 
     def _model_name(self):
         return self.model.G.model
+
+    def export_serving(self, path):
+        """Write the live server's own program (self.program) as a
+        torch.export artifact at path: the weights baked in, inputs the
+        draws (and the labels of a class-conditional server), output the
+        batch; serving.json in the archive records what ExportedServer
+        needs to serve it. Returns the artifact's byte count."""
+        import torch
+
+        from generative_models_tpu_torch.utils.loop import serializable
+
+        dev = self.model.device
+        args = tuple(torch.zeros(shape, device=dev) for _, shape, _ in self.draw_spec)
+        if self.class_cond:
+            args += (-torch.ones((self.serve_bs,), dtype=torch.int32, device=dev),)
+        meta = dict(
+            serve_bs=self.serve_bs, class_cond=self.class_cond,
+            draws=[dict(name=name, shape=list(shape), dtype='float32', kind=kind)
+                   for name, shape, kind in self.draw_spec],
+            model=self.model.G.model, quantize=self.quant_mode or None,
+            quantized_kernels=self.quant_kernels, device=dev.type,
+            deterministic_convs=self.model.SERVE_DETERMINISTIC_CONVS,
+        )
+        with torch.no_grad():
+            ep = serializable(torch.export.export(self.program, args))
+        torch.export.save(ep, path, extra_files={'serving.json': json.dumps(meta)})
+        return os.path.getsize(path)
+
+
+class ExportedServer(_ServerBase):
+    """Serve an artifact written by SampleServer.export_serving: no model
+    class, no params file, no config; the artifact is the model. It
+    imports the ops that register the serving kernels and nothing of
+    models/, makes the draws its serving.json records from each request's
+    seed, and runs the exported program. Same sample()/stats()/warm()
+    surface as SampleServer, so the HTTP front and the one-shot path work
+    unchanged. device: where it serves ('' = cuda); an artifact written on
+    another device type is refused."""
+
+    def __init__(self, path, device=''):
+        import torch
+
+        import generative_models_tpu_torch.ops.decode_fused  # noqa: F401  (gmt:: ops)
+        import generative_models_tpu_torch.ops.int8  # noqa: F401
+        import generative_models_tpu_torch.ops.masked_dense  # noqa: F401
+        from generative_models_tpu_torch.ops.common import resolve_device
+
+        self.path = str(path)
+        dev = resolve_device(device)
+        extra = {'serving.json': ''}
+        ep = torch.export.load(self.path, extra_files=extra)
+        self.meta = meta = json.loads(extra['serving.json'])
+        if meta['device'] != dev.type:
+            raise ValueError(
+                f'{self.path} was exported on {meta["device"]} and serves only there, '
+                f'not on {dev.type}'
+            )
+        self._init_serving(meta['serve_bs'], meta['class_cond'])
+        self.quant_mode = meta['quantize'] or ''
+        self.quant_kernels = meta['quantized_kernels']
+        self.draw_spec = [(d['name'], tuple(d['shape']), d['kind']) for d in meta['draws']]
+        self.program = ep.module()
+        self._call = program_fn(self.program, self.draw_spec, dev, self.serve_bs,
+                                self.class_cond, meta['deterministic_convs'])
+
+    def _model_name(self):
+        return f'exported:{self.path}'
 
 
 def _http_serve(server, port, host='127.0.0.1'):
@@ -429,8 +549,8 @@ def serve_defaults():
     DG.host = '127.0.0.1'  # HTTP bind address (0.0.0.0 to expose; no auth)
     DG.n = 25  # one-shot sample count
     DG.out = Path('samples.png')
-    DG.export = ''  # not ported yet
-    DG.from_export = ''  # not ported yet
+    DG.export = ''  # write a torch.export artifact here and exit
+    DG.from_export = ''  # serve a torch.export artifact (no model build)
     DG.quantize = ''  # int8 post-training quant: int8|w8a8|w8a16 (ops/int8.py)
     DG.coalesce_ms = 0.0  # >0: micro-batch concurrent requests (window, ms)
     return DG
@@ -438,9 +558,32 @@ def serve_defaults():
 
 def load_server(argv=None):
     """Parse serve flags (two-phase parse plus --serve_bs/--port/--n/--out),
-    build the model on --device (default cuda), load weights."""
-    from generative_models_tpu_torch.utils.config import parse_args
+    build the model on --device (default cuda), load weights; or, with
+    --from_export, load the artifact alone (the serving flags parsed, no
+    model imported)."""
+    import argparse
+    import sys
 
+    from generative_models_tpu_torch.utils.config import AttrDict, args_type, parse_args
+
+    argv = sys.argv[1:] if argv is None else argv
+    parser = argparse.ArgumentParser()
+    for key, value in serve_defaults().items():
+        parser.add_argument(f'--{key}', type=args_type(value), default=value)
+    pre = AttrDict(parser.parse_known_args(argv)[0].__dict__)
+    if str(pre.from_export):
+        if str(pre.export):
+            raise SystemExit(
+                '--from_export serves an existing artifact; it cannot be '
+                'combined with --export (which needs a model to trace)'
+            )
+        if str(pre.quantize):
+            raise SystemExit(
+                '--quantize applies when the serving graph is traced; an '
+                'exported artifact is already baked (re-export with '
+                '--quantize to get a quantized artifact)'
+            )
+        return ExportedServer(pre.from_export, pre.device), pre
     G, Model = parse_args(argv, DG=serve_defaults())
     model = Model(G=G)
     if G.weights_from != Path('.'):
@@ -450,6 +593,10 @@ def load_server(argv=None):
 
 def main(argv=None):
     server, G = load_server(argv)
+    if str(G.get('export', '')):
+        nbytes = server.export_serving(G.export)
+        print(f'exported serving artifact: {G.export} ({nbytes} bytes)')
+        return
     print(f'warming {G.model} serve_bs={server.serve_bs} ...', flush=True)
     warm = server.warm()
     print(f'warm in {warm:.2f}s', flush=True)

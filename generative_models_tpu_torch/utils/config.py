@@ -91,7 +91,7 @@ def global_defaults():
 
 # flags whose JAX implementation has no counterpart here yet: setting one
 # raises rather than running something other than what was asked for
-NOT_PORTED = ('fsdp', 'export', 'from_export')
+NOT_PORTED = ('fsdp',)
 
 
 def check_ported(G):

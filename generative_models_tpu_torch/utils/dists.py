@@ -94,3 +94,12 @@ class Categorical:
     def sample(self, generator=None, uniforms=None):
         idx = self.sample_index(generator, uniforms)
         return F.one_hot(idx, self.logits.shape[-1]).to(self.logits.dtype)
+
+
+def draw(spec, generator, device):
+    """The draws of a spec [(name, shape, kind)], in its order, from
+    generator: torch.rand for kind 'uniform', torch.randn for 'normal',
+    float32 on device (a serving pass's, models/base.py draw_spec)."""
+    make = {'uniform': torch.rand, 'normal': torch.randn}
+    return tuple(make[kind](tuple(shape), generator=generator, device=device)
+                 for _, shape, kind in spec)

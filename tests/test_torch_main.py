@@ -98,10 +98,14 @@ def test_nan_guard_raises_on_a_nan(tmp_path, small_data, monkeypatch):
 @pytest.mark.parametrize('flag', ['--ckpt=orbax', '--fsdp=1', '--export=a.bin',
                                   '--from_export=a.bin'])
 def test_unported_training_flags_raise(flag):
-    """The flags still refused by name (--export and --from_export are
-    serving flags, parsed with the server's defaults)."""
+    """The flags still refused by name; --export and --from_export (serving
+    flags, parsed with the server's defaults) are ported and parse."""
     from generative_models_tpu_torch.serve import serve_defaults
 
+    if flag.startswith(('--export', '--from_export')):
+        G, _ = parse_args(TINY + [flag], DG=serve_defaults())
+        assert str(G[flag[2:].split('=')[0]]) == 'a.bin'
+        return
     with pytest.raises(NotImplementedError, match='not ported yet'):
         parse_args(TINY + [flag], DG=serve_defaults())
 

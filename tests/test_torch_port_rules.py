@@ -429,9 +429,13 @@ def test_unported_models_and_flags_raise():
     with pytest.raises(KeyError):
         parse_args(['--model=no_such_model', '--device=cpu'])
     for flag in ('--mesh=data:2', '--fsdp=1', '--export=a.bin', '--from_export=a.bin'):
+        argv = ['--model=pixel_transformer', '--device=cpu', flag]
+        if flag.startswith(('--export', '--from_export')):  # ported: they parse
+            G, _ = parse_args(argv, DG=serve_defaults())
+            assert str(G[flag[2:].split('=')[0]]) == 'a.bin'
+            continue
         with pytest.raises(NotImplementedError, match='not ported yet'):
-            parse_args(['--model=pixel_transformer', '--device=cpu', flag],
-                       DG=serve_defaults())
+            parse_args(argv, DG=serve_defaults())
     G, Model = parse_args(['--model=pixel_transformer', '--device=cpu',
                            '--moe_experts=2', '--n_embed=16'])
     with pytest.raises(NotImplementedError, match='moe_experts'):
