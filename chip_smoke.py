@@ -98,7 +98,7 @@ failure exits non-zero before the result lines:
   16. quant_serve -- --quantize serving of each model at its default width
                 (pixel_transformer, vqvae, made at hidden_size=1024, rnn at
                 256, wavenet at 320), w8a8 and w8a16, through load_server
-                (warm, seed=7 once): Kernel I (w8a8) or J (w8a16) once a
+                (seed=7 once, no warm pass): Kernel I (w8a8) or J (w8a16) once a
                 quantized Linear or masked layer a step (rnn's wh: 784 a
                 pass; wavenet's nine res1x1: 7056), nothing else; the /healthz fields; the
                 request redrawn through the quantized chain; the card's
@@ -174,7 +174,8 @@ failure exits non-zero before the result lines:
                 CNNs' against a float64 copy, the CPU f32 copy's error
                 logged beside); a profiled
                 train step and a request's launches; every ops/ counter 0.
-  30. profile -- device time by kernel over one request and one train step
+  30. profile -- device time by kernel over one request (CUDA activity
+                alone for whole requests) and one train step
                 of each model, one pixel_transformer scoring forward, one
                 seq:4 train step, one quantized request of vqvae and of made
                 in each mode, 8 decode steps of a quantized
@@ -221,6 +222,31 @@ failure exits non-zero before the result lines:
                 activity); vae's artifact through a --from_export CLI
                 subprocess; the gmt:: ops' dispatch cost against their CUDA
                 implementations.
+  39. moe  -- pixel_transformer --moe_experts=8 at its default width: 10
+                train steps at bs=64 through main.main (C 28, E and D 20
+                launches, no A or B: the MoE decode is the module-by-module
+                chain), eval/nlogp falling and moe_aux finite; served at
+                serve_bs=64 (warm, seed=7 twice equal, its batch scored: C
+                2); w8a8 and w8a16 (I or J 8 a decode step, 6272 a request,
+                nothing else); an export artifact (traced by a process of its
+                own while this one serves) whose seed=7 batch is bitwise the
+                live one's; one step's gradients against a CPU f32 copy; a
+                profiled train step, a request's launches and device time
+                (CUDA activity alone) and 8 decode steps profiled.
+  40. mesh -- one torchrun --nproc_per_node=1 subprocess running main's
+                load and train with --mesh=data:1,model:1, with --fsdp=1
+                and without (the process group's code path: NCCL, FSDP2 or
+                the data axis's all-reduce, the model axis's collectives at
+                size 1) for pixel_transformer, diffusion_model (dpm2m-25
+                sampling) and gan at their default widths, one epoch of 3
+                steps at bs=64 each, against the same runs with no group in
+                this process, twice: the backend NCCL, every kernel's
+                launches equal, model.pt's distance from the first no-group
+                run's over that run's update within MESH_BOUND (bitwise for
+                pixel_transformer) and the metrics within
+                MESH_METRIC_BOUND, the second no-group run included; the
+                --fsdp=1 run's and the first no-group run's median wall of 5
+                more steps and one more step profiled.
 Then the kernels line, the nvidia-smi line and, last, the device line.
 `--only=<phase>,...` runs the build and those phases alone (diff_quant
 after diff_train), for work on them: it prints no kernels or device line.
@@ -353,6 +379,19 @@ def _on_device(event):
     from torch.autograd import DeviceType
 
     return event.device_type == DeviceType.CUDA and not getattr(event, 'is_user_annotation', False)
+
+
+def _raw_device_events(prof):
+    """(name, us) of each kernel or copy on the card's timeline in a
+    finished trace, read from the profiler's raw events: the ones
+    prof.events() keeps and _on_device passes, without building
+    prof.events()'s event objects, which take tens of seconds for a
+    request of 100k launches and well under one read so."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+            and not e.is_hidden_event() and e.name() not in ('[memory]', '[OutOfMemory]')]
 
 
 def _device_events(fn, iters, flush=None, tries=6):
@@ -1577,7 +1616,7 @@ def grad_check(label, model, cpu, rel=5e-2, floor=1e-4):
     # 1e-2, so rel = 5e-2 of its own norm, plus floor = 1e-4 of the whole
     # gradient's norm for key.bias, whose exact gradient is 0 (softmax is
     # shift-invariant)
-    out, off_graph = {}, []
+    out, off_graph, over = {}, [], []
     for name, p in model.net.named_parameters():
         g = p.grad
         if g is None and ref[name].grad is None:
@@ -1589,14 +1628,18 @@ def grad_check(label, model, cpu, rel=5e-2, floor=1e-4):
         err = float(torch.linalg.vector_norm(g.cpu().double() - gr))
         ref_norm = float(torch.linalg.vector_norm(gr))
         if err > rel * ref_norm + floor * total:
-            raise AssertionError(f'{label}: {name} |card - cpu| {err:.3g} vs |cpu| {ref_norm:.3g}')
+            over.append(f'{name} |card - cpu| {err:.3g} vs |cpu| {ref_norm:.3g}')
         out[name] = err / max(ref_norm, 1e-30)
     worst = max(out, key=out.get)
     log(f'[{label}] {len(out)} parameters finite and non-zero; relative error vs the CPU copy '
         f'max {out[worst]:.3g} ({worst}), median {sorted(out.values())[len(out) // 2]:.3g}; '
         f'tolerance {rel} of the norm + {floor} of |all grads| = {total:.4g}; worst: '
         f'{json.dumps({k: round(out[k], 5) for k in sorted(out, key=out.get)[-4:]})}'
-        + (f'; no gradient on either side: {off_graph}' if off_graph else ''))
+        + (f'; no gradient on either side: {off_graph}' if off_graph else '')
+        + (f'; every relative error: {json.dumps({k: float(f"{v:.4g}") for k, v in out.items()})}'
+           if over else ''))
+    if over:
+        raise AssertionError(f'{label}: {over}')
     return dict(rel_err=out, rtol_norm=rel, atol_of_total=floor, off_graph=off_graph)
 
 
@@ -2669,8 +2712,8 @@ def _count_launches(label, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t1
-    events = [e for e in prof.events() if _on_device(e)]
-    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    events = _raw_device_events(prof)
+    busy = sum(us for _, us in events) / 1e3
     out = dict(wall_ms=wall * 1e3, device_ms=busy, launches=len(events),
                busy_share=busy / (wall * 1e3), traced_sec=time.time() - t0)
     log(f'[profile] {label}: wall {out["wall_ms"]:.1f} ms, device {busy:.1f} ms, '
@@ -2711,8 +2754,8 @@ def phase_quant_serve():
 
 
 def quant_serve_one(name, mode, ref):
-    """One model in one mode through load_server (warm and seed=7, whose
-    batch quant_checks redraws through the quantized chain),
+    """One model in one mode through load_server (seed=7, whose batch
+    quant_checks redraws through the quantized chain; no warm pass),
     with exact launch counts: the mode's kernel once a quantized weight a
     step (a decode step, or a made forward), every other kernel 0 times: no
     Kernel A or B in the decode steps, no G in made's forwards; rnn's wh
@@ -2725,15 +2768,13 @@ def quant_serve_one(name, mode, ref):
     _reset(counters)
     t0 = time.time()
     server, G = load_server([f'--model={name}', '--serve_bs=64', f'--quantize={mode}'])
-    warm = server.warm()
     a = server.sample(64, seed=7)
     torch.cuda.synchronize()
     launches = _read(counters)
-    log(f'[{label}] load_server + warm {time.time() - t0:.2f}s (warm {warm:.2f}s); '
-        f'launches {launches}')
+    log(f'[{label}] load_server + the request {time.time() - t0:.2f}s; launches {launches}')
     steps = {'pixel_transformer': 784, 'vqvae': 49, 'made': 784, 'rnn': 784, 'wavenet': 784}[name]
     n_q = {'pixel_transformer': 12, 'vqvae': 14, 'made': 4, 'rnn': 1, 'wavenet': 9}[name]
-    passes = 2  # warm + 1 request (the seed's batch is redrawn by quant_checks)
+    passes = 1  # the request (its batch is redrawn by quant_checks)
     if server.quant_kernels != n_q or server.quant_mode != mode:
         raise AssertionError(f'{label}: {server.quant_kernels} quantized weights in mode '
                              f'{server.quant_mode}, expected {n_q} in {mode}')
@@ -2749,7 +2790,7 @@ def quant_serve_one(name, mode, ref):
     log(f'[{label}] request latencies (s): {[round(v, 4) for v in server.latencies]}')
     checks = quant_checks(name, mode, server, G, a, ref)
     return dict(launches=launches, passes=passes, per_pass=n_q * steps,
-                latencies=list(server.latencies), warm_sec=warm, checks=checks, server=server)
+                latencies=list(server.latencies), warm_sec=None, checks=checks, server=server)
 
 
 def quant_checks(name, mode, server, G, batch, ref):
@@ -2913,10 +2954,9 @@ def _profile(label, fn, top_n, device_only=False):
         torch.cuda.synchronize()
         wall = time.time() - t0
     by_name = {}
-    for e in prof.events():
-        if _on_device(e):
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for name, us in _raw_device_events(prof):
+        n, total = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, total + us)
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     launches = sum(n for n, _ in by_name.values())
     traced = time.time() - t_trace
@@ -3017,7 +3057,8 @@ def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
     diff['model'].train_step(diff_bx[0], diff_by[0])
     torch.cuda.synchronize()
     out = dict(
-        request=_profile('one request', lambda: server.sample(64, seed=11), 15),
+        request=_profile('one request', lambda: server.sample(64, seed=11), 15,
+                         device_only=True),
         scoring=_profile('one scoring forward', lambda: server.model.eval_loss(x), 10),
         train_step=_profile('one train step', lambda: model.train_step(bx[1]), 15),
         seq_train_step=_profile(f'one seq:{SEQ} train step',
@@ -3031,7 +3072,8 @@ def phase_profile(server, x, model, dataset, vq_server, vq_model, vq_dataset,
         made_train_step=_profile('one made train step',
                                  lambda: made_model.train_step(made_bx[1]), 15),
         **{f'{key}_request': _profile(f'one {key} request',
-                                      lambda srv=q['server']: srv.sample(64, seed=11), 12)
+                                      lambda srv=q['server']: srv.sample(64, seed=11), 12,
+                                      device_only=True)
            for key, q in quant.items() if key.startswith(('vqvae', 'made'))},
         **{f'{key}_decode_window': dict(
             steps=[PT_DECODE_WINDOW.start, PT_DECODE_WINDOW.stop],
@@ -3439,7 +3481,7 @@ def phase_diff_quant():
             raise AssertionError(f'diff_quant {mode}: {srv.quant_kernels} quantized, launches '
                                  f'{launches} != {expected}')
         prof = _profile(f'a quantized ({mode}) guided dpm2m-25 diffusion request',
-                        lambda: srv.sample(64, y=DIFF_LABELS, seed=8), 8)
+                        lambda: srv.sample(64, y=DIFF_LABELS, seed=8), 8, device_only=True)
         serve[mode] = dict(warm_sec=warm, request_sec=list(srv.latencies), launches=launches,
                            launches_per_request=per_pass, profile=prof)
         log(f'[diff_quant] {mode}: warm {warm:.2f}s, requests (s) '
@@ -3614,35 +3656,36 @@ def _syncs(fn):
 EXPORT_TRACED = ('vqvae', 'made_2048')
 
 
-def export_worker(labels):
+def export_worker(labels, cases=None, out_dir=None):
     """An exporting process (EXPORT_WORKERS): for each label, its case's
-    server from load_server at serve_bs=64 and export_serving into
-    EXPORT_DIR, then <label>.json: the export's seconds and bytes (or the
-    error)."""
+    server from load_server at serve_bs=64 and export_serving into out_dir
+    (EXPORT_DIR), then <label>.json: the export's seconds and bytes (or the
+    error). cases: {label: flags} (EXPORT_CASES')."""
     import traceback
 
     from generative_models_tpu_torch.serve import load_server
 
-    cases = {label: flags for label, flags, _, _ in EXPORT_CASES}
+    cases = cases or {label: flags for label, flags, _, _ in EXPORT_CASES}
+    out_dir = Path(out_dir or EXPORT_DIR)
     for label in labels:
         try:
             server, _ = load_server(cases[label] + ['--serve_bs=64'])
             t0 = time.time()
-            nbytes = server.export_serving(EXPORT_DIR / f'{label}.pt2')
+            nbytes = server.export_serving(out_dir / f'{label}.pt2')
             res = dict(export_sec=time.time() - t0, bytes=nbytes)
         except BaseException:  # argparse's refusals are SystemExit
             res = dict(error=traceback.format_exc())
-        tmp = EXPORT_DIR / f'{label}.json.tmp'
+        tmp = out_dir / f'{label}.json.tmp'
         tmp.write_text(json.dumps(res))
-        tmp.rename(EXPORT_DIR / f'{label}.json')  # whole, or not there
+        tmp.rename(out_dir / f'{label}.json')  # whole, or not there
         if 'error' in res:
             sys.exit(1)
 
 
-def _exported(label, worker, timeout=900):
+def _exported(label, worker, timeout=900, out_dir=EXPORT_DIR):
     """The result of label's exporting process (a Popen), waited for."""
     t0 = time.time()
-    done = EXPORT_DIR / f'{label}.json'
+    done = out_dir / f'{label}.json'
     while not done.exists():
         if time.time() - t0 > timeout or worker.poll() is not None:
             if done.exists():
@@ -3779,6 +3822,344 @@ def _export_cases(workers, others):
     return out
 
 
+
+# ---------------------------------------------------------------------- #
+# moe: --moe_experts at pixel_transformer's default width
+# ---------------------------------------------------------------------- #
+MOE_DIR = ROOT / 'build' / 'chip_smoke_moe'
+MOE_FLAGS = ['--model=pixel_transformer', '--moe_experts=8']
+# the quant table's thresholds take q, k, v and proj (128 x 128) of each of
+# the 2 layers and leave out the router (128 x 8) and the stacked experts
+MOE_QUANT = 8
+
+
+def phase_moe():
+    """pixel_transformer --moe_experts=8 trained, served, quantized and
+    exported through its entry points, with exact launch counts; the
+    artifact is traced by a process of its own (export_worker) while this
+    one serves, and its seed=7 batch held bitwise to the live server's."""
+    import generative_models_tpu_torch.data.mnist as mnist
+
+    train_n, test_n, bs, L, T = 640, 128, 64, 2, 784
+    mnist.TRAIN_N, mnist.TEST_N = train_n, test_n  # 10 steps, 2 eval batches
+    shutil.rmtree(MOE_DIR, ignore_errors=True)
+    counters = _counters()
+    _reset(counters)
+    t0 = time.time()
+    history, _ = _run_main(MOE_FLAGS + [f'--bs={bs}', '--epochs=1', '--save_n=1',
+                                        '--data_source=synthetic', f'--logdir={MOE_DIR}'])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _read(counters)
+    steps, eval_batches, evals = train_n // bs, test_n // bs, 2
+    expected = dict.fromkeys(launches, 0)
+    expected.update(causal_attention_fwd=L * (eval_batches * evals + steps),
+                    flash_bwd_dq=L * steps, flash_bwd_dkv=L * steps)
+    if launches != expected:
+        raise AssertionError(f'moe train launch counts {launches} != expected {expected}')
+    nlogp = [h['eval/nlogp'] for h in history]
+    aux = history[1].get('pixel_transformer/train/moe_aux')
+    if not nlogp[1] < nlogp[0] or aux is None or not np.isfinite(aux):
+        raise AssertionError(f'moe train: eval/nlogp {nlogp}, train moe_aux {aux}')
+    for name in ('model.pt', 'hps.yaml', 'sampling_process_1.gif'):
+        if not (MOE_DIR / name).is_file():
+            raise AssertionError(f'moe train: {name} was not written')
+    log(f'[moe] main.main {wall:.2f}s; launches {launches}; eval/nlogp {nlogp}; train moe_aux '
+        f'{aux}; dt/train {history[1]["dt/train"]:.3f}s for {steps} steps')
+
+    ckpt = MOE_DIR / 'model.pt'
+    cases = {'moe_serve': [f'--weights_from={ckpt}']}
+    with open(MOE_DIR / 'exporter.log', 'w') as f:
+        exporter = subprocess.Popen(
+            [sys.executable, '-c', 'import chip_smoke; chip_smoke.export_worker('
+             f'["moe_serve"], {cases!r}, {str(MOE_DIR)!r})'],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+        try:
+            served = _moe_serve(ckpt, counters, exporter, L, T)
+        finally:
+            if exporter.poll() is None:
+                exporter.kill()
+            exporter.wait()
+    return dict(launches=launches, wall_sec=wall, steps=steps, history=history, **served)
+
+
+def _moe_serve(ckpt, counters, exporter, L, T):
+    """phase_moe from its model.pt on: served, quantized, gradients, the
+    artifact that exporter wrote, then profiles."""
+    from generative_models_tpu_torch.main import load_model_and_data
+    from generative_models_tpu_torch.serve import ExportedServer, load_server
+
+    _reset(counters)
+    server, G = load_server([f'--weights_from={ckpt}', '--serve_bs=64'])
+    warm = server.warm()
+    a = server.sample(64, seed=7)
+    b = server.sample(64, seed=7)
+    x = torch.as_tensor(a, device=server.model.device).reshape(64, T, 1)
+    score = server.model.eval_loss(x)
+    torch.cuda.synchronize()
+    serve_launches = _read(counters)
+    expected = dict.fromkeys(serve_launches, 0)
+    expected['causal_attention_fwd'] = L  # the scoring forward; the decode runs no kernel
+    if serve_launches != expected:
+        raise AssertionError(f'moe serve launch counts {serve_launches} != expected {expected}')
+    if not np.array_equal(a, b) or a.shape != (64, 28, 28, 1) or not np.isin(a, (0., 1.)).all():
+        raise AssertionError('moe serve: seed=7 twice differs, or the batch is malformed')
+    if not all(np.isfinite(v) for v in score.values()):
+        raise AssertionError(f'moe serve: scoring {score}')
+    log(f'[moe] served: warm {warm:.2f}s, requests {[round(v, 4) for v in server.latencies]}; '
+        f'seed=7 scored {score}')
+
+    quant = {}
+    for mode in QUANT_MODES:
+        qs, _ = load_server([f'--weights_from={ckpt}', '--serve_bs=64', f'--quantize={mode}'])
+        _reset(counters)
+        q = qs.sample(64, seed=7)
+        torch.cuda.synchronize()
+        ql = _read(counters)
+        want = dict.fromkeys(ql, 0)
+        want[QUANT_KERNEL[mode]] = MOE_QUANT * T
+        if qs.quant_kernels != MOE_QUANT or ql != want:
+            raise AssertionError(f'moe {mode}: {qs.quant_kernels} quantized, launches {ql} != '
+                                 f'{want}')
+        if not np.isin(q, (0., 1.)).all():
+            raise AssertionError(f'moe {mode}: values outside {{0, 1}}')
+        quant[mode] = dict(launches=ql, per_request=MOE_QUANT * T,
+                           request_sec=qs.latencies[-1], differs_from_plain=float((q != a).mean()))
+        log(f'[moe] {mode}: {json.dumps(quant[mode])}')
+
+    model, dataset, _, _, G = load_model_and_data([f'--weights_from={ckpt}',
+                                                   '--data_source=synthetic'])
+    xb = dataset.first_test_batch(0)[0][:8]
+    model.backward(xb)
+    cpu = _cpu_copy(model, G)
+    cpu.backward(xb.cpu())
+    grads = grad_check('moe_grads', model, cpu)
+
+    export, waited = _exported('moe_serve', exporter, out_dir=MOE_DIR)
+    t0 = time.time()
+    ex = ExportedServer(MOE_DIR / 'moe_serve.pt2', 'cuda')
+    export_equal = bool(np.array_equal(ex.sample(64, seed=7), a))
+    if not export_equal:
+        raise AssertionError('moe export: the artifact\'s seed=7 batch is not the live one')
+    export.update(waited_sec=waited, load_and_request_sec=time.time() - t0, bitwise=export_equal)
+    log(f'[moe] export {json.dumps(export)}')
+
+    # profiled once the exporting process has ended: its tracing shares the host
+    bx = dataset.first_test_batch(1)[0]
+    prof = dict(train_step=_profile('moe train step', lambda: model.train_step(bx), 10),
+                request=_count_launches('one moe request', lambda: server.sample(64, seed=11)),
+                decode_window=_profile(
+                    f'{len(PT_DECODE_WINDOW)} decode steps of a moe request',
+                    _decode_window(server, PT_DECODE_WINDOW), 10))
+    return dict(serve_launches=serve_launches, latencies=list(server.latencies), warm_sec=warm,
+                export=export, quant=quant, grads_max_rel_err=max(grads['rel_err'].values()),
+                profile=prof)
+
+
+# ---------------------------------------------------------------------- #
+# mesh: the process group's code path on one card
+# ---------------------------------------------------------------------- #
+MESH_DIR = ROOT / 'build' / 'chip_smoke_mesh'
+MESH_CASES = (  # (label, flags); 3 steps at bs=64, one eval batch
+    ('pixel_transformer', ['--model=pixel_transformer']),
+    ('diffusion', DIFF_FLAGS + ['--sampler=dpm2m', '--sample_steps=25']),
+    ('gan', ['--model=gan']),
+)
+MESH_TRAIN_N, MESH_TEST_N = 192, 64
+# the largest distance allowed between a mesh run's trained weights and the
+# no-group run's, over the norm of the no-group run's update (0: bitwise,
+# the metrics too; MESH_METRIC_BOUND the metrics' largest difference
+# elsewhere). On an NVIDIA H100 80GB HBM3 (700.00 W): two no-group runs of
+# gan lie 2.0e-4 apart (cuDNN's weight-gradient algorithms are not
+# deterministic), its group runs 6.3e-4; diffusion's no-group runs are
+# bitwise and its group runs 2.2e-3 off: the group's _Copy nodes change the
+# order in which autograd sums a gradient with three consumers (on the CPU
+# in f32: bitwise at step 0, not from step 1 on), which bf16 and Adam's
+# near-zero-gradient elements widen. A stale or dropped gradient moves it
+# by a sizeable part of 1.
+MESH_BOUND = dict(pixel_transformer=0.0, diffusion=1e-2, gan=1e-2)
+MESH_METRIC_BOUND = 1e-3
+MESH_WORKER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+import generative_models_tpu_torch.data.mnist as mnist
+from generative_models_tpu_torch.parallel.mesh import get_mesh
+
+args = json.loads(sys.argv[2])
+counters = cs._counters()
+for run in args['runs']:
+    mnist.TRAIN_N, mnist.TEST_N = args['train_n'], args['test_n']
+    out = cs.mesh_run(run['argv'], counters, run['label'], timed=run['timed'])
+    mesh = get_mesh()
+    out.update(backend=dist.get_backend(), world=dist.get_world_size(), grouped=mesh.grouped,
+               sizes=mesh.sizes, device=torch.cuda.current_device())
+    with open(run['out'], 'w') as f:
+        json.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def mesh_run(argv, counters, label, steps=5, timed=True):
+    """main.main's load and train on argv, its launches counted and the
+    initial weights written beside model.pt (init.pt); where timed, the
+    median wall of `steps` more train steps, each synchronised (the
+    epoch's dt/train holds the first steps' warm-up: NCCL's and the
+    libraries'), and one more profiled. Returns launches, wall seconds,
+    the history, the step ms and the profile."""
+    import contextlib
+    import io
+
+    from generative_models_tpu_torch.main import load_model_and_data, train
+
+    _reset(counters)
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, dataset, ae, cls, G = load_model_and_data(argv)
+        init = model.net_state()
+        if model.mesh.is_main:
+            Path(G.logdir).mkdir(parents=True, exist_ok=True)
+            torch.save(init, Path(G.logdir) / 'init.pt')
+        history = train(model, dataset, ae, cls, G)
+    torch.cuda.synchronize()
+    out = dict(launches=_read(counters), wall_sec=time.time() - t0, history=history)
+    if not timed:
+        return out
+    bx, by = dataset.epoch_batches(torch.Generator().manual_seed(0))
+    times = []
+    for i in range(steps + 1):  # the first warms
+        t1 = time.time()
+        model.train_step(bx[i % len(bx)], by[i % len(bx)])
+        torch.cuda.synchronize()
+        times.append((time.time() - t1) * 1e3)
+    out['step_ms'] = sorted(times[1:])[steps // 2]
+    out['profile'] = _profile(f'{label} train step', lambda: model.train_step(bx[0], by[0]), 8)
+    return out
+
+
+def _torchrun(script, args, timeout=600):
+    """python -m torch.distributed.run --standalone --nproc_per_node=1
+    script ROOT json(args), in its own process group, killed whole on a
+    timeout; returns its output, raising on a non-zero exit."""
+    import os
+    import signal
+
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone', '--nproc_per_node=1',
+           str(script), str(ROOT), json.dumps(args)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True, cwd=ROOT)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f'torchrun {script.name} did not end in {timeout}s')
+    if proc.returncode:
+        raise AssertionError(f'torchrun {script.name} exited {proc.returncode}: {out[-4000:]}')
+    return out
+
+
+def _net(path):
+    """A model.pt's (or init.pt's) net as float64 tensors on the CPU."""
+    sd = torch.load(path, map_location='cpu', weights_only=True)
+    return {k: v.double() for k, v in sd.get('net', sd).items()}
+
+
+def _run_diff(ref, run, init):
+    """How far run's trained weights and metrics lie from ref's (mesh_run
+    results, nets from _net): the largest element difference, the norm of
+    the difference over the norm of ref's update from init (a dropped or
+    stale reduction moves it by a sizeable part of 1), and the metrics'
+    largest difference."""
+    a, b = ref['net'], run['net']
+    if set(a) != set(b) or any(a[k].shape != b[k].shape for k in a):
+        raise AssertionError('model.pt entries differ in names or shapes')
+    if not all(torch.isfinite(v).all() for v in b.values()):
+        raise AssertionError('non-finite parameters')
+    sq = lambda d: float(sum(float(v.square().sum()) for v in d))
+    delta = sq(a[k] - b[k] for k in a) ** 0.5
+    update = sq(a[k] - init[k] for k in a) ** 0.5
+    metrics = [abs(v - run['history'][i][k]) for i, h in enumerate(ref['history'])
+               for k, v in h.items() if not k.startswith('dt/') and isinstance(v, float)]
+    return dict(max_abs=max(float((a[k] - b[k]).abs().max()) for k in a),
+                rel_to_update=delta / update, update_norm=update,
+                metrics_max_abs=max(metrics, default=0.0))
+
+
+def phase_mesh():
+    """Each case through main.main under torchrun --nproc_per_node=1 with
+    --mesh=data:1,model:1, with --fsdp=1 (timed) and without (the data
+    axis's all-reduce in place of FSDP2's reduce-scatter), against the
+    same flags with no group in this process, twice: the second no-group
+    run measures how far two runs of one program lie apart on the card
+    (MESH_BOUND)."""
+    import generative_models_tpu_torch.data.mnist as mnist
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    worker = MESH_DIR / 'mesh_worker.py'
+    worker.write_text(MESH_WORKER)
+    counters = _counters()
+    cases = [(label, flags + ['--bs=64', '--epochs=1', '--save_n=1', '--data_source=synthetic',
+                              '--mesh=data:1,model:1'])
+             for label, flags in MESH_CASES]
+    runs = {}
+    for label, base in cases:  # no group, in this process, twice
+        for run, timed in (('plain', True), ('plain_again', False)):
+            mnist.TRAIN_N, mnist.TEST_N = MESH_TRAIN_N, MESH_TEST_N
+            runs[label, run] = mesh_run(base + [f'--logdir={MESH_DIR / label / run}'], counters,
+                                        f'mesh {label}, no group,', timed=timed)
+    t0 = time.time()  # every group run in one torchrun process: one group, one NCCL start
+    group_runs = [(label, run, base + flags) for label, base in cases
+                  for run, flags in (('fsdp', ['--fsdp=1']), ('group', []))]
+    worker_out = _torchrun(worker, dict(train_n=MESH_TRAIN_N, test_n=MESH_TEST_N, runs=[
+        dict(argv=argv + [f'--logdir={MESH_DIR / label / run}'], timed=run == 'fsdp',
+             out=str(MESH_DIR / f'{label}_{run}.json'), label=f'mesh {label}, world-1 group,')
+        for label, run, argv in group_runs]))
+    subprocess_sec = time.time() - t0
+    for line in worker_out.splitlines():
+        if line.startswith('[profile]'):
+            log(line)  # the group's profiled steps
+    out = {}
+    for label, _ in cases:
+        for run in ('plain', 'plain_again', 'fsdp', 'group'):
+            r = runs.setdefault((label, run), {})
+            if run in ('fsdp', 'group'):
+                r.update(json.loads((MESH_DIR / f'{label}_{run}.json').read_text()))
+                if r['backend'] != 'nccl' or r['world'] != 1 or not r['grouped']:
+                    raise AssertionError(f'mesh {label} {run}: backend {r["backend"]}, world '
+                                         f'{r["world"]}, grouped {r["grouped"]}')
+            if r['launches'] != runs[label, 'plain']['launches']:
+                raise AssertionError(f'mesh {label}: launches {r["launches"]} in the {run} run, '
+                                     f'{runs[label, "plain"]["launches"]} in the first no-group '
+                                     'run')
+            if not all(np.isfinite(v) for h in r['history'] for v in h.values()):
+                raise AssertionError(f'mesh {label} {run}: non-finite metrics')
+            r['net'] = _net(MESH_DIR / label / run / 'model.pt')
+        init = _net(MESH_DIR / label / 'plain' / 'init.pt')
+        plain, bound = runs[label, 'plain'], MESH_BOUND[label]
+        diffs = {run: _run_diff(plain, runs[label, run], init)
+                 for run in ('plain_again', 'fsdp', 'group')}
+        for run, d in diffs.items():
+            if d['rel_to_update'] > bound or d['metrics_max_abs'] > (bound and MESH_METRIC_BOUND):
+                raise AssertionError(f'mesh {label}: the {run} run lies {d} from the no-group '
+                                     f'run, over the bound {bound} (metrics '
+                                     f'{bound and MESH_METRIC_BOUND})')
+        fsdp = runs[label, 'fsdp']
+        res = dict(
+            launches=plain['launches'], backend=fsdp['backend'], bound=bound,
+            diffs=diffs, params_bitwise={run: d['max_abs'] == 0 for run, d in diffs.items()},
+            step_ms_group=fsdp['step_ms'], step_ms_plain=plain['step_ms'],
+            profile_group=fsdp['profile'], profile_plain=plain['profile'],
+            wall_sec_group=fsdp['wall_sec'], wall_sec_plain=plain['wall_sec'],
+            subprocess_sec=subprocess_sec)
+        log(f'[mesh] {label}: {json.dumps(res)}')
+        out[label] = res
+    return out
+
+
 ONLY = {  # --only: these phases alone, in this order, after the build
     'kernels': lambda dev: phase_kernels(dev),
     'int8': lambda dev: int8_cases(np.random.RandomState(0), dev),
@@ -3791,6 +4172,8 @@ ONLY = {  # --only: these phases alone, in this order, after the build
     'cli_profile': lambda dev: phase_cli_profile(),
     'parity': lambda dev: phase_parity(),
     'export': lambda dev: phase_export(),
+    'moe': lambda dev: phase_moe(),
+    'mesh': lambda dev: phase_mesh(),
     **{name: (lambda dev, name=name: phase_raster_model(name)) for name in RASTER},
 }
 
@@ -3873,6 +4256,8 @@ def main(argv=None):
     cp = timed('cli_profile', phase_cli_profile)
     pa = timed('parity', phase_parity)
     xp = timed('export', phase_export)
+    mo = timed('moe', phase_moe)
+    me = timed('mesh', phase_mesh)
     phase_sec['total'] = time.time() - t_start
     log(f'[time] phases {json.dumps(phase_sec)}')
 
@@ -3906,7 +4291,10 @@ def main(argv=None):
                    **{f'diffusion_{mode}_serve': q['launches'][name]
                       for mode, q in dq['serve'].items()},
                    **{f'export_{label}': xp[label]['launches'].get(name, 0)
-                      for label, *_ in EXPORT_CASES}}
+                      for label, *_ in EXPORT_CASES},
+                   'moe_train': mo['launches'][name], 'moe_serve': mo['serve_launches'][name],
+                   **{f'moe_{mode}_serve': q['launches'][name] for mode, q in mo['quant'].items()},
+                   **{f'mesh_{label}_train': m['launches'][name] for label, m in me.items()}}
         if sum(by_path.values()) == 0:
             raise AssertionError(f'{name} was not launched on a main path')
         kernels.append(dict(
@@ -3982,6 +4370,8 @@ def main(argv=None):
         cli_profile=dict(cp, power=smi),
         parity=dict(pa, power=smi),
         export=dict(xp, power=smi),
+        moe=dict(mo, power=smi),
+        mesh=dict(me, power=smi),
         **{name: dict(r, power=smi) for name, r in raster.items()},
         phase_sec=phase_sec,
     )))

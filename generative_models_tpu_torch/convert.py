@@ -4,8 +4,9 @@ change. Pure numpy/torch.
 The JAX trees are nested dicts of arrays, as flax's params. A TransformerNet
 has the keys embed/kernel, pos_emb, block{i}/{ln1,ln2}/{scale,bias},
 block{i}/attn/{query,key,value,proj}/{kernel,bias},
-block{i}/{fc1,fc2}/{kernel,bias}, ln_f/{scale,bias} and
-head_layer/Dense_0/{kernel,bias}. A VQVAE has ae/encoder/Conv_{0..3},
+block{i}/{fc1,fc2}/{kernel,bias} (with --moe_experts block{i}/moe/router/kernel
+and the expert-stacked block{i}/moe/{wi,bi,wo,bo} instead), ln_f/{scale,bias}
+and head_layer/Dense_0/{kernel,bias}. A VQVAE has ae/encoder/Conv_{0..3},
 ae/decoder/ConvTranspose_{0..3}, ae/codebook and prior/<TransformerNet>. A
 MADE has w0..w3 (in, out) and b0..b3, which the port keeps as they are. A
 diffusion SimpleUnet has flax's auto-names (time_embed, guide_embed,
@@ -59,8 +60,13 @@ def params_from_jax(tree):
         sd.update(_layernorm(b['ln2'], f'{pre}.ln2'))
         for name in ('query', 'key', 'value', 'proj'):
             sd.update(_linear(b['attn'][name], f'{pre}.attn.{name}'))
-        sd.update(_linear(b['fc1'], f'{pre}.fc1'))
-        sd.update(_linear(b['fc2'], f'{pre}.fc2'))
+        if 'moe' in b:  # --moe_experts: the router transposed, the stacked experts as they are
+            moe = b['moe']
+            sd.update(_linear(moe['router'], f'{pre}.moe.router'))
+            sd.update({f'{pre}.moe.{k}': _t(moe[k]) for k in ('wi', 'bi', 'wo', 'bo')})
+        else:
+            sd.update(_linear(b['fc1'], f'{pre}.fc1'))
+            sd.update(_linear(b['fc2'], f'{pre}.fc2'))
         i += 1
     sd.update(_layernorm(tree['ln_f'], 'ln_f'))
     sd.update(_linear(tree['head_layer']['Dense_0'], 'head_layer.dense'))

@@ -15,6 +15,11 @@ The arrays are the JAX package's, bit for bit.
 Difference: an epoch's order comes from torch.randperm with an explicit
 torch.Generator, not jax.random.permutation, so the batches differ from the
 JAX package's at the same seed; first_test_batch keeps its numpy indices.
+
+Under a process group with a data axis (parallel/mesh.py) every rank draws
+the same epoch order and takes its rows of each global batch of --bs, as
+the JAX package's batch_sharding splits axis 0 over data (local_rows); a
+--bs that the axis does not divide raises.
 """
 
 import gzip
@@ -145,6 +150,14 @@ def apply_transforms(x, binarize, pad32):
     return x
 
 
+def local_rows(bs):
+    """This rank's rows of a global batch of bs: all of them without a
+    process group, else its share of the data axis (parallel/mesh.py)."""
+    from generative_models_tpu_torch.parallel.mesh import data_slice, get_mesh
+
+    return slice(None) if get_mesh().dm is None else data_slice(bs)
+
+
 class Dataset:
     """The whole dataset on one device, NHWC float32, with drop-last epochs
     by shuffled index."""
@@ -159,12 +172,15 @@ class Dataset:
 
     def epoch_batches(self, generator, train=True):
         """(steps, bs, H, W, C) images and (steps, bs) labels, shuffled by
-        torch.randperm(generator) (a CPU generator), on the device."""
+        torch.randperm(generator) (a CPU generator), on the device; this
+        rank's rows of each batch under a data axis (local_rows)."""
         x, y = (self.train_x, self.train_y) if train else (self.test_x, self.test_y)
         steps = self.steps_per_epoch if train else self.test_steps
         n = steps * self.bs
-        perm = torch.randperm(x.shape[0], generator=generator)[:n].to(x.device)
-        return x[perm].reshape(steps, self.bs, *x.shape[1:]), y[perm].reshape(steps, self.bs)
+        perm = torch.randperm(x.shape[0], generator=generator)[:n].reshape(steps, self.bs)
+        perm = perm[:, local_rows(self.bs)].reshape(-1).to(x.device)
+        rows = perm.shape[0] // steps
+        return x[perm].reshape(steps, rows, *x.shape[1:]), y[perm].reshape(steps, rows)
 
     def first_test_batch(self, epoch=0):
         """One test batch for model.evaluate: the JAX package's indices,

@@ -40,7 +40,7 @@ import threading
 import numpy as np
 import torch
 
-from generative_models_tpu_torch.data.mnist import Dataset
+from generative_models_tpu_torch.data.mnist import Dataset, local_rows
 
 _END = object()
 
@@ -166,8 +166,9 @@ class StreamingDataset:
         def blocks():
             for s0 in range(0, self.steps_per_epoch, chunk):
                 steps = min(chunk, self.steps_per_epoch - s0)
-                pairs = [self._host_batch(perm[(s0 + i) * self.bs:(s0 + i + 1) * self.bs])
-                         for i in range(steps)]
+                pairs = [self._host_batch(
+                    perm[(s0 + i) * self.bs:(s0 + i + 1) * self.bs][local_rows(self.bs)])
+                    for i in range(steps)]
                 if chunk == 1:
                     yield pairs[0]
                 else:

@@ -42,6 +42,14 @@ the same order as the on-device split; --stream_chunk=k stages (k, bs, ...)
 blocks, the last one partial, and every step weighs the same in the
 epoch's metrics (a partial block as much as its steps).
 
+--mesh=data:N, model:N (with seq:N) and --fsdp=1 run under a process
+group, one process a mesh slot: `torchrun --nproc_per_node=N -m
+generative_models_tpu_torch.main ...` (NCCL on the card, gloo with
+--device=cpu; parallel/mesh.py). Every rank draws the same epoch order and
+trains on its rows of each global batch, the metrics are global means, and
+rank 0 alone writes model.pt (full tensors whatever the mesh), hps.yaml,
+best.json, the event file and the GIFs.
+
 --profile=1 runs the epoch loop under torch.profiler (the CPU, and CUDA on
 the card) and writes a Chrome trace under logdir/profile/, also when the
 loop raises; where the platform cannot trace, it says so and trains on.
@@ -206,7 +214,8 @@ def train(model, dataset, autoencoder, classifier, G):
     """The epoch loop. Returns what dump_logger printed at each epoch: its
     eval metrics and the train metrics of the epoch before, as in the JAX
     package's logs."""
-    writer = make_writer(G.logdir)
+    main_rank = model.mesh.is_main
+    writer = make_writer(G.logdir) if main_rank else None
     dump_logger(make_logger(), writer, 0, G)
     logger, history = make_logger(), []
     seed = int(G.get('seed', 0))
@@ -245,7 +254,7 @@ def train(model, dataset, autoencoder, classifier, G):
             # ---- LOGGING / SAVE / HEAVY EVAL ----
             logger['num_vars'] = [count_vars(model.params)]
             if epoch % G.save_n == 0:
-                model.save(G.logdir)
+                model.save(G.logdir)  # every rank gathers; rank 0 writes
                 print('SAVED MODEL', G.logdir)
                 if G.eval_heavy:
                     print('RUNNING HEAVY EVAL...')
@@ -258,7 +267,8 @@ def train(model, dataset, autoencoder, classifier, G):
                 if val < float(best['value']):
                     best = {'metric': best_metric, 'value': val, 'epoch': epoch}
                     model.save(G.logdir, tag='best')
-                    best_path.write_text(json.dumps(best))
+                    if main_rank:
+                        best_path.write_text(json.dumps(best))
                     print(f'SAVED BEST ({best_metric}={val:.4f} @ epoch {epoch})')
             history.append(dump_logger(logger, writer, epoch, G))
             logger = make_logger()

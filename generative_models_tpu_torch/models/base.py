@@ -32,6 +32,10 @@ model's params_from_jax (convert.*_from_jax), optax's count as torch
 Adam's step counters, the --grad_clip chain and the --grad_accum
 MultiSteps window, step and extra (load_jax_state). TrainState.rng has no
 torch counterpart: the model's generators keep their --seed streams.
+model.pt holds full tensors whatever the mesh: under a process group
+(parallel/mesh.py) save gathers every entry laid out on the mesh and rank 0
+writes, and load_weights, --resume and load_jax_state read a full state and
+lay it out again, so a checkpoint moves between meshes and one process.
 Every checkpoint is read on the CPU, so a restored optimizer keeps Adam's
 step counters there, as a fresh one does, and its steps make no
 device-to-host copy. An Arbiter saves and loads the JAX package's
@@ -47,6 +51,7 @@ import torch
 from torch import nn
 
 from generative_models_tpu_torch.ops.common import deterministic_convs, resolve_device  # noqa: F401
+from generative_models_tpu_torch.parallel import mesh as pmesh
 from generative_models_tpu_torch.parallel.mesh import seq_size
 from generative_models_tpu_torch.utils import dists
 from generative_models_tpu_torch.utils.config import AttrDict, dump_hps
@@ -93,6 +98,17 @@ def mean_metrics(ms):
     """Step metrics (dicts of device scalars) -> each one's mean over the
     steps, as floats (one sync)."""
     return {k: float(torch.stack([m[k] for m in ms]).mean()) for k in ms[0]}
+
+
+def global_metrics(metrics, seq_split=False):
+    """A step's metrics (device scalars) as their means over the ranks that
+    split the batch: one all-reduce a group under a process group, the
+    metrics themselves without one."""
+    if not metrics or pmesh.get_mesh().dm is None:
+        return metrics
+    vals = pmesh.batch_mean(torch.stack([v.detach().float() for v in metrics.values()]),
+                            seq_split)
+    return dict(zip(metrics, vals.unbind(0)))
 
 
 class JaxTrainState(dict):
@@ -157,16 +173,32 @@ class GM:
                 f'--mesh={mesh} is not ported yet for {type(self).__name__}: '
                 'it has no ring attention'
             )
-        self.device = resolve_device(G.get('device', ''))
+        # under torchrun (or a group joined already) this rank's device and
+        # the process group, then the mesh the models' collectives read
+        self.device = pmesh.init_distributed(resolve_device(G.get('device', '')))
+        self.mesh = pmesh.Mesh(mesh, self.device)
+        pmesh.set_mesh(self.mesh)
         seed = int(G.get('seed', 0))
         self.net = self.build()
         # init on the CPU from one generator: the same seed gives the same
-        # weights whatever the device
+        # weights whatever the device, and the mesh
         flax_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(self.device).eval()
+        # {state dict name: dims} of the entries the model axis slices
+        self.layout = pmesh.shard_by_rules(self.net, self.param_sharding_rules(), self.mesh)
+        self.post_build()
+        self.fsdp_roots = []
+        if int(G.get('fsdp', 0) or 0):
+            self.fsdp_roots = self.fsdp_modules()
+            pmesh.fsdp(self.fsdp_roots, self.mesh)
+        # the net's names of its parameters (FSDP2's sharded ones, which the
+        # optimizers step; between a forward and its backward the net holds
+        # the unsharded ones)
+        self._param_names = {id(p): n for n, p in self.net.named_parameters()}
         # the training draws (noise, label drops), kept in model.pt so a
         # resumed run draws what an uninterrupted one would; sampling draws
-        # from a stream of its own, as the JAX package's host key
+        # from a stream of its own, as the JAX package's host key. Every rank
+        # draws the global batch's (dists.batch_draw)
         self._gen = torch.Generator(self.device).manual_seed(seed)
         self._sample_gen = torch.Generator(self.device).manual_seed(seed)
         self.opt = torch.optim.Adam(
@@ -176,6 +208,7 @@ class GM:
         self.updates = 0  # optimizer updates: the schedule's count
         self.mini_step = 0  # position inside the --grad_accum window
         self._acc = None  # the window's running mean of the gradients
+        self._norm_buckets = None  # _clip_'s per-layout weights, made once
 
     def build(self):
         """Return the torch module."""
@@ -184,6 +217,69 @@ class GM:
     def trained_params(self):
         """The parameters self.opt (Adam with the trainer knobs) steps."""
         return self.net.parameters()
+
+    # ------------------------------------------------------------------ #
+    # the mesh (parallel/mesh.py)
+    # ------------------------------------------------------------------ #
+    def param_sharding_rules(self):
+        """[(regex on a state dict name, per-dim mesh axes)]: the entries the
+        model axis slices (the JAX package's param_sharding_rules); none by
+        default, every parameter replicated."""
+        return []
+
+    def post_build(self):
+        """Hook after the net is built, initialised and laid out over the
+        model axis, before FSDP and the optimizers (diffusion's EMA copy)."""
+
+    def fsdp_modules(self):
+        """The modules --fsdp=1 shards, each an FSDP2 root: the nets a train
+        step calls."""
+        return [self.net]
+
+    def seq_split(self):
+        """Whether this rank holds a chunk of each sequence (a ring over the
+        seq axis's ranks)."""
+        return False
+
+    def unsharded(self):
+        """A context in which the FSDP roots' weights are whole (sampling
+        reads them outside forward); nothing without --fsdp."""
+        return pmesh.unsharded(*self.fsdp_roots)
+
+    def sync_grads(self, params):
+        """Average params' gradients over the ranks that split the batch
+        (FSDP2 has averaged those it shards over data)."""
+        pmesh.sync_grads(list(params), self.seq_split(), fsdp_done=bool(self.fsdp_roots))
+
+    def net_state(self, module=None):
+        """module's (default self.net's) state dict as full tensors on every
+        rank: collective under a group."""
+        module = self.net if module is None else module
+        return {k: pmesh.gather_full(v, self.layout.get(k)) for k, v in module.state_dict().items()}
+
+    def load_net_state(self, module, sd):
+        """A full state dict into module (self.net, or a copy of it with its
+        names), laid out on the mesh."""
+        own = module.state_dict()
+        if set(own) != set(sd):
+            raise KeyError(f'state dict keys differ: missing {sorted(set(own) - set(sd))[:4]}, '
+                           f'unexpected {sorted(set(sd) - set(own))[:4]}')
+        for k, dst in own.items():
+            pmesh.put_(dst, sd[k], self.layout.get(k))
+
+    def _laid_out(self, full, param, name):
+        """A full tensor shaped as the parameter named name, laid out as
+        param."""
+        return pmesh.layout_like(full, param, self.layout.get(name))
+
+    def _full_opt_state(self, opt):
+        """opt's state dict with its moments full (collective under a
+        group)."""
+        sd = opt.state_dict()
+        names = self._opt_names(opt)
+        state = {i: {k: v if k == 'step' else pmesh.gather_full(v, self.layout.get(names[int(i)]))
+                     for k, v in st.items()} for i, st in sd['state'].items()}
+        return {'state': state, 'param_groups': sd['param_groups']}
 
     def optimizers(self):
         """{name: optimizer} of every optimizer whose state save() keeps."""
@@ -240,13 +336,19 @@ class GM:
         return base * min(count, warm) / warm
 
     def _clip_(self, grads):
-        """optax.clip_by_global_norm in place, on the device (no sync)."""
+        """optax.clip_by_global_norm of self.opt's gradients in place, on
+        the device (no sync). Under a group the norm is global: each
+        gradient's squares summed over the ranks that hold its shards, a
+        replicated one counted once."""
         clip = float(self.G.get('grad_clip', 0) or 0)
         if clip <= 0:
             return
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self._norm_buckets is None:  # the layout is fixed from __init__ on
+            self._norm_buckets = pmesh.norm_buckets(
+                grads, [n in self.layout for n in self._opt_names(self.opt)])
+        norm = pmesh.global_sq_norm(grads, self._norm_buckets).sqrt()
         scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
-        torch._foreach_mul_(grads, scale)
+        torch._foreach_mul_([pmesh.local(g) for g in grads], scale)
 
     def transform_grads(self):
         """Hook between the backward and the optimizer, acting on p.grad in
@@ -260,6 +362,8 @@ class GM:
         without accumulation), clip the mean and take one Adam step at the
         scheduled lr."""
         self.transform_grads()
+        self.sync_grads(p for o in self.optimizers().values()
+                        for group in o.param_groups for p in group['params'])
         params = [p for group in self.opt.param_groups for p in group['params']]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         k = int(self.G.get('grad_accum', 1) or 1)
@@ -297,7 +401,7 @@ class GM:
         self.net.zero_grad(set_to_none=True)
         loss, metrics = self.train_loss(self._as_input(x), y, **kw)
         loss.backward()
-        return {k: v.detach() for k, v in metrics.items()}
+        return global_metrics({k: v.detach() for k, v in metrics.items()}, self.seq_split())
 
     def train_step(self, x, y=None, **kw):
         metrics = self.backward(x, y, **kw)
@@ -316,13 +420,14 @@ class GM:
         """Scoring: the full forward's metrics on one batch, as floats."""
         self.net.eval()
         _, metrics = self.loss(self._as_input(x), y)
-        return {k: float(v) for k, v in metrics.items()}
+        return {k: float(v) for k, v in global_metrics(metrics, self.seq_split()).items()}
 
     @torch.no_grad()
     def eval_epoch(self, bx, by=None):
         """(steps, bs, ...) batches -> the mean of each metric, as floats."""
         self.net.eval()
-        ms = [self.loss(self._as_input(bx[i]), None if by is None else by[i])[1]
+        ms = [global_metrics(self.loss(self._as_input(bx[i]), None if by is None else by[i])[1],
+                             self.seq_split())
               for i in range(len(bx))]
         return mean_metrics(ms)
 
@@ -331,23 +436,30 @@ class GM:
     # ------------------------------------------------------------------ #
     def save(self, path, tag=''):
         """model[_tag].pt (net, every optimizer's state, step counters) +
-        hps.yaml into directory path."""
+        hps.yaml into directory path: full tensors, gathered on every rank
+        under a group and written by rank 0."""
         path = Path(path)
+        acc = self._acc
+        if acc is not None:
+            acc = [pmesh.gather_full(a, self.layout.get(n))
+                   for a, n in zip(acc, self._opt_names(self.opt))]
+        state = dict(
+            net=self.net_state(), step=self.step, updates=self.updates,
+            mini_step=self.mini_step, acc=acc, extra=self.extra_state(),
+            gen_state=self._gen.get_state(),
+            **{name: self._full_opt_state(o) for name, o in self.optimizers().items()},
+        )
+        if not self.mesh.is_main:
+            return
         path.mkdir(parents=True, exist_ok=True)
         suffix = f'_{tag}' if tag else ''
-        state = dict(
-            net=self.net.state_dict(), step=self.step, updates=self.updates,
-            mini_step=self.mini_step, acc=self._acc, extra=self.extra_state(),
-            gen_state=self._gen.get_state(),
-            **{name: o.state_dict() for name, o in self.optimizers().items()},
-        )
         torch.save(state, path / f'model{suffix}.pt')
         dump_hps(self.G, path)
 
     def extra_state(self):
         """{name: state dict} of the model's other weights that a
         checkpoint keeps beside the net (the JAX package's
-        TrainState.extra); none by default."""
+        TrainState.extra), full tensors (net_state); none by default."""
         return {}
 
     def load_extra_state(self, extra):
@@ -362,25 +474,43 @@ class GM:
             self.load_jax_state(state, path)
             return
         if 'net' not in state:  # params only
-            self.net.load_state_dict(state)
+            self.load_net_state(self.net, state)
             return
-        self.net.load_state_dict(state['net'])
+        self.load_net_state(self.net, state['net'])
         # read on the CPU: load_state_dict moves Adam's moments to their
         # parameters' device and leaves each step counter on the CPU, where
         # a fresh Adam keeps it (on the card Adam.step would sync on it with
         # .item() twice a parameter)
         for name, o in self.optimizers().items():
-            o.load_state_dict(state[name])
+            o.load_state_dict(self._laid_out_opt(o, state[name]))
         self.step, self.updates = int(state['step']), int(state['updates'])
         self.mini_step = int(state['mini_step'])
-        acc = state['acc']
-        self._acc = None if acc is None else [a.to(self.device) for a in acc]
+        self._load_acc(state['acc'])
         self.load_extra_state(state.get('extra', {}))
         gen = state.get('gen_state')  # absent from checkpoints before it was kept
         # a generator's state has one size a device kind: a checkpoint of
         # the card restored on the CPU (or back) keeps the seeded stream
         if gen is not None and gen.numel() == self._gen.get_state().numel():
             self._gen.set_state(gen)
+
+    def _load_acc(self, acc):
+        """The --grad_accum window (full tensors, or None) laid out as
+        self.opt's parameters."""
+        if acc is None:
+            self._acc = None
+            return
+        params = [p for g in self.opt.param_groups for p in g['params']]
+        self._acc = [self._laid_out(a, p, n)
+                     for a, p, n in zip(acc, params, self._opt_names(self.opt))]
+
+    def _laid_out_opt(self, opt, sd):
+        """An optimizer state dict with full moments -> one laid out as
+        opt's parameters."""
+        names = self._opt_names(opt)
+        params = [p for g in opt.param_groups for p in g['params']]
+        state = {i: {k: v if k == 'step' else self._laid_out(v, params[int(i)], names[int(i)])
+                     for k, v in st.items()} for i, st in sd['state'].items()}
+        return {'state': state, 'param_groups': sd['param_groups']}
 
     # ------------------------------------------------------------------ #
     # a JAX package's model.pt
@@ -407,8 +537,7 @@ class GM:
 
     def _opt_names(self, opt):
         """The net's names of opt's parameters, in its state dict's order."""
-        names = {id(p): n for n, p in self.net.named_parameters()}
-        return [names[id(p)] for group in opt.param_groups for p in group['params']]
+        return [self._param_names[id(p)] for group in opt.param_groups for p in group['params']]
 
     def _load_jax_adam(self, opt, adam, params_from_jax):
         """optax's ScaleByAdamState into a torch Adam: mu and nu as
@@ -418,7 +547,8 @@ class GM:
         count = float(adam['count'])
         state = {i: {'step': torch.tensor(count), 'exp_avg': mu[n], 'exp_avg_sq': nu[n]}
                  for i, n in enumerate(self._opt_names(opt))}
-        opt.load_state_dict({'state': state, 'param_groups': opt.state_dict()['param_groups']})
+        opt.load_state_dict(self._laid_out_opt(
+            opt, {'state': state, 'param_groups': opt.state_dict()['param_groups']}))
         return int(count)
 
     def load_jax_state(self, tree, path=''):
@@ -442,7 +572,7 @@ class GM:
                 raise KeyError(f'no entry for {absent[:4]}')
             # the other way round flax's strict=False merge keeps: entries
             # the model lacks (a student's cond_w_embed) are not read
-            self.net.load_state_dict({k: sd[k] for k in own})
+            self.load_net_state(self.net, {k: sd[k] for k in own})
             opts = self.jax_optimizers(tree['opt_state'])
             counts = []
             for opt, opt_state, conv in opts:
@@ -457,7 +587,7 @@ class GM:
                 self.updates = int(window['gradient_step'])
                 self.mini_step = int(window['mini_step'])
                 acc = conv(window['acc_grads'])
-                self._acc = [acc[n].to(self.device) for n in self._opt_names(self.opt)]
+                self._load_acc([acc[n] for n in self._opt_names(self.opt)])
             self.load_jax_extra(tree.get('extra') or {})
         except (KeyError, TypeError, RuntimeError) as e:
             raise ValueError(
@@ -510,9 +640,11 @@ class GM:
 
     @torch.no_grad()
     def sample(self, n):
-        """sample_fn's output from the model's own sampling stream."""
+        """sample_fn's output from the model's own sampling stream (the same
+        on every rank of a group)."""
         self.net.eval()
-        return self.sample_fn(n, generator=self._sample_gen)
+        with self.unsharded():
+            return self.sample_fn(n, generator=self._sample_gen)
 
     @torch.no_grad()
     def sample_images(self, n, y=None):
@@ -520,7 +652,8 @@ class GM:
         if y is not None:
             raise TypeError(f'{type(self).__name__}.sample takes no labels')
         self.net.eval()
-        return self._draw(n, self._sample_gen)
+        with self.unsharded():
+            return self._draw(n, self._sample_gen)
 
     def serving_program(self, n, quant=None):
         """The ServingProgram of a pass of n: what the live server runs and
@@ -669,7 +802,9 @@ class Arbiter(GM):
         path.mkdir(parents=True, exist_ok=True)
         suffix = f'_{tag}' if tag else ''
         name = type(self).__name__
-        params = arbiter_params_to_jax(self.net.state_dict(), name)
+        params = arbiter_params_to_jax(self.net_state(), name)
+        if not self.mesh.is_main:
+            return
         payload = {
             'class_name': name,
             'G': {k: str(v) if isinstance(v, Path) else v for k, v in self.G.items()},

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from generative_models_tpu_torch.models.diffusion.schedules import get_logsnr_schedule
+from generative_models_tpu_torch.utils.dists import batch_draw
 from generative_models_tpu_torch.utils.loop import fori_loop, pick
 
 
@@ -165,19 +166,19 @@ class GaussianDiffusion:
         """{'loss': (B,)}. eps (normal, x's shape), u (uniform (B,), or the
         step index i in [0, num_steps) for step2) and w (uniform (B,), a
         teacher's guidance weight 4 w) are drawn from generator, in that
-        order, unless given."""
+        order, unless given, at the global batch (dists.batch_draw)."""
         B, dev = x.shape[0], x.device
         if eps is None:
-            eps = torch.randn(x.shape, generator=generator, device=dev)
+            eps = batch_draw(torch.randn, x.shape, generator, dev)
         bcx = lambda v: bc(v, x.shape, x)
         if self.has_teacher and self.teacher_mode == 'step2':
-            i = u if u is not None else torch.randint(
-                0, self.num_steps, (B,), generator=generator, device=dev)
+            steps = partial(torch.randint, 0, self.num_steps)
+            i = u if u is not None else batch_draw(steps, (B,), generator, dev)
             u = (i + 1).float() / self.num_steps
         else:
             i = None
             if u is None:
-                u = torch.rand((B,), generator=generator, device=dev)
+                u = batch_draw(torch.rand, (B,), generator, dev)
         logsnr = self.logsnr_schedule_fn(u)
 
         z_dist = diffusion_forward(x, bcx(logsnr))
@@ -186,7 +187,7 @@ class GaussianDiffusion:
         if self.has_teacher:
             assert teacher_net is not None
             if w is None:
-                w = torch.rand((B,), generator=generator, device=dev)
+                w = batch_draw(torch.rand, (B,), generator, dev)
             cond_w = 4.0 * w
             net = partial(net, cond_w=cond_w)
             t_net = partial(teacher_net, cond_w=None if self.teacher_mode == 'step1' else cond_w)

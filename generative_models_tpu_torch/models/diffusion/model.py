@@ -29,7 +29,9 @@ from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.base import GM, JaxTrainState, read_checkpoint
 from generative_models_tpu_torch.models.diffusion.gaussian_diffusion import GaussianDiffusion
 from generative_models_tpu_torch.models.diffusion.unet import SimpleUnet
+from generative_models_tpu_torch.parallel.mesh import MODEL_AXIS, get_mesh, local
 from generative_models_tpu_torch.utils import register, write_grid, write_gridvid
+from generative_models_tpu_torch.utils.dists import batch_draw
 from generative_models_tpu_torch.utils.config import AttrDict
 
 EVAL_SEED_TAG = 0x7FFFFFFF  # the eval loss's generator seed, beside G.seed
@@ -73,15 +75,43 @@ class DiffusionModel(GM):
         self._eval_diffusion = None
         if (ev_sampler, ev_steps) != (G.sampler, int(G.get('sample_steps', 0))):
             self._eval_diffusion = GaussianDiffusion(sampler=ev_sampler, sample_steps=ev_steps, **kw)
-        super().__init__(G)
         self.ema_decay = float(G.get('ema', 0))
-        self.ema_net = self._frozen_copy() if self.ema_decay else None
-        self.teacher_net = None
+        self.ema_net = self.teacher_net = None
+        super().__init__(G)
+
+    def post_build(self):
+        """The EMA copy and the teacher, made from the net laid out over the
+        model axis and before FSDP (which shards the EMA beside the net)."""
+        self.net.drop_gen = lambda: self._gen  # dropout's masks: the training draws
+        if self.ema_decay:
+            self.ema_net = self._frozen_copy()
         if self.has_teacher:
-            self._load_teacher(G.teacher_path)
+            self._load_teacher(self.G.teacher_path)
+
+    def fsdp_modules(self):
+        return [self.net] + ([self.ema_net] if self.ema_net is not None else [])
+
+    def param_sharding_rules(self):
+        """TP over the ResBlocks' channels (the JAX package's rules, torch
+        names): conv0 and the emb Dense column-parallel, norm1 on its
+        channel shard, conv1 row-parallel."""
+        return [
+            (r'blocks\.\d+\.conv0\.weight$', (MODEL_AXIS, None, None, None)),
+            (r'blocks\.\d+\.conv0\.bias$', (MODEL_AXIS,)),
+            (r'blocks\.\d+\.dense\.weight$', (MODEL_AXIS, None)),
+            (r'blocks\.\d+\.dense\.bias$', (MODEL_AXIS,)),
+            (r'blocks\.\d+\.norm1\.(weight|bias)$', (MODEL_AXIS,)),
+            (r'blocks\.\d+\.conv1\.weight$', (None, MODEL_AXIS, None, None)),
+        ]
 
     def build(self):
         G = self.G
+        # the model axis splits the ResBlocks' channels and norm1's groups:
+        # a width whose groups do not split evenly is refused
+        tp, C = get_mesh().size(MODEL_AXIS), int(G.hidden_size)
+        if C % tp or min(32, C) % tp:
+            raise ValueError(f'--hidden_size={C}: its {min(32, C)} GroupNorm groups do not '
+                             f'split over model:{tp}')
         return SimpleUnet(
             channels=int(G.hidden_size), dropout=float(G.dropout),
             out_channels=2 if G.mean_type == 'both' else 1,
@@ -108,29 +138,29 @@ class DiffusionModel(GM):
             teacher = convert.diffusion_params_from_jax(state['params'])
         else:
             teacher = state.get('net', state)
-        merged = self.net.state_dict()
+        merged = self.net_state()
         for k, v in teacher.items():
             if k in merged and merged[k].shape == v.shape:
                 merged[k] = v
-        self.net.load_state_dict(merged)
+        self.load_net_state(self.net, merged)
         self.teacher_net = self._frozen_copy()
         if self.ema_net is not None:
-            self.ema_net.load_state_dict(merged)
+            self.load_net_state(self.ema_net, merged)
 
     def extra_state(self):
         extra = {}
         if self.ema_net is not None:
-            extra['ema'] = self.ema_net.state_dict()
+            extra['ema'] = self.net_state(self.ema_net)
         if self.teacher_net is not None:
-            extra['teacher'] = self.teacher_net.state_dict()
+            extra['teacher'] = self.net_state(self.teacher_net)
         return extra
 
     def load_extra_state(self, extra):
         if self.ema_net is not None:
             # a checkpoint without an EMA starts it from the restored weights
-            self.ema_net.load_state_dict(extra.get('ema', self.net.state_dict()))
+            self.load_net_state(self.ema_net, extra.get('ema') or self.net_state())
         if self.teacher_net is not None and 'teacher' in extra:
-            self.teacher_net.load_state_dict(extra['teacher'])
+            self.load_net_state(self.teacher_net, extra['teacher'])
 
     def load_jax_extra(self, extra):
         """The JAX TrainState's extra['ema'] and extra['teacher'] (params
@@ -172,7 +202,7 @@ class DiffusionModel(GM):
         y = self._labels(y, x.shape[0])
         drop = draws.get('drop')
         if drop is None:
-            drop = torch.rand(y.shape, generator=generator, device=self.device)
+            drop = batch_draw(torch.rand, y.shape, generator, self.device)
         if train:  # classifier-free label dropout
             y = torch.where(drop < float(self.G.cf_drop_prob), -1, y)
         teacher = None if self.teacher_net is None else self._make_net(self.teacher_net, y)
@@ -199,10 +229,10 @@ class DiffusionModel(GM):
         if self.ema_net is not None:
             # ema = d * ema + (1 - d) * params, after every step
             d = self.ema_decay
-            ema = list(self.ema_net.parameters())
+            ema = [local(p) for p in self.ema_net.parameters()]
             with torch.no_grad():
                 torch._foreach_mul_(ema, d)
-                torch._foreach_add_(ema, list(self.net.parameters()), alpha=1 - d)
+                torch._foreach_add_(ema, [local(p) for p in self.net.parameters()], alpha=1 - d)
         return metrics
 
     # ---------------------------------------------------------------- #

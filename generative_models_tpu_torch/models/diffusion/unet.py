@@ -34,6 +34,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from generative_models_tpu_torch.models.vqvae import same_pad
+from generative_models_tpu_torch.parallel.mesh import (
+    MODEL_AXIS, get_mesh, model_slice, tp_copy, tp_reduce,
+)
+from generative_models_tpu_torch.utils.dists import batch_draw
 
 MAX_TIMESTEPS = 256
 N_CLASSES = 10
@@ -77,7 +81,8 @@ class Conv(nn.Conv2d):
 
     dtype = None
 
-    def forward(self, x):
+    def forward(self, x, bias=None):
+        """bias: the bias to add in place of self.bias (None: self.bias)."""
         x = x.to(self.dtype or x.dtype)
         (k, _), (s, _) = self.kernel_size, self.stride
         top, bottom = same_pad(x.shape[2], k, s)
@@ -86,7 +91,8 @@ class Conv(nn.Conv2d):
             pad = (top, left)
         else:
             x, pad = F.pad(x, (left, right, top, bottom)), 0
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride, pad)
+        b = self.bias if bias is None else bias
+        return F.conv2d(x, self.weight.to(x.dtype), b.to(x.dtype), self.stride, pad)
 
 
 class ZeroConv(Conv):
@@ -107,13 +113,13 @@ class GroupNorm(nn.Module):
 
     def __init__(self, channels, eps=1e-6):
         super().__init__()
-        self.groups, self.eps = min(32, channels), eps
+        self.groups, self.eps, self.channels = min(32, channels), eps, channels
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
         B, C = x.shape[:2]
-        G = self.groups
+        G = self.groups * C // self.channels  # this rank's groups on a channel shard
         xg = x.float().reshape(B, G, C // G, -1)
         mean = xg.mean((2, 3), keepdim=True)
         mean2 = xg.square().mean((2, 3), keepdim=True)
@@ -148,12 +154,24 @@ class ResBlock(nn.Module):
         self.conv1 = ZeroConv(out_channels, out_channels, 3)
         self.skip = Conv(in_channels, out_channels, 1) if in_channels != out_channels else None
 
-    def forward(self, x, emb, quant=None, name=''):
-        h = self.conv0(F.silu(self.norm0(x)))
-        h = h + _linear(self.dense, F.silu(emb), quant, f'{name}.dense')[:, :, None, None]
+    def forward(self, x, emb, quant=None, name='', mask=None):
+        """mask: dropout's (keep / keep_prob), the output channels' shape;
+        F.dropout's own draw without it. Under the model axis conv0 and the
+        emb Dense are column-parallel (their input through tp_copy), norm1
+        and the dropout act on this rank's channels and conv1 is
+        row-parallel, its partial sums reduced (rank 0's holding the
+        bias)."""
+        h = self.conv0(tp_copy(F.silu(self.norm0(x))))
+        h = h + _linear(self.dense, tp_copy(F.silu(emb)), quant, f'{name}.dense')[:, :, None, None]
         h = F.silu(self.norm1(h))
-        h = F.dropout(h, self.dropout, self.training)
-        h = self.conv1(h)
+        h = h * mask if mask is not None else F.dropout(h, self.dropout, self.training)
+        if get_mesh().group(MODEL_AXIS) is None:
+            h = self.conv1(h)
+        else:
+            # the bias in rank 0's partial sum alone, its gradient summed
+            # back to every rank: at model:1 the no-group conv, bitwise
+            first = float(get_mesh().rank(MODEL_AXIS) == 0)
+            h = tp_reduce(self.conv1(h, bias=tp_copy(self.conv1.bias) * first))
         if self.skip is not None:
             x = self.skip(x)
         return x + h
@@ -198,11 +216,26 @@ class SimpleUnet(nn.Module):
             if isinstance(m, (Linear, Conv, GroupNorm)):
                 m.dtype = dtype
 
+    drop_gen = None  # () -> the generator of dropout's masks (the model's training draws)
+
+    def _drop_mask(self, block, h):
+        """Block's dropout mask for input h, drawn from drop_gen at the
+        global batch and the full width (dists.batch_draw), this rank's rows
+        and channels kept: the one-process mask's slice."""
+        B, _, H, W = h.shape
+        C = block.conv1.weight.shape[0]
+        u = batch_draw(torch.rand, (B, C, H, W), self.drop_gen(), h.device)[:, model_slice(C)]
+        keep = 1.0 - block.dropout
+        return (u < keep).to(self.dtype or h.dtype) / keep
+
     def _block(self, i, h, emb, quant=None):
         block = self.blocks[i]
+        mask = None
+        if self.training and block.dropout > 0 and self.drop_gen is not None:
+            mask = self._drop_mask(block, h)  # drawn once, outside any recompute
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, h, emb, use_reentrant=False)
-        return block(h, emb, quant, f'blocks.{i}')
+            return checkpoint(block, h, emb, None, '', mask, use_reentrant=False)
+        return block(h, emb, quant, f'blocks.{i}', mask)
 
     def forward(self, x, logsnr, guide=None, cond_w=None, quant=None):
         dt, in_dtype = self.dtype, x.dtype

@@ -39,8 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from generative_models_tpu_torch import convert
-from generative_models_tpu_torch.models.base import GM, deterministic_convs
-from generative_models_tpu_torch.utils import register, write_grid
+from generative_models_tpu_torch.models.base import GM, deterministic_convs, global_metrics
+from generative_models_tpu_torch.parallel.mesh import DATA_AXIS, batch_sum, get_mesh
+from generative_models_tpu_torch.utils import dists, register, write_grid
 from generative_models_tpu_torch.utils.config import AttrDict
 
 
@@ -66,7 +67,7 @@ class BatchNorm(nn.Module):
     fast variance), folded into the running mean and var when update_stats;
     in eval mode the running ones. y = (x - mean) * (rsqrt(var + eps) *
     scale) + bias. The scale starts at N(1, 0.02), the reference's
-    init."""
+    init. Under a data axis the batch is the global one (batch_sum)."""
 
     def __init__(self, channels, momentum=0.9, eps=1e-5):
         super().__init__()
@@ -82,8 +83,13 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train, update_stats=False):
         if train:
-            mean = x.mean((0, 2, 3))
-            var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+            mean, mean2 = x.mean((0, 2, 3)), (x * x).mean((0, 2, 3))
+            if get_mesh().dm is not None:
+                # the global batch's statistics, as GSPMD computes flax's
+                # under a data axis: the mean of the ranks' equal-sized means
+                d = get_mesh().size(DATA_AXIS)
+                mean, mean2 = batch_sum(torch.stack([mean, mean2])).div(d).unbind(0)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             if update_stats:
                 m = self.momentum
                 with torch.no_grad():
@@ -184,6 +190,21 @@ class Discriminator(nn.Module):
         return x.reshape(x.shape[0])
 
 
+class _NoGrad:
+    """requires_grad off on module's parameters inside the block."""
+
+    def __init__(self, module):
+        self.params = list(module.parameters())
+
+    def __enter__(self):
+        for p in self.params:
+            p.requires_grad_(False)
+
+    def __exit__(self, *exc):
+        for p in self.params:
+            p.requires_grad_(True)
+
+
 def bce_with_logits(logits, target):
     """BCELoss(sigmoid(logits), target), in log space."""
     return torch.mean(-(target * F.logsigmoid(logits) + (1 - target) * F.logsigmoid(-logits)))
@@ -219,6 +240,9 @@ class GAN(GM):
     def optimizers(self):
         return {'opt': self.opt, 'disc_opt': self.disc_opt}
 
+    def fsdp_modules(self):
+        return [self.net.gen, self.net.disc]
+
     def net_state_from_jax(self, tree):
         return convert.gan_params_from_jax(tree['params'], tree['extra'])
 
@@ -232,29 +256,36 @@ class GAN(GM):
         draw. Returns the four losses (device scalars)."""
         x = self._as_input(x)
         if noise is None:
-            noise = torch.randn((x.shape[0], int(self.G.noise_size)), generator=self._gen,
-                                device=self.device)
+            noise = dists.batch_draw(torch.randn, (x.shape[0], int(self.G.noise_size)),
+                                     self._gen, self.device)
         gen, disc = self.net.gen, self.net.disc
-        gen_p, disc_p = list(gen.parameters()), list(disc.parameters())
         fake = gen(torch.as_tensor(noise).to(self.device, x.dtype), True, True)
 
         real_target = 1.0 - float(self.G.get('label_smooth', 0.0))
         loss_real = bce_with_logits(disc(x, True, True), real_target)
         loss_fake = bce_with_logits(disc(fake.detach(), True, True), 0.0)
         d_loss = loss_real + loss_fake
-        for p, g in zip(disc_p, torch.autograd.grad(d_loss, disc_p)):
-            p.grad = g
+        self._grads(d_loss, disc)  # fake is detached: the generator gets none
         self.disc_opt.step()
 
-        # against the updated discriminator, whose statistics stay
-        g_loss = bce_with_logits(disc(fake, True, False), 1.0)
-        for p, g in zip(gen_p, torch.autograd.grad(g_loss, gen_p)):
-            p.grad = g
+        # against the updated discriminator, whose statistics stay; its
+        # weights out of the graph: the generator's gradients alone
+        with _NoGrad(disc):
+            g_loss = bce_with_logits(disc(fake, True, False), 1.0)
+            self._grads(g_loss, gen)
         self.opt.step()
         self.step += 1
         self.updates += 1
-        return {'disc/loss': d_loss.detach(), 'disc/loss_fake': loss_fake.detach(),
-                'disc/loss_real': loss_real.detach(), 'gen/loss': g_loss.detach()}
+        return global_metrics({'disc/loss': d_loss.detach(), 'disc/loss_fake': loss_fake.detach(),
+                               'disc/loss_real': loss_real.detach(),
+                               'gen/loss': g_loss.detach()})
+
+    def _grads(self, loss, net):
+        """net's gradients of loss in p.grad, averaged over the data axis
+        (FSDP2 reduces its roots' in their backward)."""
+        net.zero_grad(set_to_none=True)
+        loss.backward()
+        self.sync_grads(net.parameters())
 
     SERVE_DETERMINISTIC_CONVS = True
 

@@ -33,6 +33,7 @@ from generative_models_tpu_torch.models.base import Autoreg, _lecun_normal_
 from generative_models_tpu_torch.ops.common import matmul_dtype
 from generative_models_tpu_torch.ops.int8 import int8_matmul
 from generative_models_tpu_torch.ops.masked_dense import masked_dense, prefer_kernel
+from generative_models_tpu_torch.parallel import mesh as pmesh
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
 from generative_models_tpu_torch.utils.loop import fori_loop, write
@@ -139,12 +140,20 @@ class MADE(Autoreg):
                          use_kernel=use_kernel, premasked=premasked)
 
     # --- the premasked invariant: masked-out weights stay exactly 0 ---
+    @staticmethod
+    def _masked_(t, m):
+        """t *= m in place, t a weight, its gradient or moment (under
+        --fsdp=1 a DTensor shard, m then laid out as it)."""
+        if hasattr(t, 'to_local'):
+            m = pmesh.layout_like(m, t).to_local()
+        pmesh.local(t).mul_(m)
+
     def transform_grads(self):
         if not self.net.premasked:
             return
         for w, _, m in self.net.layers():
             if w.grad is not None:
-                w.grad.mul_(m)
+                self._masked_(w.grad, m)
 
     @torch.no_grad()
     def load_weights(self, path):
@@ -157,12 +166,12 @@ class MADE(Autoreg):
             return
         params = [p for group in self.opt.param_groups for p in group['params']]
         for w, _, m in self.net.layers():
-            w.mul_(m)
+            self._masked_(w, m)
             for key in ('exp_avg', 'exp_avg_sq'):
                 if key in self.opt.state.get(w, {}):
-                    self.opt.state[w][key].mul_(m)
+                    self._masked_(self.opt.state[w][key], m)
             if self._acc is not None:
-                self._acc[next(j for j, p in enumerate(params) if p is w)].mul_(m)
+                self._masked_(self._acc[next(j for j, p in enumerate(params) if p is w)], m)
 
     def loss(self, x, y=None):
         x = x.reshape(-1, self.nin)

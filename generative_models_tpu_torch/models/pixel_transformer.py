@@ -23,10 +23,23 @@ Two paths, each through the port's kernels on the card:
 Under the ring sampling takes the per-op chain, as the JAX package turns
 its fused decode off there: Kernels A and B are not launched.
 
-Not ported yet, and refused when set: --moe_experts, and the pipe path
-(--mesh=pipe:N; utils/config.py refuses every --mesh axis but seq). It is
-the only model that sets supports_ring: the others refuse seq:N above 1
-(models/base.py).
+--moe_experts=N puts models/moe.py's MoEMLP in place of every Block's
+fc1/fc2; the loss adds moe_aux times the layers' mean aux and reports
+{'nlogp', 'moe_aux'}, and the decode takes the module-by-module step
+(_module_step, the MoE's dense step), without Kernels A and B, as the JAX
+package's use_fused_decode excludes n_experts.
+
+Under a process group (parallel/mesh.py) the mesh's axes apply as the JAX
+package's rules lay them out: the batch's rows over data; Megatron TP over
+model (param_sharding_rules: q/k/v and fc1 column-parallel, heads over the
+axis, proj and fc2 row-parallel, one all-reduce after each row-parallel
+product; the MoE's hidden dim), with the decode on the module-by-module
+step above model:1; and with seq > 1 dividing the sequence each rank its
+chunk of it, attention the ring over the axis's ranks. Kernels C, E and D
+(K, L and M on the ring) take each rank's local tensors, (B/data,
+H/model, T, D). It is the only model that sets supports_ring: the others
+refuse seq:N above 1 (models/base.py). Not ported yet, and refused: the
+pipe axis (parallel/mesh.py).
 """
 
 import functools
@@ -46,7 +59,10 @@ from generative_models_tpu_torch.ops.common import dense, matmul_dtype
 from generative_models_tpu_torch.ops.decode_fused import (
     LN_EPS, _ln, block_tail, block_tail_plain, ln_matmul, ln_matmul_plain,
 )
-from generative_models_tpu_torch.parallel import ring_size
+from generative_models_tpu_torch.models.moe import MoEMLP, moe_rules
+from generative_models_tpu_torch.parallel.mesh import (
+    MODEL_AXIS, SEQ_AXIS, get_mesh, ring_size, tp_copy, tp_reduce,
+)
 from generative_models_tpu_torch.parallel.ring_attention import ring_causal_attention
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
@@ -60,48 +76,83 @@ def _kernel_weight(*layers, dtype):
     return w.t().to(dtype).contiguous()
 
 
+# Megatron TP over the model axis (the JAX package's transformer_tp_rules,
+# torch names: a Linear's weight is (out, in)): q/k/v and fc1
+# column-parallel, proj and fc2 row-parallel
+TP_RULES = [
+    (r'attn\.(query|key|value)\.weight$', (MODEL_AXIS, None)),
+    (r'attn\.(query|key|value)\.bias$', (MODEL_AXIS,)),
+    (r'attn\.proj\.weight$', (None, MODEL_AXIS)),
+    (r'fc1\.weight$', (MODEL_AXIS, None)),
+    (r'fc1\.bias$', (MODEL_AXIS,)),
+    (r'fc2\.weight$', (None, MODEL_AXIS)),
+]
+
+
+def transformer_rules(n_experts=0, with_model=True):
+    """The param layout of a TransformerNet: TP_RULES, after moe_rules
+    under MoE (the JAX package's param_sharding_rules)."""
+    return (moe_rules(with_model) if n_experts else []) + TP_RULES
+
+
 class CausalSelfAttention(nn.Module):
     """ring > 1: attention through a ring of that many chunks, all on this
-    device (sequence parallelism, --mesh=seq:N)."""
+    device (sequence parallelism, --mesh=seq:N), or over the seq axis's
+    ranks (seq_group). The heads this rank holds follow from its q
+    weight's rows (n_head / model under TP)."""
 
     def __init__(self, n_embed, n_head, ring=1):
         super().__init__()
         self.n_head = n_head
+        self.head_dim = n_embed // n_head
         self.ring = ring
         self.query = nn.Linear(n_embed, n_embed)
         self.key = nn.Linear(n_embed, n_embed)
         self.value = nn.Linear(n_embed, n_embed)
         self.proj = nn.Linear(n_embed, n_embed)
 
+    def local_heads(self):
+        return self.query.weight.shape[0] // self.head_dim
+
     def _heads(self, x):
         B, T, _ = x.shape
-        return x.reshape(B, T, self.n_head, -1).transpose(1, 2)
+        return x.reshape(B, T, -1, self.head_dim).transpose(1, 2)
 
-    def forward(self, x):
+    def forward(self, x, seq_group=None):
+        x = tp_copy(x)
         q, k, v = (self._heads(dense(x, m)) for m in (self.query, self.key, self.value))
-        if self.ring > 1:
+        if seq_group is not None:
+            y = ring_causal_attention(q, k, v, group=seq_group)
+        elif self.ring > 1:
             y = ring_causal_attention(q, k, v, self.ring)
         else:
             y, _ = causal_attention(q, k, v)
         B, H, T, D = y.shape
-        return dense(y.transpose(1, 2).reshape(B, T, H * D), self.proj)
+        return dense(y.transpose(1, 2).reshape(B, T, H * D), self.proj, tp_reduce)
 
 
 class Block(nn.Module):
-    """pre-LN attention + MLP."""
+    """pre-LN attention + MLP: fc1/fc2, or with n_experts the MoE layer
+    (forward then returns (x, aux))."""
 
-    def __init__(self, n_embed, n_head, ring=1):
+    def __init__(self, n_embed, n_head, ring=1, n_experts=0, moe_cap=2.0):
         super().__init__()
         self.ln1 = nn.LayerNorm(n_embed, eps=LN_EPS)
         self.ln2 = nn.LayerNorm(n_embed, eps=LN_EPS)
         self.attn = CausalSelfAttention(n_embed, n_head, ring)
-        self.fc1 = nn.Linear(n_embed, 4 * n_embed)
-        self.fc2 = nn.Linear(4 * n_embed, n_embed)
+        if n_experts:
+            self.moe = MoEMLP(n_embed, n_experts, moe_cap)
+        else:
+            self.fc1 = nn.Linear(n_embed, 4 * n_embed)
+            self.fc2 = nn.Linear(4 * n_embed, n_embed)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))
-        h = F.gelu(dense(self.ln2(x), self.fc1), approximate='tanh')
-        return x + dense(h, self.fc2)
+    def forward(self, x, seq_group=None):
+        x = x + self.attn(self.ln1(x), seq_group)
+        if hasattr(self, 'moe'):
+            y, aux = self.moe(self.ln2(x), seq_group)
+            return x + y, aux
+        h = F.gelu(dense(tp_copy(self.ln2(x)), self.fc1), approximate='tanh')
+        return x + dense(h, self.fc2, tp_reduce)
 
     def fused_layer_params(self, dtype):
         """Param bundle for the decode kernels: weights (in, out) in the
@@ -127,10 +178,13 @@ class TransformerNet(nn.Module):
     versions in the operand dtype everywhere, the per-op chain. remat
     recomputes each Block in the backward instead of keeping its
     activations (nn.remat in the JAX package). ring > 1 runs the full
-    forward's attention through a ring of that many chunks (use_ring)."""
+    forward's attention through a ring of that many chunks (use_ring).
+    n_experts > 0: MoE blocks (moe_cap their capacity factor). module_step:
+    the decode takes _module_step (MoE, the model axis, quantization)."""
 
     def __init__(self, in_size, block_size, n_embed, n_head, n_layer,
-                 head='bin', use_fused_decode=True, remat=False, ring=1):
+                 head='bin', use_fused_decode=True, remat=False, ring=1,
+                 n_experts=0, moe_cap=2.0, module_step=False):
         super().__init__()
         self.in_size = in_size
         self.block_size = block_size
@@ -139,9 +193,12 @@ class TransformerNet(nn.Module):
         self.use_fused_decode = use_fused_decode
         self.remat = remat
         self.ring = ring
+        self.n_experts = n_experts
+        self.module_step = module_step or bool(n_experts)
         self.pos_emb = nn.Parameter(torch.zeros(1, block_size, n_embed))
         self.embed = nn.Linear(in_size, n_embed, bias=False)
-        self.blocks = nn.ModuleList(Block(n_embed, n_head, ring) for _ in range(n_layer))
+        self.blocks = nn.ModuleList(Block(n_embed, n_head, ring, n_experts, moe_cap)
+                                    for _ in range(n_layer))
         self.ln_f = nn.LayerNorm(n_embed, eps=LN_EPS)
         head_cls = BinaryHead if head == 'bin' else CategoricalHead
         self.head_layer = head_cls(n_embed, in_size)
@@ -150,20 +207,45 @@ class TransformerNet(nn.Module):
     def use_ring(self):
         return self.ring > 1
 
-    def forward(self, x):
-        """x: (B, T, in_size) unshifted targets; returns the dist over x."""
+    def seq_group(self):
+        """The seq axis's group when this rank holds a chunk of the
+        sequence (a ring over ranks), else None."""
+        return get_mesh().ring_group(self.block_size) if self.ring > 1 else None
+
+    def seq_slice(self, T):
+        """The positions of a length-T sequence this rank's forward covers
+        (all of them unless the sequence is split over the seq axis)."""
+        if self.seq_group() is None:
+            return slice(None)
+        mesh = get_mesh()
+        n, r = mesh.size(SEQ_AXIS), mesh.rank(SEQ_AXIS)
+        return slice(r * T // n, (r + 1) * T // n)
+
+    def forward(self, x, with_aux=False):
+        """x: (B, T, in_size) unshifted targets; returns the dist over x (over
+        its seq_slice where the sequence is split), and with with_aux the
+        MoE layers' mean aux."""
         B, T, C = x.shape
         x = torch.cat([x.new_zeros(B, 1, C), x[:, :-1]], dim=1)
-        h = dense(x, self.embed) + self.pos_emb[:, :T]
+        group, sl = self.seq_group(), self.seq_slice(T)
+        h = dense(x[:, sl], self.embed) + self.pos_emb[:, :T][:, sl]
         remat = self.remat and torch.is_grad_enabled()
+        auxes = []
         for block in self.blocks:
-            h = checkpoint(block, h, use_reentrant=False) if remat else block(h)
-        return self.head_layer(self.ln_f(h))
+            h = checkpoint(block, h, group, use_reentrant=False) if remat else block(h, group)
+            if isinstance(h, tuple):
+                h, aux = h
+                auxes.append(aux)
+        dist = self.head_layer(self.ln_f(h))
+        if not with_aux:
+            return dist
+        return dist, (sum(auxes) / len(auxes) if auxes else None)
 
     def init_cache(self, batch):
-        """One (T, batch, 2, C) packed T-major K/V cache per layer."""
+        """One (T, batch, 2, C) packed T-major K/V cache per layer (C / model
+        under TP: this rank's heads)."""
         dev = self.pos_emb.device
-        shape = (self.block_size, batch, 2, self.n_embed)
+        shape = (self.block_size, batch, 2, self.blocks[0].attn.query.weight.shape[0])
         return [
             torch.zeros(shape, dtype=decode_cache_dtype(dev), device=dev)
             for _ in self.blocks
@@ -193,8 +275,8 @@ class TransformerNet(nn.Module):
         attention reads each cache's first rows only (a segment's view;
         None: all); pos: torch.arange(block_size) on the device, made once
         a pass (None: made here)."""
-        if quant is not None:
-            return self._quant_step(prev_token, caches, t, quant, rows, pos)
+        if quant is not None or self.module_step:
+            return self._module_step(prev_token, caches, t, quant, rows, pos)
         if params is None:
             params = self.decode_params()
         if self.use_fused_decode:
@@ -215,14 +297,20 @@ class TransformerNet(nn.Module):
         return lm(h, params['ln_f_scale'], params['ln_f_bias'],
                   params['whead'], params['bhead']), written
 
-    def _quant_step(self, prev_token, caches, t, quant, rows=None, pos=None):
+    def _module_step(self, prev_token, caches, t, quant=None, rows=None, pos=None):
         """One decode step module by module (the JAX package's
-        CausalSelfAttention.step, Block.step and decode_step under its
-        quantization interceptor): LayerNorm, query, key and value, the cache
-        write, attention, proj, fc1, gelu(tanh), fc2, ln_f, the head. Each
-        Linear goes through quant.linear: int8_matmul + bias where the table
-        holds it, the plain dense product elsewhere. Returns as step."""
-        lin = quant.linear
+        CausalSelfAttention.step, Block.step and decode_step): LayerNorm,
+        query, key and value, the cache write, attention, proj, then fc1,
+        gelu(tanh) and fc2 or the MoE's dense step, ln_f, the head. quant:
+        each Linear through quant.linear, int8_matmul + bias where the table
+        holds it (the JAX package's quantization interceptor); the plain
+        dense product elsewhere and without quant. Under the model axis the
+        column-parallel products give this rank's heads and hidden units,
+        the row-parallel ones are summed over the axis (tp_reduce). Returns
+        as step."""
+        lin = quant.linear if quant is not None else (lambda x, name, layer: dense(x, layer))
+        row = lin if get_mesh().group(MODEL_AXIS) is None else (lambda x, name, layer:
+                                                                dense(x, layer, tp_reduce))
         h = lin(prev_token, 'embed', self.embed) + self.pos_emb[0].select(0, t)
         written = []
         for i, (blk, cache) in enumerate(zip(self.blocks, caches)):
@@ -231,10 +319,14 @@ class TransformerNet(nn.Module):
             q = lin(x, pre + 'attn.query', a.query)
             cache = write(cache, t, torch.stack([lin(x, pre + 'attn.key', a.key),
                                                  lin(x, pre + 'attn.value', a.value)], 1))
-            y = decode_step_attention(q, cache[:rows], t, self.n_head, pos)
-            h = h + lin(y, pre + 'attn.proj', a.proj)
-            g = lin(_ln(h, blk.ln2.weight, blk.ln2.bias), pre + 'fc1', blk.fc1)
-            h = h + lin(F.gelu(g, approximate='tanh'), pre + 'fc2', blk.fc2)
+            y = decode_step_attention(q, cache[:rows], t, a.local_heads(), pos)
+            h = h + row(y, pre + 'attn.proj', a.proj)
+            x = _ln(h, blk.ln2.weight, blk.ln2.bias)
+            if hasattr(blk, 'moe'):
+                h = h + blk.moe.step(x)
+            else:
+                g = lin(x, pre + 'fc1', blk.fc1)
+                h = h + row(F.gelu(g, approximate='tanh'), pre + 'fc2', blk.fc2)
             written.append(cache)
         hf = _ln(h, self.ln_f.weight, self.ln_f.bias)
         return lin(hf, 'head_layer.dense', self.head_layer.dense), written
@@ -256,7 +348,7 @@ def decode_loop(net, n, next_token, state=(), segments=1, quant=None):
     this bitwise)."""
     T = net.block_size
     dev = net.pos_emb.device
-    params = None if quant is not None else net.decode_params()
+    params = None if quant is not None or net.module_step else net.decode_params()
     pos = torch.arange(T, device=dev)
     seg = T // segments if segments > 1 and T % segments == 0 else T
 
@@ -313,7 +405,7 @@ class PixelTransformer(Autoreg):
     # decode loop is a Python loop, there is no scan to unroll
     DG.decode_segments = -1  # triangular cache reads (transformer_sample_scan);
     # -1 = auto: 4 on the card, 1 on the CPU
-    DG.moe_experts = 0  # not ported yet: > 0 raises
+    DG.moe_experts = 0  # > 0: a top-1 MoE of that many experts in every Block
     DG.moe_cap = 2.0
     DG.moe_aux = 0.01
     supports_ring = True
@@ -325,12 +417,16 @@ class PixelTransformer(Autoreg):
 
     def build(self):
         G = self.G
-        if int(G.get('moe_experts', 0)):
-            raise NotImplementedError('--moe_experts is not ported yet')
+        mesh = get_mesh()
         # sequence parallelism: --mesh=seq:N routes attention through a ring
         # of N chunks when N > 1 divides the sequence; the decode chain then
-        # takes the per-op path, as in the JAX package
-        ring = ring_size(str(G.get('mesh', '') or ''), self.block_size)
+        # takes the per-op path, as in the JAX package, and so it does under
+        # MoE and above model:1
+        ring = ring_size(mesh.spec, self.block_size)
+        n_experts = int(G.get('moe_experts', 0))
+        tp = mesh.size(MODEL_AXIS)
+        if int(G.n_head) % tp:
+            raise ValueError(f'--n_head={G.n_head} does not split over model:{tp}')
         return TransformerNet(
             in_size=1,
             block_size=self.block_size,
@@ -338,14 +434,31 @@ class PixelTransformer(Autoreg):
             n_head=int(G.n_head),
             n_layer=int(G.n_layer),
             head='bin',
-            use_fused_decode=bool(G.get('fused_decode', 1)) and ring == 1,
+            use_fused_decode=(bool(G.get('fused_decode', 1)) and ring == 1
+                              and not n_experts and tp == 1),
             remat=bool(G.get('remat', 0)),
             ring=ring,
+            n_experts=n_experts,
+            moe_cap=float(G.get('moe_cap', 2.0)),
+            module_step=tp > 1,
         )
+
+    def param_sharding_rules(self):
+        return transformer_rules(self.net.n_experts)
+
+    def seq_split(self):
+        return self.net.seq_group() is not None
 
     def loss(self, x, y=None):
         x = x.reshape(x.shape[0], self.block_size, 1)
-        loss = -self.net(x).log_prob(x).mean()
+        target = x[:, self.net.seq_slice(self.block_size)]
+        if self.net.n_experts:
+            dist, aux = self.net(x, with_aux=True)
+            nlogp = -dist.log_prob(target).mean()
+            # every MoE layer gives one aux; their mean, weighted by moe_aux
+            loss = nlogp + float(self.G.get('moe_aux', 0.01)) * aux
+            return loss, {'nlogp': nlogp, 'moe_aux': aux}
+        loss = -self.net(x).log_prob(target).mean()
         return loss, {'nlogp': loss}
 
     def uniform_shape(self, n):

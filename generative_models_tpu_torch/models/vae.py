@@ -137,7 +137,7 @@ class VAE(GM):
         if eps is not None:
             return torch.as_tensor(eps, dtype=torch.float32).to(self.device)
         shape = (x.shape[0], self.net.decoder.deconvs[0].in_channels)
-        return torch.randn(shape, generator=generator, device=self.device)
+        return dists.batch_draw(torch.randn, shape, generator, self.device)
 
     def loss(self, x, y=None, eps=None):
         """The eval loss: the posterior's noise from a fixed seed (or eps)."""

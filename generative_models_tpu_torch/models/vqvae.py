@@ -24,8 +24,9 @@ from torch import nn
 from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.base import GM
 from generative_models_tpu_torch.models.pixel_transformer import (
-    TransformerNet, transformer_sample_scan,
+    TransformerNet, transformer_rules, transformer_sample_scan,
 )
+from generative_models_tpu_torch.parallel.mesh import MODEL_AXIS, get_mesh
 from generative_models_tpu_torch.ops.quantize import vq_quantize
 from generative_models_tpu_torch.utils import (
     dists, grid_image, register, write_grid, write_image,
@@ -140,14 +141,26 @@ class VQVAE(GM):
 
     def build(self):
         G = self.G
+        # the prior takes pixel_transformer's TP rules; above model:1 its
+        # decode is the module-by-module step, without Kernels A and B
+        tp = get_mesh().size(MODEL_AXIS)
+        if int(G.n_head) % tp:
+            raise ValueError(f'--n_head={G.n_head} does not split over model:{tp}')
         return nn.ModuleDict(dict(
             ae=VQAENet(int(G.hidden_size), int(G.vqD), int(G.vqK), float(G.beta)),
             prior=TransformerNet(
                 in_size=int(G.vqK), block_size=self.n_codes, n_embed=int(G.n_embed),
                 n_head=int(G.n_head), n_layer=int(G.n_layer), head='cat',
-                use_fused_decode=bool(G.get('fused_decode', 1)),
+                use_fused_decode=bool(G.get('fused_decode', 1)) and tp == 1,
+                module_step=tp > 1,
             ),
         ))
+
+    def param_sharding_rules(self):
+        return transformer_rules()
+
+    def fsdp_modules(self):
+        return [self.net.ae, self.net.prior]
 
     def trained_params(self):
         return self.net.ae.parameters()

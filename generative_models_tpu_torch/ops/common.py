@@ -237,10 +237,14 @@ def check_cuda(name, t, dtype, shape=None):
         raise ValueError(f'{name}: expected a contiguous tensor')
 
 
-def dense(x, layer):
+def dense(x, layer, reduce=None):
     """nn.Linear applied under the operand policy: operands rounded to
     matmul_dtype(x.device), product and sum in f32. A plain matmul outside
-    any kernel, as the JAX package left these to XLA."""
+    any kernel, as the JAX package left these to XLA. reduce, where given,
+    acts on the product before the bias (a row-parallel Linear's
+    tp_reduce)."""
     dt = matmul_dtype(x.device)
     y = torch.matmul(x.to(dt).float(), layer.weight.to(dt).float().t())
+    if reduce is not None:
+        y = reduce(y)
     return y if layer.bias is None else y + layer.bias

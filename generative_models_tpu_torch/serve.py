@@ -556,6 +556,28 @@ def serve_defaults():
     return DG
 
 
+def one_process(G, argv):
+    """Serving runs in one process: a model.pt trained on any mesh serves
+    here with its data and model axes and --fsdp dropped from G (the
+    checkpoint holds full tensors), its seq axis kept (the one-card ring).
+    Asked for on the command line, a data or model axis above 1, or
+    --fsdp=1, is refused: serving over ranks is not ported yet."""
+    from generative_models_tpu_torch.parallel.mesh import (
+        DATA_AXIS, MODEL_AXIS, parse_mesh_spec,
+    )
+
+    axes = parse_mesh_spec(str(G.get('mesh', '') or ''))
+    spread = {a: n for a, n in axes if a in (DATA_AXIS, MODEL_AXIS) and n > 1}
+    given = lambda flag: any(a == flag or a.startswith(flag + '=') for a in argv)
+    if (spread and given('--mesh')) or (int(G.get('fsdp', 0) or 0) and given('--fsdp')):
+        raise SystemExit(
+            f'--mesh={G.mesh} --fsdp={G.fsdp}: serving over ranks is not ported yet to '
+            'generative_models_tpu_torch; serve in one process (a model.pt from any '
+            'mesh loads there)')
+    G.mesh = ','.join(f'{a}:{n}' for a, n in axes if a not in (DATA_AXIS, MODEL_AXIS))
+    G.fsdp = 0
+
+
 def load_server(argv=None):
     """Parse serve flags (two-phase parse plus --serve_bs/--port/--n/--out),
     build the model on --device (default cuda), load weights; or, with
@@ -585,6 +607,7 @@ def load_server(argv=None):
             )
         return ExportedServer(pre.from_export, pre.device), pre
     G, Model = parse_args(argv, DG=serve_defaults())
+    one_process(G, argv)
     model = Model(G=G)
     if G.weights_from != Path('.'):
         model.load_weights(G.weights_from)

@@ -7,9 +7,11 @@ imported only where hps.yaml is read or written.
 
 Differences: --device defaults to 'cuda' (see ops/common.resolve_device),
 and flags this port does not implement yet raise instead of being ignored.
---mesh takes '', seq:N (ring attention, on one card: parallel/mesh.py;
-a model without it refuses N > 1, models/base.py) and axes of size 1; any
-other axis raises.
+--mesh takes the data, model and seq axes (parallel/mesh.py: data and
+model above 1 under a process group, seq:N on one card without one; a
+model without ring attention refuses seq above 1, models/base.py); pipe
+and expert above 1 raise. --fsdp=1 shards over the data axis under a
+group.
 --jit_epoch and --decode_unroll are accepted for hps.yaml parity and have
 no effect: PyTorch runs eagerly, there is no jitted epoch or scan.
 """
@@ -89,26 +91,23 @@ def global_defaults():
     return DG
 
 
-# flags whose JAX implementation has no counterpart here yet: setting one
-# raises rather than running something other than what was asked for
-NOT_PORTED = ('fsdp',)
-
-
 def check_ported(G):
-    for key in NOT_PORTED:
-        if G.get(key):
-            raise NotImplementedError(
-                f'--{key}={G[key]} is not ported yet to generative_models_tpu_torch'
-            )
+    """Refuse what the port does not implement yet, by name: the pipe and
+    expert axes above 1 (and an axis no package has)."""
     mesh = str(G.get('mesh', '') or '')
     if mesh:
-        from generative_models_tpu_torch.parallel.mesh import SEQ_AXIS, parse_mesh_spec
+        from generative_models_tpu_torch.parallel.mesh import (
+            AXES, EXPERT_AXIS, PIPE_AXIS, parse_mesh_spec,
+        )
 
-        if any(a != SEQ_AXIS and n > 1 for a, n in parse_mesh_spec(mesh)):
-            raise NotImplementedError(
-                f'--mesh={mesh} is not ported yet to generative_models_tpu_torch '
-                '(only seq:N, on a model with ring attention)'
-            )
+        for a, n in parse_mesh_spec(mesh):
+            if a not in AXES:
+                raise ValueError(f'--mesh={mesh}: unknown axis {a}; the axes are {AXES}')
+            if a in (PIPE_AXIS, EXPERT_AXIS) and n > 1:
+                raise NotImplementedError(
+                    f'--mesh={mesh}: the {a} axis is not ported yet to '
+                    'generative_models_tpu_torch (data, model and seq are)'
+                )
     if G.get('ckpt', 'flax') != 'flax':
         # the card's machine has no orbax: model.pt (the port's, or a JAX
         # package's flax msgpack) holds the full train state

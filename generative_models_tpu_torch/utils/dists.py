@@ -4,15 +4,25 @@ generative_models_tpu/utils/dists.py.
 
 Sampling takes either a torch.Generator or the random numbers themselves
 (uniforms / noise), so a test can hand both packages the same draws.
+
+Bernoulli and Categorical, a net's outputs, are dataclasses of their
+logits and pytree nodes of them: what walks a forward's outputs for their
+tensors finds them there, by either walk (FSDP2, --fsdp=1, hooks its
+backward on a root's outputs: torch 2.13 walks dataclasses, earlier
+versions pytrees).
 """
 
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
 
 
+@dataclasses.dataclass(init=False)
 class Bernoulli:
+    logits: torch.Tensor
+
     def __init__(self, logits=None, probs=None):
         if logits is None:
             eps = 1e-7
@@ -71,9 +81,12 @@ def normal_kl(p_loc, p_scale, q_loc=0.0, q_scale=1.0):
     return 0.5 * (var_ratio + t1 - 1.0 - torch.log(var_ratio))
 
 
+@dataclasses.dataclass(init=False)
 class Categorical:
     """Independent categorical over the last axis; log_prob of a one-hot x is
     the multinomial(total_count=1) log-pmf."""
+
+    logits: torch.Tensor
 
     def __init__(self, logits):
         self.logits = logits
@@ -96,6 +109,12 @@ class Categorical:
         return F.one_hot(idx, self.logits.shape[-1]).to(self.logits.dtype)
 
 
+for _cls in (Bernoulli, Categorical):
+    torch.utils._pytree.register_pytree_node(
+        _cls, lambda d: ([d.logits], None), lambda xs, _, cls=_cls: cls(logits=xs[0]))
+
+
+
 def draw(spec, generator, device):
     """The draws of a spec [(name, shape, kind)], in its order, from
     generator: torch.rand for kind 'uniform', torch.randn for 'normal',
@@ -103,3 +122,19 @@ def draw(spec, generator, device):
     make = {'uniform': torch.rand, 'normal': torch.randn}
     return tuple(make[kind](tuple(shape), generator=generator, device=device)
                  for _, shape, kind in spec)
+
+
+def batch_draw(fn, shape, generator, device):
+    """fn(shape, generator=, device=) (torch.rand, torch.randn, ...) for a
+    batch of shape[0] rows on this rank. Under a process group with a data
+    axis every rank draws the global batch's (shape[0] times the axis's
+    size) from its generator, the same on every rank, and keeps its rows:
+    a data:N run draws what one process does (parallel/mesh.py)."""
+    from generative_models_tpu_torch.parallel.mesh import DATA_AXIS, data_slice, get_mesh
+
+    mesh = get_mesh()
+    d = mesh.size(DATA_AXIS) if mesh.dm is not None else 1
+    if d == 1:
+        return fn(tuple(shape), generator=generator, device=device)
+    n = shape[0] * d
+    return fn((n, *shape[1:]), generator=generator, device=device)[data_slice(n)]

@@ -66,7 +66,10 @@ def dump_logger(logger, writer, i, G):
         ).decode('ascii').strip()
     except (OSError, subprocess.CalledProcessError):
         G.commit_hash = 'unknown'
-    dump_hps(G)
+    from generative_models_tpu_torch.parallel.mesh import get_mesh
+
+    if get_mesh().is_main:  # rank 0 writes under a process group
+        dump_hps(G)
     print(G.full_cmd)
     print('=' * 30)
     if writer is not None:
@@ -207,7 +210,9 @@ def write_gridvid(writer, tag, x, epoch, logdir=None):
     T = x.shape[0]
     frames = np.stack([_tile_u8(x[t]) for t in range(T)])
     fps = max(1, min(T // 3, 60))
-    if logdir is not None:
+    from generative_models_tpu_torch.parallel.mesh import get_mesh
+
+    if logdir is not None and get_mesh().is_main:  # rank 0 writes under a group
         gif_dir = Path(logdir)
         gif_dir.mkdir(parents=True, exist_ok=True)
         safe_tag = tag.replace('/', '_')

@@ -99,12 +99,18 @@ def test_nan_guard_raises_on_a_nan(tmp_path, small_data, monkeypatch):
                                   '--from_export=a.bin'])
 def test_unported_training_flags_raise(flag):
     """The flags still refused by name; --export and --from_export (serving
-    flags, parsed with the server's defaults) are ported and parse."""
+    flags, parsed with the server's defaults) are ported and parse, and so
+    does --fsdp=1, which a model refuses without a process group, naming
+    torchrun."""
     from generative_models_tpu_torch.serve import serve_defaults
 
-    if flag.startswith(('--export', '--from_export')):
-        G, _ = parse_args(TINY + [flag], DG=serve_defaults())
-        assert str(G[flag[2:].split('=')[0]]) == 'a.bin'
+    if flag.startswith(('--export', '--from_export', '--fsdp')):
+        G, Model = parse_args(TINY + [flag], DG=serve_defaults())
+        key, val = flag[2:].split('=')
+        assert str(G[key]) == val if key == 'fsdp' else str(G[key]) == 'a.bin'
+        if key == 'fsdp':
+            with pytest.raises(RuntimeError, match='torchrun'):
+                Model(G)
         return
     with pytest.raises(NotImplementedError, match='not ported yet'):
         parse_args(TINY + [flag], DG=serve_defaults())

@@ -434,12 +434,17 @@ def test_unported_models_and_flags_raise():
             G, _ = parse_args(argv, DG=serve_defaults())
             assert str(G[flag[2:].split('=')[0]]) == 'a.bin'
             continue
+        # ported: they parse, and span the ranks of a process group, so a
+        # model built without one refuses them, naming torchrun
+        G, Model = parse_args(argv, DG=serve_defaults())
+        with pytest.raises(RuntimeError, match='torchrun'):
+            Model(G)
+    for flag in ('--mesh=pipe:2', '--mesh=data:1,expert:2'):
         with pytest.raises(NotImplementedError, match='not ported yet'):
-            parse_args(argv, DG=serve_defaults())
+            parse_args(['--model=pixel_transformer', '--device=cpu', flag])
     G, Model = parse_args(['--model=pixel_transformer', '--device=cpu',
                            '--moe_experts=2', '--n_embed=16'])
-    with pytest.raises(NotImplementedError, match='moe_experts'):
-        Model(G)
+    assert all(hasattr(b, 'moe') for b in Model(G).net.blocks)
 
 
 def test_diffusion_is_ported_and_imports_no_jax():
@@ -504,9 +509,10 @@ def test_diffusion_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp
 
 def test_mesh_rules():
     """--mesh: seq:N on pixel_transformer (its ring attention) and axes of
-    size 1 pass; any axis but seq above size 1 raises as not ported when the
-    flags are parsed, and seq:N above 1 when a model without ring attention
-    is built; --quantize with a seq axis above 1 is refused, as the JAX
+    size 1 pass; data and model above 1 parse and a model built without a
+    process group refuses them, naming torchrun; pipe and expert above 1
+    raise as not ported when the flags are parsed, and seq:N above 1 when a
+    model without ring attention is built; --quantize with a seq axis above 1 is refused, as the JAX
     package's serve.py refuses a non-data sharded mesh."""
     from generative_models_tpu_torch.serve import load_server
     from generative_models_tpu_torch.utils.config import parse_args
@@ -516,7 +522,11 @@ def test_mesh_rules():
                                '--n_embed=16', '--n_layer=1'])
         assert G.mesh == mesh and Model.supports_ring
         Model(G)
-    for mesh in ('model:2', 'seq:4,data:2'):
+    for mesh in ('model:2', 'seq:4,data:2'):  # over ranks: a model refuses them without a group
+        G, Model = parse_args(['--model=pixel_transformer', '--device=cpu', f'--mesh={mesh}'])
+        with pytest.raises(RuntimeError, match='torchrun --nproc_per_node='):
+            Model(G)
+    for mesh in ('pipe:2', 'expert:4,data:1'):
         with pytest.raises(NotImplementedError, match='not ported yet'):
             parse_args(['--model=pixel_transformer', '--device=cpu', f'--mesh={mesh}'])
     for model, mesh in (('made', 'seq:4'), ('vqvae', 'seq:7'), ('made', 'seq:1')):
@@ -533,3 +543,33 @@ def test_mesh_rules():
     server, _ = load_server(['--model=pixel_transformer', '--device=cpu', '--mesh=seq:1',
                              '--quantize=w8a16', '--serve_bs=1'])
     assert server.quant_mode == 'w8a16' and not server.model.net.use_ring
+
+
+def test_moe_and_the_mesh_import_no_jax_and_their_flags_round_trip_hps(tmp_path):
+    """models/moe.py and parallel/ import nothing of JAX or the JAX
+    package, and hps.yaml carries mesh, fsdp and moe_* both ways between
+    the packages."""
+    from generative_models_tpu.utils import discover_models as jax_models
+    from generative_models_tpu.utils.config import dump_hps as jax_dump_hps
+    from generative_models_tpu.utils.config import parse_args as jax_parse_args
+    from generative_models_tpu_torch.utils.config import dump_hps, parse_args
+
+    files = [PORT / 'models' / 'moe.py', *sorted((PORT / 'parallel').glob('*.py'))]
+    for p in files:
+        for node in ast.walk(ast.parse(p.read_text(), str(p))):
+            if isinstance(node, ast.Import):
+                assert not any(_forbidden(a.name) for a in node.names), p
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                assert not _forbidden(node.module), p
+    flags = ['--model=pixel_transformer', '--mesh=data:2,model:2', '--fsdp=1',
+             '--moe_experts=4', '--moe_cap=1.5', '--moe_aux=0.02']
+    keys = ('mesh', 'fsdp', 'moe_experts', 'moe_cap', 'moe_aux')
+    G, _ = parse_args(flags + ['--device=cpu', f'--logdir={tmp_path / "port"}'])
+    dump_hps(G, tmp_path / 'port')
+    jG, _ = jax_parse_args([f'--weights_from={tmp_path / "port" / "model.pt"}'],
+                           discover_models=jax_models)
+    assert tuple(jG[k] for k in keys) == ('data:2,model:2', 1, 4, 1.5, 0.02)
+    jG, _ = jax_parse_args(flags + [f'--logdir={tmp_path / "jax"}'], discover_models=jax_models)
+    jax_dump_hps(jG, tmp_path / 'jax')
+    pG, _ = parse_args([f'--weights_from={tmp_path / "jax" / "model.pt"}', '--device=cpu'])
+    assert tuple(pG[k] for k in keys) == ('data:2,model:2', 1, 4, 1.5, 0.02)
