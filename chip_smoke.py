@@ -159,8 +159,9 @@ failure exits non-zero before the result lines:
                 step's gradients against a CPU f32 copy, a profiled train
                 step and request; no kernel of ops/.
   25. gan    -- the same for gan (the twin step's gradients, and both nets'
-                batch statistics after it, against the CPU copy; samples
-                served in [0, 1]).
+                batch statistics after it, against a float64 CPU copy, the
+                CPU f32 copy's error and a float64 twin step on the card
+                logged beside; samples served in [0, 1]).
   26-29. rnn, wavenet, pixel_cnn, gated_pixel_cnn -- each at its default
                 width (rnn hidden 256; wavenet hidden 320, bf16 on the card;
                 pixel_cnn 128 filters, gated_pixel_cnn 96, 5 layers, 7x7)
@@ -246,7 +247,20 @@ failure exits non-zero before the result lines:
                 pixel_transformer) and the metrics within
                 MESH_METRIC_BOUND, the second no-group run included; the
                 --fsdp=1 run's and the first no-group run's median wall of 5
-                more steps and one more step profiled.
+                more steps and one more step profiled. Then the pipe and
+                expert axes: pixel_transformer at pipe:1 in this process
+                (C, E and D four times the no-pipe run's launches, M = 4
+                microbatches; no A or B; model.pt within PIPE_BOUND of the
+                no-pipe run's, the key biases held apart; its seed=7 batch
+                bitwise the --fused_decode=0 one-process server's) and in
+                the group at data:1,pipe:1,model:1 with --fsdp=1, and
+                --moe_experts=8 at expert:1 in this process and in the
+                group, each group run held as above; and servers in the
+                group at data:1,model:1 (pixel_transformer plain and w8a16,
+                diffusion dpm2m-25; serve_bs=64, seed=7) against the
+                one-process servers of the same model.pt: the batch bitwise
+                (diffusion within DIFF_CHAIN_REL), every kernel's launches
+                equal.
 Then the kernels line, the nvidia-smi line and, last, the device line.
 `--only=<phase>,...` runs the build and those phases alone (diff_quant
 after diff_train), for work on them: it prints no kernels or device line.
@@ -324,7 +338,9 @@ EH_FLAGS = ['--model=diffusion_model', '--eval_sampler=dpm2m', '--eval_sample_st
 # train-mode BatchNorm passes its backward, which cancels most of what it
 # sums, so two f32 twin steps (the card's and the CPU's) can sit 1e-3 of a
 # gradient's norm apart though each is close to float64; the phase logs
-# the CPU f32 copy's own error beside the card's
+# the CPU f32 copy's own error (not bounded, as the pixel CNNs') and a
+# float64 twin step on the card (its arithmetic apart from f32's) beside
+# the card's
 ARB_REL, EH_FID_REL, SMALL_GRAD, GAN_STATS_REL = 1e-4, 1e-3, (1e-3, 1e-5), 1e-4
 GAN_GRAD = (1e-2, 1e-5)
 # rnn, wavenet, pixel_cnn and gated_pixel_cnn at their default widths: the
@@ -2549,9 +2565,9 @@ def phase_small_model(name, flags=(), tag=None):
     [-1, 1]; vae's in {0, 1}); from the trained model.pt one step's
     gradients against a CPU copy from the same batch, noise and optimizer
     state (vae: f32, SMALL_GRAD; gan: the twin step's, and the batch
-    statistics after it, against a float64 copy, GAN_GRAD, beside the CPU
-    f32 copy's own error); a profiled train step and request. No kernel of
-    ops/. flags, tag: as _train_and_serve's (gan_sn: --spectral_norm=1,
+    statistics after it, against a float64 copy, GAN_GRAD, the CPU f32
+    copy's own error and the card's float64 twin step's logged beside); a
+    profiled train step and request. No kernel of ops/. flags, tag: as _train_and_serve's (gan_sn: --spectral_norm=1,
     whose u and sigma are held with the batch statistics)."""
     from generative_models_tpu_torch.main import load_model_and_data
 
@@ -2579,12 +2595,27 @@ def phase_small_model(name, flags=(), tag=None):
         for key, o in model.optimizers().items():  # the moments cast to float64
             cpu64.optimizers()[key].load_state_dict(copy.deepcopy(o.state_dict()))
         cpu64._as_input = lambda a: torch.as_tensor(a).double()
+        # the same twin step in float64 on the card: its distance from the
+        # CPU float64 copy's is the card's arithmetic apart from f32's
+        card64 = _cpu_copy(model, G, device='cuda')
+        card64.net.double()
+        for key, o in model.optimizers().items():
+            card64.optimizers()[key].load_state_dict(copy.deepcopy(o.state_dict()))
+        card64._as_input = lambda a: torch.as_tensor(a).double().cuda()
         noise = torch.randn((64, int(G.noise_size)), generator=gen)
         model.train_step(x, noise=noise.cuda())
         cpu.train_step(x.cpu(), noise=noise)
         cpu64.train_step(x.cpu(), noise=noise.double())
-        cpu_f32 = grad_check(f'{tag}_grads CPU f32 vs float64', cpu, cpu64, *GAN_GRAD)
+        card64.train_step(x, noise=noise.double().cuda())
+        # the card's f32 gradients are held against float64; the CPU f32
+        # copy's own error and the card's float64 step's are logged beside
+        cpu_f32 = grad_check(f'{tag}_grads CPU f32 vs float64 (logged, not bounded)', cpu, cpu64,
+                             float('inf'), 0.0)
+        card_f64 = grad_check(f'{tag}_grads card float64 vs CPU float64 (logged, not bounded)',
+                              card64, cpu64, float('inf'), 0.0)
         grads = grad_check(f'{tag}_grads card vs float64', model, cpu64, *GAN_GRAD)
+        grads['cpu_f32_rel_err'] = cpu_f32['rel_err']
+        grads['card_f64_rel_err'] = card_f64['rel_err']
         grads['cpu_f32_max_rel_err'] = max(cpu_f32['rel_err'].values())
         ref = cpu64.net.state_dict()
         stats = {k: _rel(v, ref[k]) for k, v in model.net.state_dict().items()
@@ -2602,7 +2633,8 @@ def phase_small_model(name, flags=(), tag=None):
                 request=_profile(f'one {tag} request', lambda: server.sample(64, seed=11), 10))
     return dict(wall_sec=wall, steps=640 // 64, history=history, warm_sec=warm, request_sec=lat,
                 grads_rel_err=grads['rel_err'],
-                **{k: grads[k] for k in ('batch_stats_rel_err', 'cpu_f32_max_rel_err')
+                **{k: grads[k] for k in ('batch_stats_rel_err', 'cpu_f32_max_rel_err',
+                                         'cpu_f32_rel_err', 'card_f64_rel_err')
                    if k in grads}, profile=prof)
 
 
@@ -3960,10 +3992,16 @@ def _moe_serve(ckpt, counters, exporter, L, T):
 # mesh: the process group's code path on one card
 # ---------------------------------------------------------------------- #
 MESH_DIR = ROOT / 'build' / 'chip_smoke_mesh'
-MESH_CASES = (  # (label, flags); 3 steps at bs=64, one eval batch
-    ('pixel_transformer', ['--model=pixel_transformer']),
-    ('diffusion', DIFF_FLAGS + ['--sampler=dpm2m', '--sample_steps=25']),
-    ('gan', ['--model=gan']),
+MESH_CASES = (  # (label, flags, mesh); 3 steps at bs=64, one eval batch
+    ('pixel_transformer', ['--model=pixel_transformer'], 'data:1,model:1'),
+    ('diffusion', DIFF_FLAGS + ['--sampler=dpm2m', '--sample_steps=25'], 'data:1,model:1'),
+    ('gan', ['--model=gan'], 'data:1,model:1'),
+)
+# the pipe and expert axes: each run once with no group here and once in
+# the torchrun process (pipe with --fsdp=1), not twice with no group
+MESH_AXIS_CASES = (
+    ('pixel_transformer_pipe', ['--model=pixel_transformer'], 'data:1,pipe:1,model:1'),
+    ('moe', MOE_FLAGS, 'data:1,expert:1'),
 )
 MESH_TRAIN_N, MESH_TEST_N = 192, 64
 # the largest distance allowed between a mesh run's trained weights and the
@@ -3976,12 +4014,29 @@ MESH_TRAIN_N, MESH_TEST_N = 192, 64
 # order in which autograd sums a gradient with three consumers (on the CPU
 # in f32: bitwise at step 0, not from step 1 on), which bf16 and Adam's
 # near-zero-gradient elements widen. A stale or dropped gradient moves it
-# by a sizeable part of 1.
-MESH_BOUND = dict(pixel_transformer=0.0, diffusion=1e-2, gan=1e-2)
+# by a sizeable part of 1. moe's router reads the input that the expert
+# axis's _Copy also takes: the same reordering.
+MESH_BOUND = dict(pixel_transformer=0.0, diffusion=1e-2, gan=1e-2, pixel_transformer_pipe=0.0,
+                  moe=1e-2)
 MESH_METRIC_BOUND = 1e-3
+# pipe:1 against no pipe axis: M = 4 microbatches sum each weight's
+# gradient in another order than one product over the 64 rows, and the
+# products of 16 rows round apart from those of 64 (bf16 operands), the
+# gap a diffusion group run shows; held as MESH_BOUND's 1e-2. The attention
+# key biases, whose exact gradient is 0 (softmax does not see a constant
+# added to a row's scores), move by Adam's sign of their rounding: held
+# apart, each element within 2 lr a step, as the CPU tests hold them
+PIPE_BOUND = 1e-2
+ZERO_GRAD = ('attn.key.bias',)
+MESH_SERVE = (  # (label, the run whose model.pt serves, flags); serve_bs=64, seed=7
+    ('pixel_transformer', 'pixel_transformer', []),
+    ('pixel_transformer_w8a16', 'pixel_transformer', ['--quantize=w8a16']),
+    ('diffusion', 'diffusion', []),
+)
 MESH_WORKER = r"""
 import json, sys
 sys.path.insert(0, sys.argv[1])
+import numpy as np
 import torch
 import torch.distributed as dist
 import chip_smoke as cs
@@ -3996,6 +4051,12 @@ for run in args['runs']:
     mesh = get_mesh()
     out.update(backend=dist.get_backend(), world=dist.get_world_size(), grouped=mesh.grouped,
                sizes=mesh.sizes, device=torch.cuda.current_device())
+    with open(run['out'], 'w') as f:
+        json.dump(out, f)
+for run in args['serve']:
+    out = cs.mesh_serve(run['argv'], counters)
+    np.save(run['out'] + '.npy', out.pop('batch'))
+    out.update(backend=dist.get_backend(), world=dist.get_world_size())
     with open(run['out'], 'w') as f:
         json.dump(out, f)
 dist.destroy_process_group()
@@ -4039,6 +4100,25 @@ def mesh_run(argv, counters, label, steps=5, timed=True):
     return out
 
 
+def mesh_serve(argv, counters):
+    """load_server on argv and one seed=7 request of 64 (no warm pass),
+    its launches counted; under a process group rank 0 then sends the
+    stop message (a world of one has no follower). Returns the batch,
+    the launches, the request's seconds and whether the server ran over
+    ranks."""
+    from generative_models_tpu_torch.serve import load_server
+
+    server, _ = load_server(argv + ['--serve_bs=64'])
+    _reset(counters)
+    batch = server.sample(64, seed=7)
+    torch.cuda.synchronize()
+    out = dict(batch=batch, launches=_read(counters), request_sec=server.latencies[-1],
+               ranks=bool(getattr(server, 'ranks', False)))
+    if out['ranks']:
+        server.stop()
+    return out
+
+
 def _torchrun(script, args, timeout=600):
     """python -m torch.distributed.run --standalone --nproc_per_node=1
     script ROOT json(args), in its own process group, killed whole on a
@@ -4067,34 +4147,51 @@ def _net(path):
     return {k: v.double() for k, v in sd.get('net', sd).items()}
 
 
-def _run_diff(ref, run, init):
+def _run_diff(ref, run, init, free=(), lr=1e-3, steps=3):
     """How far run's trained weights and metrics lie from ref's (mesh_run
     results, nets from _net): the largest element difference, the norm of
     the difference over the norm of ref's update from init (a dropped or
     stale reduction moves it by a sizeable part of 1), and the metrics'
-    largest difference."""
+    largest difference. The entries ending in one of free (an exact
+    gradient of 0) are left out of the norms and held elementwise within
+    2 lr a step (free_max_abs, free_ok)."""
     a, b = ref['net'], run['net']
     if set(a) != set(b) or any(a[k].shape != b[k].shape for k in a):
         raise AssertionError('model.pt entries differ in names or shapes')
     if not all(torch.isfinite(v).all() for v in b.values()):
         raise AssertionError('non-finite parameters')
+    held = [k for k in a if not k.endswith(tuple(free))] if free else list(a)
     sq = lambda d: float(sum(float(v.square().sum()) for v in d))
-    delta = sq(a[k] - b[k] for k in a) ** 0.5
-    update = sq(a[k] - init[k] for k in a) ** 0.5
+    delta = sq(a[k] - b[k] for k in held) ** 0.5
+    update = sq(a[k] - init[k] for k in held) ** 0.5
     metrics = [abs(v - run['history'][i][k]) for i, h in enumerate(ref['history'])
                for k, v in h.items() if not k.startswith('dt/') and isinstance(v, float)]
-    return dict(max_abs=max(float((a[k] - b[k]).abs().max()) for k in a),
-                rel_to_update=delta / update, update_norm=update,
-                metrics_max_abs=max(metrics, default=0.0))
+    out = dict(max_abs=max(float((a[k] - b[k]).abs().max()) for k in held),
+               rel_to_update=delta / update, update_norm=update,
+               metrics_max_abs=max(metrics, default=0.0))
+    if free:
+        gap = max((float((a[k] - b[k]).abs().max()) for k in a if k not in held), default=0.0)
+        out.update(free_max_abs=gap, free_ok=gap <= 2 * lr * steps * (1 + 1e-6))
+    return out
 
 
 def phase_mesh():
-    """Each case through main.main under torchrun --nproc_per_node=1 with
-    --mesh=data:1,model:1, with --fsdp=1 (timed) and without (the data
-    axis's all-reduce in place of FSDP2's reduce-scatter), against the
-    same flags with no group in this process, twice: the second no-group
-    run measures how far two runs of one program lie apart on the card
-    (MESH_BOUND)."""
+    """Each of MESH_CASES through main.main under torchrun
+    --nproc_per_node=1 with --mesh=data:1,model:1, with --fsdp=1 (timed)
+    and without (the data axis's all-reduce in place of FSDP2's
+    reduce-scatter), against the same flags with no group in this
+    process, twice: the second no-group run measures how far two runs of
+    one program lie apart on the card (MESH_BOUND). Then the pipe and
+    expert axes (MESH_AXIS_CASES), each once with no group and once in the
+    group: pixel_transformer at pipe:1 against its no-pipe run (C, E and D
+    four times its launches: M = 4 microbatches; no A or B: the pipeline's
+    decode is the per-op chain; PIPE_BOUND), its seed=7 batch served from
+    its model.pt bitwise the --fused_decode=0 one-process server's, and
+    moe at expert:1. Last, servers in the group at data:1,model:1
+    (MESH_SERVE: pixel_transformer plain and w8a16, diffusion dpm2m-25)
+    against the one-process servers of the same model.pt: the seed=7
+    batch (bitwise for pixel_transformer, diffusion within
+    DIFF_CHAIN_REL), every kernel's launches equal."""
     import generative_models_tpu_torch.data.mnist as mnist
 
     shutil.rmtree(MESH_DIR, ignore_errors=True)
@@ -4102,61 +4199,126 @@ def phase_mesh():
     worker = MESH_DIR / 'mesh_worker.py'
     worker.write_text(MESH_WORKER)
     counters = _counters()
-    cases = [(label, flags + ['--bs=64', '--epochs=1', '--save_n=1', '--data_source=synthetic',
-                              '--mesh=data:1,model:1'])
-             for label, flags in MESH_CASES]
+    flags = lambda fl, mesh: fl + ['--bs=64', '--epochs=1', '--save_n=1',
+                                   '--data_source=synthetic', f'--mesh={mesh}']
+    cases = [(label, flags(fl, mesh)) for label, fl, mesh in MESH_CASES]
+    axis_cases = [(label, flags(fl, mesh)) for label, fl, mesh in MESH_AXIS_CASES]
     runs = {}
-    for label, base in cases:  # no group, in this process, twice
-        for run, timed in (('plain', True), ('plain_again', False)):
-            mnist.TRAIN_N, mnist.TEST_N = MESH_TRAIN_N, MESH_TEST_N
-            runs[label, run] = mesh_run(base + [f'--logdir={MESH_DIR / label / run}'], counters,
-                                        f'mesh {label}, no group,', timed=timed)
-    t0 = time.time()  # every group run in one torchrun process: one group, one NCCL start
+    in_process = [(label, base, run, timed) for label, base in cases
+                  for run, timed in (('plain', True), ('plain_again', False))]
+    in_process += [(label, base, 'plain', label == 'pixel_transformer_pipe')
+                   for label, base in axis_cases]
+    for label, base, run, timed in in_process:  # no group, in this process
+        mnist.TRAIN_N, mnist.TEST_N = MESH_TRAIN_N, MESH_TEST_N
+        runs[label, run] = mesh_run(base + [f'--logdir={MESH_DIR / label / run}'], counters,
+                                    f'mesh {label}, no group,', timed=timed)
+    # every group run and server in one torchrun process: one group, one NCCL start
     group_runs = [(label, run, base + flags) for label, base in cases
                   for run, flags in (('fsdp', ['--fsdp=1']), ('group', []))]
+    group_runs += [(label, 'group', base + (['--fsdp=1'] if 'pipe' in label else []))
+                   for label, base in axis_cases]
+    serve_argv = {label: [f'--weights_from={MESH_DIR / src / "plain" / "model.pt"}', *fl]
+                  for label, src, fl in MESH_SERVE}
+    t0 = time.time()
     worker_out = _torchrun(worker, dict(train_n=MESH_TRAIN_N, test_n=MESH_TEST_N, runs=[
         dict(argv=argv + [f'--logdir={MESH_DIR / label / run}'], timed=run == 'fsdp',
              out=str(MESH_DIR / f'{label}_{run}.json'), label=f'mesh {label}, world-1 group,')
-        for label, run, argv in group_runs]))
+        for label, run, argv in group_runs], serve=[
+        dict(argv=argv + ['--mesh=data:1,model:1'], out=str(MESH_DIR / f'serve_{label}.json'))
+        for label, argv in serve_argv.items()]))
     subprocess_sec = time.time() - t0
     for line in worker_out.splitlines():
         if line.startswith('[profile]'):
             log(line)  # the group's profiled steps
-    out = {}
-    for label, _ in cases:
-        for run in ('plain', 'plain_again', 'fsdp', 'group'):
+    faults, out = [], {}
+    for label, _ in cases + axis_cases:
+        names = ('plain', 'plain_again', 'fsdp', 'group') if (label, 'plain_again') in runs else (
+            'plain', 'group')
+        for run in names:
             r = runs.setdefault((label, run), {})
             if run in ('fsdp', 'group'):
                 r.update(json.loads((MESH_DIR / f'{label}_{run}.json').read_text()))
                 if r['backend'] != 'nccl' or r['world'] != 1 or not r['grouped']:
-                    raise AssertionError(f'mesh {label} {run}: backend {r["backend"]}, world '
-                                         f'{r["world"]}, grouped {r["grouped"]}')
+                    faults.append(f'mesh {label} {run}: backend {r["backend"]}, world '
+                                  f'{r["world"]}, grouped {r["grouped"]}')
             if r['launches'] != runs[label, 'plain']['launches']:
-                raise AssertionError(f'mesh {label}: launches {r["launches"]} in the {run} run, '
-                                     f'{runs[label, "plain"]["launches"]} in the first no-group '
-                                     'run')
+                faults.append(f'mesh {label}: launches {r["launches"]} in the {run} run, '
+                              f'{runs[label, "plain"]["launches"]} in the no-group run')
             if not all(np.isfinite(v) for h in r['history'] for v in h.values()):
-                raise AssertionError(f'mesh {label} {run}: non-finite metrics')
+                faults.append(f'mesh {label} {run}: non-finite metrics')
             r['net'] = _net(MESH_DIR / label / run / 'model.pt')
         init = _net(MESH_DIR / label / 'plain' / 'init.pt')
         plain, bound = runs[label, 'plain'], MESH_BOUND[label]
-        diffs = {run: _run_diff(plain, runs[label, run], init)
-                 for run in ('plain_again', 'fsdp', 'group')}
+        free = ZERO_GRAD if bound else ()
+        diffs = {run: _run_diff(plain, runs[label, run], init, free) for run in names[1:]}
         for run, d in diffs.items():
-            if d['rel_to_update'] > bound or d['metrics_max_abs'] > (bound and MESH_METRIC_BOUND):
-                raise AssertionError(f'mesh {label}: the {run} run lies {d} from the no-group '
-                                     f'run, over the bound {bound} (metrics '
-                                     f'{bound and MESH_METRIC_BOUND})')
-        fsdp = runs[label, 'fsdp']
+            if (d['rel_to_update'] > bound or d['metrics_max_abs'] > (bound and MESH_METRIC_BOUND)
+                    or not d.get('free_ok', True)):
+                faults.append(f'mesh {label}: the {run} run lies {d} from the no-group run, over '
+                              f'the bound {bound} (metrics {bound and MESH_METRIC_BOUND})')
+        timed = runs[label, 'fsdp' if 'fsdp' in names else 'plain']
         res = dict(
-            launches=plain['launches'], backend=fsdp['backend'], bound=bound,
+            launches=plain['launches'], backend=runs[label, 'group']['backend'], bound=bound,
             diffs=diffs, params_bitwise={run: d['max_abs'] == 0 for run, d in diffs.items()},
-            step_ms_group=fsdp['step_ms'], step_ms_plain=plain['step_ms'],
-            profile_group=fsdp['profile'], profile_plain=plain['profile'],
-            wall_sec_group=fsdp['wall_sec'], wall_sec_plain=plain['wall_sec'],
-            subprocess_sec=subprocess_sec)
+            # the group's wall and step times both from its timed (FSDP) run where there is one
+            wall_sec_group=runs[label, 'fsdp' if 'fsdp' in names else 'group']['wall_sec'],
+            wall_sec_plain=plain['wall_sec'],
+            subprocess_sec=subprocess_sec,
+            **({'step_ms_group': timed['step_ms'], 'profile_group': timed['profile'],
+                'step_ms_plain': plain['step_ms'], 'profile_plain': plain['profile']}
+               if 'fsdp' in names else {}))
         log(f'[mesh] {label}: {json.dumps(res)}')
         out[label] = res
+
+    # pipe:1 against no pipe: four times C, E and D (M = 4), no A or B
+    dense, pipe = runs['pixel_transformer', 'plain'], runs['pixel_transformer_pipe', 'plain']
+    fourfold = ('causal_attention_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')
+    want = {k: 4 * v if k in fourfold else 0 if k in ('ln_matmul', 'block_tail') else v
+            for k, v in dense['launches'].items()}
+    if pipe['launches'] != want:
+        faults.append(f'mesh pipe:1 launches {pipe["launches"]} != {want}')
+    d = _run_diff(dense, pipe, _net(MESH_DIR / 'pixel_transformer' / 'plain' / 'init.pt'),
+                  ZERO_GRAD)
+    if d['rel_to_update'] > PIPE_BOUND or d['metrics_max_abs'] > MESH_METRIC_BOUND or (
+            not d['free_ok']):
+        faults.append(f'mesh pipe:1 lies {d} from the no-pipe run, over {PIPE_BOUND}')
+    out['pixel_transformer_pipe'].update(
+        vs_no_pipe=d, launches_vs_no_pipe=want, step_ms_no_pipe=dense['step_ms'],
+        step_ms_pipe=pipe['step_ms'], profile_pipe=pipe['profile'])
+    log(f'[mesh] pipe:1 vs no pipe: {json.dumps(d)}; step ms {pipe["step_ms"]:.3f} vs '
+        f'{dense["step_ms"]:.3f}')
+
+    # the servers: pipe:1's model.pt (its decode the per-op chain) against
+    # the --fused_decode=0 one-process server, then each group server
+    # against the one-process server of its model.pt
+    ckpt = MESH_DIR / 'pixel_transformer_pipe' / 'plain' / 'model.pt'
+    served = {k: mesh_serve([f'--weights_from={ckpt}', *fl], counters)
+              for k, fl in (('pipe', []), ('fused_decode_0', ['--mesh=', '--fused_decode=0']))}
+    if not np.array_equal(served['pipe']['batch'], served['fused_decode_0']['batch']) or any(
+            v for r in served.values() for v in r['launches'].values()):
+        faults.append(f'mesh pipe:1 server: batch bitwise '
+                      f'{np.array_equal(served["pipe"]["batch"], served["fused_decode_0"]["batch"])}'
+                      f', launches {[r["launches"] for r in served.values()]}')
+    out['pixel_transformer_pipe']['serve'] = {k: dict(request_sec=r['request_sec'],
+                                                      launches=r['launches'])
+                                              for k, r in served.items()}
+    for label, argv in serve_argv.items():
+        group = json.loads((MESH_DIR / f'serve_{label}.json').read_text())
+        group_batch = np.load(MESH_DIR / f'serve_{label}.json.npy')
+        one = mesh_serve(argv, counters)
+        bitwise = bool(np.array_equal(group_batch, one['batch']))
+        rel = _rel(torch.from_numpy(group_batch), torch.from_numpy(one['batch']))
+        ok = bitwise or (label == 'diffusion' and rel <= DIFF_CHAIN_REL)
+        if not ok or group['launches'] != one['launches'] or not group['ranks'] or (
+                group['backend'] != 'nccl' or one['ranks']):
+            faults.append(f'mesh serve {label}: bitwise {bitwise}, rel {rel}, launches '
+                          f'{group["launches"]} vs {one["launches"]}, group {group}')
+        res = dict(bitwise=bitwise, rel_err=rel, launches=group['launches'],
+                   request_sec_group=group['request_sec'], request_sec_plain=one['request_sec'])
+        log(f'[mesh] serve {label} at data:1,model:1 vs one process: {json.dumps(res)}')
+        out[f'serve_{label}'] = res
+    if faults:
+        raise AssertionError('; '.join(faults))
     return out
 
 
@@ -4294,7 +4456,8 @@ def main(argv=None):
                       for label, *_ in EXPORT_CASES},
                    'moe_train': mo['launches'][name], 'moe_serve': mo['serve_launches'][name],
                    **{f'moe_{mode}_serve': q['launches'][name] for mode, q in mo['quant'].items()},
-                   **{f'mesh_{label}_train': m['launches'][name] for label, m in me.items()}}
+                   **{f'mesh_{label}' + ('' if label.startswith('serve_') else '_train'):
+                      m['launches'][name] for label, m in me.items()}}
         if sum(by_path.values()) == 0:
             raise AssertionError(f'{name} was not launched on a main path')
         kernels.append(dict(

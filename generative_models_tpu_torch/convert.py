@@ -6,7 +6,10 @@ has the keys embed/kernel, pos_emb, block{i}/{ln1,ln2}/{scale,bias},
 block{i}/attn/{query,key,value,proj}/{kernel,bias},
 block{i}/{fc1,fc2}/{kernel,bias} (with --moe_experts block{i}/moe/router/kernel
 and the expert-stacked block{i}/moe/{wi,bi,wo,bo} instead), ln_f/{scale,bias}
-and head_layer/Dense_0/{kernel,bias}. A VQVAE has ae/encoder/Conv_{0..3},
+and head_layer/Dense_0/{kernel,bias}; under the JAX package's pipe axis
+its Blocks are one tree, blocks/..., each leaf stacked on a leading
+n_layer axis, which the port lays out as blocks.{i} (unstack_blocks). A
+VQVAE has ae/encoder/Conv_{0..3},
 ae/decoder/ConvTranspose_{0..3}, ae/codebook and prior/<TransformerNet>. A
 MADE has w0..w3 (in, out) and b0..b3, which the port keeps as they are. A
 diffusion SimpleUnet has flax's auto-names (time_embed, guide_embed,
@@ -49,8 +52,30 @@ def _layernorm(p, name):
     return {f'{name}.weight': _t(p['scale']), f'{name}.bias': _t(p['bias'])}
 
 
+def unstack_blocks(tree):
+    """A TransformerNet tree (params, or an Adam moment of them) whose
+    Blocks are stacked (the JAX package's pipe layout: blocks/... with a
+    leading n_layer axis) -> the same tree with block{i} entries; any
+    other tree as it is."""
+    if 'blocks' not in tree:
+        return tree
+    stacked = tree['blocks']
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+
+    def take(t, i):
+        return {k: take(v, i) for k, v in t.items()} if isinstance(t, dict) else np.asarray(t)[i]
+
+    out = {k: v for k, v in tree.items() if k != 'blocks'}
+    out.update({f'block{i}': take(stacked, i) for i in range(len(leaf))})
+    return out
+
+
 def params_from_jax(tree):
-    """JAX TransformerNet params -> state dict of the port's TransformerNet."""
+    """JAX TransformerNet params (either layout of its Blocks) -> state
+    dict of the port's TransformerNet."""
+    tree = unstack_blocks(tree)
     sd = {'pos_emb': _t(tree['pos_emb'])}
     sd.update(_linear(tree['embed'], 'embed'))
     i = 0

@@ -42,8 +42,8 @@ the same order as the on-device split; --stream_chunk=k stages (k, bs, ...)
 blocks, the last one partial, and every step weighs the same in the
 epoch's metrics (a partial block as much as its steps).
 
---mesh=data:N, model:N (with seq:N) and --fsdp=1 run under a process
-group, one process a mesh slot: `torchrun --nproc_per_node=N -m
+--mesh=data:N, model:N, pipe:N, expert:N (with seq:N) and --fsdp=1 run
+under a process group, one process a mesh slot: `torchrun --nproc_per_node=N -m
 generative_models_tpu_torch.main ...` (NCCL on the card, gloo with
 --device=cpu; parallel/mesh.py). Every rank draws the same epoch order and
 trains on its rows of each global batch, the metrics are global means, and
@@ -72,7 +72,7 @@ import torch
 from generative_models_tpu_torch import data as data_lib
 from generative_models_tpu_torch.models.base import mean_metrics
 from generative_models_tpu_torch.utils import (
-    count_vars, dump_logger, make_logger, make_writer, parse_args, prefix_dict,
+    dump_logger, make_logger, make_writer, parse_args, prefix_dict,
 )
 
 TOTAL_HEAVY_SAMPLES = 500  # the reference's sample count for eval_heavy
@@ -94,7 +94,7 @@ def load_model_and_data(argv=None):
         model.load_weights(G.logdir / 'model.pt')
         print(f'RESUMED {G.logdir} at step {model.step}')
     dataset = data_lib.load_mnist(G, model.device)
-    print('num_vars', count_vars(model.params))
+    print('num_vars', model.num_vars)
     autoencoder = classifier = None
     if G.eval_heavy:
         from generative_models_tpu_torch.models.arbiters import load_arbiter
@@ -252,7 +252,7 @@ def train(model, dataset, autoencoder, classifier, G):
             logger['dt/eval'] = [time.time() - eval_time]
 
             # ---- LOGGING / SAVE / HEAVY EVAL ----
-            logger['num_vars'] = [count_vars(model.params)]
+            logger['num_vars'] = [model.num_vars]
             if epoch % G.save_n == 0:
                 model.save(G.logdir)  # every rank gathers; rank 0 writes
                 print('SAVED MODEL', G.logdir)

@@ -33,9 +33,11 @@ Adam's step counters, the --grad_clip chain and the --grad_accum
 MultiSteps window, step and extra (load_jax_state). TrainState.rng has no
 torch counterpart: the model's generators keep their --seed streams.
 model.pt holds full tensors whatever the mesh: under a process group
-(parallel/mesh.py) save gathers every entry laid out on the mesh and rank 0
-writes, and load_weights, --resume and load_jax_state read a full state and
-lay it out again, so a checkpoint moves between meshes and one process.
+(parallel/mesh.py) save gathers every entry laid out on the mesh (the
+model and expert axes' slices, FSDP's shards, and the Blocks a pipe stage
+alone holds, broadcast from it) and rank 0 writes, and load_weights,
+--resume and load_jax_state read a full state and lay it out again, so a
+checkpoint moves between meshes and one process.
 Every checkpoint is read on the CPU, so a restored optimizer keeps Adam's
 step counters there, as a fresh one does, and its steps make no
 device-to-host copy. An Arbiter saves and loads the JAX package's
@@ -52,7 +54,6 @@ from torch import nn
 
 from generative_models_tpu_torch.ops.common import deterministic_convs, resolve_device  # noqa: F401
 from generative_models_tpu_torch.parallel import mesh as pmesh
-from generative_models_tpu_torch.parallel.mesh import seq_size
 from generative_models_tpu_torch.utils import dists
 from generative_models_tpu_torch.utils.config import AttrDict, dump_hps
 from generative_models_tpu_torch.utils.logger import write_grid, write_gridvid
@@ -155,7 +156,6 @@ class GM:
     """GenerativeModel base."""
 
     DG = AttrDict()  # model-specific config defaults
-    supports_ring = False  # whether --mesh=seq:N (N > 1) is ported
     # the native range of sample_fn / sample_images: eval_heavy compares
     # samples with the test set in that range; serving maps it to [0, 1]
     # (_serving_unit_range). gan's tanh generator and diffusion's clipped
@@ -167,16 +167,12 @@ class GM:
 
     def __init__(self, G):
         self.G = G
-        mesh = str(G.get('mesh', '') or '')
-        if seq_size(mesh) > 1 and not self.supports_ring:
-            raise NotImplementedError(
-                f'--mesh={mesh} is not ported yet for {type(self).__name__}: '
-                'it has no ring attention'
-            )
         # under torchrun (or a group joined already) this rank's device and
-        # the process group, then the mesh the models' collectives read
+        # the process group, then the mesh the models' collectives read; a
+        # model without ring attention replicates over seq, as the JAX
+        # package's GSPMD does
         self.device = pmesh.init_distributed(resolve_device(G.get('device', '')))
-        self.mesh = pmesh.Mesh(mesh, self.device)
+        self.mesh = pmesh.Mesh(str(G.get('mesh', '') or ''), self.device)
         pmesh.set_mesh(self.mesh)
         seed = int(G.get('seed', 0))
         self.net = self.build()
@@ -184,7 +180,18 @@ class GM:
         # weights whatever the device, and the mesh
         flax_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(self.device).eval()
-        # {state dict name: dims} of the entries the model axis slices
+        # the whole net's names, in order, and the entries a pipe stage
+        # alone holds ({name: stage}, with their full shapes): the full
+        # model's layout, which model.pt keeps whatever the mesh
+        self._full_param_names = [n for n, _ in self.net.named_parameters()]
+        self.num_vars = sum(p.numel() for p in self.net.parameters())  # logged as num_vars
+        full = self.net.state_dict()
+        self._full_sd_names = list(full)
+        self.stage_of = self.place_stages()
+        self._full_meta = {k: (full[k].shape, full[k].dtype) for k in self.stage_of}
+        del full
+        # {state dict name: dims} of the entries the model and expert axes
+        # slice
         self.layout = pmesh.shard_by_rules(self.net, self.param_sharding_rules(), self.mesh)
         self.post_build()
         self.fsdp_roots = []
@@ -223,9 +230,24 @@ class GM:
     # ------------------------------------------------------------------ #
     def param_sharding_rules(self):
         """[(regex on a state dict name, per-dim mesh axes)]: the entries the
-        model axis slices (the JAX package's param_sharding_rules); none by
-        default, every parameter replicated."""
+        model and expert axes slice (the JAX package's
+        param_sharding_rules); none by default, every parameter
+        replicated."""
         return []
+
+    def place_stages(self):
+        """Hook after the net is built and initialised: under the pipe
+        axis, drop the entries other pipe stages hold and return {state
+        dict name: its stage} of every entry one stage holds; {} by
+        default (every rank holds the whole net)."""
+        return {}
+
+    def split_axes(self, name):
+        """The axes over which the entry name is split, beside FSDP's data:
+        the model and expert axes where a rule slices it, pipe where one
+        stage holds it."""
+        axes = set(self.layout.get(name) or ()) & {pmesh.MODEL_AXIS, pmesh.EXPERT_AXIS}
+        return axes | ({pmesh.PIPE_AXIS} if name in self.stage_of else set())
 
     def post_build(self):
         """Hook after the net is built, initialised and laid out over the
@@ -252,18 +274,39 @@ class GM:
         pmesh.sync_grads(list(params), self.seq_split(), fsdp_done=bool(self.fsdp_roots))
 
     def net_state(self, module=None):
-        """module's (default self.net's) state dict as full tensors on every
-        rank: collective under a group."""
+        """module's (default self.net's, the whole net under the pipe axis)
+        state dict as full tensors on every rank: collective under a
+        group."""
         module = self.net if module is None else module
+        if module is self.net and self.stage_of:
+            own = module.state_dict()
+            return {k: self._full_entry(own.get(k), k) for k in self._full_sd_names}
         return {k: pmesh.gather_full(v, self.layout.get(k)) for k, v in module.state_dict().items()}
+
+    def _net_names(self):
+        """The names of the whole net's state dict (every pipe stage's)."""
+        return self._full_sd_names if self.stage_of else list(self.net.state_dict())
+
+    def _full_entry(self, t, name):
+        """The full tensor of the net's entry name, laid out as t on this
+        rank (None where another pipe stage holds it): gathered over the
+        axes that slice it, then broadcast from the stage that holds it.
+        Collective under a group."""
+        if t is not None:
+            t = pmesh.gather_full(t, self.layout.get(name))
+        if name in self.stage_of:
+            t = pmesh.stage_broadcast(t, self.stage_of[name], *self._full_meta[name], self.device)
+        return t
 
     def load_net_state(self, module, sd):
         """A full state dict into module (self.net, or a copy of it with its
-        names), laid out on the mesh."""
+        names), laid out on the mesh: under the pipe axis each rank takes
+        its stage's Blocks."""
         own = module.state_dict()
-        if set(own) != set(sd):
-            raise KeyError(f'state dict keys differ: missing {sorted(set(own) - set(sd))[:4]}, '
-                           f'unexpected {sorted(set(sd) - set(own))[:4]}')
+        names = set(own) | (set(self.stage_of) if module is self.net else set())
+        if names != set(sd):
+            raise KeyError(f'state dict keys differ: missing {sorted(names - set(sd))[:4]}, '
+                           f'unexpected {sorted(set(sd) - names)[:4]}')
         for k, dst in own.items():
             pmesh.put_(dst, sd[k], self.layout.get(k))
 
@@ -272,14 +315,32 @@ class GM:
         param."""
         return pmesh.layout_like(full, param, self.layout.get(name))
 
+    def _full_names(self, opt):
+        """The names of opt's parameters in the whole model, in its state
+        dict's order: under the pipe axis every stage's, whose moments
+        model.pt keeps."""
+        return self._full_param_names if self.stage_of and opt is self.opt else self._opt_names(opt)
+
     def _full_opt_state(self, opt):
-        """opt's state dict with its moments full (collective under a
-        group)."""
+        """opt's state dict with its moments full, indexed as the whole
+        model's parameters (collective under a group)."""
         sd = opt.state_dict()
-        names = self._opt_names(opt)
-        state = {i: {k: v if k == 'step' else pmesh.gather_full(v, self.layout.get(names[int(i)]))
-                     for k, v in st.items()} for i, st in sd['state'].items()}
-        return {'state': state, 'param_groups': sd['param_groups']}
+        local = self._opt_names(opt)
+        names = self._full_names(opt)
+        mine = {n: sd['state'].get(i) for i, n in enumerate(local)}
+        state = {}
+        # Adam steps every parameter at once: the ranks have state or none
+        some = next(iter(sd['state'].values()), None)
+        for j, n in enumerate(names):
+            st = mine.get(n)
+            if some is None or (st is None and n not in self.stage_of):
+                continue
+            state[j] = {k: (st or some)[k] if k == 'step' else
+                        self._full_entry(None if st is None else st[k], n) for k in some}
+        groups = sd['param_groups']
+        if len(names) != len(local):
+            groups = [dict(groups[0], params=list(range(len(names))))]
+        return {'state': state, 'param_groups': groups}
 
     def optimizers(self):
         """{name: optimizer} of every optimizer whose state save() keeps."""
@@ -345,7 +406,7 @@ class GM:
             return
         if self._norm_buckets is None:  # the layout is fixed from __init__ on
             self._norm_buckets = pmesh.norm_buckets(
-                grads, [n in self.layout for n in self._opt_names(self.opt)])
+                grads, [self.split_axes(n) for n in self._opt_names(self.opt)])
         norm = pmesh.global_sq_norm(grads, self._norm_buckets).sqrt()
         scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
         torch._foreach_mul_([pmesh.local(g) for g in grads], scale)
@@ -441,8 +502,8 @@ class GM:
         path = Path(path)
         acc = self._acc
         if acc is not None:
-            acc = [pmesh.gather_full(a, self.layout.get(n))
-                   for a, n in zip(acc, self._opt_names(self.opt))]
+            mine = dict(zip(self._opt_names(self.opt), acc))
+            acc = [self._full_entry(mine.get(n), n) for n in self._full_names(self.opt)]
         state = dict(
             net=self.net_state(), step=self.step, updates=self.updates,
             mini_step=self.mini_step, acc=acc, extra=self.extra_state(),
@@ -494,23 +555,31 @@ class GM:
             self._gen.set_state(gen)
 
     def _load_acc(self, acc):
-        """The --grad_accum window (full tensors, or None) laid out as
-        self.opt's parameters."""
+        """The --grad_accum window (full tensors in _full_names' order, or
+        None) laid out as self.opt's parameters."""
         if acc is None:
             self._acc = None
             return
+        full = dict(zip(self._full_names(self.opt), acc))
         params = [p for g in self.opt.param_groups for p in g['params']]
-        self._acc = [self._laid_out(a, p, n)
-                     for a, p, n in zip(acc, params, self._opt_names(self.opt))]
+        self._acc = [self._laid_out(full[n], p, n)
+                     for p, n in zip(params, self._opt_names(self.opt))]
 
     def _laid_out_opt(self, opt, sd):
-        """An optimizer state dict with full moments -> one laid out as
-        opt's parameters."""
-        names = self._opt_names(opt)
+        """An optimizer state dict with full moments, indexed as the whole
+        model's parameters (_full_names) -> one laid out as opt's."""
+        index = {n: j for j, n in enumerate(self._full_names(opt))}
         params = [p for g in opt.param_groups for p in g['params']]
-        state = {i: {k: v if k == 'step' else self._laid_out(v, params[int(i)], names[int(i)])
-                     for k, v in st.items()} for i, st in sd['state'].items()}
-        return {'state': state, 'param_groups': sd['param_groups']}
+        saved = {int(j): st for j, st in sd['state'].items()}
+        state = {}
+        for i, (p, n) in enumerate(zip(params, self._opt_names(opt))):
+            st = saved.get(index[n])
+            if st is not None:
+                state[i] = {k: v if k == 'step' else self._laid_out(v, p, n)
+                            for k, v in st.items()}
+        groups = [dict(g, params=own['params'])
+                  for g, own in zip(sd['param_groups'], opt.state_dict()['param_groups'])]
+        return {'state': state, 'param_groups': groups}
 
     # ------------------------------------------------------------------ #
     # a JAX package's model.pt
@@ -545,8 +614,8 @@ class GM:
         where a fresh Adam keeps it. Returns the count."""
         mu, nu = params_from_jax(adam['mu']), params_from_jax(adam['nu'])
         count = float(adam['count'])
-        state = {i: {'step': torch.tensor(count), 'exp_avg': mu[n], 'exp_avg_sq': nu[n]}
-                 for i, n in enumerate(self._opt_names(opt))}
+        state = {j: {'step': torch.tensor(count), 'exp_avg': mu[n], 'exp_avg_sq': nu[n]}
+                 for j, n in enumerate(self._full_names(opt))}
         opt.load_state_dict(self._laid_out_opt(
             opt, {'state': state, 'param_groups': opt.state_dict()['param_groups']}))
         return int(count)
@@ -566,7 +635,7 @@ class GM:
             raise ValueError(f'{path}: not a JAX TrainState (no {", ".join(missing)})')
         try:
             sd = self.net_state_from_jax(tree)
-            own = self.net.state_dict()
+            own = self._net_names()
             absent = sorted(set(own) - set(sd))
             if absent:
                 raise KeyError(f'no entry for {absent[:4]}')
@@ -587,7 +656,7 @@ class GM:
                 self.updates = int(window['gradient_step'])
                 self.mini_step = int(window['mini_step'])
                 acc = conv(window['acc_grads'])
-                self._load_acc([acc[n] for n in self._opt_names(self.opt)])
+                self._load_acc([acc[n] for n in self._full_names(self.opt)])
             self.load_jax_extra(tree.get('extra') or {})
         except (KeyError, TypeError, RuntimeError) as e:
             raise ValueError(

@@ -23,6 +23,18 @@ the ranks before it. The model axis splits the experts' hidden dim
 (moe_rules(with_model=True)): the FFN's input reads tp_copy and its output
 is summed by tp_reduce before bo.
 
+The expert axis splits the stacked leaves' leading dim, E / expert
+experts a rank (moe_rules), with the batch over data alone, as the JAX
+package lays it out: the expert ranks of a data group see the same
+tokens and route them alike; each dispatches to its own experts, runs
+their FFNs and combines their share, and the shares are summed over the
+axis (tp_reduce, the identity backward). The FFN's input and the gates
+enter through the axis's copy (tp_copy), so their gradients, each rank's
+share, are summed too and the router and everything below it get the
+whole gradient; the aux loss reads the probabilities directly (every rank
+computes the same), its f and p global means over data, as tokens do not
+move between expert ranks.
+
 The decode step is the dense form over all experts (:106-115): drop-free,
 so it equals the forward wherever no token overflowed.
 """
@@ -35,7 +47,7 @@ from torch import nn
 
 from generative_models_tpu_torch.ops.common import matmul_dtype
 from generative_models_tpu_torch.parallel.mesh import (
-    EXPERT_AXIS, MODEL_AXIS, batch_mean, tp_copy, tp_reduce,
+    EXPERT_AXIS, MODEL_AXIS, axis_slice, batch_mean, tp_copy, tp_reduce,
 )
 
 
@@ -100,14 +112,17 @@ class MoEMLP(nn.Module):
         kept = onehot * (pos_in_e < cap)[..., None]
         slot = (pos_in_e[..., None] == torch.arange(cap, device=x.device)).to(x.dtype)
         dispatch = kept[..., None] * slot[:, :, None, :]  # (B, T, E, cap)
-        combine = dispatch * gate[..., None, None]
+        # this rank's experts (all of them but under the expert axis)
+        mine = axis_slice(EXPERT_AXIS, E)
+        dispatch = dispatch[:, :, mine]
+        combine = dispatch * tp_copy(gate, EXPERT_AXIS)[..., None, None]
 
-        xe = torch.einsum('btec,btm->ebcm', dispatch, tp_copy(x))
+        xe = torch.einsum('btec,btm->ebcm', dispatch, tp_copy(tp_copy(x, EXPERT_AXIS)))
         h = F.gelu(torch.einsum('ebcm,emh->ebch', _op(xe), _op(self.wi))
                    + self.bi[:, None, None, :], approximate='tanh')
         ye = tp_reduce(torch.einsum('ebch,ehm->ebcm', _op(h), _op(self.wo)))
         ye = ye + self.bo[:, None, None, :]
-        return torch.einsum('ebcm,btec->btm', ye, combine), aux
+        return tp_reduce(torch.einsum('ebcm,btec->btm', ye, combine), EXPERT_AXIS), aux
 
     @staticmethod
     def _earlier_counts(counts, group):
@@ -121,19 +136,20 @@ class MoEMLP(nn.Module):
 
     def step(self, x):
         """One decode step, x (B, C) -> (B, C): every expert's FFN on the
-        batch and the routed one's output, times its gate."""
+        batch (this rank's experts, their outputs summed over the expert
+        axis) and the routed one's output, times its gate."""
         gate, idx, _ = self._route(x)
         h = F.gelu(torch.einsum('bm,emh->beh', _op(tp_copy(x)), _op(self.wi)) + self.bi[None],
                    approximate='tanh')
         ye = tp_reduce(torch.einsum('beh,ehm->bem', _op(h), _op(self.wo))) + self.bo[None]
-        sel = F.one_hot(idx, self.n_experts).to(x.dtype)
-        return torch.einsum('bem,be->bm', ye, sel) * gate[:, None]
+        sel = F.one_hot(idx, self.n_experts).to(x.dtype)[:, axis_slice(EXPERT_AXIS, self.n_experts)]
+        return tp_reduce(torch.einsum('bem,be->bm', ye, sel), EXPERT_AXIS) * gate[:, None]
 
 
 def moe_rules(with_model=False):
     """The layout of MoEMLP's stacked leaves, torch names: the expert axis
-    leading (size 1 in this port: parallel/mesh.py), with a model axis the
-    hidden dim split over it (Megatron TP composed on the experts)."""
+    leading, with a model axis the hidden dim split over it (Megatron TP
+    composed on the experts)."""
     h = MODEL_AXIS if with_model else None
     return [
         (r'moe\.wi$', (EXPERT_AXIS, None, h)),

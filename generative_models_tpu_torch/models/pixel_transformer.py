@@ -37,9 +37,18 @@ product; the MoE's hidden dim), with the decode on the module-by-module
 step above model:1; and with seq > 1 dividing the sequence each rank its
 chunk of it, attention the ring over the axis's ranks. Kernels C, E and D
 (K, L and M on the ring) take each rank's local tensors, (B/data,
-H/model, T, D). It is the only model that sets supports_ring: the others
-refuse seq:N above 1 (models/base.py). Not ported yet, and refused: the
-pipe axis (parallel/mesh.py).
+H/model, T, D). It is the only model with ring attention: the others
+replicate over seq. The pipe axis (--mesh=pipe:S, S dividing n_layer, the
+JAX package's use_pipe rule) runs the Blocks as S GPipe stages over its
+ranks (parallel/pipeline.py: M microbatches, M + S - 1 ticks, Kernels C,
+E and D once a tick and layer), each rank holding its stage's Blocks and
+their Adam moments under their global names; pipe:1 runs the schedule in
+one process. Its decode hands each step's activations from stage to stage
+(each stage its layers' KV caches) and broadcasts the last stage's
+logits, without Kernels A and B, as the JAX package turns its fused
+decode off under pipe. The expert axis splits the MoE's experts
+(models/moe.py). Refused, as the JAX package cannot build them: pipe with
+ring attention, MoE inside the GPipe stack.
 """
 
 import functools
@@ -61,7 +70,10 @@ from generative_models_tpu_torch.ops.decode_fused import (
 )
 from generative_models_tpu_torch.models.moe import MoEMLP, moe_rules
 from generative_models_tpu_torch.parallel.mesh import (
-    MODEL_AXIS, SEQ_AXIS, get_mesh, ring_size, tp_copy, tp_reduce,
+    MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, get_mesh, parse_mesh_spec, ring_size, tp_copy, tp_reduce,
+)
+from generative_models_tpu_torch.parallel.pipeline import (
+    pipe_group, pipeline_apply, stage_broadcast_last, stage_recv, stage_send, stage_layers,
 )
 from generative_models_tpu_torch.parallel.ring_attention import ring_causal_attention
 from generative_models_tpu_torch.utils import dists, register
@@ -180,11 +192,15 @@ class TransformerNet(nn.Module):
     activations (nn.remat in the JAX package). ring > 1 runs the full
     forward's attention through a ring of that many chunks (use_ring).
     n_experts > 0: MoE blocks (moe_cap their capacity factor). module_step:
-    the decode takes _module_step (MoE, the model axis, quantization)."""
+    the decode takes _module_step (MoE, the model axis, quantization).
+    pipe > 0: the Blocks run as that many pipeline stages over the pipe
+    axis (parallel/pipeline.py), a stage's n_layer / pipe Blocks on each of
+    its ranks (drop_other_stages leaves the others' slots empty, so the
+    names stay blocks.{i}); pipe 0: one sequential stack."""
 
     def __init__(self, in_size, block_size, n_embed, n_head, n_layer,
                  head='bin', use_fused_decode=True, remat=False, ring=1,
-                 n_experts=0, moe_cap=2.0, module_step=False):
+                 n_experts=0, moe_cap=2.0, module_step=False, pipe=0):
         super().__init__()
         self.in_size = in_size
         self.block_size = block_size
@@ -195,6 +211,7 @@ class TransformerNet(nn.Module):
         self.ring = ring
         self.n_experts = n_experts
         self.module_step = module_step or bool(n_experts)
+        self.pipe = pipe
         self.pos_emb = nn.Parameter(torch.zeros(1, block_size, n_embed))
         self.embed = nn.Linear(in_size, n_embed, bias=False)
         self.blocks = nn.ModuleList(Block(n_embed, n_head, ring, n_experts, moe_cap)
@@ -206,6 +223,27 @@ class TransformerNet(nn.Module):
     @property
     def use_ring(self):
         return self.ring > 1
+
+    @property
+    def use_pipe(self):
+        return self.pipe > 0
+
+    def stage_blocks(self):
+        """[(i, Block)] of the Blocks this rank holds (all of them but under
+        the pipe axis's group), in order."""
+        return [(i, b) for i, b in enumerate(self.blocks) if isinstance(b, Block)]
+
+    def drop_other_stages(self, stage):
+        """Keep the Blocks of pipeline stage `stage` alone; the others'
+        slots hold an empty module."""
+        keep = stage_layers(len(self.blocks), self.pipe, stage)
+        for i in range(len(self.blocks)):
+            if i not in keep:
+                self.blocks[i] = nn.Module()
+
+    def _group(self):
+        """The pipe axis's group when the Blocks are split over its ranks."""
+        return pipe_group() if self.use_pipe else None
 
     def seq_group(self):
         """The seq axis's group when this rank holds a chunk of the
@@ -230,33 +268,41 @@ class TransformerNet(nn.Module):
         group, sl = self.seq_group(), self.seq_slice(T)
         h = dense(x[:, sl], self.embed) + self.pos_emb[:, :T][:, sl]
         remat = self.remat and torch.is_grad_enabled()
+        run = (lambda block, h: checkpoint(block, h, group, use_reentrant=False)) if remat else (
+            lambda block, h: block(h, group))
         auxes = []
-        for block in self.blocks:
-            h = checkpoint(block, h, group, use_reentrant=False) if remat else block(h, group)
-            if isinstance(h, tuple):
-                h, aux = h
-                auxes.append(aux)
+        if self.use_pipe:
+            def stage(h):
+                for _, block in self.stage_blocks():
+                    h = run(block, h)
+                return h
+
+            h = pipeline_apply(stage, h, group=self._group())
+        else:
+            for block in self.blocks:
+                h = run(block, h)
+                if isinstance(h, tuple):
+                    h, aux = h
+                    auxes.append(aux)
         dist = self.head_layer(self.ln_f(h))
         if not with_aux:
             return dist
         return dist, (sum(auxes) / len(auxes) if auxes else None)
 
     def init_cache(self, batch):
-        """One (T, batch, 2, C) packed T-major K/V cache per layer (C / model
-        under TP: this rank's heads)."""
+        """One (T, batch, 2, C) packed T-major K/V cache per layer this rank
+        holds (C / model under TP: this rank's heads)."""
         dev = self.pos_emb.device
-        shape = (self.block_size, batch, 2, self.blocks[0].attn.query.weight.shape[0])
-        return [
-            torch.zeros(shape, dtype=decode_cache_dtype(dev), device=dev)
-            for _ in self.blocks
-        ]
+        blocks = [b for _, b in self.stage_blocks()]
+        shape = (self.block_size, batch, 2, blocks[0].attn.query.weight.shape[0])
+        return [torch.zeros(shape, dtype=decode_cache_dtype(dev), device=dev) for _ in blocks]
 
     def decode_params(self):
         """The decode chain's loop-invariant params, built once per pass."""
         dt = matmul_dtype(self.pos_emb.device)
         hd = self.head_layer.dense
         return dict(
-            layers=[b.fused_layer_params(dt) for b in self.blocks],
+            layers=[b.fused_layer_params(dt) for _, b in self.stage_blocks()],
             ln_f_scale=self.ln_f.weight, ln_f_bias=self.ln_f.bias,
             whead=_kernel_weight(hd, dtype=dt), bhead=hd.bias,
         )
@@ -286,7 +332,7 @@ class TransformerNet(nn.Module):
             lm = functools.partial(ln_matmul_plain, dtype=dt)
             bt = functools.partial(block_tail_plain, dtype=dt)
         C = self.n_embed
-        h = dense(prev_token, self.embed) + self.pos_emb[0].select(0, t)
+        h = self._stage_in(dense(prev_token, self.embed) + self.pos_emb[0].select(0, t))
         written = []
         for lp, cache in zip(params['layers'], caches):
             qkv = lm(h, lp['ln1_scale'], lp['ln1_bias'], lp['wqkv'], lp['bqkv'])
@@ -294,8 +340,29 @@ class TransformerNet(nn.Module):
             y = decode_step_attention(qkv[:, :C], cache[:rows], t, self.n_head, pos)
             h = bt(h, y, lp)
             written.append(cache)
-        return lm(h, params['ln_f_scale'], params['ln_f_bias'],
-                  params['whead'], params['bhead']), written
+        return self._stage_out(h, lambda h: lm(h, params['ln_f_scale'], params['ln_f_bias'],
+                                               params['whead'], params['bhead'])), written
+
+    def _stage_in(self, h):
+        """A decode step's input to this rank's Blocks: h, or under the pipe
+        axis's group the output of the stage before (stage 0 keeps h)."""
+        g = self._group()
+        return h if g is None or g.rank() == 0 else stage_recv(h, g)
+
+    def _stage_out(self, h, head):
+        """A decode step's logits from this rank's last Block's output h:
+        head(h), or under the pipe axis's group h sent on to the next stage
+        and the last stage's head(h) broadcast to every stage, so each
+        draws the same token."""
+        g = self._group()
+        if g is None:
+            return head(h)
+        if g.rank() < g.size() - 1:
+            stage_send(h, g)
+            logits = h.new_empty((h.shape[0], self.in_size))
+        else:
+            logits = head(h)
+        return stage_broadcast_last(logits, g)
 
     def _module_step(self, prev_token, caches, t, quant=None, rows=None, pos=None):
         """One decode step module by module (the JAX package's
@@ -308,12 +375,14 @@ class TransformerNet(nn.Module):
         column-parallel products give this rank's heads and hidden units,
         the row-parallel ones are summed over the axis (tp_reduce). Returns
         as step."""
-        lin = quant.linear if quant is not None else (lambda x, name, layer: dense(x, layer))
-        row = lin if get_mesh().group(MODEL_AXIS) is None else (lambda x, name, layer:
-                                                                dense(x, layer, tp_reduce))
-        h = lin(prev_token, 'embed', self.embed) + self.pos_emb[0].select(0, t)
+        if quant is not None:  # refused above model:1 (serve.py), so no product is split
+            lin = row = quant.linear
+        else:
+            lin = lambda x, name, layer: dense(x, layer)
+            row = lambda x, name, layer: dense(x, layer, tp_reduce)
+        h = self._stage_in(lin(prev_token, 'embed', self.embed) + self.pos_emb[0].select(0, t))
         written = []
-        for i, (blk, cache) in enumerate(zip(self.blocks, caches)):
+        for (i, blk), cache in zip(self.stage_blocks(), caches):
             pre, a = f'blocks.{i}.', blk.attn
             x = _ln(h, blk.ln1.weight, blk.ln1.bias)
             q = lin(x, pre + 'attn.query', a.query)
@@ -328,8 +397,8 @@ class TransformerNet(nn.Module):
                 g = lin(x, pre + 'fc1', blk.fc1)
                 h = h + row(F.gelu(g, approximate='tanh'), pre + 'fc2', blk.fc2)
             written.append(cache)
-        hf = _ln(h, self.ln_f.weight, self.ln_f.bias)
-        return lin(hf, 'head_layer.dense', self.head_layer.dense), written
+        return self._stage_out(h, lambda h: lin(_ln(h, self.ln_f.weight, self.ln_f.bias),
+                                                'head_layer.dense', self.head_layer.dense)), written
 
 
 @torch.no_grad()
@@ -408,7 +477,6 @@ class PixelTransformer(Autoreg):
     DG.moe_experts = 0  # > 0: a top-1 MoE of that many experts in every Block
     DG.moe_cap = 2.0
     DG.moe_aux = 0.01
-    supports_ring = True
 
     def __init__(self, G):
         self.side = 32 if G.get('pad32', 0) else 28
@@ -421,12 +489,27 @@ class PixelTransformer(Autoreg):
         # sequence parallelism: --mesh=seq:N routes attention through a ring
         # of N chunks when N > 1 divides the sequence; the decode chain then
         # takes the per-op path, as in the JAX package, and so it does under
-        # MoE and above model:1
+        # MoE, the pipe axis and above model:1
         ring = ring_size(mesh.spec, self.block_size)
         n_experts = int(G.get('moe_experts', 0))
         tp = mesh.size(MODEL_AXIS)
         if int(G.n_head) % tp:
             raise ValueError(f'--n_head={G.n_head} does not split over model:{tp}')
+        # pipeline parallelism: --mesh=pipe:S with S dividing n_layer runs the
+        # Blocks as S GPipe stages (parallel/pipeline.py); pipe:1 runs the
+        # whole machinery in one process (the JAX package's use_pipe rule)
+        S = mesh.size(PIPE_AXIS)
+        use_pipe = PIPE_AXIS in dict(parse_mesh_spec(mesh.spec)) and int(G.n_layer) % S == 0
+        if use_pipe and n_experts:
+            raise ValueError('MoE blocks inside the GPipe stack are not supported yet: the '
+                             'aux loss cannot cross the pipeline (--moe_experts with --mesh=pipe)')
+        if use_pipe and ring > 1:
+            # the JAX package fails to build it: its stacked Block init traces a
+            # one-token sequence through the ring, which refuses to split it
+            raise NotImplementedError(
+                f'--mesh={mesh.spec}: the pipe axis with ring attention (seq:{ring}) is not '
+                'ported yet to generative_models_tpu_torch, as the JAX package cannot build '
+                'it (its stacked Block init runs a one-token sequence through the ring)')
         return TransformerNet(
             in_size=1,
             block_size=self.block_size,
@@ -434,14 +517,27 @@ class PixelTransformer(Autoreg):
             n_head=int(G.n_head),
             n_layer=int(G.n_layer),
             head='bin',
-            use_fused_decode=(bool(G.get('fused_decode', 1)) and ring == 1
+            use_fused_decode=(bool(G.get('fused_decode', 1)) and ring == 1 and not use_pipe
                               and not n_experts and tp == 1),
             remat=bool(G.get('remat', 0)),
             ring=ring,
             n_experts=n_experts,
             moe_cap=float(G.get('moe_cap', 2.0)),
             module_step=tp > 1,
+            pipe=S if use_pipe else 0,
         )
+
+    def place_stages(self):
+        """Under the pipe axis, keep this rank's stage's Blocks alone:
+        {state dict name: the stage that holds it} of every Block entry."""
+        if not self.net.use_pipe:
+            return {}
+        S = self.net.pipe
+        stage_of = {i: s for s in range(S) for i in stage_layers(len(self.net.blocks), S, s)}
+        names = {k: stage_of[int(k.split('.')[1])] for k in self.net.state_dict()
+                 if k.startswith('blocks.')}
+        self.net.drop_other_stages(self.mesh.rank(PIPE_AXIS))
+        return names
 
     def param_sharding_rules(self):
         return transformer_rules(self.net.n_experts)

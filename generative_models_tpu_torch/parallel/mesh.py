@@ -13,8 +13,8 @@ that contract with one process a rank:
     under torchrun --nproc_per_node=1 makes the calls N cards would;
   * without one, only seq may exceed 1 (the one-card rule, a recorded
     deviation, ROADMAP.md queue 3): parallel/ring_attention.py runs all N
-    ring positions on one card, the rotation an index. A data or model axis
-    above 1 raises and names torchrun.
+    ring positions on one card, the rotation an index. A data, model, pipe
+    or expert axis above 1 raises and names torchrun.
 
 The axes, each as the JAX package lays it out:
   * data: each rank takes its rows of every global batch (data/mnist.py),
@@ -27,10 +27,20 @@ The axes, each as the JAX package lays it out:
     forward, all-reduce of the gradient), a row-parallel one ends in
     tp_reduce (all-reduce forward, identity backward) before its bias;
   * seq: under a group, each rank holds its chunk of the sequence and ring
-    attention rotates K/V between the ranks of the axis;
+    attention rotates K/V between the ranks of the axis; a model without
+    ring attention replicates over seq (its seq ranks compute the same
+    rows, as the JAX package's GSPMD does);
+  * pipe: pixel_transformer's Blocks split into stages, a stage a rank
+    (parallel/pipeline.py, GPipe): the ranks of the axis hold different
+    entries of the state (stage_broadcast gathers them into model.pt);
+  * expert: MoE's stacked expert leaves split over the axis
+    (shard_by_rules, the leading dim), the batch over data alone, so the
+    expert ranks of a data group see the same tokens;
   * --fsdp=1: FSDP2 fully_shard over the data axis's sub-mesh (fsdp), on
-    top of the model axis's local slices.
-pipe and expert above 1 are refused by name (Mesh).
+    top of the model and expert axes' local slices.
+Without a group pipe:1 and expert:1 build (pipe:1 runs the whole pipeline
+machinery in one process, as the JAX package's); above 1 they need
+torchrun, as data and model do.
 
 The process's mesh is global (get_mesh / set_mesh), as the JAX package's:
 GM.__init__ installs its model's, and the models' collectives read it.
@@ -94,6 +104,12 @@ def grouped():
     return dist.is_available() and dist.is_initialized()
 
 
+def launched():
+    """Whether this process is, or is to be, a rank of a process group:
+    torchrun's env (RANK and WORLD_SIZE), or a group joined already."""
+    return ('RANK' in os.environ and 'WORLD_SIZE' in os.environ) or grouped()
+
+
 def init_distributed(device):
     """The env-gated init (maybe_initialize_distributed): under torchrun
     (RANK and WORLD_SIZE in the environment) join the process group, NCCL
@@ -101,12 +117,11 @@ def init_distributed(device):
     FileStore group). Returns the device this rank runs on: cuda:LOCAL_RANK
     for a bare cuda device under a group."""
     dist = _dist()
-    env = 'RANK' in os.environ and 'WORLD_SIZE' in os.environ
-    if device.type == 'cuda' and device.index is None and (env or grouped()):
+    if device.type == 'cuda' and device.index is None and launched():
         device = torch.device('cuda', int(os.environ.get('LOCAL_RANK', 0)))
     if device.type == 'cuda' and device.index is not None:
         torch.cuda.set_device(device)
-    if env and not grouped():
+    if launched() and not grouped():
         if device.type == 'cuda':
             dist.init_process_group('nccl', device_id=device)
         else:
@@ -116,8 +131,8 @@ def init_distributed(device):
 
 class _Reduce(torch.autograd.Function):
     """all_reduce(SUM) over group in the forward; the backward is the
-    identity (grad_sum False: tp_reduce) or an all_reduce(SUM) of the
-    gradient (batch_sum)."""
+    identity (grad_sum False: tp_reduce, a broadcast of the last pipe
+    stage's output) or an all_reduce(SUM) of the gradient (batch_sum)."""
 
     @staticmethod
     def forward(ctx, x, group, grad_sum):
@@ -136,7 +151,8 @@ class _Reduce(torch.autograd.Function):
 
 class _Copy(torch.autograd.Function):
     """The identity in the forward, all_reduce(SUM) of the gradient in the
-    backward (Megatron's f before a column-parallel product)."""
+    backward (Megatron's f before a column-parallel product; the input of
+    a pipeline or of the local experts)."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -162,12 +178,7 @@ class Mesh:
         if unknown:
             raise ValueError(f'--mesh={self.spec}: unknown axis {unknown}; the axes are {AXES}')
         sizes = dict(axes)
-        for a in (PIPE_AXIS, EXPERT_AXIS):
-            if sizes.get(a, 1) > 1:
-                raise NotImplementedError(
-                    f'--mesh={self.spec}: the {a} axis is not ported yet to '
-                    'generative_models_tpu_torch (data, model and seq are)')
-        self.sizes = {a: sizes.get(a, 1) for a in (DATA_AXIS, MODEL_AXIS, SEQ_AXIS)}
+        self.sizes = {a: sizes.get(a, 1) for a in AXES}
         self.grouped = grouped()
         self.dm = None
         if not self.grouped:
@@ -245,17 +256,19 @@ def set_mesh(mesh):
 # ---------------------------------------------------------------------- #
 # collectives the models call (identities without a group)
 # ---------------------------------------------------------------------- #
-def tp_copy(x):
-    """Before a column-parallel product: x, its gradient summed over the
-    model axis."""
-    g = get_mesh().group(MODEL_AXIS)
+def tp_copy(x, axis=MODEL_AXIS):
+    """Before a column-parallel product (or where the ranks of axis each
+    read x for a share of the work: a pipeline's input, the local
+    experts'): x, its gradient summed over the axis."""
+    g = get_mesh().group(axis)
     return x if g is None else _Copy.apply(x, g)
 
 
-def tp_reduce(x):
-    """After a row-parallel product (before its bias): the sum of the model
-    axis's partial products; the gradient passes through."""
-    g = get_mesh().group(MODEL_AXIS)
+def tp_reduce(x, axis=MODEL_AXIS):
+    """After a row-parallel product (before its bias), or of partial sums
+    over the axis's ranks (the local experts' combine, the last pipe
+    stage's output): their sum; the gradient passes through."""
+    g = get_mesh().group(axis)
     return x if g is None else _Reduce.apply(x, g, False)
 
 
@@ -277,11 +290,16 @@ def batch_mean(x, seq_split=False):
     return batch_sum(x, seq_split) / mesh.batch_shards(seq_split)
 
 
+def axis_slice(axis, n):
+    """This rank's slice of n entries split over axis."""
+    mesh = get_mesh()
+    m, r = mesh.size(axis), mesh.rank(axis)
+    return slice(r * n // m, (r + 1) * n // m)
+
+
 def model_slice(n):
     """This rank's slice of n features split over the model axis."""
-    mesh = get_mesh()
-    m, r = mesh.size(MODEL_AXIS), mesh.rank(MODEL_AXIS)
-    return slice(r * n // m, (r + 1) * n // m)
+    return axis_slice(MODEL_AXIS, n)
 
 
 def data_slice(n):
@@ -294,8 +312,12 @@ def data_slice(n):
 
 
 # ---------------------------------------------------------------------- #
-# parameter layout: the model axis's slices, FSDP over data
+# parameter layout: the model and expert axes' slices, FSDP over data,
+# pipe stages
 # ---------------------------------------------------------------------- #
+SLICED = (MODEL_AXIS, EXPERT_AXIS)  # the axes a rule slices a leaf over
+
+
 def _rule_dims(name, shape, rules, mesh):
     """The first rule matching name: its per-dim axes when its rank fits
     and every sharded dim divides (shard_by_rules' test), else None."""
@@ -310,25 +332,31 @@ def _rule_dims(name, shape, rules, mesh):
 
 def shard_by_rules(module, rules, mesh=None):
     """Keep this rank's slice of every parameter of module that a rule
-    shards over the model axis: rules [(regex on the state dict's name,
-    per-dim axes)], the first match wins, as the JAX package's (a rule
-    whose rank does not fit, or whose dims do not divide, leaves the leaf
-    whole). Returns {name: dims} of the sliced entries; every size
-    counts, 1 too, so the layout is the same at model:1."""
+    shards over the model or expert axis: rules [(regex on the state
+    dict's name, per-dim axes)], the first match wins, as the JAX
+    package's (a rule whose rank does not fit, or whose dims do not
+    divide, leaves the leaf whole). Returns {name: dims} of the sliced
+    entries; every size counts, 1 too, so the layout is the same at
+    model:1 and expert:1."""
     mesh = mesh or get_mesh()
     layout = {}
     if mesh.dm is None:
         return layout
-    m, r = mesh.size(MODEL_AXIS), mesh.rank(MODEL_AXIS)
     with torch.no_grad():
         for name, p in module.named_parameters():
             dims = _rule_dims(name, p.shape, rules, mesh)
-            if dims is None or MODEL_AXIS not in dims:
+            if dims is None or not set(SLICED) & set(dims):
                 continue
-            d = dims.index(MODEL_AXIS)
-            n = p.shape[d]
-            p.data = p.data.narrow(d, r * n // m, n // m).contiguous()
-            p.tp_dim = d  # fsdp_placement leaves it to the model axis
+            data = p.data
+            for axis in SLICED:
+                if axis in dims:
+                    d = dims.index(axis)
+                    data = data.narrow(d, *_slice_of(axis, data.shape[d]))
+            p.data = data.contiguous()
+            if MODEL_AXIS in dims:
+                p.tp_dim = dims.index(MODEL_AXIS)  # fsdp_placement leaves it to the model axis
+            p.full_numel = math.prod(p.shape) * math.prod(
+                mesh.size(a) for a in SLICED if a in dims)
             layout[name] = dims
     return layout
 
@@ -342,7 +370,7 @@ def fsdp_placement(p, n):
     from torch.distributed.tensor import Shard
 
     tp = getattr(p, 'tp_dim', None)
-    size = p.numel() * (get_mesh().size(MODEL_AXIS) if tp is not None else 1)  # the full leaf's
+    size = getattr(p, 'full_numel', p.numel())  # the full leaf's
     free = [(d, i) for i, d in enumerate(p.shape) if d % n == 0 and i != tp]
     return Shard(max(free)[1] if free and size >= FSDP_MIN_SIZE else 0)
 
@@ -395,26 +423,48 @@ def local(t):
 
 def gather_full(t, dims=None):
     """The full tensor of an entry laid out on the mesh: a DTensor's
-    all-gather over data (FSDP), then the model axis's slices concatenated
-    (dims: the entry's shard_by_rules dims). Collective under a group."""
+    all-gather over data (FSDP), then the model and expert axes' slices
+    concatenated (dims: the entry's shard_by_rules dims). Collective under
+    a group."""
     if hasattr(t, 'full_tensor'):
         t = t.full_tensor()
+    t = t.detach()
     if dims is None:
-        return t.detach()
+        return t
     mesh = get_mesh()
-    dist = _dist()
-    parts = [torch.empty_like(t) for _ in range(mesh.size(MODEL_AXIS))]
-    dist.all_gather(parts, t.detach().contiguous(), group=mesh.group(MODEL_AXIS))
-    return torch.cat(parts, dims.index(MODEL_AXIS))
+    for axis in SLICED:
+        if axis in dims:
+            parts = [torch.empty_like(t) for _ in range(mesh.size(axis))]
+            _dist().all_gather(parts, t.contiguous(), group=mesh.group(axis))
+            t = torch.cat(parts, dims.index(axis))
+    return t
+
+
+def stage_broadcast(t, stage, shape, dtype, device):
+    """An entry that one pipe stage holds (a Block of its stage), from
+    that stage's ranks to the others of the pipe axis: t on the holder,
+    None elsewhere (a tensor of shape and dtype on device is received).
+    t itself without a group."""
+    mesh = get_mesh()
+    if mesh.dm is None:
+        return t
+    if t is None:
+        t = torch.empty(shape, dtype=dtype, device=device)
+    t = t.contiguous()
+    g = mesh.group(PIPE_AXIS)
+    _dist().broadcast(t, src=_dist().get_global_rank(g, stage), group=g)
+    return t
 
 
 def layout_like(full, like, dims=None):
-    """full laid out as like: its model-axis slice (dims as gather_full's),
-    then, where like is a DTensor, its FSDP shard (no collective)."""
+    """full laid out as like: its model and expert axes' slices (dims as
+    gather_full's), then, where like is a DTensor, its FSDP shard (no
+    collective)."""
     full = full.to(like.device, like.dtype)
-    if dims is not None:
-        d = dims.index(MODEL_AXIS)
-        full = full.narrow(d, *_slice_of(full.shape[d]))
+    for axis in SLICED:
+        if dims is not None and axis in dims:
+            d = dims.index(axis)
+            full = full.narrow(d, *_slice_of(axis, full.shape[d]))
     if hasattr(like, 'device_mesh'):
         from torch.distributed.tensor import distribute_tensor
 
@@ -422,8 +472,8 @@ def layout_like(full, like, dims=None):
     return full.contiguous()
 
 
-def _slice_of(n):
-    s = model_slice(n)
+def _slice_of(axis, n):
+    s = axis_slice(axis, n)
     return s.start, s.stop - s.start
 
 
@@ -463,30 +513,50 @@ def sync_grads(params, seq_split=False, fsdp_done=False):
         g.copy_(v)
 
 
-def norm_buckets(grads, sliced):
-    """The (4, n) 0/1 weights by which global_sq_norm sums its entries'
-    squares into buckets: replicated, FSDP-sharded over data, sliced over
-    model by a rule, both (sliced: each grad's shard_by_rules flag). The
-    layout never changes, so a caller makes them once."""
-    kinds = [int(hasattr(g, 'to_local')) + 2 * int(s) for g, s in zip(grads, sliced)]
+NORM_AXES = (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS, PIPE_AXIS)  # the bits of a norm bucket
+
+
+def norm_buckets(grads, split):
+    """How global_sq_norm sums its entries' squares: (weights, axes).
+    weights: the (16, n) 0/1 matrix that puts each entry in its bucket, one
+    a set of axes the entry is split over: data where FSDP shards it (a
+    DTensor), and those of split (each grad's axes among model, expert and
+    pipe: a rule's slices, a pipe stage's own entry). axes: the (bit, axis)
+    pairs to all-reduce over, those above size 1 that some entry is split
+    over. The layout never changes, so a caller makes them once."""
+    kinds = [int(hasattr(g, 'to_local'))
+             + sum(2 ** NORM_AXES.index(a) for a in set(axes) if a in NORM_AXES[1:])
+             for g, axes in zip(grads, split)]
     dev = local(grads[0]).device if grads else None
-    return torch.nn.functional.one_hot(torch.tensor(kinds, dtype=torch.long), 4).T.float().to(dev)
+    n = 2 ** len(NORM_AXES)
+    weights = torch.nn.functional.one_hot(torch.tensor(kinds, dtype=torch.long), n).T.float()
+    mesh = get_mesh()
+    axes = tuple((bit, axis) for bit, axis in enumerate(NORM_AXES)
+                 if mesh.dm is not None and mesh.size(axis) > 1
+                 and any(k >> bit & 1 for k in kinds))
+    return weights.to(dev), axes
 
 
 def global_sq_norm(grads, buckets):
     """The squared global norm of grads on the mesh: each entry's local
-    sum of squares, summed over data where FSDP shards it and over model
-    where a rule slices it (buckets: norm_buckets' weights); a replicated
-    entry counts once. No host sync."""
+    sum of squares, summed over every axis its bucket splits it over
+    (buckets: norm_buckets' (weights, axes); one all-reduce an axis of
+    axes); a replicated entry counts once. No host sync."""
     if not grads:
         return torch.zeros(())
     sq = torch.stack([local(g).float().square().sum() for g in grads])
-    mesh = get_mesh()
-    if mesh.dm is None:
+    weights, axes = buckets
+    if not axes:
         return sq.sum()
-    parts = (buckets * sq).sum(1)
-    data_part = torch.stack([parts[1], parts[3]])  # no index tensor from the host
-    _dist().all_reduce(data_part, group=mesh.group(DATA_AXIS))
-    model_part = torch.stack([parts[2], data_part[1]])
-    _dist().all_reduce(model_part, group=mesh.group(MODEL_AXIS))
-    return parts[0] + data_part[0] + model_part.sum()
+    # selections by where, not by 0/1 products: an overflowed (inf) square
+    # stays inf, as in one process, instead of turning 0 * inf into NaN
+    zero = sq.new_zeros(())
+    parts = torch.where(weights.bool(), sq, zero).sum(1)
+    kinds = torch.arange(parts.numel(), device=parts.device)
+    mesh = get_mesh()
+    for bit, axis in axes:
+        mask = ((kinds >> bit) & 1).bool()  # the buckets split over axis
+        summed = torch.where(mask, parts, zero)
+        _dist().all_reduce(summed, group=mesh.group(axis))
+        parts = torch.where(mask, summed, parts)
+    return parts.sum()

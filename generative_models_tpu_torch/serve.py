@@ -61,6 +61,24 @@ pixel_transformer with its scoring forward through the ring (sampling
 takes the per-op decode chain) and refuses --quantize, as the JAX package
 does.
 
+Serving over ranks: under a process group (torchrun, one process a mesh
+slot, as for training) every rank builds the model on the mesh and runs
+every pass. Rank 0 parses the requests, keeps the coalescing dispatcher
+and the HTTP front, and before each pass broadcasts the request's (n,
+seed, labels) to the other ranks, which loop on that broadcast until a
+stop message (SampleServer.follow); an unseeded request's seed is rank
+0's. On a data axis (serve_bs divisible by its size) each rank makes the
+whole batch's draws from the seed, runs its rows, and the data axis's
+ranks gather the batch; a model axis runs the TP decode, a pipe axis its
+stages and an expert axis its experts (models/pixel_transformer.py,
+models/moe.py), each rank on the same rows. --quantize is refused with any
+axis but data above 1, as the JAX package's. Without a group the server
+is one process: the axes of a checkpoint's mesh that span ranks (data,
+model, pipe, expert) and its --fsdp are dropped, its seq axis kept (the
+one-card ring); under a group the checkpoint's mesh is inherited, unless
+--mesh says otherwise. --export and --from_export run in one process: an
+artifact is the one-process program of the mesh-free model.pt.
+
 A pass is two parts (models/base.py): the draws of the model's
 draw_spec, from the seed's generator in a fixed order (uniforms (T, n) or
 (T, n, K); vae's z, gan's noise; diffusion's noise, then w, then the noisy
@@ -151,6 +169,52 @@ def program_fn(program, spec, device, n, class_cond, deterministic=False):
     return lambda seed: run(seed)
 
 
+def batch_axes(model, n):
+    """The batch axis of each draw of model.draw_spec(n): the axis whose
+    size changes with n (dim 1 of a (T, n, ...) uniform table, dim 0 of a
+    noise batch)."""
+    return [next(i for i, (a, b) in enumerate(zip(s1, s2)) if a != b)
+            for (_, s1, _), (_, s2, _) in zip(model.draw_spec(n), model.draw_spec(2 * n))]
+
+
+def ranks_program_fn(model, program, spec, n, class_cond, deterministic=False):
+    """program_fn over the ranks of a process group: each rank makes the
+    whole batch's draws of spec (n rows) from the seed, runs program on its
+    rows of the data axis (program: the pass of n / data rows; the model's
+    FSDP roots unsharded), and the data axis's ranks gather the batch.
+    Every rank of the group calls it at once (SampleServer's broadcast).
+    Returns run(seed, y) and run_draws(full, y), the same pass on given
+    draws of the whole batch."""
+    import torch
+    import torch.distributed as dist
+
+    from generative_models_tpu_torch.ops.common import deterministic_convs
+    from generative_models_tpu_torch.parallel.mesh import DATA_AXIS, data_slice, get_mesh
+    from generative_models_tpu_torch.utils.dists import draw
+
+    device, axes, rows = model.device, batch_axes(model, n), data_slice(n)
+    group = get_mesh().group(DATA_AXIS)
+
+    @torch.no_grad()
+    def run_draws(full, y=None):
+        args = tuple(d.narrow(a, rows.start, rows.stop - rows.start).contiguous()
+                     for d, a in zip(full, axes))
+        if class_cond:
+            y = -np.ones((n,), np.int32) if y is None else np.asarray(y, np.int32)
+            args += (torch.from_numpy(y[rows].copy()).to(device),)
+        with deterministic_convs() if deterministic else contextlib.nullcontext(), \
+                model.unsharded():
+            out = program(*args).contiguous()
+        parts = [torch.empty_like(out) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, out, group=group)
+        return torch.cat(parts).cpu().numpy()
+
+    def run(seed, y=None):
+        return run_draws(draw(spec, torch.Generator(device).manual_seed(int(seed)), device), y)
+
+    return run, run_draws
+
+
 def tile_grid(x, cols=None):
     """(n, H, W, C) float [0,1] -> uint8 (rows*H, cols*W, C) grid,
     zero-padding the last row."""
@@ -179,6 +243,7 @@ class _ServerBase:
         self.quant_kernels = 0
         self._lock = threading.Lock()
         self._requests = 0
+        self.seeds = []  # every pass's seed, in order
         # unseeded requests draw from a urandom-salted stream so restarts
         # and replicas never replay the same samples
         self._salt = int.from_bytes(os.urandom(4), 'little')
@@ -238,8 +303,16 @@ class _ServerBase:
             full[:n] = y
         return full
 
-    def _run(self, seed, y_full):
+    def _run(self, seed, y_full, n=None):
+        """One pass of the whole batch (n: the request's rows); on rank 0
+        of a process group, the request broadcast to the other ranks
+        first."""
+        self._announce(1, n or self.serve_bs, seed, y_full)
+        self.seeds.append(int(seed))
         return self._call(seed) if y_full is None else self._call(seed, y_full)
+
+    def _announce(self, cmd, n=0, seed=0, y_full=None):
+        """Nothing in one process (SampleServer broadcasts under a group)."""
 
     def sample(self, n, y=None, seed=None):
         """n samples (labels y: one broadcast to n, or n of them, for a
@@ -262,7 +335,7 @@ class _ServerBase:
             self._requests += 1
             s = int(seed) if seed is not None else self._salt + self._requests
             t0 = time.time()
-            out = self._run(s, y_full)
+            out = self._run(s, y_full, n)
             self._record_latency(time.time() - t0)
         return out[:n]
 
@@ -345,7 +418,8 @@ class _ServerBase:
                         off += r['n']
                 with self._lock:
                     self._requests += len(batch)
-                    out = self._run(self._salt + self._requests, y_full)
+                    out = self._run(self._salt + self._requests, y_full,
+                                    sum(r['n'] for r in batch))
                     self.coalesced_batches += 1
                     self.coalesced_requests += len(batch)
                     now = time.time()
@@ -384,6 +458,20 @@ class _ServerBase:
         }
 
 
+def check_quantize_mesh(quantize, mesh):
+    """--quantize on a mesh with an axis other than data above 1 is
+    refused, as the JAX package's serve.py refuses it: the quantized
+    weights do not compose with a sharded mesh."""
+    from generative_models_tpu_torch.parallel import DATA_AXIS, parse_mesh_spec
+
+    non_data = {a: n for a, n in parse_mesh_spec(str(mesh or '')) if a != DATA_AXIS and n > 1}
+    if quantize and non_data:
+        raise SystemExit(
+            f'--quantize does not compose with a {non_data}-sharded mesh; serve '
+            'quantized models on a single chip or a data-only mesh'
+        )
+
+
 class SampleServer(_ServerBase):
     """Owns the model and its serving fn. Every request pads to serve_bs,
     runs the same pass, and slices to n. quantize: '' | 'int8' (= 'w8a8') |
@@ -399,27 +487,70 @@ class SampleServer(_ServerBase):
         self.quant = None  # the QuantTable every pass applies
         if self.quant_mode:
             from generative_models_tpu_torch.ops.int8 import build_quant_table
-            from generative_models_tpu_torch.parallel import DATA_AXIS, parse_mesh_spec
 
-            mesh = parse_mesh_spec(str(model.G.get('mesh', '') or ''))
-            non_data = {a: n for a, n in mesh if a != DATA_AXIS and n > 1}
-            if non_data:
-                # as the JAX package's serve.py: the quantized weights do not
-                # compose with a sharded mesh; refuse rather than mislead
-                raise SystemExit(
-                    f'--quantize does not compose with a {non_data}-sharded mesh; serve '
-                    'quantized models on a single chip or a data-only mesh'
-                )
             self.quant, self.quant_kernels = build_quant_table(model, self.quant_mode)
             if not self.quant_kernels:
                 raise SystemExit(
                     f'--quantize: {model.G.model} has no Linear or masked layers '
                     'large enough to quantize (ops/int8.py thresholds)'
                 )
-        self.program = model.serving_program(self.serve_bs, quant=self.quant).eval()
         self.draw_spec = model.draw_spec(self.serve_bs)
-        self._call = program_fn(self.program, self.draw_spec, model.device, self.serve_bs,
-                                self.class_cond, model.SERVE_DETERMINISTIC_CONVS)
+        self.ranks = model.mesh.dm is not None  # serving over a process group's ranks
+        if not self.ranks:
+            self.program = model.serving_program(self.serve_bs, quant=self.quant).eval()
+            self._call = program_fn(self.program, self.draw_spec, model.device, self.serve_bs,
+                                    self.class_cond, model.SERVE_DETERMINISTIC_CONVS)
+            return
+        from generative_models_tpu_torch.parallel.mesh import DATA_AXIS
+
+        d = model.mesh.size(DATA_AXIS)
+        if self.serve_bs % d:
+            raise SystemExit(f'--serve_bs={self.serve_bs} does not split over data:{d}')
+        self.program = model.serving_program(self.serve_bs // d, quant=self.quant).eval()
+        self._call, self.run_draws = ranks_program_fn(
+            model, self.program, self.draw_spec, self.serve_bs, self.class_cond,
+            model.SERVE_DETERMINISTIC_CONVS)
+        self.is_main = model.mesh.is_main
+
+    def _message(self, cmd, n=0, seed=0, y_full=None):
+        """The int64 request message of a pass: cmd (0 stop, 1 run), the
+        request's n, its seed, the batch's labels (-1 past n and for an
+        unconditional server)."""
+        import torch
+
+        msg = torch.full((3 + self.serve_bs,), -1, dtype=torch.int64)
+        msg[:3] = torch.tensor([cmd, n, seed])
+        if y_full is not None:
+            msg[3:] = torch.from_numpy(np.asarray(y_full, np.int64))
+        return msg.to(self.model.device)
+
+    def _announce(self, cmd, n=0, seed=0, y_full=None):
+        """Rank 0 of a group: broadcast a request (or the stop) to every
+        rank."""
+        if self.ranks and self.is_main:
+            import torch.distributed as dist
+
+            dist.broadcast(self._message(cmd, n, seed, y_full), src=0)
+
+    def follow(self):
+        """A rank other than 0: run every pass rank 0 broadcasts, until its
+        stop message."""
+        import torch.distributed as dist
+
+        while True:
+            msg = self._message(0)
+            dist.broadcast(msg, src=0)
+            cmd, n, seed = (int(v) for v in msg[:3].tolist())
+            if cmd == 0:
+                return
+            y = msg[3:].cpu().numpy().astype(np.int32) if self.class_cond else None
+            self.seeds.append(seed)
+            self._call(seed) if y is None else self._call(seed, y)
+
+    def stop(self):
+        """Rank 0 of a group: send the other ranks the stop message."""
+        self._announce(0)
+
 
     def _model_name(self):
         return self.model.G.model
@@ -556,26 +687,23 @@ def serve_defaults():
     return DG
 
 
-def one_process(G, argv):
-    """Serving runs in one process: a model.pt trained on any mesh serves
-    here with its data and model axes and --fsdp dropped from G (the
-    checkpoint holds full tensors), its seq axis kept (the one-card ring).
-    Asked for on the command line, a data or model axis above 1, or
-    --fsdp=1, is refused: serving over ranks is not ported yet."""
-    from generative_models_tpu_torch.parallel.mesh import (
-        DATA_AXIS, MODEL_AXIS, parse_mesh_spec,
-    )
+def serving_mesh(G, argv):
+    """The mesh the server runs on: --mesh and --fsdp as given on the
+    command line; under a process group a checkpoint's mesh (its hps.yaml)
+    inherited; without one, the inherited axes that span ranks (data,
+    model, pipe, expert) and --fsdp dropped, the seq axis kept (the
+    one-card ring), so a model.pt trained on any mesh serves in one
+    process."""
+    from generative_models_tpu_torch.parallel.mesh import SEQ_AXIS, launched, parse_mesh_spec
 
-    axes = parse_mesh_spec(str(G.get('mesh', '') or ''))
-    spread = {a: n for a, n in axes if a in (DATA_AXIS, MODEL_AXIS) and n > 1}
     given = lambda flag: any(a == flag or a.startswith(flag + '=') for a in argv)
-    if (spread and given('--mesh')) or (int(G.get('fsdp', 0) or 0) and given('--fsdp')):
-        raise SystemExit(
-            f'--mesh={G.mesh} --fsdp={G.fsdp}: serving over ranks is not ported yet to '
-            'generative_models_tpu_torch; serve in one process (a model.pt from any '
-            'mesh loads there)')
-    G.mesh = ','.join(f'{a}:{n}' for a, n in axes if a not in (DATA_AXIS, MODEL_AXIS))
-    G.fsdp = 0
+    if launched():
+        return
+    if not given('--mesh'):
+        axes = parse_mesh_spec(str(G.get('mesh', '') or ''))
+        G.mesh = ','.join(f'{a}:{n}' for a, n in axes if a == SEQ_AXIS or n == 1)
+    if not given('--fsdp'):
+        G.fsdp = 0
 
 
 def load_server(argv=None):
@@ -593,6 +721,12 @@ def load_server(argv=None):
     for key, value in serve_defaults().items():
         parser.add_argument(f'--{key}', type=args_type(value), default=value)
     pre = AttrDict(parser.parse_known_args(argv)[0].__dict__)
+    from generative_models_tpu_torch.parallel.mesh import launched
+
+    if launched() and (str(pre.export) or str(pre.from_export)):
+        raise SystemExit(
+            '--export and --from_export run in one process, not under a process group: an '
+            'artifact is the one-process program of the mesh-free model.pt')
     if str(pre.from_export):
         if str(pre.export):
             raise SystemExit(
@@ -607,7 +741,8 @@ def load_server(argv=None):
             )
         return ExportedServer(pre.from_export, pre.device), pre
     G, Model = parse_args(argv, DG=serve_defaults())
-    one_process(G, argv)
+    serving_mesh(G, argv)
+    check_quantize_mesh(G.quantize, G.mesh)
     model = Model(G=G)
     if G.weights_from != Path('.'):
         model.load_weights(G.weights_from)
@@ -620,6 +755,17 @@ def main(argv=None):
         nbytes = server.export_serving(G.export)
         print(f'exported serving artifact: {G.export} ({nbytes} bytes)')
         return
+    if getattr(server, 'ranks', False) and not server.is_main:
+        server.follow()  # rank 0 takes the requests
+        return
+    try:
+        _serve_main(server, G)
+    finally:
+        if getattr(server, 'ranks', False):
+            server.stop()
+
+
+def _serve_main(server, G):
     print(f'warming {G.model} serve_bs={server.serve_bs} ...', flush=True)
     warm = server.warm()
     print(f'warm in {warm:.2f}s', flush=True)

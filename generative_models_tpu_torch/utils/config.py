@@ -92,22 +92,15 @@ def global_defaults():
 
 
 def check_ported(G):
-    """Refuse what the port does not implement yet, by name: the pipe and
-    expert axes above 1 (and an axis no package has)."""
+    """Refuse what the port does not implement, by name: an axis no
+    package has, and --ckpt=orbax."""
     mesh = str(G.get('mesh', '') or '')
     if mesh:
-        from generative_models_tpu_torch.parallel.mesh import (
-            AXES, EXPERT_AXIS, PIPE_AXIS, parse_mesh_spec,
-        )
+        from generative_models_tpu_torch.parallel.mesh import AXES, parse_mesh_spec
 
-        for a, n in parse_mesh_spec(mesh):
+        for a, _ in parse_mesh_spec(mesh):
             if a not in AXES:
                 raise ValueError(f'--mesh={mesh}: unknown axis {a}; the axes are {AXES}')
-            if a in (PIPE_AXIS, EXPERT_AXIS) and n > 1:
-                raise NotImplementedError(
-                    f'--mesh={mesh}: the {a} axis is not ported yet to '
-                    'generative_models_tpu_torch (data, model and seq are)'
-                )
     if G.get('ckpt', 'flax') != 'flax':
         # the card's machine has no orbax: model.pt (the port's, or a JAX
         # package's flax msgpack) holds the full train state

@@ -42,17 +42,21 @@ BN_FED = {'gen.deconvs.0.bias', 'gen.deconvs.1.bias', 'gen.deconvs.2.bias',
 # ---------------------------------------------------------------------- #
 # the ranks
 # ---------------------------------------------------------------------- #
-def _worker(rank, n, store, spec, out):
+def _worker(rank, n, store, spec, out, module=__name__):
     """One gloo rank: joins the group through the FileStore, then runs each
-    case of spec (a JSON list) in order."""
+    case of spec (a JSON list) in order, each a _case_<kind> function of
+    module (a test file's)."""
+    import importlib
+
     import torch.distributed as dist
 
     rank, n, out = int(rank), int(n), Path(out)
+    cases = vars(importlib.import_module(module))
     dist.init_process_group('gloo', store=dist.FileStore(store, n), rank=rank, world_size=n,
                             timeout=timedelta(seconds=60))
     try:
         for case in json.loads(Path(spec).read_text()):
-            res = globals()['_case_' + case['kind']](case, out)
+            res = cases['_case_' + case['kind']](case, out)
             if rank == 0 and res is not None:
                 np.savez(out / f"{case['name']}.npz", **res)
     finally:
@@ -142,8 +146,9 @@ def _case_main(case, out):
     return None
 
 
-def _spawn(n, cases, tmp_path, timeout=300):
-    """Run cases in n gloo ranks; returns {name: rank 0's arrays}."""
+def _spawn(n, cases, tmp_path, timeout=300, module=__name__):
+    """Run cases in n gloo ranks, each case a _case_<kind> function of
+    module; returns {name: rank 0's arrays}."""
     spec = tmp_path / 'cases.json'
     spec.write_text(json.dumps(cases))
     code = ('import sys; sys.path[:0] = [{!r}, {!r}]; import test_torch_mesh as t; '
@@ -151,7 +156,7 @@ def _spawn(n, cases, tmp_path, timeout=300):
     env = dict(os.environ, OMP_NUM_THREADS='1')
     procs = [subprocess.Popen(
         [sys.executable, '-c', code, str(r), str(n), str(tmp_path / 'store'), str(spec),
-         str(tmp_path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+         str(tmp_path), module], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
         for r in range(n)]
     try:
         logs = [p.communicate(timeout=timeout)[0] for p in procs]
@@ -252,12 +257,16 @@ def test_spec_rules_and_the_one_card_rule():
         assert pm.parse_mesh_spec(spec) == jax_parse(spec, 4)
     m = pm.Mesh('seq:4')  # the one-card ring needs no group
     assert (m.dm, m.size('seq'), m.size('data'), m.is_main) == (None, 4, 1, True)
-    for spec in ('data:2', 'model:2', 'data:2,seq:2'):
+    for spec in ('data:2', 'model:2', 'data:2,seq:2', 'pipe:2', 'expert:2', 'data:1,pipe:4'):
         with pytest.raises(RuntimeError, match='torchrun --nproc_per_node='):
             pm.Mesh(spec)
-    for spec in ('pipe:2', 'expert:2', 'data:1,pipe:4'):
-        with pytest.raises(NotImplementedError, match='not ported yet'):
-            pm.Mesh(spec)
+    # pipe:1 and expert:1 build without a group; pipe:1 runs the whole
+    # pipeline machinery, its Blocks one stage
+    m = pm.Mesh('pipe:1,expert:1')
+    assert (m.dm, m.size('pipe'), m.size('expert')) == (None, 1, 1)
+    pt = _model(PT + ['--mesh=pipe:1'])
+    assert pt.net.pipe == 1 and not pt.net.use_fused_decode
+    assert [i for i, _ in pt.net.stage_blocks()] == [0, 1] and set(pt.stage_of.values()) == {0}
     with pytest.raises(ValueError, match='unknown axis'):
         pm.Mesh('tensor:2')
     # without a group every collective is the identity
@@ -281,10 +290,12 @@ def test_layout_helpers_without_a_group():
     assert dst.dtype == torch.float32 and bool(dst.eq(1).all())
     with pytest.raises(ValueError, match='does not fit'):
         pm.put_(dst, torch.ones(1, 3))
-    grads = [torch.ones(2), torch.full((3,), 2.0)]
-    buckets = pm.norm_buckets(grads, [False, True])
-    assert buckets.tolist() == [[1, 0], [0, 0], [0, 1], [0, 0]]
-    assert float(pm.global_sq_norm(grads, buckets)) == 14.0
+    grads = [torch.ones(2), torch.full((3,), 2.0), torch.ones(1)]
+    buckets = pm.norm_buckets(grads, [(), ('model',), ('expert', 'pipe')])
+    weights, axes = buckets
+    assert weights.shape == (16, 3) and axes == ()
+    assert [weights[:, i].nonzero().flatten().tolist() for i in range(3)] == [[0], [2], [12]]
+    assert float(pm.global_sq_norm(grads, buckets)) == 15.0
 
 
 def test_init_distributed_gates_on_the_env(monkeypatch):
@@ -315,21 +326,35 @@ def test_init_distributed_gates_on_the_env(monkeypatch):
         pm.set_mesh(None)
 
 
-def test_serving_runs_in_one_process(tmp_path):
-    """A data or model axis above 1, or --fsdp=1, asked of the server is
-    refused by name; one inherited from a checkpoint's hps.yaml is dropped
-    (the seq axis kept)."""
-    from generative_models_tpu_torch.serve import one_process
+def test_serving_runs_in_one_process(tmp_path, monkeypatch):
+    """The server's mesh rules: without a group a checkpoint's axes that
+    span ranks (data, model, pipe, expert) and its --fsdp are dropped and
+    its seq axis kept, while --mesh on the command line stands; under a
+    group (torchrun's env) the checkpoint's mesh is inherited; --export and
+    --from_export under a group are refused by name, and so is --quantize
+    with any axis but data above 1."""
+    from generative_models_tpu_torch.serve import load_server, serving_mesh
     from generative_models_tpu_torch.utils.config import AttrDict
 
-    for argv in (['--mesh=data:2'], ['--mesh=model:2,seq:2'], ['--fsdp=1']):
-        G = AttrDict(mesh=argv[0].split('=')[1] if 'mesh' in argv[0] else '',
-                     fsdp=int('fsdp' in argv[0]))
-        with pytest.raises(SystemExit, match='serving over ranks'):
-            one_process(G, argv)
-    G = AttrDict(mesh='data:2,seq:4', fsdp=1)
-    one_process(G, [])
+    G = AttrDict(mesh='data:2,model:2,pipe:2,expert:2,seq:4', fsdp=1)
+    serving_mesh(G, [])
     assert (G.mesh, G.fsdp) == ('seq:4', 0)
+    G = AttrDict(mesh='data:2', fsdp=1)
+    serving_mesh(G, ['--mesh=data:2'])
+    assert (G.mesh, G.fsdp) == ('data:2', 0)
+    for k in ('RANK', 'WORLD_SIZE'):
+        monkeypatch.setenv(k, '0' if k == 'RANK' else '4')
+    G = AttrDict(mesh='data:2,pipe:2', fsdp=1)
+    serving_mesh(G, [])
+    assert (G.mesh, G.fsdp) == ('data:2,pipe:2', 1)
+    for flag in ('--export=a.pt2', '--from_export=a.pt2'):
+        with pytest.raises(SystemExit, match='not under a process group'):
+            load_server(['--model=made', '--device=cpu', flag])
+    monkeypatch.delenv('RANK')
+    monkeypatch.delenv('WORLD_SIZE')
+    for mesh in ('model:2', 'pipe:2', 'expert:2,data:1'):
+        with pytest.raises(SystemExit, match='--quantize does not compose'):
+            load_server(PT + ['--device=cpu', f'--mesh={mesh}', '--quantize=w8a16'])
 
 
 # ---------------------------------------------------------------------- #

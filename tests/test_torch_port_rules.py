@@ -440,8 +440,11 @@ def test_unported_models_and_flags_raise():
         with pytest.raises(RuntimeError, match='torchrun'):
             Model(G)
     for flag in ('--mesh=pipe:2', '--mesh=data:1,expert:2'):
-        with pytest.raises(NotImplementedError, match='not ported yet'):
-            parse_args(['--model=pixel_transformer', '--device=cpu', flag])
+        # ported: they parse, and a model built without a group refuses
+        # them, naming torchrun
+        G, Model = parse_args(['--model=pixel_transformer', '--device=cpu', flag])
+        with pytest.raises(RuntimeError, match='torchrun'):
+            Model(G)
     G, Model = parse_args(['--model=pixel_transformer', '--device=cpu',
                            '--moe_experts=2', '--n_embed=16'])
     assert all(hasattr(b, 'moe') for b in Model(G).net.blocks)
@@ -509,34 +512,49 @@ def test_diffusion_without_cuda_raises_instead_of_using_the_cpu(monkeypatch, tmp
 
 def test_mesh_rules():
     """--mesh: seq:N on pixel_transformer (its ring attention) and axes of
-    size 1 pass; data and model above 1 parse and a model built without a
-    process group refuses them, naming torchrun; pipe and expert above 1
-    raise as not ported when the flags are parsed, and seq:N above 1 when a
-    model without ring attention is built; --quantize with a seq axis above 1 is refused, as the JAX
-    package's serve.py refuses a non-data sharded mesh."""
+    size 1 pass; data, model, pipe and expert above 1 parse and a model
+    built without a process group refuses them, naming torchrun; pipe:1
+    builds the pipeline in one process, and refuses ring attention and MoE
+    as the JAX package does; seq:N above 1 on a model without ring
+    attention replicates; --quantize with a seq axis above 1 is refused,
+    as the JAX package's serve.py refuses a non-data sharded mesh."""
+    from generative_models_tpu_torch.parallel.mesh import ring_size
     from generative_models_tpu_torch.serve import load_server
     from generative_models_tpu_torch.utils.config import parse_args
 
     for mesh in ('seq:4', 'seq:1', 'data:1,seq:8', 'model:1', 'seq:5'):
         G, Model = parse_args(['--model=pixel_transformer', '--device=cpu', f'--mesh={mesh}',
                                '--n_embed=16', '--n_layer=1'])
-        assert G.mesh == mesh and Model.supports_ring
-        Model(G)
+        assert G.mesh == mesh
+        assert Model(G).net.ring == ring_size(mesh, 784)  # seq:5 does not divide 784
     for mesh in ('model:2', 'seq:4,data:2'):  # over ranks: a model refuses them without a group
         G, Model = parse_args(['--model=pixel_transformer', '--device=cpu', f'--mesh={mesh}'])
         with pytest.raises(RuntimeError, match='torchrun --nproc_per_node='):
             Model(G)
-    for mesh in ('pipe:2', 'expert:4,data:1'):
-        with pytest.raises(NotImplementedError, match='not ported yet'):
-            parse_args(['--model=pixel_transformer', '--device=cpu', f'--mesh={mesh}'])
+    for mesh in ('pipe:2', 'expert:4,data:1'):  # over ranks: refused without a group
+        G, Model = parse_args(['--model=pixel_transformer', '--device=cpu', f'--mesh={mesh}'])
+        with pytest.raises(RuntimeError, match='torchrun --nproc_per_node='):
+            Model(G)
+    # pipe:1 builds the pipeline machinery in one process (n_layer % 1 ==
+    # 0); with ring attention it is refused, as the JAX package cannot
+    # build it; MoE inside the GPipe stack is refused, as the JAX
+    # package's assert
+    G, Model = parse_args(['--model=pixel_transformer', '--device=cpu', '--mesh=pipe:1',
+                           '--n_embed=16', '--n_layer=2'])
+    assert Model(G).net.pipe == 1
+    G, Model = parse_args(['--model=pixel_transformer', '--device=cpu', '--mesh=pipe:1,seq:4'])
+    with pytest.raises(NotImplementedError, match='ring attention'):
+        Model(G)
+    G, Model = parse_args(['--model=pixel_transformer', '--device=cpu', '--mesh=pipe:1',
+                           '--moe_experts=2'])
+    with pytest.raises(ValueError, match='MoE blocks inside the GPipe stack'):
+        Model(G)
+    # a model without ring attention replicates over seq, as the JAX
+    # package's GSPMD does: one process runs the whole batch
     for model, mesh in (('made', 'seq:4'), ('vqvae', 'seq:7'), ('made', 'seq:1')):
         G, Model = parse_args([f'--model={model}', '--device=cpu', f'--mesh={mesh}'])
-        assert not Model.supports_ring
-        if mesh == 'seq:1':
-            Model(G)
-            continue
-        with pytest.raises(NotImplementedError, match='not ported yet'):
-            Model(G)
+        m = Model(G)
+        assert m.mesh.size('seq') == int(mesh[4:]) and m.mesh.dm is None and not m.seq_split()
     with pytest.raises(SystemExit, match='--quantize does not compose'):
         load_server(['--model=pixel_transformer', '--device=cpu', '--mesh=seq:4',
                      '--quantize=int8', '--serve_bs=1'])
