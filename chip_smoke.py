@@ -133,19 +133,15 @@ failure exits non-zero before the result lines:
                 Adam step from the same gradients and state; each conv
                 shape of the UNet in bf16 against f32 arithmetic on its
                 bf16 operands (forward, dgrad, wgrad, bias gradient).
-  20. diff_distill -- --teacher_path=diff_train's model.pt at step1, then
-                step1's model.pt at step2, three steps each: at step 0 the
-                student, its EMA and the teacher equal the teacher
-                checkpoint but for the student's cond_w_embed; the teacher
-                bitwise unchanged after training; finite losses.
+  20. (diff_distill: its checks run on the chain phase's students, 23b:
+                each, its frozen teacher and its EMA at step 0 equal to its
+                teacher, the teacher frozen.)
   21. arb_load -- the shipped arbiters (weights/autoencoder.pt,
                 weights/classifier.pt) decoded by the port's msgpack reader
                 and loaded on the card; their features and logits of 64
                 synthetic images at 28x28 and 32x32 against a CPU f32 copy.
-  22. arb_train -- autoencoder and classifier, each one epoch through
-                main.main at its default width (10 steps at bs=64): finite
-                metrics, model.jit.pt read back by load_arbiter on the card
-                and held against a CPU copy.
+  22. (arb_train: its checks run on the chain phase's arbiters, 23b:
+                trained through main.main, model.jit.pt read on the card.)
   23. eval_heavy -- diffusion_model at its defaults (--eval_heavy=1,
                 --class_cond=1) through main's load_model_and_data and
                 train, --epochs=0, the shipped arbiters, dpm2m at 25 steps
@@ -154,6 +150,24 @@ failure exits non-zero before the result lines:
                 against a float64 scipy recomputation from the phase's own
                 features, the seconds split into sampling, arbiter forwards
                 and metrics; no kernel of ops/.
+  23b. chain -- the orchestration scripts (generative_models_tpu_torch/
+                scripts/) at diffusion's defaults, as chip_smoke.py
+                --only=chain, a process started before resume and joined
+                after train_flags (the run's order below is that of the
+                joins):
+                train_arbiters (EPOCHS=1; each model.jit.pt installed under
+                the phase's WEIGHTS_DIR, read back on the card within
+                ARB_REL of a CPU copy), progressive_distillation
+                (EPOCHS_TEACHER=EPOCHS_STUDENT=1, --eval_heavy=0, --ema:
+                ten stages at timesteps 256, 256, 128, ..., 1, 3 steps
+                each, finite losses, each student and its EMA at step 0
+                equal to its teacher and the frozen teacher bitwise
+                unchanged), eval_distill_chain with those arbiters (every
+                stage's eval/* finite; 128 test images, one batch),
+                collect_distill and distill_latency
+                (--reps=2: the 64-image latency from the 256-step teacher to
+                the 1-step student); the shipped weights/*.pt unchanged; no
+                kernel of ops/.
   24. vae    -- vae at its default width through main.main (one epoch, 10
                 steps at bs=64), 64 samples served through load_server, one
                 step's gradients against a CPU f32 copy, a profiled train
@@ -261,6 +275,17 @@ failure exits non-zero before the result lines:
                 one-process servers of the same model.pt: the batch bitwise
                 (diffusion within DIFF_CHAIN_REL), every kernel's launches
                 equal.
+  41. train_flags -- --remat=1 against --remat=0 (pixel_transformer and
+                diffusion, 3 steps: bitwise, else within REMAT_BOUND of the
+                update; C recomputed L x 3 times more); made at 2048 with
+                --grad_clip, --grad_accum=2, the warmup-cosine schedule and
+                --keep_best=eval/nlogp over 2 epochs: the weights unchanged
+                by each window's first micro-step and by the lr-0 first
+                update, the schedule's lr, the clip biting (each norm
+                above the clip, after it the clip within CLIP_RTOL),
+                best.json the
+                least eval/nlogp, the card within MADE_FLAGS_BOUND of a CPU
+                run of the same command.
 Then the kernels line, the nvidia-smi line and, last, the device line.
 `--only=<phase>,...` runs the build and those phases alone (diff_quant
 after diff_train), for work on them: it prints no kernels or device line.
@@ -268,6 +293,7 @@ after diff_train), for work on them: it prints no kernels or device line.
 Imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
 import copy
 import itertools
 import json
@@ -300,7 +326,6 @@ SEQ = 4  # the seq_train phase's ring: --mesh=seq:4
 PT_DECODE_WINDOW = range(392, 400)  # the profiled steps of a quantized pixel_transformer request
 DIFF_FLAGS = ['--model=diffusion_model', '--eval_heavy=0']  # eval_heavy has a phase of its own
 DIFF_TRAIN_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_diffusion'
-DIFF_DISTILL_DIR = Path(__file__).resolve().parent / 'build' / 'chip_smoke_distill'
 DIFF_LABELS = [i % 11 - 1 for i in range(64)]  # every class and -1 (unconditional)
 # the card's bf16 UNet against a CPU f32 copy of the same weights at batch 4,
 # as relative Frobenius errors: one forward and a 10-step guided DDIM chain
@@ -342,6 +367,49 @@ EH_FLAGS = ['--model=diffusion_model', '--eval_sampler=dpm2m', '--eval_sample_st
 # float64 twin step on the card (its arithmetic apart from f32's) beside
 # the card's
 ARB_REL, EH_FID_REL, SMALL_GRAD, GAN_STATS_REL = 1e-4, 1e-3, (1e-3, 1e-5), 1e-4
+# the chain phase: the orchestration scripts at diffusion's defaults on the
+# synthetic set cut to 192 training images (3 steps of bs=64) and 128 test
+# images (eval_heavy's 2 rounds: 128 samples a side of the autoencoder's 64
+# features, so the covariances have full rank); each stage's latency timed
+# over CHAIN_REPS calls after a warm one. --save_n=1: with EPOCHS_*=1 a
+# stage saves after its epoch (the scripts' default epochs, 20 and 5, are
+# multiples of the default --save_n=5). The chain's stages also take
+# --ema: each student's EMA starts from its teacher's weights, updates every
+# step and is what the eval chain and the latency reload and sample from
+CHAIN_DIR = ROOT / 'build' / 'chip_smoke_chain'
+CHAIN_LOG = ROOT / 'build' / 'chip_smoke_chain.log'
+CHAIN_TRAIN_N, CHAIN_TEST_N, CHAIN_REPS = 192, 128, 2
+CHAIN_FLAGS = ['--bs=64', '--data_source=synthetic', '--save_n=1']
+CHAIN_STAGE_FLAGS = CHAIN_FLAGS + ['--eval_heavy=0', '--ema=0.999']
+# the eval chain draws eval_heavy's 128 samples a side as one batch of 128
+# (one round) in place of two of 64: the same samples' count, half the
+# host-bound chains (a guided step at B=64 is 23-44 ms of wall for 10 of
+# device on the card). The eval chain and the latency guide in one
+# doubled-batch call a step (--fused_cfg=1; bitwise the two calls on the
+# card, diff_serve): a stage's chain costs about half the host's launches
+CHAIN_EVAL_FLAGS = ['--bs=128', '--fused_cfg=1']
+CHAIN_LATENCY_FLAGS = [f'--reps={CHAIN_REPS}', '--fused_cfg=1']
+SHIPPED_ARBITERS = (ROOT / 'weights' / 'autoencoder.pt', ROOT / 'weights' / 'classifier.pt')
+# the train_flags phase. --remat=1 against --remat=0, 3 steps from seed 0
+# (the distance of _run_diff over the update; written before the first
+# call: both bitwise expected, since recomputation replays the same
+# deterministic kernels, with room for a reordered gradient sum, the gap a
+# world-1 group shows, MESH_BOUND). made at 2048 with --grad_clip at
+# MADE_CLIP (below the global gradient norm of every update, which the
+# phase logs: the clip bites; the norm after clipping MADE_CLIP within
+# CLIP_RTOL, f32 rounding of two norms of the whole gradient and a scale: a
+# dropped or misscaled clip, which Adam's scale invariance would hide
+# from the weights' bound, shows there), --grad_accum=2 and the warmup-cosine
+# schedule, 2 epochs of 4 micro-steps: the card's final weights against a
+# CPU run of the same command within MADE_FLAGS_BOUND of the CPU run's
+# update (the card's bf16 operands against the CPU's f32 through four Adam
+# steps; made_grads holds each gradient within 5e-2)
+TRAIN_FLAGS_DIR = ROOT / 'build' / 'chip_smoke_train_flags'
+TRAIN_FLAGS_N = dict(remat=(192, 64), made=(256, 128))  # (TRAIN_N, TEST_N)
+REMAT_BOUND = dict(pixel_transformer=1e-2, diffusion=1e-2)
+MADE_CLIP, MADE_FLAGS_BOUND, CLIP_RTOL = 1e-3, 5e-2, 1e-5
+MADE_SCHEDULE = [f'--grad_clip={MADE_CLIP}', '--grad_accum=2', '--lr_scheduler=cosine',
+                 '--warmup_steps=2', '--lr_decay_steps=8', '--keep_best=eval/nlogp']
 GAN_GRAD = (1e-2, 1e-5)
 # rnn, wavenet, pixel_cnn and gated_pixel_cnn at their default widths: the
 # card's full-forward logits on 8 test images (relative Frobenius) and one
@@ -2281,57 +2349,6 @@ def bf16_conv_checks(dev):
     return out
 
 
-def phase_diff_distill():
-    """Progressive distillation through the entry points: a step1 student of
-    diff_train's model.pt, then a step2 student of that student's model.pt,
-    three steps each at bs=64 (one epoch, 192 images), with --ema=0.999. At
-    step 0 the student has its cond_w_embed and every other weight equal to
-    the teacher's, as its EMA; the frozen teacher is bitwise unchanged
-    after training; the losses are finite; no kernel of ops/ launched."""
-    import generative_models_tpu_torch.data.mnist as mnist
-    from generative_models_tpu_torch.main import load_model_and_data, train
-    from generative_models_tpu_torch.models.base import read_checkpoint
-
-    mnist.TRAIN_N, mnist.TEST_N = 192, 64  # 3 steps, 1 eval batch
-    counters = _counters()
-    _reset(counters)
-    teacher_path, out = DIFF_TRAIN_DIR / 'model.pt', {}
-    for mode in ('step1', 'step2'):
-        logdir = DIFF_DISTILL_DIR / mode
-        shutil.rmtree(logdir, ignore_errors=True)
-        model, dataset, _, _, G = load_model_and_data(DIFF_FLAGS + [
-            '--bs=64', '--epochs=1', '--save_n=1', '--ema=0.999', '--data_source=synthetic',
-            f'--teacher_path={teacher_path}', f'--teacher_mode={mode}', f'--logdir={logdir}',
-        ])
-        teacher = read_checkpoint(teacher_path)['net']
-        if not model.has_teacher or model.net.cond_w_embed is None:
-            raise AssertionError(f'diff_distill {mode}: no teacher or no cond_w_embed')
-        for name, net in (('student', model.net), ('teacher', model.teacher_net),
-                          ('ema', model.ema_net)):
-            sd = net.state_dict()
-            if set(sd) - set(teacher) - {k for k in sd if k.startswith('cond_w_embed.')}:
-                raise AssertionError(f'diff_distill {mode}: {name} has weights the teacher lacks')
-            for k, v in teacher.items():
-                if not torch.equal(sd[k].cpu(), v):
-                    raise AssertionError(f'diff_distill {mode}: {name} {k} != the teacher\'s at step 0')
-        t0 = time.time()
-        history = train(model, dataset, None, None, G)
-        torch.cuda.synchronize()
-        for k, v in model.teacher_net.state_dict().items():
-            if k in teacher and not torch.equal(v.cpu(), teacher[k]):
-                raise AssertionError(f'diff_distill {mode}: the teacher moved at {k}')
-        losses = [h[k] for h in history for k in h if k.endswith('/loss')]
-        if not losses or not np.all(np.isfinite(losses)):
-            raise AssertionError(f'diff_distill {mode}: losses {losses}')
-        out[mode] = dict(wall_sec=time.time() - t0, history=history)
-        log(f'[diff_distill] {mode}: 3 steps in {out[mode]["wall_sec"]:.2f}s, losses {losses}')
-        teacher_path = logdir / 'model.pt'
-    launches = _read(counters)
-    if any(launches.values()):
-        raise AssertionError(f'diff_distill launched kernels of ops/: {launches}')
-    return out
-
-
 def phase_arb_load():
     """The shipped arbiters (weights/autoencoder.pt, weights/classifier.pt)
     decoded by the port's msgpack reader and loaded on the card, their
@@ -2364,48 +2381,6 @@ def phase_arb_load():
     launches = _read(counters)
     if any(launches.values()):
         raise AssertionError(f'arb_load launched kernels of ops/: {launches}')
-    return out
-
-
-def phase_arb_train():
-    """The arbiters' own path: autoencoder and classifier, each one epoch
-    through main.main at its default width (hidden_size=256, z_size=64) and
-    bs=64 on the synthetic set cut to 640/128 (10 steps): finite metrics,
-    the evaluate image in the event file, model.jit.pt written, and read
-    back by load_arbiter on the card, its features of 64 images within
-    ARB_REL of a CPU copy's; no kernel of ops/."""
-    import generative_models_tpu_torch.data.mnist as mnist
-    from generative_models_tpu_torch.main import main as train_main
-    from generative_models_tpu_torch.models.arbiters import load_arbiter
-
-    mnist.TRAIN_N, mnist.TEST_N = 640, 128
-    counters = _counters()
-    _reset(counters)
-    x = torch.clamp(torch.randn((64, 28, 28, 1), generator=torch.Generator().manual_seed(1)),
-                    -1, 1)
-    out = {}
-    for name in ('autoencoder', 'classifier'):
-        logdir = ROOT / 'build' / f'chip_smoke_{name}'
-        shutil.rmtree(logdir, ignore_errors=True)
-        t0 = time.time()
-        history = train_main([f'--model={name}', '--bs=64', '--epochs=1', '--save_n=1',
-                              '--data_source=synthetic', f'--logdir={logdir}'])
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        if not (logdir / 'model.jit.pt').is_file() or not list(logdir.glob('events.out.tfevents.*')):
-            raise AssertionError(f'arb_train {name}: no model.jit.pt or no event file')
-        bad = {k: v for h in history for k, v in h.items() if not np.isfinite(v)}
-        if bad or not any(k.startswith(f'{name}/train/') for k in history[1]):
-            raise AssertionError(f'arb_train {name}: metrics {history[1]}')
-        rel = _rel(load_arbiter(logdir, 'cuda').apply(x.cuda()), load_arbiter(logdir, 'cpu').apply(x))
-        if not rel <= ARB_REL:
-            raise AssertionError(f'arb_train {name}: saved features vs CPU {rel}')
-        out[name] = dict(wall_sec=wall, steps=640 // 64, epoch_1=history[1], rel_err=rel)
-        log(f'[arb_train] {name}: main.main {wall:.2f}s; epoch 1 {json.dumps(history[1])}; '
-            f'its model.jit.pt on the card vs a CPU copy {rel:.3g} (bound {ARB_REL})')
-    launches = _read(counters)
-    if any(launches.values()):
-        raise AssertionError(f'arb_train launched kernels of ops/: {launches}')
     return out
 
 
@@ -2507,6 +2482,439 @@ def phase_eval_heavy():
             raise AssertionError(f'eval_heavy {k}: {vals[k]} vs float64 {ref[k]}')
     return dict(values=vals, float64=ref, diff=diff, seconds=split, rounds=rounds,
                 samples_a_side=int(z_samp.shape[0]), launches=launches)
+
+
+def _sha256(path):
+    import hashlib
+
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+@contextlib.contextmanager
+def _checked_students(checked):
+    """Within it main.train first holds a distilled student at step 0
+    against its teacher's model.pt (every weight the teacher has, in the
+    student, its frozen teacher and its EMA, bitwise; only a step1
+    student's cond_w_embed apart) and after training its frozen teacher
+    bitwise unchanged; every stage has an EMA (CHAIN_STAGE_FLAGS' --ema).
+    It records each run's stage, step count and timesteps in checked."""
+    import generative_models_tpu_torch.main as main_mod
+    from generative_models_tpu_torch.models.base import read_checkpoint
+
+    plain = main_mod.train
+
+    def train(model, dataset, ae, cls, G):
+        stage = Path(G.logdir).name
+        if model.ema_net is None:
+            raise AssertionError(f'chain {stage}: no EMA (--ema={G.get("ema")})')
+        teacher = read_checkpoint(G.teacher_path)['net'] if model.has_teacher else None
+        nets = [('student', model.net), ('teacher', model.teacher_net), ('ema', model.ema_net)]
+        for name, net in (nets if teacher is not None else []):
+            sd = net.state_dict()
+            own = set(sd) - set(teacher)
+            if (set(teacher) - set(sd) or (own and G.teacher_mode != 'step1')
+                    or any(not k.startswith('cond_w_embed.') for k in own)):
+                raise AssertionError(f'chain {stage}: the {name} has {sorted(own)[:4]} beyond '
+                                     'the teacher, or lacks some of its weights')
+            bad = [k for k, v in teacher.items() if not torch.equal(sd[k].cpu(), v)]
+            if bad:
+                raise AssertionError(f'chain {stage}: the {name} differs from the teacher at '
+                                     f'step 0: {bad[:4]}')
+        history = plain(model, dataset, ae, cls, G)
+        if teacher is not None:
+            sd = model.teacher_net.state_dict()
+            moved = [k for k, v in teacher.items() if not torch.equal(sd[k].cpu(), v)]
+            if moved:
+                raise AssertionError(f'chain {stage}: the frozen teacher moved at {moved[:4]}')
+        checked.append(dict(stage=stage, steps=model.step, timesteps=int(G.timesteps),
+                            teacher_checked=teacher is not None))
+        return history
+
+    main_mod.train = train
+    try:
+        yield
+    finally:
+        main_mod.train = plain
+
+
+def phase_chain():
+    """The orchestration layer (generative_models_tpu_torch/scripts/) in
+    one process, each stage through main.main, diffusion at its defaults
+    (hidden_size=128, bf16, --class_cond=1; no cut in width or depth) on
+    the synthetic set cut to CHAIN_TRAIN_N / CHAIN_TEST_N, CHAIN_FLAGS
+    passed on to every stage, under a fresh CHAIN_DIR:
+      1. train_arbiters with EPOCHS=1 (autoencoder and classifier at their
+         default widths, 3 steps each): finite metrics, an event file, both
+         model.jit.pt installed under the phase's WEIGHTS_DIR and read back
+         by load_arbiter on the card, features of 64 images within ARB_REL
+         of a CPU copy's;
+      2. progressive_distillation with EPOCHS_TEACHER=EPOCHS_STUDENT=1 and
+         CHAIN_STAGE_FLAGS (--eval_heavy=0, --ema): ten stages, each with
+         model.pt and hps.yaml at timesteps 256, 256, 128, ..., 1, 3 steps
+         each, finite losses; each student, its frozen teacher and its EMA
+         at step 0 equal to its teacher's model.pt but for a step1
+         student's cond_w_embed, and its frozen teacher bitwise unchanged
+         after training (_checked_students);
+      3. eval_distill_chain with the arbiters of 1 and CHAIN_EVAL_FLAGS,
+         each stage reloaded with its EMA: every stage's eval/* (fid,
+         ignite_fid, precision, recall, f1, classifier_loss, cond_*)
+         finite, from 128 samples a side;
+      4. collect_distill, then distill_latency with CHAIN_LATENCY_FLAGS:
+         the JSON holds the ten stages, each with its metrics and its
+         latency; the curve from the 256-step teacher to the 1-step
+         student logged.
+    The shipped weights/*.pt keep their sha256, and no kernel of ops/ is
+    launched. The whole run runs this phase as chip_smoke.py --only=chain,
+    a process of its own beside the phases from resume to train_flags, so
+    its seconds and its curve are those of a shared card and host (alone,
+    --only=chain, the card is idle). eval_no_progressive runs the entry of 3 (--weights_from --epochs=0
+    --eval_heavy=1) at a given --timesteps; it is held on the CPU only
+    (tests/test_torch_scripts.py), to spare chip time."""
+    import yaml
+
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch.models.arbiters import load_arbiter
+    from generative_models_tpu_torch.scripts import (
+        CHAIN_STAGES, collect_distill, distill_latency, eval_distill_chain,
+        progressive_distillation, train_arbiters,
+    )
+
+    shutil.rmtree(CHAIN_DIR, ignore_errors=True)
+    mnist.TRAIN_N, mnist.TEST_N = CHAIN_TRAIN_N, CHAIN_TEST_N
+    shipped = [_sha256(p) for p in SHIPPED_ARBITERS]
+    counters = _counters()
+    _reset(counters)
+    sec, out = {}, {}
+
+    t0 = time.time()
+    weights = CHAIN_DIR / 'weights'
+    arb_env = dict(LOGROOT=str(CHAIN_DIR / 'arbiters'), EPOCHS='1', WEIGHTS_DIR=str(weights))
+    arb_hist, arbiters = train_arbiters.main(CHAIN_FLAGS, arb_env)
+    torch.cuda.synchronize()
+    sec['arbiters'] = time.time() - t0
+    x = torch.clamp(torch.randn((64, 28, 28, 1), generator=torch.Generator().manual_seed(1)),
+                    -1, 1)
+    for name, history in zip(train_arbiters.ARBITERS, arb_hist):
+        logdir = CHAIN_DIR / 'arbiters' / name
+        bad = {k: v for h in history for k, v in h.items() if not np.isfinite(v)}
+        if bad or not any(k.startswith(f'{name}/train/') for k in history[1]):
+            raise AssertionError(f'chain arbiters {name}: metrics {history[1]}')
+        if not list(logdir.glob('events.out.tfevents.*')):
+            raise AssertionError(f'chain arbiters {name}: no event file')
+        path = weights / f'{name}.pt'
+        rel = _rel(load_arbiter(path, 'cuda').apply(x.cuda()), load_arbiter(path, 'cpu').apply(x))
+        if not rel <= ARB_REL:
+            raise AssertionError(f'chain arbiters {name}: {path} on the card vs CPU {rel}')
+        out[name] = dict(epoch_1=history[1], rel_err=rel)
+        log(f'[chain] {name}: epoch 1 {json.dumps(history[1])}; {path.name} on the card vs a '
+            f'CPU copy {rel:.3g} (bound {ARB_REL})')
+
+    env = dict(LOGROOT=str(CHAIN_DIR / 'distillation'), EPOCHS_TEACHER='1', EPOCHS_STUDENT='1')
+    root = Path(env['LOGROOT'])
+    checked = []
+    t0 = time.time()
+    with _checked_students(checked):
+        histories = progressive_distillation.main(CHAIN_STAGE_FLAGS, env)
+    torch.cuda.synchronize()
+    sec['chain'] = time.time() - t0
+    steps = [256, 256] + [int(s.split('_')[1]) for s in CHAIN_STAGES[2:]]
+    hps = [yaml.safe_load((root / s / 'hps.yaml').read_text()) for s in CHAIN_STAGES]
+    if [h['timesteps'] for h in hps] != steps or [c['timesteps'] for c in checked] != steps:
+        raise AssertionError(f'chain: timesteps {[h["timesteps"] for h in hps]} (want {steps})')
+    if [c['stage'] for c in checked] != list(CHAIN_STAGES) or any(
+            c['steps'] != CHAIN_TRAIN_N // 64 or c['teacher_checked'] != (c['stage'] != 'teacher')
+            for c in checked):
+        raise AssertionError(f'chain: stages run {checked}')
+    losses = {s: [h[k] for h in hist for k in h if k.endswith('/loss')]
+              for s, hist in zip(CHAIN_STAGES, histories)}
+    if any(len(v) != 3 or not np.all(np.isfinite(v)) for v in losses.values()):
+        raise AssertionError(f'chain: losses {losses}')
+    log(f'[chain] ten stages in {sec["chain"]:.1f}s; test and train losses {json.dumps(losses)}')
+
+    t0 = time.time()
+    evals = eval_distill_chain.main(arbiters + CHAIN_EVAL_FLAGS, env)
+    torch.cuda.synchronize()
+    sec['eval_chain'] = time.time() - t0
+    keys = ['fid', 'ignite_fid', 'precision', 'recall', 'f1', 'classifier_loss', 'cond_fid',
+            'cond_precision', 'cond_recall', 'cond_f1']
+    heavy = {s: {k: h[0].get(f'eval/{k}') for k in keys} for s, h in zip(CHAIN_STAGES, evals)}
+    for s, vals in heavy.items():
+        if any(vals.get(k) is None or not np.isfinite(vals[k]) for k in keys):
+            raise AssertionError(f'chain eval {s}: {vals}')
+    dt_heavy = {s: h[0]['dt/eval_heavy'] for s, h in zip(CHAIN_STAGES, evals)}
+    log(f'[chain] eval chain {sec["eval_chain"]:.1f}s (dt/eval_heavy {json.dumps(dt_heavy)}); '
+        f'{json.dumps(heavy)}')
+
+    t0 = time.time()
+    collect_distill.main([], env)
+    sec['collect'] = time.time() - t0
+    t0 = time.time()
+    record = distill_latency.main(CHAIN_LATENCY_FLAGS, env)
+    sec['latency'] = time.time() - t0
+    lat = record.get('sample_latency', {})
+    if list(record.get('stages', {})) != list(CHAIN_STAGES) or list(lat) != list(CHAIN_STAGES):
+        raise AssertionError(f'chain: DISTILL.json stages {list(record.get("stages", {}))}, '
+                             f'latencies {list(lat)}')
+    if any(lat[s]['timesteps'] != n or not lat[s]['sample64_sec'] > 0
+           for s, n in zip(CHAIN_STAGES, steps)):
+        raise AssertionError(f'chain: latencies {lat}')
+    ratio = lat['teacher']['sample64_sec'] / lat['step2_1']['sample64_sec']
+    log('[chain] 64-image latency by stage (timesteps: s): ' + ', '.join(
+        f'{s} ({lat[s]["timesteps"]}): {lat[s]["sample64_sec"]:.4f}' for s in CHAIN_STAGES)
+        + f'; teacher / step2_1 = {ratio:.1f}; {record["sample_latency_device"]}')
+
+    if [_sha256(p) for p in SHIPPED_ARBITERS] != shipped:
+        raise AssertionError('chain: the shipped weights/*.pt changed')
+    launches = _read(counters)
+    if any(launches.values()):
+        raise AssertionError(f'chain launched kernels of ops/: {launches}')
+    log(f'[chain] seconds {json.dumps(sec)}')
+    return dict(arbiters=out, losses=losses, eval_heavy=heavy, dt_eval_heavy=dt_heavy,
+                sample_latency=lat, teacher_over_1step=ratio, seconds=sec,
+                distill_json=str(root / 'DISTILL.json'), launches=launches)
+
+
+def start_only(phase, log_path):
+    """python3 chip_smoke.py --only=<phase> in a process of its own, beside
+    this one, its output into log_path: (the process, log_path, its start
+    time). It reuses the kernels this process built. A process still
+    running when this one exits is killed."""
+    import atexit
+
+    log_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(log_path, 'w') as out:
+        t0 = time.time()
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), f'--only={phase}'],
+                                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    return proc, log_path, t0
+
+
+def join_only(started, phase, relog=None, timeout=1800):
+    """Wait for start_only's process; raise with its log's tail where it
+    failed; log its lines that start with relog; return the phase's result
+    from its last line, with the process's wall and the seconds this
+    process waited for it."""
+    proc, log_path, t0 = started
+    t_wait = time.time()
+    rc = proc.wait(timeout=timeout)
+    text = log_path.read_text()
+    if rc:
+        raise AssertionError(f'{phase}: its process exited {rc}: {text[-4000:]}')
+    for line in text.splitlines():
+        if relog and line.startswith(relog):
+            log(line)
+    res = json.loads(text.strip().splitlines()[-1])[phase]
+    wall, waited = time.time() - t0, time.time() - t_wait
+    log(f'[{phase}] its process {wall:.1f}s; waited for it {waited:.1f}s')
+    return res, wall, waited
+
+
+def _remat_pair(name, flags):
+    """name trained 3 steps at bs=64 with --remat=0, then --remat=1, through
+    load_model_and_data and train from seed 0: each run's net (float64,
+    CPU), history, launches and lr; and the init's net."""
+    from generative_models_tpu_torch.main import load_model_and_data, train
+
+    counters = _counters()
+    runs, init = {}, None
+    for remat in (0, 1):
+        logdir = TRAIN_FLAGS_DIR / f'{name}_remat{remat}'
+        _reset(counters)
+        model, dataset, _, _, G = load_model_and_data(flags + [
+            '--bs=64', '--epochs=1', '--save_n=1', '--data_source=synthetic', f'--remat={remat}',
+            f'--logdir={logdir}'])
+        if init is None:
+            init = {k: v.detach().double().cpu() for k, v in model.net.state_dict().items()}
+        t0 = time.time()
+        history = train(model, dataset, None, None, G)
+        torch.cuda.synchronize()
+        runs[remat] = dict(net=_net(logdir / 'model.pt'), history=history,
+                           launches=_read(counters), wall_sec=time.time() - t0, lr=float(G.lr))
+    return runs, init
+
+
+MADE_FLAGS_ARGV = MADE_FLAGS + MADE_SCHEDULE + ['--bs=64', '--epochs=2', '--save_n=1',
+                                                '--data_source=synthetic']
+MADE_CPU_LOG = ROOT / 'build' / 'chip_smoke_made_cpu.log'
+
+
+def phase_made_cpu():
+    """The CPU run of train_flags' made command, main.main on 2 of the
+    host's 8 cores under TRAIN_FLAGS_DIR/made_cpu: its history. The whole
+    run starts it (start_only) before the export phase, whose tracing
+    workers already share the host, so that it ends before train_flags
+    needs it; it holds the cores for about two minutes."""
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch.main import main as train_main
+
+    torch.set_num_threads(2)
+    logdir = TRAIN_FLAGS_DIR / 'made_cpu'
+    shutil.rmtree(logdir, ignore_errors=True)
+    mnist.TRAIN_N, mnist.TEST_N = TRAIN_FLAGS_N['made']
+    return train_main(MADE_FLAGS_ARGV + ['--device=cpu', f'--logdir={logdir}'])
+
+
+def _made_flags_card(logdir):
+    """made's train_flags command on the card, through load_model_and_data
+    and train, recording for each micro-step whether the parameters moved,
+    and each update's global gradient norm before and after clipping and
+    its lr."""
+    from generative_models_tpu_torch.main import load_model_and_data, train
+
+    model, dataset, _, _, G = load_model_and_data(MADE_FLAGS_ARGV + [f'--logdir={logdir}'])
+    rec = dict(moved=[], norms=[], clipped=[], lrs=[])
+    norm = lambda grads: torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    params = [p for g in model.opt.param_groups for p in g['params']]
+    step, clip = model.train_step, model._clip_
+
+    def train_step(*a, **kw):
+        before = [p.detach().clone() for p in params]
+        m = step(*a, **kw)
+        rec['moved'].append(torch.stack([(p != b).any() for p, b in zip(params, before)]).any())
+        return m
+
+    def clip_(grads):
+        rec['norms'].append(norm(grads))
+        rec['lrs'].append(model.lr_at(model.updates))
+        clip(grads)
+        rec['clipped'].append(norm(grads))
+
+    model.train_step, model._clip_ = train_step, clip_
+    t0 = time.time()
+    history = train(model, dataset, None, None, G)
+    torch.cuda.synchronize()
+    return dict(history=history, wall_sec=time.time() - t0, lr=float(G.lr),
+                moved=[bool(v) for v in rec['moved']], norms=[float(v) for v in rec['norms']],
+                clipped=[float(v) for v in rec['clipped']], lrs=rec['lrs'])
+
+
+def phase_train_flags(cpu_run=None):
+    """The trainer flags no other phase names, through main's
+    load_model_and_data and train (main.main's body) at bs=64:
+      * --remat=1 against --remat=0 for pixel_transformer and for diffusion
+        (--eval_heavy=0; --sample_steps=10, evaluate's chain, as the check
+        is of training), 3 steps each from seed 0: model.pt bitwise, else
+        its distance over the update within REMAT_BOUND (_run_diff; the
+        attention key biases, of exact gradient 0, held apart within 2 lr a
+        step); pixel_transformer's Kernel C launched L x 3 more times (each
+        Block's forward recomputed in its backward), no other count moved;
+      * made at 2048 with MADE_SCHEDULE (--grad_clip=MADE_CLIP,
+        --grad_accum=2, --lr_scheduler=cosine --warmup_steps=2
+        --lr_decay_steps=8, --keep_best=eval/nlogp) for 2 epochs of 4
+        micro-steps: the parameters bitwise unchanged by the first
+        micro-step of each window and by the first update (lr 0, optax's
+        warmup), moved by the other three; each update's lr the schedule's
+        and its gradient norm above MADE_CLIP (the clip bites), after
+        clipping MADE_CLIP within CLIP_RTOL; best.json's
+        value the least logged eval/nlogp, model_best.pt written; the
+        card's final weights within MADE_FLAGS_BOUND of a CPU run of the
+        same command (phase_made_cpu in a process of its own, cpu_run
+        from start_only, else started here), over the CPU run's
+        update, both as w * m (the kernel
+        route keeps its unmasked init off the mask, unread; the CPU's
+        premasked route zeroes it).
+    No kernel but C, E, D (pixel_transformer) and G, H (made)."""
+    import generative_models_tpu_torch.data.mnist as mnist
+
+    cpu_run = cpu_run or start_only('made_cpu', MADE_CPU_LOG)
+    try:
+        return _train_flags(mnist, cpu_run)
+    finally:
+        if cpu_run[0].poll() is None:
+            cpu_run[0].kill()
+            cpu_run[0].wait()
+
+
+def _train_flags(mnist, cpu_run):
+    """phase_train_flags' checks, the made CPU run start_only's cpu_run."""
+    cpu_dir = TRAIN_FLAGS_DIR / 'made_cpu'
+    for d in TRAIN_FLAGS_DIR.glob('*'):  # this phase's runs of an earlier call
+        if d.is_dir() and d != cpu_dir:
+            shutil.rmtree(d)
+    out = {}
+    mnist.TRAIN_N, mnist.TEST_N = TRAIN_FLAGS_N['remat']
+    cases = (('pixel_transformer', ['--model=pixel_transformer'], ZERO_GRAD),
+             ('diffusion', DIFF_FLAGS + ['--sample_steps=10'], ()))
+    for name, flags, free in cases:
+        runs, init = _remat_pair(name, flags)
+        d = _run_diff(runs[0], runs[1], init, free=free, lr=runs[0]['lr'])
+        bitwise = all(torch.equal(runs[0]['net'][k], runs[1]['net'][k]) for k in init)
+        extra = {k: runs[1]['launches'][k] - v for k, v in runs[0]['launches'].items()}
+        want = {k: (2 * 3 if (name, k) == ('pixel_transformer', 'causal_attention_fwd') else 0)
+                for k in extra}
+        out[name] = dict(bitwise=bitwise, diff=d, bound=REMAT_BOUND[name],
+                         launches=runs[0]['launches'], remat_extra_launches=extra,
+                         wall_sec=[runs[0]['wall_sec'], runs[1]['wall_sec']])
+        log(f'[train_flags] {name} --remat=1 vs 0: bitwise {bitwise}; {json.dumps(d)} (bound '
+            f'{REMAT_BOUND[name]}); launches {json.dumps(runs[0]["launches"])}, remat adds '
+            f'{json.dumps({k: v for k, v in extra.items() if v})}; walls {out[name]["wall_sec"]}')
+        if not (bitwise or (d['rel_to_update'] <= REMAT_BOUND[name] and d.get('free_ok', True)
+                            and d['metrics_max_abs'] <= MESH_METRIC_BOUND)):
+            raise AssertionError(f'train_flags {name}: --remat=1 apart from --remat=0: {d}')
+        if extra != want:
+            raise AssertionError(f'train_flags {name}: --remat=1 adds launches {extra}, '
+                                 f'want {want}')
+
+    mnist.TRAIN_N, mnist.TEST_N = TRAIN_FLAGS_N['made']
+    counters = _counters()
+    _reset(counters)
+    card = _made_flags_card(TRAIN_FLAGS_DIR / 'made')
+    launches = _read(counters)
+    cpu_hist, cpu_wall, _ = join_only(cpu_run, 'made_cpu', timeout=900)
+    cpu = dict(history=cpu_hist, wall_sec=cpu_wall)
+    micro = 2 * TRAIN_FLAGS_N['made'][0] // 64
+    want_moved = [i % 2 == 1 and i > 1 for i in range(micro)]
+    lr = card['lr']
+    want_lr = [0.0, lr / 2, lr, lr * 0.5 * (1 + np.cos(np.pi / 8))]
+    best = json.loads((TRAIN_FLAGS_DIR / 'made' / 'best.json').read_text())
+    nlogp = [h['eval/nlogp'] for h in card['history']]
+    # the CPU run's update, from the init both runs share (seed 0), in the
+    # weights each route computes with, w * m: the kernel route keeps the
+    # unmasked init off the mask, which it never reads, where the CPU's
+    # premasked route zeroes it
+    from generative_models_tpu_torch.main import load_model_and_data
+    fresh, *_ = load_model_and_data(MADE_FLAGS + ['--device=cpu', '--data_source=synthetic'])
+    names = {id(p): n for n, p in fresh.net.named_parameters()}
+    masks = {names[id(w)]: m.double().cpu() for w, _, m in fresh.net.layers()}
+    masked = lambda net: {k: v * masks[k] if k in masks else v for k, v in net.items()}
+    init = masked({k: v.detach().double() for k, v in fresh.net.state_dict().items()})
+    d = _run_diff(dict(net=masked(_net(cpu_dir / 'model.pt')),
+                       history=cpu['history']),
+                  dict(net=masked(_net(TRAIN_FLAGS_DIR / 'made' / 'model.pt')),
+                       history=card['history']), init)
+    out['made'] = dict(moved=card['moved'], grad_norms=card['norms'],
+                       clipped_norms=card['clipped'], lrs=card['lrs'], best=best,
+                       eval_nlogp=nlogp, vs_cpu=d, bound=MADE_FLAGS_BOUND, launches=launches,
+                       wall_sec=card['wall_sec'], cpu_wall_sec=cpu['wall_sec'])
+    log(f'[train_flags] made 2048 {" ".join(MADE_SCHEDULE)}: moved by micro-step '
+        f'{card["moved"]}; update grad norms {card["norms"]}, clipped {card["clipped"]} '
+        f'(clip {MADE_CLIP}, rtol {CLIP_RTOL}); lr '
+        f'{card["lrs"]}; eval/nlogp {nlogp}; best.json {json.dumps(best)}; vs the CPU run '
+        f'{json.dumps(d)} (bound {MADE_FLAGS_BOUND}); launches {json.dumps(launches)}; walls '
+        f'{card["wall_sec"]:.2f}s, the CPU process {cpu["wall_sec"]:.2f}s from its start')
+    faults = []
+    if card['moved'] != want_moved:
+        faults.append(f'moved {card["moved"]}, want {want_moved}')
+    if len(card['lrs']) != 4 or not np.allclose(card['lrs'], want_lr, rtol=1e-12, atol=0):
+        faults.append(f'lr {card["lrs"]}, want {want_lr}')
+    if len(card['norms']) != 4 or not min(card['norms']) > MADE_CLIP:
+        faults.append(f'gradient norms {card["norms"]} do not all exceed the clip {MADE_CLIP}')
+    if len(card['clipped']) != 4 or not np.allclose(card['clipped'], MADE_CLIP, rtol=CLIP_RTOL,
+                                                    atol=0):
+        faults.append(f'clipped gradient norms {card["clipped"]}, want {MADE_CLIP}')
+    if best.get('value') != min(nlogp) or best.get('epoch') != int(np.argmin(nlogp)) or \
+            not (TRAIN_FLAGS_DIR / 'made' / 'model_best.pt').is_file():
+        faults.append(f'best.json {best} vs eval/nlogp {nlogp}, or no model_best.pt')
+    if not d['rel_to_update'] <= MADE_FLAGS_BOUND:
+        faults.append(f'card vs CPU {d}')
+    if launches['masked_matmul'] == 0 or launches['mask_out_matmul'] == 0 or any(
+            v for k, v in launches.items() if k not in ('masked_matmul', 'mask_out_matmul')):
+        faults.append(f'launches {launches}')
+    if faults:
+        raise AssertionError('train_flags made: ' + '; '.join(faults))
+    return out
 
 
 def _train_and_serve(name, flags=(), tag=None):
@@ -4336,6 +4744,9 @@ ONLY = {  # --only: these phases alone, in this order, after the build
     'export': lambda dev: phase_export(),
     'moe': lambda dev: phase_moe(),
     'mesh': lambda dev: phase_mesh(),
+    'chain': lambda dev: phase_chain(),
+    'made_cpu': lambda dev: phase_made_cpu(),  # the whole run's process for train_flags
+    'train_flags': lambda dev: phase_train_flags(),
     **{name: (lambda dev, name=name: phase_raster_model(name)) for name in RASTER},
 }
 
@@ -4397,9 +4808,7 @@ def main(argv=None):
     ds = timed('diff_serve', phase_diff_serve)
     dt = timed('diff_train', phase_diff_train)
     dg = timed('diff_grads', phase_diff_grads, dt['model'], dt['dataset'], dt['G'])
-    dd = timed('diff_distill', phase_diff_distill)
     ab = timed('arb_load', phase_arb_load)
-    at = timed('arb_train', phase_arb_train)
     eh = timed('eval_heavy', phase_eval_heavy)
     dq = timed('diff_quant', phase_diff_quant)
     va = timed('vae', phase_small_model, 'vae')
@@ -4412,14 +4821,21 @@ def main(argv=None):
                  dict(server=ds['server'], dpm2m_server=ds['other']['dpm2m_25'].pop('server'),
                       model=dt['model'], dataset=dt['dataset']))
     ds['other']['fused_cfg'].pop('server')
+    # the chain phase in a process beside the phases from resume to
+    # train_flags, joined after them
+    chain = start_only('chain', CHAIN_LOG)
     rs = timed('resume', phase_resume)
     jc = timed('jax_ckpt', phase_jax_ckpt)
     sm = timed('stream', phase_stream)
     cp = timed('cli_profile', phase_cli_profile)
     pa = timed('parity', phase_parity)
+    made_cpu = start_only('made_cpu', MADE_CPU_LOG)  # train_flags' CPU run, beside export
     xp = timed('export', phase_export)
     mo = timed('moe', phase_moe)
     me = timed('mesh', phase_mesh)
+    tf = timed('train_flags', phase_train_flags, made_cpu)
+    ch, ch_wall, ch_waited = timed('chain', join_only, chain, 'chain', '[chain]')
+    ch.update(process_wall_sec=ch_wall, waited_sec=ch_waited)
     phase_sec['total'] = time.time() - t_start
     log(f'[time] phases {json.dumps(phase_sec)}')
 
@@ -4457,7 +4873,11 @@ def main(argv=None):
                    'moe_train': mo['launches'][name], 'moe_serve': mo['serve_launches'][name],
                    **{f'moe_{mode}_serve': q['launches'][name] for mode, q in mo['quant'].items()},
                    **{f'mesh_{label}' + ('' if label.startswith('serve_') else '_train'):
-                      m['launches'][name] for label, m in me.items()}}
+                      m['launches'][name] for label, m in me.items()},
+                   **{f'train_flags_{label}': t['launches'][name] * 2
+                      + t['remat_extra_launches'][name]
+                      for label, t in tf.items() if label != 'made'},
+                   'train_flags_made': tf['made']['launches'][name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f'{name} was not launched on a main path')
         kernels.append(dict(
@@ -4519,10 +4939,11 @@ def main(argv=None):
             wall_sec=dt['wall_sec'], steps=dt['steps'], history=dt['history'],
             restored_loss=dt['restored_loss'],
             grads_max_rel_err=max(dg['rel_err'].values()),
-            adam_update_rel_err=dg['adam_update_rel_err'], distill=dd, power=smi,
+            adam_update_rel_err=dg['adam_update_rel_err'], power=smi,
         ),
-        arbiters=dict(ab, train=at, power=smi),
+        arbiters=dict(ab, power=smi),
         eval_heavy=dict(eh, power=smi),
+        chain=dict(ch, power=smi),
         vae=dict(va, power=smi),
         gan=dict(ga, power=smi),
         gan_sn=dict(gs, power=smi),
@@ -4535,6 +4956,7 @@ def main(argv=None):
         export=dict(xp, power=smi),
         moe=dict(mo, power=smi),
         mesh=dict(me, power=smi),
+        train_flags=dict(tf, power=smi),
         **{name: dict(r, power=smi) for name, r in raster.items()},
         phase_sec=phase_sec,
     )))

@@ -236,7 +236,9 @@ def train(model, dataset, autoencoder, classifier, G):
         start_epoch = model.step // max(1, dataset.steps_per_epoch)
         print(f'RESUMING at epoch {start_epoch}')
 
-    with profiled(G, model.device):
+    # the writer closes also when the loop raises: a script that runs
+    # stages in one process leaves no event file open behind a failed one
+    with profiled(G, model.device), writer or contextlib.nullcontext():
         for epoch in count(start_epoch):
             # ---- TEST (eval first) ----
             if model.has_loss():
@@ -298,8 +300,6 @@ def train(model, dataset, autoencoder, classifier, G):
                         f'non-finite train metrics at epoch {epoch}: {bad} '
                         '(set --nan_guard=0 to train through)'
                     )
-    if writer is not None:
-        writer.close()
     return history
 
 

@@ -526,6 +526,11 @@ class GM:
     def load_extra_state(self, extra):
         """Restore what extra_state() saved (extra may be {})."""
 
+    def fit_checkpoint(self, state):
+        """A model.pt written by save, made to fit this model before it is
+        restored (default: as it is; one that does not fit is refused)."""
+        return state
+
     def load_weights(self, path):
         """Restore a model.pt written by save (the full train state), a
         params-only torch state dict, or a JAX package's model.pt
@@ -537,6 +542,7 @@ class GM:
         if 'net' not in state:  # params only
             self.load_net_state(self.net, state)
             return
+        state = self.fit_checkpoint(state)
         self.load_net_state(self.net, state['net'])
         # read on the CPU: load_state_dict moves Adam's moments to their
         # parameters' device and leaves each step counter on the CPU, where

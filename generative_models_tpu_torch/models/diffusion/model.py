@@ -3,7 +3,9 @@ generative_models_tpu/models/diffusion/model.py: SimpleUnet +
 GaussianDiffusion, classifier-free label dropout in training, --ema (a
 moving average of the parameters that sampling reads), a progressive-
 distillation teacher (the student starts from the frozen teacher's
-weights), guided sampling and serving with labels, and a seeded evaluate
+weights; a student reloaded by --weights_from builds no teacher and drops
+its cond_w_embed, as the JAX package's strict=False restore does),
+guided sampling and serving with labels, and a seeded evaluate
 that writes the 25-sample grid and the z / x_hat / eps_hat chain GIFs.
 
 No kernel of ops/ lies on this path: the UNet's convs, GroupNorm and
@@ -161,6 +163,31 @@ class DiffusionModel(GM):
             self.load_net_state(self.ema_net, extra.get('ema') or self.net_state())
         if self.teacher_net is not None and 'teacher' in extra:
             self.load_net_state(self.teacher_net, extra['teacher'])
+
+    def fit_checkpoint(self, state):
+        """A distilled student's model.pt read into a net without
+        cond_w_embed (its reload by --weights_from, which builds no
+        teacher): as the JAX package's strict=False restore (merge_pytree)
+        keeps only the entries its model has, the student's cond_w_embed is
+        not read, from the net, Adam's moments, the --grad_accum window or
+        the EMA, and the student samples as a guided model."""
+        names = list(state['net'])
+        keep = [j for j, k in enumerate(names) if not k.startswith('cond_w_embed.')]
+        if len(keep) == len(names) or self.net.cond_w_embed is not None:
+            return state
+        # the UNet holds no buffers: its state dict's order is its
+        # parameters', by which Adam's saved state is indexed
+        saved = {int(j): st for j, st in state['opt']['state'].items()}
+        fitted = dict(state, net={names[j]: state['net'][names[j]] for j in keep},
+                      opt=dict(state['opt'], state={i: saved[j] for i, j in enumerate(keep)
+                                                    if j in saved}))
+        if state['acc'] is not None:
+            fitted['acc'] = [state['acc'][j] for j in keep]
+        ema = state.get('extra', {}).get('ema')
+        if ema:
+            fitted['extra'] = dict(state['extra'], ema={
+                k: v for k, v in ema.items() if not k.startswith('cond_w_embed.')})
+        return fitted
 
     def load_jax_extra(self, extra):
         """The JAX TrainState's extra['ema'] and extra['teacher'] (params

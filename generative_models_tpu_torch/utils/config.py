@@ -5,13 +5,14 @@ Counterpart of generative_models_tpu/utils/config.py, with the same global
 keys so an hps.yaml written by either package is read by the other. PyYAML is
 imported only where hps.yaml is read or written.
 
-Differences: --device defaults to 'cuda' (see ops/common.resolve_device),
-and flags this port does not implement yet raise instead of being ignored.
---mesh takes the data, model and seq axes (parallel/mesh.py: data and
-model above 1 under a process group, seq:N on one card without one; a
-model without ring attention refuses seq above 1, models/base.py); pipe
-and expert above 1 raise. --fsdp=1 shards over the data axis under a
-group.
+Differences: --device defaults to 'cuda' (see ops/common.resolve_device).
+check_ported refuses two things by name: --ckpt=orbax (the card has no
+orbax; model.pt holds the full train state) and a --mesh axis no package
+has. Every other flag runs: --mesh takes the data, model, seq, pipe and
+expert axes (parallel/mesh.py: seq:N on one card without a process
+group, the others over ranks under torchrun; a model without ring
+attention replicates over seq, as the JAX package's GSPMD does), and
+--fsdp=1 shards over the data axis under a group.
 --jit_epoch and --decode_unroll are accepted for hps.yaml parity and have
 no effect: PyTorch runs eagerly, there is no jitted epoch or scan.
 """
