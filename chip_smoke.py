@@ -126,8 +126,8 @@ failure exits non-zero before the result lines:
                 bs=64 (10 steps, --ema=0.999, --eval_heavy=0): no kernel of
                 ops/, finite losses, the grid's event file and the three
                 chain GIFs of each epoch, the EMA copy in model.pt; then the
-                model restored from it, Adam's step counters on the CPU,
-                takes one step.
+                model restored from it, Adam's step counters on the card
+                (the capturable form), takes one step.
   19. diff_grads -- one train step's gradients on the card, bf16 and from an
                 f32 copy, against a CPU f32 copy from the same draws; one
                 Adam step from the same gradients and state; each conv
@@ -152,9 +152,9 @@ failure exits non-zero before the result lines:
                 and metrics; no kernel of ops/.
   23b. chain -- the orchestration scripts (generative_models_tpu_torch/
                 scripts/) at diffusion's defaults, as chip_smoke.py
-                --only=chain, a process started before resume and joined
-                after train_flags (the run's order below is that of the
-                joins):
+                --only=chain,graphs, a process started before resume and
+                joined after train_flags (the run's order below is that of
+                the joins; graphs, below, runs after chain in it):
                 train_arbiters (EPOCHS=1; each model.jit.pt installed under
                 the phase's WEIGHTS_DIR, read back on the card within
                 ARB_REL of a CPU copy), progressive_distillation
@@ -216,7 +216,8 @@ failure exits non-zero before the result lines:
   34. jax_ckpt -- made at 2048 and pixel_transformer written on the card
                 as the JAX package's TrainState (flax msgpack, the port's
                 writer) and read back: bitwise, on the card, Adam's counters
-                on the CPU, no device-to-host copy in the first step.
+                on the card (capturable), no device-to-host copy in the
+                first step.
   35. stream -- --stream_data=1 at --stream_chunk 1 and 16 for made at 2048
                 and diffusion: the on-device run's params, the epochs' walls.
   36. cli_profile -- --profile=1 through main.main (made at 2048): a Chrome
@@ -286,6 +287,32 @@ failure exits non-zero before the result lines:
                 best.json the
                 least eval/nlogp, the card within MADE_FLAGS_BOUND of a CPU
                 run of the same command.
+  42. graphs -- --jit_epoch=1 and --decode_unroll as CUDA graphs
+                (utils/graphs.py), after chain in its process: every
+                registry name at its default width, bs=64, and diffusion
+                with --ema and --dropout, a distilled student (step2), made
+                at 2048 with --grad_accum=2, warmup-cosine and --grad_clip,
+                pixel_transformer at --mesh=seq:4, --moe_experts=8 and
+                --remat=1, gan --spectral_norm=1: an epoch (the warm-up
+                step, the capture, replays) graphed and per-step from the
+                same init, batches and CUDA seed, bitwise (params, buffers,
+                every Adam state, counters, metric floats, both
+                generators) with every kernel counter equal, then a step
+                of each timed and traced; a resumed graphed diffusion run
+                bitwise the uninterrupted one; pixel_transformer's request
+                at serve_bs=64 at --decode_unroll 1 and 8 bitwise the
+                per-step loop's, A and B counts equal, again after a train
+                step has moved the weights, and under --quantize=w8a16 (J
+                equal). Each step's and request's wall in both modes. A
+                replay runs no Python, so its counts are the capture's
+                increments (utils/graphs.py): every traced step, graphed and
+                eager, must count on the trace, kernel function by kernel
+                function (KERNEL_FUNCTIONS), what the counters say, and each
+                decode graph's replays, traced alone, its capture's
+                increments. Then graph_gc: a graph left to the cyclic collector
+                and collected during another capture, in two processes of
+                its own, without utils/graphs.py's collection before the
+                capture (the capture must fail) and with it (it must pass).
 Then the kernels line, the nvidia-smi line and, last, the device line.
 `--only=<phase>,...` runs the build and those phases alone (diff_quant
 after diff_train), for work on them: it prints no kernels or device line.
@@ -1466,18 +1493,9 @@ def int8_cases(rng, dev):
 
 def _counters():
     """Every kernel wrapper; each counts its own launches."""
-    from generative_models_tpu_torch.ops.attention import (
-        causal_attention_fwd, flash_bwd_dkv, flash_bwd_dq, ring_chunk_bwd_dkv, ring_chunk_bwd_dq,
-        ring_chunk_fwd,
-    )
-    from generative_models_tpu_torch.ops.decode_fused import block_tail, ln_matmul
-    from generative_models_tpu_torch.ops.int8 import dequant_gemm, int8_gemm
-    from generative_models_tpu_torch.ops.masked_dense import mask_out_matmul, masked_matmul
-    from generative_models_tpu_torch.ops.quantize import vq_one_hot
+    from generative_models_tpu_torch.ops.common import kernel_counters
 
-    return (ln_matmul, block_tail, causal_attention_fwd, flash_bwd_dq, flash_bwd_dkv,
-            vq_one_hot, masked_matmul, mask_out_matmul, int8_gemm, dequant_gemm,
-            ring_chunk_fwd, ring_chunk_bwd_dq, ring_chunk_bwd_dkv)
+    return kernel_counters()
 
 
 def _reset(counters):
@@ -1687,6 +1705,16 @@ def _cpu_copy(model, G, dtype=None, **over):
         cpu.net = cpu.build(dtype)
     cpu.net.load_state_dict({k: v.cpu() for k, v in model.net.state_dict().items()})
     return cpu
+
+
+def _copy_opt(dst, name, src):
+    """The state of the optimizer src into dst's optimizer name, in dst's
+    form (GM._laid_out_opt: the CPU's float Adam, the card's capturable
+    one), sharing no tensor."""
+    sd = copy.deepcopy(src.state_dict())
+    sd['state'] = {i: {k: v.cpu() for k, v in st.items()} for i, st in sd['state'].items()}
+    opt = dst.optimizers()[name]
+    opt.load_state_dict(dst._laid_out_opt(opt, sd))
 
 
 def grad_check(label, model, cpu, rel=5e-2, floor=1e-4):
@@ -2207,7 +2235,7 @@ def phase_diff_train():
     --ema=0.999: no kernel of ops/ launched, finite losses, the grid's
     event file and the three chain GIFs of each epoch, a model.pt holding
     the EMA copy; then the model restored from it (Adam's step counters on
-    the CPU) takes one step."""
+    the card, where the capturable form keeps them) takes one step."""
     import generative_models_tpu_torch.data.mnist as mnist
     from generative_models_tpu_torch.main import load_model_and_data
     from generative_models_tpu_torch.main import main as train_main
@@ -2259,13 +2287,13 @@ def phase_diff_train():
         f'--weights_from={DIFF_TRAIN_DIR / "model.pt"}', '--data_source=synthetic',
     ])
     on = {st['step'].device.type for st in model.opt.state.values()}
-    if on != {'cpu'}:
+    if on != {'cuda'}:
         raise AssertionError(f'diff_train: restored Adam step counters on {on}')
     bx, by = dataset.epoch_batches(torch.Generator().manual_seed(0))
     restored_loss = float(model.train_step(bx[0], by[0])['loss'])
     if not np.isfinite(restored_loss):
         raise AssertionError(f'diff_train: restored step loss {restored_loss}')
-    log(f'[diff_train] restored from model.pt (Adam steps on the CPU): one step, loss '
+    log(f'[diff_train] restored from model.pt (Adam steps on the card): one step, loss '
         f'{restored_loss:.5f}')
     return dict(launches=launches, wall_sec=wall, steps=train_n // bs, history=history,
                 restored_loss=restored_loss, model=model, dataset=dataset, G=G)
@@ -2288,7 +2316,7 @@ def phase_diff_grads(model, dataset, G):
     draws = dict(drop=torch.rand(8, generator=gen), eps=torch.randn((8, 28, 28, 1), generator=gen),
                  u=torch.rand(8, generator=gen))
     cpu = _cpu_copy(model, G, bf16=0)
-    cpu.opt.load_state_dict(copy.deepcopy(model.opt.state_dict()))  # shares no tensor
+    _copy_opt(cpu, 'opt', model.opt)
     cpu.updates = model.updates
     card_f32 = type(model)(type(G)(G, bf16=0))
     card_f32.net.load_state_dict(model.net.state_dict())
@@ -2692,9 +2720,10 @@ def start_only(phase, log_path):
 
 def join_only(started, phase, relog=None, timeout=1800):
     """Wait for start_only's process; raise with its log's tail where it
-    failed; log its lines that start with relog; return the phase's result
-    from its last line, with the process's wall and the seconds this
-    process waited for it."""
+    failed; log its lines that start with relog (a prefix or a tuple of
+    them); return the phase's result from its last line ({phase: result}
+    for phases joined by commas), with the process's wall and the seconds
+    this process waited for it."""
     proc, log_path, t0 = started
     t_wait = time.time()
     rc = proc.wait(timeout=timeout)
@@ -2704,7 +2733,8 @@ def join_only(started, phase, relog=None, timeout=1800):
     for line in text.splitlines():
         if relog and line.startswith(relog):
             log(line)
-    res = json.loads(text.strip().splitlines()[-1])[phase]
+    res = json.loads(text.strip().splitlines()[-1])
+    res = {p: res[p] for p in phase.split(',')} if ',' in phase else res[phase]
     wall, waited = time.time() - t0, time.time() - t_wait
     log(f'[{phase}] its process {wall:.1f}s; waited for it {waited:.1f}s')
     return res, wall, waited
@@ -2762,7 +2792,10 @@ def _made_flags_card(logdir):
     its lr."""
     from generative_models_tpu_torch.main import load_model_and_data, train
 
-    model, dataset, _, _, G = load_model_and_data(MADE_FLAGS_ARGV + [f'--logdir={logdir}'])
+    # the per-step loop: the hooks below run at every micro-step (a graph
+    # replays no Python; the graphs phase holds the graphed epoch bitwise)
+    model, dataset, _, _, G = load_model_and_data(MADE_FLAGS_ARGV + [f'--logdir={logdir}',
+                                                                     '--jit_epoch=0'])
     rec = dict(moved=[], norms=[], clipped=[], lrs=[])
     norm = lambda grads: torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
@@ -2989,7 +3022,7 @@ def phase_small_model(name, flags=(), tag=None):
                                                    '--data_source=synthetic'])
     cpu = _cpu_copy(model, G)
     for key, o in model.optimizers().items():
-        cpu.optimizers()[key].load_state_dict(copy.deepcopy(o.state_dict()))
+        _copy_opt(cpu, key, o)
     x = dataset.first_test_batch(0)[0]
     gen = torch.Generator().manual_seed(1)
     if name == 'vae':
@@ -3001,14 +3034,14 @@ def phase_small_model(name, flags=(), tag=None):
         cpu64 = _cpu_copy(model, G)
         cpu64.net.double()
         for key, o in model.optimizers().items():  # the moments cast to float64
-            cpu64.optimizers()[key].load_state_dict(copy.deepcopy(o.state_dict()))
+            _copy_opt(cpu64, key, o)
         cpu64._as_input = lambda a: torch.as_tensor(a).double()
         # the same twin step in float64 on the card: its distance from the
         # CPU float64 copy's is the card's arithmetic apart from f32's
         card64 = _cpu_copy(model, G, device='cuda')
         card64.net.double()
         for key, o in model.optimizers().items():
-            card64.optimizers()[key].load_state_dict(copy.deepcopy(o.state_dict()))
+            _copy_opt(card64, key, o)
         card64._as_input = lambda a: torch.as_tensor(a).double().cuda()
         noise = torch.randn((64, int(G.noise_size)), generator=gen)
         model.train_step(x, noise=noise.cuda())
@@ -3140,22 +3173,62 @@ def _guided_step(model, n=64):
     return run
 
 
+# each kernel wrapper's kernel functions (ops/csrc), by the wrapper's name:
+# one launch a count
+KERNEL_FUNCTIONS = {
+    'ln_matmul': ('ln_matmul_kernel', 'ln_matmul_dot_kernel'),
+    'block_tail': ('block_tail_kernel',),
+    'causal_attention_fwd': ('flash_fwd_kernel',),
+    'flash_bwd_dq': ('flash_bwd_dq_kernel',),
+    'flash_bwd_dkv': ('flash_bwd_dkv_kernel',),
+    'vq_one_hot': ('vq_one_hot_kernel',),
+    'masked_matmul': ('masked_matmul_kernel',),
+    'mask_out_matmul': ('mask_out_matmul_kernel',),
+    'int8_gemm': ('int8_gemm_kernel',),
+    'dequant_gemm': ('dequant_gemm_kernel',),
+    'ring_chunk_fwd': ('ring_fwd_kernel',),
+    'ring_chunk_bwd_dq': ('ring_bwd_dq_kernel',),
+    'ring_chunk_bwd_dkv': ('ring_bwd_dkv_kernel',),
+}
+WRAPPER_OF = {fn: name for name, fns in KERNEL_FUNCTIONS.items() for fn in fns}
+
+
+def _kernel_function(event_name):
+    """The function name of a traced kernel: 'flash_fwd_kernel' of 'void
+    flash_fwd_kernel<32>(...)' or of its mangled '_Z16flash_fwd_kernel...'."""
+    mangled = re.match(r'_Z(\d+)', event_name)
+    if mangled:
+        start = mangled.end()
+        return event_name[start:start + int(mangled.group(1))]
+    m = re.match(r'(?:void\s+)?([A-Za-z_]\w*)', event_name)
+    return m.group(1) if m else event_name
+
+
 def _count_launches(label, fn):
     """The device kernels and copies of one call of fn, counted under
     torch.profiler's CUDA activity alone (no op events): for a whole
-    request."""
+    request. kernels: the launches of each kernel wrapper's functions
+    (KERNEL_FUNCTIONS) on the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a pause before the first launch: traces that launched at once now
+        # and then lost their first few launches
+        time.sleep(0.05)
         t1 = time.time()
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t1
     events = _raw_device_events(prof)
     busy = sum(us for _, us in events) / 1e3
+    kernels = {}
+    for name, _ in events:
+        wrapper = WRAPPER_OF.get(_kernel_function(name))
+        if wrapper is not None:
+            kernels[wrapper] = kernels.get(wrapper, 0) + 1
     out = dict(wall_ms=wall * 1e3, device_ms=busy, launches=len(events),
-               busy_share=busy / (wall * 1e3), traced_sec=time.time() - t0)
+               busy_share=busy / (wall * 1e3), traced_sec=time.time() - t0, kernels=kernels)
     log(f'[profile] {label}: wall {out["wall_ms"]:.1f} ms, device {busy:.1f} ms, '
         f'{len(events)} launches, busy share {out["busy_share"]:.3f}; traced in '
         f'{out["traced_sec"]:.1f}s')
@@ -3625,9 +3698,9 @@ def phase_resume():
         raise AssertionError(f'resume: eval metrics {hist} vs {ref[1:]}')
 
     model, dataset, _, _, G = load_model_and_data(flags + ['--resume=1', f'--logdir={cut}'])
-    if model.step != 20 or {st['step'].device.type for st in model.opt.state.values()} != {'cpu'}:
+    if model.step != 20 or {st['step'].device.type for st in model.opt.state.values()} != {'cuda'}:
         raise AssertionError(f'resume: restored step {model.step}, Adam step counters not on '
-                             'the CPU')
+                             'the card')
     bx, _ = dataset.epoch_batches(epoch_generator(0, 2))
     dtoh = _dtoh_copies('the first resumed made step', lambda: model.train_step(bx[0]))
     if dtoh['copies']:
@@ -3715,7 +3788,7 @@ def phase_jax_ckpt():
     writes it (flax_train_state_bytes; a CPU test holds those bytes equal
     to the JAX package's for the same weights) and read into a fresh model
     by load_weights. Every param and moment equal to the source's, bitwise,
-    on the card; Adam's step counters on the CPU, equal to the count; the
+    on the card; Adam's step counters on the card, equal to the count; the
     first step of the restored model makes no device-to-host copy and
     lands on the source's next step bitwise."""
     from generative_models_tpu_torch.utils.config import parse_args
@@ -3742,7 +3815,7 @@ def phase_jax_ckpt():
             sa, sb = src.opt.state[p], got.opt.state[q]
             if q.device.type != 'cuda' or sb['exp_avg'].device.type != 'cuda':
                 raise AssertionError(f'jax_ckpt {name}: {k} restored off the card')
-            if sb['step'].device.type != 'cpu' or float(sb['step']) != 2:
+            if sb['step'].device.type != 'cuda' or float(sb['step']) != 2:
                 raise AssertionError(f'jax_ckpt {name}: {k} Adam step {sb["step"]}')
             if not (torch.equal(p, q) and torch.equal(sa['exp_avg'], sb['exp_avg'])
                     and torch.equal(sa['exp_avg_sq'], sb['exp_avg_sq'])):
@@ -4730,6 +4803,388 @@ def phase_mesh():
     return out
 
 
+GRAPHS_DIR = ROOT / 'build' / 'chip_smoke_graphs'
+GRAPH_STEPS = 6  # an epoch: the warm-up step, the capture and 4 replays
+GRAPH_CASES = (  # (label, flags, steps): every registry name at its default width, bs=64
+    ('pixel_transformer', ['--model=pixel_transformer'], GRAPH_STEPS),
+    ('vqvae', ['--model=vqvae'], GRAPH_STEPS),
+    ('made', ['--model=made'], GRAPH_STEPS),
+    ('rnn', ['--model=rnn'], GRAPH_STEPS),
+    ('wavenet', ['--model=wavenet'], GRAPH_STEPS),
+    ('pixel_cnn', ['--model=pixel_cnn'], GRAPH_STEPS),
+    ('gated_pixel_cnn', ['--model=gated_pixel_cnn'], GRAPH_STEPS),
+    ('diffusion_model', DIFF_FLAGS, GRAPH_STEPS),
+    ('vae', ['--model=vae'], GRAPH_STEPS),
+    ('gan', ['--model=gan'], GRAPH_STEPS),
+    ('autoencoder', ['--model=autoencoder'], GRAPH_STEPS),
+    ('classifier', ['--model=classifier'], GRAPH_STEPS),
+    ('diffusion_ema', DIFF_FLAGS + ['--ema=0.999', '--dropout=0.1'], GRAPH_STEPS),
+    ('diffusion_student', DIFF_FLAGS + ['--timesteps=128', '--teacher_mode=step2', '--lr=1e-4'],
+     GRAPH_STEPS),
+    ('made_2048_schedule', MADE_FLAGS + MADE_SCHEDULE, 8),  # two micro-step kinds
+    ('pixel_transformer_seq4', ['--model=pixel_transformer', f'--mesh=seq:{SEQ}'], GRAPH_STEPS),
+    ('pixel_transformer_moe', ['--model=pixel_transformer', '--moe_experts=8'], GRAPH_STEPS),
+    ('pixel_transformer_remat', ['--model=pixel_transformer', '--remat=1'], GRAPH_STEPS),
+    ('gan_sn', ['--model=gan', '--spectral_norm=1'], GRAPH_STEPS),
+)
+GRAPH_UNROLLS = (1, 8)  # pixel_transformer's --decode_unroll against 0, the per-step loop
+
+
+def _opt_states(model):
+    """Every optimizer's state tensors, by optimizer name and index."""
+    return {f'{name}.{i}.{k}': v for name, o in model.optimizers().items()
+            for i, st in enumerate(o.state.values()) for k, v in st.items()}
+
+
+def _graph_diff(eager, graphed):
+    """What differs between two models trained the two ways: net entries,
+    optimizer states, host counters, the training draws' generator."""
+    out = [f'net.{k}' for (k, a), b in zip(eager.net.state_dict().items(),
+                                           graphed.net.state_dict().values())
+           if not torch.equal(a, b)]
+    ea, ga = _opt_states(eager), _opt_states(graphed)
+    out += [k for k in ea if k not in ga or not torch.equal(ea[k], ga[k])]
+    out += [k for k in ('step', 'updates', 'mini_step')
+            if getattr(eager, k) != getattr(graphed, k)]
+    if not torch.equal(eager._gen.get_state(), graphed._gen.get_state()):
+        out.append('_gen')
+    return out
+
+
+def _graph_pair(label, flags, steps, teacher=None):
+    """One epoch of `steps` at bs=64 two ways from the same init, batches
+    and CUDA seed: the per-step loop (--jit_epoch=0: train_step a step,
+    mean_metrics) and train_epoch (--jit_epoch=1: CUDA graphs), both on
+    cuDNN's deterministic algorithms (a conv model's eager step is not
+    bitwise repeatable on the default ones: its weight gradients sum in
+    another order from run to run). Bitwise: params and buffers, every
+    optimizer's state, host counters, the epoch's metric floats, the
+    training generator's state, the default CUDA generator's state; every
+    kernel counter equal. Where they differ, a second per-step run says
+    whether the eager path itself repeats. Then steps each way on the
+    default algorithms, the graphs captured anew, timed (host clock around
+    a synchronised step, the median of 3) and traced (device ms,
+    kernels)."""
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch import data as data_lib
+    from generative_models_tpu_torch.models.base import mean_metrics
+    from generative_models_tpu_torch.ops.common import deterministic_convs
+    from generative_models_tpu_torch.utils.config import parse_args
+
+    if teacher is not None:
+        flags = flags + [f'--teacher_path={teacher}']
+    G, Model = parse_args(flags + ['--bs=64', '--data_source=synthetic'])
+    mnist.TRAIN_N, mnist.TEST_N = 64 * (steps + 1), 64
+    dataset = data_lib.load_mnist(G, torch.device('cuda'))
+    bx, by = dataset.epoch_batches(torch.Generator().manual_seed(1))
+    counters = _counters()
+
+    def run(mode):
+        torch.cuda.manual_seed(0)
+        model = Model(G)
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if mode == 'eager':
+            metrics = mean_metrics([model.train_step(bx[i], by[i]) for i in range(steps)])
+        else:
+            metrics = model.train_epoch(bx[:steps], by[:steps])
+        torch.cuda.synchronize()
+        return dict(model=model, metrics=metrics, launches=_read(counters),
+                    epoch_sec=time.time() - t0, rng=torch.cuda.get_rng_state())
+
+    with deterministic_convs():
+        eager, graphed = run('eager'), run('graphed')
+        faults = _graph_diff(eager['model'], graphed['model'])
+        if faults:
+            again = _graph_diff(eager['model'], run('eager')['model'])
+            faults.append(f'eager vs eager: {again[:4] or "bitwise"}')
+    if eager['metrics'] != graphed['metrics']:
+        faults.append(f'metrics {eager["metrics"]} vs {graphed["metrics"]}')
+    if eager['launches'] != graphed['launches']:
+        faults.append(f'launches {eager["launches"]} vs {graphed["launches"]}')
+    if not torch.equal(eager['rng'], graphed['rng']):
+        faults.append('the default CUDA generator')
+    if faults:
+        raise AssertionError(f'graphs {label}: the graphed epoch differs from the per-step '
+                             f'loop: {faults[:8]}')
+    # one more step each way, as the path runs: on cuDNN's default
+    # algorithms, the graphs captured anew on them (a warm-up step and a
+    # capture first), then the first micro-step kind's graph replayed
+    i = steps
+    em, gm = eager['model'], graphed['model']
+    gm._graphs = None
+    step_eager = lambda: mean_metrics([em.train_step(bx[i], by[i])])
+    step_graphed = lambda: gm.train_epoch(bx[i:i + 1], by[i:i + 1])
+    for _ in range(2 * gm.accum()):
+        step_graphed()
+    out = dict(steps=steps, metrics=eager['metrics'],
+               launches={k: v for k, v in eager['launches'].items() if v},
+               epoch_sec=dict(eager=eager['epoch_sec'], graphed=graphed['epoch_sec']))
+    for mode, fn in (('eager', step_eager), ('graphed', step_graphed)):
+        wall = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall.append((time.time() - t0) * 1e3)
+        out[mode] = dict(step_wall_ms=sorted(wall)[1],
+                         trace=_traced_counts(f'graphs {label} {mode} step', fn))
+    log(f'[graphs] {label}: {steps} steps bitwise; step wall {out["eager"]["step_wall_ms"]:.2f} '
+        f'ms eager, {out["graphed"]["step_wall_ms"]:.2f} ms graphed; device '
+        f'{out["eager"]["trace"]["device_ms"]:.2f} / {out["graphed"]["trace"]["device_ms"]:.2f} '
+        f'ms; kernels {out["eager"]["trace"]["launches"]} / '
+        f'{out["graphed"]["trace"]["launches"]}; launches {out["launches"]}; traced a step '
+        f'{out["graphed"]["trace"]["kernels"]} graphed, as counted')
+    return out
+
+
+TRACE_TRIES = 5  # traces of a check taken before it fails (a trace may lose launches)
+
+
+def _traced_counts(label, fn):
+    """fn traced (_count_launches) from counters at 0: the trace's launches
+    of each wrapper's kernel functions must equal its counter, which a
+    graph's replay advances by its capture's increments
+    (utils/graphs.py), not by running the wrapper. A trace that disagrees
+    is taken again, up to TRACE_TRIES times; then raises."""
+    counters = _counters()
+    for attempt in range(TRACE_TRIES):
+        _reset(counters)
+        out = _count_launches(label, fn)
+        counted = {k: v for k, v in _read(counters).items() if v}
+        if out['kernels'] == counted:
+            return out
+        log(f'[graphs] {label}: counted {counted}, traced {out["kernels"]} '
+            f'({attempt + 1} of {TRACE_TRIES})')
+    raise AssertionError(f'graphs {label}: the counters {counted} are not the kernels on the '
+                         f'trace {out["kernels"]}')
+
+
+def _replays_as_counted(label, step_graphs, prepare, replays=3):
+    """Each graph of a StepGraphs replayed `replays` times under the trace,
+    prepare(its key) before each replay (a decode graph's t set to its
+    group's first step): its launches of each wrapper's kernel functions
+    must be its capture's increments, which each replay adds to the
+    counters, times replays (a trace that disagrees taken again, up to
+    TRACE_TRIES times). Returns {key: the wrappers' launches a replay}."""
+    out = {}
+    for key, (graph, delta) in step_graphs.graphs.items():
+        want = {c.__name__: n * replays for c, n in delta}
+
+        def run(key=key, graph=graph):
+            for _ in range(replays):
+                prepare(key)
+                graph.replay()
+
+        for attempt in range(TRACE_TRIES):
+            traced = _count_launches(f'{label} graph {key} x{replays}', run)['kernels']
+            if traced == want:
+                break
+            log(f'[graphs] {label} graph {key}: increments {want}, traced {traced} '
+                f'({attempt + 1} of {TRACE_TRIES})')
+        else:
+            raise AssertionError(f'graphs {label} graph {key}: its replays launched {traced}, '
+                                 f'its increments say {want}')
+        out[str(key)] = {c.__name__: n for c, n in delta}
+    if not out:
+        raise AssertionError(f'graphs {label}: no graph to replay')
+    return out
+
+
+def _graph_resume():
+    """diffusion (its training draws from the model's generator), a graphed
+    epoch of GRAPH_STEPS, saved and restored into a fresh model that takes
+    a second graphed epoch: model.pt bitwise an uninterrupted model's two
+    graphed epochs (_state_diff: net, Adam, counters, generator)."""
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch import data as data_lib
+    from generative_models_tpu_torch.utils.config import parse_args
+
+    G, Model = parse_args(DIFF_FLAGS + ['--bs=64', '--data_source=synthetic'])
+    mnist.TRAIN_N, mnist.TEST_N = 64 * GRAPH_STEPS, 64
+    dataset = data_lib.load_mnist(G, torch.device('cuda'))
+    epochs = [dataset.epoch_batches(torch.Generator().manual_seed(e)) for e in (1, 2)]
+    straight, first = Model(G), Model(G)
+    for bx, by in epochs:
+        straight.train_epoch(bx, by)
+    first.train_epoch(*epochs[0])
+    first.save(GRAPHS_DIR / 'cut')
+    resumed = Model(G)
+    resumed.load_weights(GRAPHS_DIR / 'cut' / 'model.pt')
+    resumed.train_epoch(*epochs[1])
+    straight.save(GRAPHS_DIR / 'straight')
+    resumed.save(GRAPHS_DIR / 'resumed')
+    diff = _state_diff(torch.load(GRAPHS_DIR / 'straight' / 'model.pt', weights_only=True),
+                       torch.load(GRAPHS_DIR / 'resumed' / 'model.pt', weights_only=True))
+    if diff:
+        raise AssertionError(f'graphs resume: the resumed graphed run differs: '
+                             f'{json.dumps(dict(list(diff.items())[:8]))}')
+    log(f'[graphs] resume: diffusion restored after a graphed epoch, its second graphed epoch '
+        f'bitwise the uninterrupted run (step {resumed.step})')
+    return dict(steps=resumed.step, bitwise=True)
+
+
+def _graph_requests(flags, train=False):
+    """pixel_transformer's request at serve_bs=64, seed=7, through
+    SampleServer at --decode_unroll 0 (the per-step loop), then each of
+    GRAPH_UNROLLS: each batch bitwise the per-step loop's, every kernel
+    counter equal; each request's wall, the graphed ones twice (the first
+    captures), and a request of each mode traced. With train, one train step moves the weights and each mode
+    serves again: bitwise again, and unlike the batch before."""
+    from generative_models_tpu_torch.serve import load_server
+
+    server, G = load_server(['--model=pixel_transformer', '--serve_bs=64', *flags])
+    counters = _counters()
+
+    def request(unroll):
+        server.model.G.decode_unroll = unroll
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        batch = server.sample(64, seed=7)
+        torch.cuda.synchronize()
+        return batch, _read(counters), time.time() - t0
+
+    server.warm()
+    out, faults, before = {}, [], None
+    for moved in ((False, True) if train else (False,)):
+        if moved:
+            x = (torch.rand((64, 28, 28, 1), generator=torch.Generator().manual_seed(5)) > 0.5)
+            server.model.train_step(x.float().cuda())
+        ref, ref_launches, ref_sec = request(0)
+        if moved and np.array_equal(ref, before):
+            faults.append('the train step did not move the batch')
+        res = dict(eager_sec=ref_sec, launches={k: v for k, v in ref_launches.items() if v},
+                   graphed_requests=2 * len(GRAPH_UNROLLS))
+        for k in GRAPH_UNROLLS:
+            walls = []
+            for _ in range(2):
+                batch, launches, sec = request(k)
+                walls.append(sec)
+                if not np.array_equal(batch, ref):
+                    faults.append(f'unroll {k}: the batch differs from the per-step loop'
+                                  + (' after a train step' if moved else ''))
+                if launches != ref_launches:
+                    faults.append(f'unroll {k}: launches {launches} vs {ref_launches}')
+            res[f'unroll_{k}_sec'] = walls
+        if not moved:
+            # a request of each mode traced (device ms, kernels: a trace of
+            # 30k-110k launches loses some now and then, so it is not held
+            # to the counters), then each decode graph's replays traced
+            # alone and held to its capture's increments
+            label = f'graphs request ({" ".join(flags) or "default"})'
+            for k in (0, *GRAPH_UNROLLS):
+                res[f'trace_unroll_{k}'] = _count_launches(f'{label} unroll {k}',
+                                                           lambda k=k: request(k))
+            res['replays'] = {
+                f'n={key[0]} unroll={key[3]}': _replays_as_counted(
+                    label, bufs.graphs, lambda gkey, t=bufs.t: t.fill_(gkey[0]))
+                for key, bufs in server.model._decode_graphs.items()}
+        before = ref
+        out['after_train_step' if moved else 'fresh'] = res
+    if faults:
+        raise AssertionError(f'graphs requests {flags}: {faults[:6]}')
+    label = ' '.join(flags) or 'default'
+    for key, res in out.items():
+        log(f'[graphs] request ({label}, {key}): eager {res["eager_sec"]:.3f}s, '
+            + ', '.join(f'unroll {k} {res[f"unroll_{k}_sec"][0]:.3f}/{res[f"unroll_{k}_sec"][1]:.3f}s'
+                        for k in GRAPH_UNROLLS) + f'; launches {res["launches"]} in each mode')
+    return out
+
+
+def phase_graphs():
+    """--jit_epoch=1 and --decode_unroll on the card: CUDA graphs
+    (utils/graphs.py), bitwise the eager paths. Every registry name at its
+    default width and the variants of GRAPH_CASES (_graph_pair: an epoch
+    each way, then a step of each timed and traced); a resumed graphed run
+    (_graph_resume); pixel_transformer's request graphed at GRAPH_UNROLLS
+    against the per-step loop, fresh and after a train step, and under
+    --quantize=w8a16 (_graph_requests); every traced step's kernels as
+    counted (_traced_counts), each decode graph's replays as its capture's
+    increments (_replays_as_counted); graph_gc's two forms, each in a
+    process of its own, started first and joined last."""
+    shutil.rmtree(GRAPHS_DIR, ignore_errors=True)
+    if set(KERNEL_FUNCTIONS) != {fn.__name__ for fn in _counters()}:
+        raise AssertionError('KERNEL_FUNCTIONS does not name every kernel counter')
+    gc_runs = {form: start_only(f'graph_gc_{form}', GRAPHS_DIR / f'gc_{form}.log')
+               for form in GRAPH_GC_FORMS}
+    from generative_models_tpu_torch.utils.config import parse_args
+
+    # the distilled student's teacher: a fresh 256-step model's model.pt
+    G, Model = parse_args(DIFF_FLAGS + ['--timesteps=256', '--bs=64'])
+    Model(G).save(GRAPHS_DIR / 'teacher')
+    teacher = GRAPHS_DIR / 'teacher' / 'model.pt'
+    out = {label: _graph_pair(label, flags, steps,
+                              teacher if label == 'diffusion_student' else None)
+           for label, flags, steps in GRAPH_CASES}
+    out['resume'] = _graph_resume()
+    out['request'] = _graph_requests([], train=True)
+    out['request_w8a16'] = _graph_requests(['--quantize=w8a16'])
+    gc = {form: join_only(run, f'graph_gc_{form}', '[graph_gc]')[0]
+          for form, run in gc_runs.items()}
+    if gc['bare']['captured'] or not gc['collected']['captured']:
+        raise AssertionError(f'graph_gc: {json.dumps(gc)}')
+    out['graph_gc'] = gc
+    return out
+
+
+GRAPH_GC_FORMS = ('bare', 'collected')
+
+
+def phase_graph_gc(form):
+    """A capture during which the cyclic collector destroys another
+    graph: made (its default width, bs=64) takes a graphed epoch of 3 steps
+    and is left in a reference cycle; a second made's epoch then captures
+    its step, which runs gc.collect() first (a collection that the
+    capture's allocations could start). form 'bare': utils/graphs.py
+    CapturedGraph without its collection before the capture (gc.collect
+    stubbed there); 'collected': as it is. Returns whether the second
+    epoch captured, and the error where it did not."""
+    import gc
+    import types
+    import weakref
+
+    import generative_models_tpu_torch.data.mnist as mnist
+    from generative_models_tpu_torch import data as data_lib
+    from generative_models_tpu_torch.utils import graphs as graphs_mod
+    from generative_models_tpu_torch.utils.config import parse_args
+
+    G, Model = parse_args(['--model=made', '--bs=64', '--data_source=synthetic'])
+    mnist.TRAIN_N, mnist.TEST_N = 64 * 3, 64
+    bx, by = data_lib.load_mnist(G, torch.device('cuda')).epoch_batches(
+        torch.Generator().manual_seed(1))
+    old = Model(G)
+    old.train_epoch(bx, by)
+    old.cycle = old
+    old_graphs, old_ref = len(old.step_graphs().graphs), weakref.ref(old)
+    gc.disable()  # the collections are the ones below, nowhere else
+    del old
+    if form == 'bare':
+        graphs_mod.gc = types.SimpleNamespace(collect=lambda: 0, isenabled=gc.isenabled,
+                                              disable=gc.disable, enable=gc.enable)
+    new = Model(G)
+    device_step = new.device_step
+
+    def collecting_step(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            log(f'[graph_gc] {form}: the collector ran during the capture and freed '
+                f'{gc.collect()} objects')
+        return device_step(*args, **kw)
+
+    new.device_step = collecting_step
+    try:
+        new.train_epoch(bx, by)
+        torch.cuda.synchronize()
+        res = dict(captured=True, graphs=len(new.step_graphs().graphs))
+    except Exception as e:  # noqa: BLE001  (the capture's error is the result)
+        res = dict(captured=False, error=f'{type(e).__name__}: {str(e).splitlines()[0]}')
+    res.update(old_graphs=old_graphs, old_freed=old_ref() is None)
+    log(f'[graph_gc] {form}: {json.dumps(res)}')
+    return res
+
+
 ONLY = {  # --only: these phases alone, in this order, after the build
     'kernels': lambda dev: phase_kernels(dev),
     'int8': lambda dev: int8_cases(np.random.RandomState(0), dev),
@@ -4747,6 +5202,9 @@ ONLY = {  # --only: these phases alone, in this order, after the build
     'chain': lambda dev: phase_chain(),
     'made_cpu': lambda dev: phase_made_cpu(),  # the whole run's process for train_flags
     'train_flags': lambda dev: phase_train_flags(),
+    'graphs': lambda dev: phase_graphs(),
+    **{f'graph_gc_{form}': (lambda dev, form=form: phase_graph_gc(form))
+       for form in GRAPH_GC_FORMS},
     **{name: (lambda dev, name=name: phase_raster_model(name)) for name in RASTER},
 }
 
@@ -4821,9 +5279,9 @@ def main(argv=None):
                  dict(server=ds['server'], dpm2m_server=ds['other']['dpm2m_25'].pop('server'),
                       model=dt['model'], dataset=dt['dataset']))
     ds['other']['fused_cfg'].pop('server')
-    # the chain phase in a process beside the phases from resume to
-    # train_flags, joined after them
-    chain = start_only('chain', CHAIN_LOG)
+    # the chain phase, then the graphs phase, in a process beside the
+    # phases from resume to train_flags, joined after them
+    chain = start_only('chain,graphs', CHAIN_LOG)
     rs = timed('resume', phase_resume)
     jc = timed('jax_ckpt', phase_jax_ckpt)
     sm = timed('stream', phase_stream)
@@ -4834,7 +5292,9 @@ def main(argv=None):
     mo = timed('moe', phase_moe)
     me = timed('mesh', phase_mesh)
     tf = timed('train_flags', phase_train_flags, made_cpu)
-    ch, ch_wall, ch_waited = timed('chain', join_only, chain, 'chain', '[chain]')
+    side, ch_wall, ch_waited = timed('chain', join_only, chain, 'chain,graphs',
+                                     ('[chain]', '[graphs]'))
+    ch, gr = side['chain'], side['graphs']
     ch.update(process_wall_sec=ch_wall, waited_sec=ch_waited)
     phase_sec['total'] = time.time() - t_start
     log(f'[time] phases {json.dumps(phase_sec)}')
@@ -4877,7 +5337,12 @@ def main(argv=None):
                    **{f'train_flags_{label}': t['launches'][name] * 2
                       + t['remat_extra_launches'][name]
                       for label, t in tf.items() if label != 'made'},
-                   'train_flags_made': tf['made']['launches'][name]}
+                   'train_flags_made': tf['made']['launches'][name],
+                   **{f'graphs_{label}': g['launches'].get(name, 0)
+                      for label, g in gr.items() if 'launches' in g},
+                   **{f'graphs_{label}_{key}': r['launches'].get(name, 0) * r['graphed_requests']
+                      for label, g in gr.items() if label.startswith('request')
+                      for key, r in g.items()}}
         if sum(by_path.values()) == 0:
             raise AssertionError(f'{name} was not launched on a main path')
         kernels.append(dict(
@@ -4957,6 +5422,7 @@ def main(argv=None):
         moe=dict(mo, power=smi),
         mesh=dict(me, power=smi),
         train_flags=dict(tf, power=smi),
+        graphs=dict(gr, power=smi),
         **{name: dict(r, power=smi) for name, r in raster.items()},
         phase_sec=phase_sec,
     )))

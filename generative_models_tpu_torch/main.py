@@ -54,10 +54,16 @@ best.json, the event file and the GIFs.
 the card) and writes a Chrome trace under logdir/profile/, also when the
 loop raises; where the platform cannot trace, it says so and trains on.
 
-Runs on the card unless given --device=cpu, and raises without CUDA. An
-epoch is a Python loop of train steps whose metrics stay on the device
-until its end (one sync an epoch); eval_heavy syncs once, at its end. Not
-ported, and refused by utils/config.py: --ckpt=orbax.
+Runs on the card unless given --device=cpu, and raises without CUDA.
+--jit_epoch=1 (the default, the JAX package's jitted epoch) trains an
+epoch through model.train_epoch: on the card each step is a CUDA graph,
+captured once a batch shape and micro-step kind and replayed (utils/graphs.py),
+bitwise the per-step loop; on the CPU the same step runs uncaptured; under
+a process group the steps run eagerly, and the run prints a line that says
+so. --jit_epoch=0 is the per-step loop, as --stream_data's. Either way the
+metrics stay on the device until the epoch's end (one sync an epoch);
+eval_heavy syncs once, at its end. Not ported, and refused by
+utils/config.py: --ckpt=orbax.
 """
 
 import contextlib
@@ -231,6 +237,9 @@ def train(model, dataset, autoencoder, classifier, G):
         if prev.get('metric') == best_metric:
             best = prev  # the best checkpoint does not regress across resumes
 
+    if (int(G.get('jit_epoch', 1)) and model.device.type == 'cuda' and model.mesh.dm is not None
+            and not G.skip_training):
+        print('[jit_epoch] under a process group the train steps run eagerly (no CUDA graph)')
     start_epoch = 0
     if resume and model.step > 0:
         start_epoch = model.step // max(1, dataset.steps_per_epoch)
@@ -287,7 +296,13 @@ def train(model, dataset, autoencoder, classifier, G):
                                                    max(1, int(G.get('stream_chunk', 1))))
                 else:
                     bx, by = dataset.epoch_batches(data_gen, train=True)
-                    metrics = model.train_epoch(bx, by)
+                    if int(G.get('jit_epoch', 1)):
+                        metrics = model.train_epoch(bx, by)
+                    else:
+                        # the per-step path: each step issued from Python, the
+                        # metrics kept on the device until the epoch's end
+                        metrics = mean_metrics([model.train_step(bx[i], by[i])
+                                                for i in range(len(bx))])
                 _log_metrics(logger, metrics, G, 'train')
             logger['dt/train'] = [time.time() - train_time]
 

@@ -8,7 +8,8 @@ trainer knobs, sample / sample_images / evaluate, the serving fn, and
 save / load_weights.
 
 The optimizer is torch.optim.Adam on G.lr (optax.adam's b1, b2, eps and
-bias correction), wrapped as make_optimizer wraps optax.adam:
+bias correction; capturable on the card, GM.adam), wrapped as
+make_optimizer wraps optax.adam:
   * --grad_clip: optax.clip_by_global_norm, g * max_norm / |g| only when
     |g| >= max_norm (not clip_grad_norm_'s max_norm / (|g| + 1e-6));
   * --grad_accum=k: optax.MultiSteps, a running mean over k micro-steps;
@@ -16,6 +17,10 @@ bias correction), wrapped as make_optimizer wraps optax.adam:
   * --lr_scheduler=cosine / --warmup_steps / --lr_decay_steps: the optax
     schedules, evaluated at the count of optimizer updates made so far.
 self.step counts train_step calls (micro-steps), as TrainState.step does.
+A step is host work (_schedule, _advance: the lr and the counters) around
+device work (device_step) that reads the host's counters and changes none,
+so train_epoch (--jit_epoch=1) replays it as a CUDA graph on the card
+(utils/graphs.py), bitwise the per-step train_step loop.
 
 A model may own a second optimizer beside self.opt (the VQ-VAE prior's
 Adam): optimizers() names every one whose state a checkpoint keeps, and
@@ -39,8 +44,9 @@ alone holds, broadcast from it) and rank 0 writes, and load_weights,
 --resume and load_jax_state read a full state and lay it out again, so a
 checkpoint moves between meshes and one process.
 Every checkpoint is read on the CPU, so a restored optimizer keeps Adam's
-step counters there, as a fresh one does, and its steps make no
-device-to-host copy. An Arbiter saves and loads the JAX package's
+step counters where a fresh one does (on the device for the card's
+capturable form, GM.adam; on the CPU for the float form), and its steps
+make no device-to-host copy. An Arbiter saves and loads the JAX package's
 model.jit.pt payload instead (models/arbiters/).
 
 SAMPLE_RANGE is the range of a model's samples; serving maps it to [0, 1].
@@ -58,6 +64,10 @@ from generative_models_tpu_torch.utils import dists
 from generative_models_tpu_torch.utils.config import AttrDict, dump_hps
 from generative_models_tpu_torch.utils.logger import write_grid, write_gridvid
 from generative_models_tpu_torch.utils.loop import write
+
+# an optimizer's param-group entries that are its form, not its state:
+# a checkpoint's param groups take this optimizer's (GM.adam)
+ADAM_FORM = ('lr', 'capturable', 'foreach', 'fused', 'differentiable')
 
 # std of a unit normal truncated to [-2, 2]: flax's variance_scaling divides
 # by it so the truncated draw keeps the requested variance
@@ -208,18 +218,32 @@ class GM:
         # draws the global batch's (dists.batch_draw)
         self._gen = torch.Generator(self.device).manual_seed(seed)
         self._sample_gen = torch.Generator(self.device).manual_seed(seed)
-        self.opt = torch.optim.Adam(
-            self.trained_params(), lr=self.lr_at(0), betas=(0.9, 0.999), eps=1e-8
-        )
+        self.opt = self.adam(self.trained_params(), self.lr_at(0), (0.9, 0.999), scheduled=True)
         self.step = 0  # train_step calls, micro-steps included
         self.updates = 0  # optimizer updates: the schedule's count
         self.mini_step = 0  # position inside the --grad_accum window
         self._acc = None  # the window's running mean of the gradients
         self._norm_buckets = None  # _clip_'s per-layout weights, made once
+        self._graphs = None  # train_epoch's StepGraphs, made at its first call
+        self._static_bufs = {}  # train_epoch's fixed input buffers
+        self._row_keys = {}  # {graph key: its metric row's keys}
 
     def build(self):
         """Return the torch module."""
         raise NotImplementedError
+
+    def adam(self, params, lr, betas, scheduled=False):
+        """torch.optim.Adam (optax.adam's eps and bias correction) in the
+        form a CUDA graph can replay on the card: capturable, its step
+        counters on the device, and, where the schedule moves it
+        (scheduled), lr a 0-dim device tensor that _schedule writes before
+        each update. The same form steps eagerly (--jit_epoch=0), so both
+        modes are bitwise. On the CPU, where capturable Adam is refused,
+        the float form."""
+        cuda = self.device.type == 'cuda'
+        if cuda and scheduled:
+            lr = torch.full((), lr, dtype=torch.float32, device=self.device)
+        return torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-8, capturable=cuda)
 
     def trained_params(self):
         """The parameters self.opt (Adam with the trainer knobs) steps."""
@@ -416,36 +440,70 @@ class GM:
         place (default: nothing). MADE masks its weight gradients here on
         its premasked route."""
 
+    def accum(self):
+        """The --grad_accum window's length (1: no accumulation)."""
+        return int(self.G.get('grad_accum', 1) or 1)
+
+    def _applies(self):
+        """Whether the micro-step at the host's mini_step makes an update
+        (the window's last micro-step)."""
+        return self.mini_step == self.accum() - 1
+
+    def _schedule(self):
+        """Host work before a micro-step: the scheduled lr of the update it
+        makes, if it makes one, into self.opt (a fill of the device lr on
+        the card, which a graph reads)."""
+        if not self._applies():
+            return
+        lr = self.lr_at(self.updates)
+        for group in self.opt.param_groups:
+            if isinstance(group['lr'], torch.Tensor):
+                group['lr'].fill_(lr)
+            else:
+                group['lr'] = lr
+
+    def _advance(self):
+        """Host work after a micro-step: the window's position and the
+        update count."""
+        if self._applies():
+            self.mini_step = 0
+            self.updates += 1
+        else:
+            self.mini_step += 1
+
     def apply_grads(self):
         """One optimizer micro-step on the gradients in p.grad: transform
         them (transform_grads), fold them into the --grad_accum window's
         running mean and, at the window's last micro-step (every step
         without accumulation), clip the mean and take one Adam step at the
-        scheduled lr."""
+        scheduled lr; then advance the window and the update count."""
+        self._schedule()
+        self.update()
+        self._advance()
+
+    def update(self):
+        """apply_grads' device work at the host's mini_step, which it reads
+        and does not change: the host's counters move in _advance, so a
+        graph can replay it."""
         self.transform_grads()
         self.sync_grads(p for o in self.optimizers().values()
                         for group in o.param_groups for p in group['params'])
         params = [p for group in self.opt.param_groups for p in group['params']]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        k = int(self.G.get('grad_accum', 1) or 1)
+        k = self.accum()
         if k > 1:
             if self._acc is None:
                 self._acc = [torch.zeros_like(p) for p in params]
             # optax.MultiSteps' running mean: acc += (g - acc) / (n + 1)
             for a, g in zip(self._acc, grads):
                 a.add_((g - a) / (self.mini_step + 1))
-            self.mini_step += 1
-            if self.mini_step < k:
+            if not self._applies():
                 return
-            self.mini_step = 0
             grads = self._acc
         self._clip_(grads)
         for p, g in zip(params, grads):
             p.grad = g
-        for group in self.opt.param_groups:
-            group['lr'] = self.lr_at(self.updates)
         self.opt.step()
-        self.updates += 1
         if k > 1:
             for a in self._acc:
                 a.zero_()
@@ -464,17 +522,81 @@ class GM:
         loss.backward()
         return global_metrics({k: v.detach() for k, v in metrics.items()}, self.seq_split())
 
-    def train_step(self, x, y=None, **kw):
+    def device_step(self, x, y=None, **kw):
+        """One micro-step's device work at the host's counters, which it
+        reads and does not change (a CUDA graph replays it): the backward
+        and the update. Returns the metrics (device scalars)."""
         metrics = self.backward(x, y, **kw)
-        self.apply_grads()
+        self.update()
+        return metrics
+
+    def train_step(self, x, y=None, **kw):
+        """One micro-step (kw: the draws a model takes in place of its
+        generator's): the metrics, as device scalars."""
+        self._schedule()
+        metrics = self.device_step(x, y, **kw)
+        self._advance()
         self.step += 1
         return metrics
 
+    def step_graphs(self):
+        """train_epoch's StepGraphs: capturing on the card without a process
+        group (under one, NCCL's collectives stay eager), uncaptured
+        elsewhere; the training draws' generator registered."""
+        if self._graphs is None:
+            from generative_models_tpu_torch.utils.graphs import StepGraphs
+
+            capture = self.device.type == 'cuda' and self.mesh.dm is None
+            self._graphs = StepGraphs(capture, [self._gen])
+        return self._graphs
+
     def train_epoch(self, bx, by=None):
         """(steps, bs, ...) batches -> the mean of each metric over the
-        steps, as floats (one sync at the end)."""
-        ms = [self.train_step(bx[i], None if by is None else by[i]) for i in range(len(bx))]
-        return mean_metrics(ms)
+        steps, as floats (one sync at the end): --jit_epoch=1, the JAX
+        package's jitted epoch. Each step copies its batch into fixed
+        buffers and runs device_step through step_graphs() (a CUDA graph a
+        batch shape and micro-step kind on the card, captured once and
+        reused across epochs), writes its metrics into a row of a (steps,
+        n) device buffer, and the host's counters move as train_step moves
+        them. The means are mean_metrics' over each metric's column, so the
+        floats are bitwise those of the per-step loop."""
+        graphs = self.step_graphs()
+        steps = len(bx)
+        xs = self._static('x', bx[0])
+        ys = None if by is None else self._static('y', by[0])
+        rows = keys = None
+        for i in range(steps):
+            xs.copy_(bx[i])
+            if ys is not None:
+                ys.copy_(by[i])
+            self._schedule()
+            key = (tuple(xs.shape), self.mini_step)
+            out = graphs(key, lambda: self._metric_row(xs, ys, key))
+            if rows is None:
+                keys = self._row_keys[key]
+                rows = torch.empty((steps, len(keys)), dtype=out.dtype, device=out.device)
+            rows[i].copy_(out)
+            self._advance()
+            self.step += 1
+        return {k: float(rows[:, j].contiguous().mean()) for j, k in enumerate(keys)}
+
+    def _static(self, name, like):
+        """A fixed buffer shaped as like, which graphs read: one a name,
+        dtype and shape, kept for the model's life."""
+        key = (name, like.dtype, tuple(like.shape))
+        if key not in self._static_bufs:
+            self._static_bufs[key] = torch.empty_like(like, device=self.device)
+        return self._static_bufs[key]
+
+    def _metric_row(self, x, y, key):
+        """device_step's metrics stacked in one (n,) tensor, in their
+        order (kept for key); the metrics share one dtype."""
+        metrics = self.device_step(x, y)
+        dtypes = {v.dtype for v in metrics.values()}
+        if len(dtypes) != 1:
+            raise TypeError(f'{type(self).__name__}: metrics of several dtypes {dtypes}')
+        self._row_keys[key] = list(metrics)
+        return torch.stack(list(metrics.values()))
 
     @torch.no_grad()
     def eval_loss(self, x, y=None):
@@ -544,10 +666,13 @@ class GM:
             return
         state = self.fit_checkpoint(state)
         self.load_net_state(self.net, state['net'])
+        self._graphs = None  # the graphs read the optimizers' state tensors
         # read on the CPU: load_state_dict moves Adam's moments to their
-        # parameters' device and leaves each step counter on the CPU, where
-        # a fresh Adam keeps it (on the card Adam.step would sync on it with
-        # .item() twice a parameter)
+        # parameters' device and each step counter where this optimizer's
+        # form keeps it (_laid_out_opt): on the device for the card's
+        # capturable Adam, on the CPU for the float form, where a device
+        # counter would make Adam.step sync on it with .item() twice a
+        # parameter
         for name, o in self.optimizers().items():
             o.load_state_dict(self._laid_out_opt(o, state[name]))
         self.step, self.updates = int(state['step']), int(state['updates'])
@@ -583,7 +708,9 @@ class GM:
             if st is not None:
                 state[i] = {k: v if k == 'step' else self._laid_out(v, p, n)
                             for k, v in st.items()}
-        groups = [dict(g, params=own['params'])
+        # the hyperparameters saved, in this optimizer's form (its lr's type,
+        # capturable): a checkpoint moves between the CPU and the card
+        groups = [dict(g, params=own['params'], **{k: own[k] for k in ADAM_FORM if k in own})
                   for g, own in zip(sd['param_groups'], opt.state_dict()['param_groups'])]
         return {'state': state, 'param_groups': groups}
 
@@ -639,6 +766,7 @@ class GM:
         missing = sorted({'params', 'opt_state', 'step'} - set(tree))
         if missing:
             raise ValueError(f'{path}: not a JAX TrainState (no {", ".join(missing)})')
+        self._graphs = None
         try:
             sd = self.net_state_from_jax(tree)
             own = self._net_names()

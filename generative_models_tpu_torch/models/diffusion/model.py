@@ -249,10 +249,10 @@ class DiffusionModel(GM):
     def train_loss(self, x, y=None, draws=None):
         return self._losses(x, y, self._gen, draws, train=True)
 
-    def train_step(self, x, y=None, draws=None):
-        """One step; draws (dict of drop, eps, u, w) replace the
-        generator's."""
-        metrics = super().train_step(x, y, draws=draws)
+    def device_step(self, x, y=None, draws=None):
+        """A step's device work, then the EMA update; draws (dict of drop,
+        eps, u, w; train_step's keyword) replace the generator's."""
+        metrics = super().device_step(x, y, draws=draws)
         if self.ema_net is not None:
             # ema = d * ema + (1 - d) * params, after every step
             d = self.ema_decay

@@ -225,10 +225,9 @@ class GAN(GM):
         super().__init__(G)
         betas = (0.5, 0.999)
         lr = float(G.lr)
-        self.opt = torch.optim.Adam(self.net.gen.parameters(), lr=lr, betas=betas, eps=1e-8)
-        self.disc_opt = torch.optim.Adam(self.net.disc.parameters(),
-                                         lr=float(G.get('disc_lr', 0.0)) or lr,
-                                         betas=betas, eps=1e-8)
+        self.opt = self.adam(self.net.gen.parameters(), lr, betas)
+        self.disc_opt = self.adam(self.net.disc.parameters(),
+                                  float(G.get('disc_lr', 0.0)) or lr, betas)
         gen = torch.Generator().manual_seed(int(G.get('seed', 0)) + 7)
         self.fixed_noise = torch.randn((25, int(G.noise_size)), generator=gen).to(self.device)
 
@@ -251,9 +250,18 @@ class GAN(GM):
                 (self.disc_opt, opt_state['disc'],
                  lambda t: convert.gan_params_from_jax({'disc': t}))]
 
-    def train_step(self, x, y=None, noise=None):
-        """The twin step; noise (B, noise_size) replaces the generator's
-        draw. Returns the four losses (device scalars)."""
+    def accum(self):
+        return 1  # the twin step takes no trainer knob, as the JAX package's
+
+    def _schedule(self):
+        pass  # both Adams at their fixed lr
+
+    def device_step(self, x, y=None, noise=None):
+        """The twin step's device work: the discriminator's update, then
+        the generator's against it; the BatchNorms' statistics and
+        --spectral_norm's power iterations move in place. noise (B,
+        noise_size; train_step's keyword) replaces the generator's draw.
+        Returns the four losses (device scalars)."""
         x = self._as_input(x)
         if noise is None:
             noise = dists.batch_draw(torch.randn, (x.shape[0], int(self.G.noise_size)),
@@ -274,8 +282,6 @@ class GAN(GM):
             g_loss = bce_with_logits(disc(fake, True, False), 1.0)
             self._grads(g_loss, gen)
         self.opt.step()
-        self.step += 1
-        self.updates += 1
         return global_metrics({'disc/loss': d_loss.detach(), 'disc/loss_fake': loss_fake.detach(),
                                'disc/loss_real': loss_real.detach(),
                                'gen/loss': g_loss.detach()})

@@ -14,7 +14,11 @@ Two paths, each through the port's kernels on the card:
     path, as in the JAX package;
   * sampling: a KV-cached decode loop, one token per step, whose dense
     chains are Kernels A and B (ops/decode_fused.py ln_matmul and
-    block_tail) and whose single-token attention is plain torch;
+    block_tail) and whose single-token attention is plain torch; with
+    --decode_unroll=k >= 1 (the default 1) each k steps are one CUDA graph
+    on the card, t a device counter (DecodeGraphs, utils/loop.py
+    fori_loop's graphed form), bitwise the per-step loop of
+    --decode_unroll=0;
   * quantized sampling (serve.py --quantize): the same loop given a
     QuantTable (ops/int8.py) as quant=, each step run module by module, as
     the JAX package's Block.step does under its interceptor, every Linear
@@ -78,7 +82,8 @@ from generative_models_tpu_torch.parallel.pipeline import (
 from generative_models_tpu_torch.parallel.ring_attention import ring_causal_attention
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
-from generative_models_tpu_torch.utils.loop import fori_loop, write
+from generative_models_tpu_torch.utils.graphs import StepGraphs
+from generative_models_tpu_torch.utils.loop import exporting, fori_loop, take, write
 
 
 def _kernel_weight(*layers, dtype):
@@ -86,6 +91,9 @@ def _kernel_weight(*layers, dtype):
     along out, in the kernels' operand dtype."""
     w = torch.cat([m.weight for m in layers], 0)
     return w.t().to(dtype).contiguous()
+
+
+DECODE_GRAPHS_KEPT = 4  # a model's DecodeGraphs kept (PixelTransformer.decode_graphs)
 
 
 # Megatron TP over the model axis (the JAX package's transformer_tp_rules,
@@ -317,7 +325,8 @@ class TransformerNet(nn.Module):
     def step(self, prev_token, caches, t, params=None, quant=None, rows=None, pos=None):
         """One decode step, the body of the sampling loop: (logits (B,
         in_size), the caches with row t written), in place when eager and
-        as new tensors under torch.export (utils/loop.py write). rows:
+        as new tensors under torch.export (utils/loop.py write). t: an int,
+        or a 0-dim device tensor (the graphed loop's). rows:
         attention reads each cache's first rows only (a segment's view;
         None: all); pos: torch.arange(block_size) on the device, made once
         a pass (None: made here)."""
@@ -332,7 +341,7 @@ class TransformerNet(nn.Module):
             lm = functools.partial(ln_matmul_plain, dtype=dt)
             bt = functools.partial(block_tail_plain, dtype=dt)
         C = self.n_embed
-        h = self._stage_in(dense(prev_token, self.embed) + self.pos_emb[0].select(0, t))
+        h = self._stage_in(dense(prev_token, self.embed) + take(self.pos_emb[0], t))
         written = []
         for lp, cache in zip(params['layers'], caches):
             qkv = lm(h, lp['ln1_scale'], lp['ln1_bias'], lp['wqkv'], lp['bqkv'])
@@ -380,7 +389,7 @@ class TransformerNet(nn.Module):
         else:
             lin = lambda x, name, layer: dense(x, layer)
             row = lambda x, name, layer: dense(x, layer, tp_reduce)
-        h = self._stage_in(lin(prev_token, 'embed', self.embed) + self.pos_emb[0].select(0, t))
+        h = self._stage_in(lin(prev_token, 'embed', self.embed) + take(self.pos_emb[0], t))
         written = []
         for (i, blk), cache in zip(self.stage_blocks(), caches):
             pre, a = f'blocks.{i}.', blk.attn
@@ -402,7 +411,7 @@ class TransformerNet(nn.Module):
 
 
 @torch.no_grad()
-def decode_loop(net, n, next_token, state=(), segments=1, quant=None):
+def decode_loop(net, n, next_token, state=(), segments=1, quant=None, bufs=None):
     """Run the T-step KV-cached decode chain on a batch of n, one
     net.step a step through utils/loop.py fori_loop (a Python loop, or one
     while_loop a segment under torch.export). next_token(t, logits_t,
@@ -414,12 +423,23 @@ def decode_loop(net, n, next_token, state=(), segments=1, quant=None):
     only the first (k+1)*T/S cache rows, so the attention read per step
     shrinks from T rows to ~T/2 on average. Rows past t get exactly zero
     weight either way, so the tokens do not depend on S (the CPU tests hold
-    this bitwise)."""
+    this bitwise).
+
+    bufs (a DecodeGraphs): fori_loop's graphed form, bufs.unroll steps a
+    graph, t bufs' device counter, over its fixed params, caches, first
+    token and state."""
     T = net.block_size
     dev = net.pos_emb.device
-    params = None if quant is not None or net.module_step else net.decode_params()
-    pos = torch.arange(T, device=dev)
     seg = T // segments if segments > 1 and T % segments == 0 else T
+    if bufs is None:
+        params = None if quant is not None or net.module_step else net.decode_params()
+        pos = torch.arange(T, device=dev)
+        carry = (torch.zeros((n, net.in_size), device=dev), net.init_cache(n), state)
+        graphed = (0, None, None)
+    else:
+        params, pos = bufs.params, bufs.pos
+        carry = (bufs.prev, bufs.caches, state)
+        graphed = (bufs.unroll, bufs.graphs, bufs.t)
 
     def body(rows):
         def run(t, carry):
@@ -429,16 +449,63 @@ def decode_loop(net, n, next_token, state=(), segments=1, quant=None):
             return prev, caches, state
         return run
 
-    carry = (torch.zeros((n, net.in_size), device=dev), net.init_cache(n), state)
     for start in range(0, T, seg):
-        carry = fori_loop(start, start + seg, body(start + seg), carry)
+        carry = fori_loop(start, start + seg, body(start + seg), carry, *graphed)
     return carry[2]
 
 
-def transformer_sample_scan(net, n, sample_token, uniforms, segments=1, quant=None):
+class DecodeGraphs:
+    """A graphed sampling pass's fixed tensors (--decode_unroll=unroll): the
+    decode params' operand copies, which each pass refills from the weights
+    (so a pass after a train step reads the moved weights), the positions,
+    the first token, the KV caches, the draws, the tokens and the device
+    counter t, and the StepGraphs of its segments' step groups (capturing on
+    the card). One a batch size, segments, unroll, quant table (which it
+    holds) and sampler: a graph records the sample_token it was captured
+    with and replays that one, so its caller keeps it for one sampler
+    (PixelTransformer.decode_graphs)."""
+
+    def __init__(self, net, n, uniforms, quant, unroll):
+        dev = net.pos_emb.device
+        self.quant, self.unroll = quant, unroll
+        self.params = None if quant is not None or net.module_step else net.decode_params()
+        self.pos = torch.arange(net.block_size, device=dev)
+        self.prev = torch.zeros((n, net.in_size), device=dev)
+        self.caches = net.init_cache(n)
+        self.uniforms = torch.empty_like(uniforms)
+        self.tokens = torch.empty((net.block_size, n, net.in_size), device=dev)
+        self.t = torch.zeros((), dtype=torch.int64, device=dev)
+        self.graphs = StepGraphs(capture=dev.type == 'cuda')
+
+    def start(self, net, uniforms):
+        """Set the buffers for a pass on uniforms: the params refilled from
+        the weights, the first token and the caches zeroed, the draws
+        copied."""
+        if self.params is not None:
+            fresh = torch.utils._pytree.tree_leaves(net.decode_params())
+            for buf, val in zip(torch.utils._pytree.tree_leaves(self.params), fresh, strict=True):
+                if buf is not val:
+                    buf.copy_(val)
+        self.prev.zero_()
+        for cache in self.caches:
+            cache.zero_()
+        self.uniforms.copy_(uniforms)
+
+
+def transformer_sample_scan(net, n, sample_token, uniforms, segments=1, quant=None, bufs=None):
     """KV-cached AR sampling. sample_token(logits, u_t) -> (n, in_size)
     token; uniforms: (T, n, in_size), the draws of step t in row t; quant as
-    decode_loop. Returns the tokens (T, n, in_size)."""
+    decode_loop. bufs: a DecodeGraphs made for this batch, segments, quant
+    and sample_token, for the graphed decode (not under torch.export);
+    None: a Python loop. Returns the tokens (T, n, in_size)."""
+    if bufs is not None:
+        bufs.start(net, uniforms)
+
+        def next_token(t, logits, tokens):
+            token = sample_token(logits, take(bufs.uniforms, t))
+            return token, write(tokens, t, token)
+
+        return decode_loop(net, n, next_token, bufs.tokens, segments, quant, bufs).clone()
 
     def next_token(t, logits, tokens):
         token = sample_token(logits, uniforms[t])
@@ -470,8 +537,9 @@ class PixelTransformer(Autoreg):
     DG.n_embed = 128
     DG.lr = 1e-3
     DG.fused_decode = 1  # Kernels A/B in each decode step; 0 = the per-op chain
-    DG.decode_unroll = 1  # accepted for hps.yaml parity; no effect: the
-    # decode loop is a Python loop, there is no scan to unroll
+    DG.decode_unroll = 1  # decode steps a CUDA graph (the scan's unroll):
+    # each unroll steps of the sampling pass are one graph on the card (a
+    # device t, uncaptured on the CPU); 0: the per-step Python loop
     DG.decode_segments = -1  # triangular cache reads (transformer_sample_scan);
     # -1 = auto: 4 on the card, 1 on the CPU
     DG.moe_experts = 0  # > 0: a top-1 MoE of that many experts in every Block
@@ -481,7 +549,23 @@ class PixelTransformer(Autoreg):
     def __init__(self, G):
         self.side = 32 if G.get('pad32', 0) else 28
         self.block_size = self.side * self.side
+        self._decode_graphs = {}  # decode_graphs' DecodeGraphs, the newest last
         super().__init__(G)
+
+    def decode_graphs(self, n, uniforms, segments, unroll, quant):
+        """sample_fn's DecodeGraphs (its Bernoulli sampler's) of a batch of n
+        at these segments, unroll and quant table (keyed by its id: the
+        DecodeGraphs holds the table, so the id is not reused), made at its
+        first pass; the DECODE_GRAPHS_KEPT last used are kept, their caches
+        and graphs' memory with them."""
+        key = (n, tuple(uniforms.shape), segments, unroll, id(quant))
+        bufs = self._decode_graphs.pop(key, None)
+        if bufs is None:
+            bufs = DecodeGraphs(self.net, n, uniforms, quant, unroll)
+        self._decode_graphs[key] = bufs
+        while len(self._decode_graphs) > DECODE_GRAPHS_KEPT:
+            self._decode_graphs.pop(next(iter(self._decode_graphs)))
+        return bufs
 
     def build(self):
         G = self.G
@@ -571,7 +655,14 @@ class PixelTransformer(Autoreg):
         if uniforms is None:
             uniforms = torch.rand((T, n, 1), generator=generator, device=self.device)
         sample_token = lambda logits, u: dists.Bernoulli(logits=logits).sample(uniforms=u)
-        tokens = transformer_sample_scan(self.net, n, sample_token, uniforms, segments, quant)
+        # under a process group the decode steps eagerly (NCCL's collectives
+        # stay out of graphs), and under torch.export as a while_loop
+        unroll = int(self.G.get('decode_unroll', 1))
+        bufs = None
+        if unroll and self.mesh.dm is None and not exporting():
+            bufs = self.decode_graphs(n, uniforms, segments, unroll, quant)
+        tokens = transformer_sample_scan(self.net, n, sample_token, uniforms, segments, quant,
+                                         bufs)
         samples = tokens.permute(1, 0, 2).reshape(n, self.side, self.side, 1)
         if not with_frames:
             return samples

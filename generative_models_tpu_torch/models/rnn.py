@@ -23,6 +23,8 @@ computes it; the two differ in the last bit at some positions, and each is
 copied as it is. wavenet imports both helpers from here.
 """
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -32,12 +34,22 @@ from generative_models_tpu_torch.models.base import RasterAutoreg
 from generative_models_tpu_torch.ops.common import matmul_dtype
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
-from generative_models_tpu_torch.utils.loop import fori_loop
+from generative_models_tpu_torch.utils.loop import exporting, fori_loop
 
 
 def location_grid(side=28, device='cpu'):
     """(side, side, 2): (row, col) * (1 / (side - 1)) in f32, bitwise the
-    JAX package's location_grid (jnp.linspace(0, 1, side) on a meshgrid)."""
+    JAX package's location_grid (jnp.linspace(0, 1, side) on a meshgrid).
+    Made once a side and device (not to be written), so a train step reads
+    it and copies nothing from the host, and a CUDA graph can capture it;
+    under torch.export made anew (a traced tensor is not kept)."""
+    if exporting():
+        return _location_grid.__wrapped__(side, torch.device(device))
+    return _location_grid(side, torch.device(device))
+
+
+@functools.cache
+def _location_grid(side, device):
     r = np.arange(side, dtype=np.float32) * (np.float32(1) / np.float32(side - 1))
     rows, cols = np.meshgrid(r, r, indexing='ij')
     return torch.from_numpy(np.stack([rows, cols], -1)).to(device)

@@ -135,9 +135,7 @@ class VQVAE(GM):
         # the reference's Adam(prior_lr, betas=(0.5, 0.999)): no trainer
         # knobs, and a step on every micro-step, as the JAX package wraps
         # only the AE's optimizer in MultiSteps
-        self.prior_opt = torch.optim.Adam(
-            self.net.prior.parameters(), lr=float(G.prior_lr), betas=(0.5, 0.999), eps=1e-8
-        )
+        self.prior_opt = self.adam(self.net.prior.parameters(), float(G.prior_lr), (0.5, 0.999))
 
     def build(self):
         G = self.G
@@ -197,11 +195,11 @@ class VQVAE(GM):
         loss, prior_loss, metrics = self._losses(x)
         return loss + prior_loss, metrics
 
-    def apply_grads(self):
+    def update(self):
         """The AE's step (Adam with the trainer knobs), then the prior's,
         both from the pre-update weights' gradients, as the JAX joint
         step."""
-        super().apply_grads()
+        super().update()
         self.prior_opt.step()
 
     def draw_spec(self, n):

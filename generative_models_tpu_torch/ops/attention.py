@@ -244,7 +244,8 @@ def decode_step_attention(q1, kv_cache, t, n_head, pos=None):
     """Single-token attention against a packed T-major KV cache.
 
     q1: (B, H*D) the current token's query; kv_cache: (T, B, 2, H*D) with K
-    at [:, :, 0] and V at [:, :, 1]; t: current index. Attends to positions
+    at [:, :, 0] and V at [:, :, 1]; t: current index, an int or a 0-dim
+    device tensor (the graphed decode's counter). Attends to positions
     0..t inclusive; returns (B, H*D) f32. Operands are rounded to the cache
     dtype and products accumulate in f32, as in the JAX package. The rows
     past t are masked through pos > t (pos: torch.arange of at least T on

@@ -40,9 +40,29 @@ NVCC_FLAGS = [
 KERNEL_SOURCES = ('decode_fused', 'attention', 'attention_bwd', 'quantize', 'masked_dense',
                   'int8', 'ring_attention')
 
+# every kernel wrapper, as (module under ops/, function): each counts its own
+# launches in its .launches attribute, on the host, where it launches
+KERNEL_COUNTERS = (
+    ('decode_fused', 'ln_matmul'), ('decode_fused', 'block_tail'),
+    ('attention', 'causal_attention_fwd'), ('attention', 'flash_bwd_dq'),
+    ('attention', 'flash_bwd_dkv'), ('quantize', 'vq_one_hot'),
+    ('masked_dense', 'masked_matmul'), ('masked_dense', 'mask_out_matmul'),
+    ('int8', 'int8_gemm'), ('int8', 'dequant_gemm'), ('attention', 'ring_chunk_fwd'),
+    ('attention', 'ring_chunk_bwd_dq'), ('attention', 'ring_chunk_bwd_dkv'),
+)
+
 _LIBS = {}
 _LIBS_LOCK = threading.Lock()
 OPS = torch.library.Library('gmt', 'DEF')  # the namespace of register_op's ops
+
+
+@functools.cache
+def kernel_counters():
+    """The kernel wrappers of KERNEL_COUNTERS, in its order."""
+    import importlib
+
+    return tuple(getattr(importlib.import_module(f'{__package__}.{mod}'), fn)
+                 for mod, fn in KERNEL_COUNTERS)
 
 
 def resolve_device(name=''):

@@ -13,8 +13,15 @@ expert axes (parallel/mesh.py: seq:N on one card without a process
 group, the others over ranks under torchrun; a model without ring
 attention replicates over seq, as the JAX package's GSPMD does), and
 --fsdp=1 shards over the data axis under a group.
---jit_epoch and --decode_unroll are accepted for hps.yaml parity and have
-no effect: PyTorch runs eagerly, there is no jitted epoch or scan.
+--jit_epoch=1 (the default) trains each epoch as CUDA graphs on the card,
+one a batch shape and micro-step kind, replayed step after step
+(utils/graphs.py; eager under a process group, and on the CPU the same
+step uncaptured); 0 is the per-step loop. pixel_transformer's
+--decode_unroll=k runs each k decode steps of a sampling pass as one graph
+(0: the per-step loop). Both are bitwise their eager forms.
+--compile_cache is accepted with no effect: graphs are captured in the
+process and not kept, and the kernels build once into the ignored build
+directory (ops/common.py).
 """
 
 import argparse
@@ -48,8 +55,8 @@ def args_type(default):
 
 def global_defaults():
     """Global default config: the JAX package's keys, so hps.yaml
-    round-trips. Keys that only the JAX harness reads (jit_epoch,
-    compile_cache) are kept for that round-trip."""
+    round-trips. compile_cache, which only the JAX harness reads, is kept
+    for that round-trip."""
     DG = AttrDict()
     DG.model = 'vae'
     DG.bs = 64
@@ -94,7 +101,8 @@ def global_defaults():
 
 def check_ported(G):
     """Refuse what the port does not implement, by name: an axis no
-    package has, and --ckpt=orbax."""
+    package has, and --ckpt=orbax. --jit_epoch and --decode_unroll run (as
+    CUDA graphs on the card); --compile_cache has no effect."""
     mesh = str(G.get('mesh', '') or '')
     if mesh:
         from generative_models_tpu_torch.parallel.mesh import AXES, parse_mesh_spec

@@ -8,6 +8,16 @@ an artifact that torch.export writes (serve.py --export).
                0-dim int64 tensor on the host: the loop's condition never
                reads the device, and the body sees t as t.item(), a host
                read, which indexes and slices the device tensors as views.
+               Given unroll=k >= 1, a utils/graphs.py StepGraphs and its
+               counter t (the third form, lax.scan's unroll:
+               pixel_transformer's --decode_unroll), t is that 0-dim int64
+               tensor on the carry's device, which the steps advance, and
+               each k steps are one call of the StepGraphs: on the card one
+               CUDA graph, captured once and replayed (stop - start) // k
+               times, the remainder's r steps a second graph; uncaptured on
+               the CPU.
+  take      -- x[t] along dim 0: a view for an int t, a gather (index_select)
+               for a device t, which no host read indexes.
   pick      -- a step's choice between two tensors (diffusion's first
                and last steps): an if when eager, torch.where under export.
   when      -- a step's data-dependent branch (gated_pixel_cnn's row
@@ -17,6 +27,7 @@ an artifact that torch.export writes (serve.py --export).
                tensor); the values are the same, so an artifact serves
                bitwise what the live path does. Out of place costs a copy
                of the whole buffer a write, on the artifact's path only.
+               A device index (the graphed loop's t) writes by index_copy_.
   serializable -- an exported program made ready for torch.export.save.
 
 A body's carry is a pytree of tensors (tuples, lists, dicts). Under export
@@ -38,10 +49,17 @@ def exporting():
     return torch.compiler.is_exporting()
 
 
-def fori_loop(start, stop, body, carry):
+def fori_loop(start, stop, body, carry, unroll=0, graphs=None, t=None):
     """carry after body(t, carry) for t = start .. stop - 1 (start and stop
-    ints)."""
+    ints). unroll >= 1 with graphs (a StepGraphs) and t (its 0-dim int64
+    counter): the graphed form, whose carry, t and every tensor the body
+    reads must be the same tensors at each call of the loop with these
+    graphs (the graphs read their addresses); the carry is updated in place
+    (a leaf the body returns anew is copied into the carry's) and
+    returned."""
     if not exporting():
+        if unroll:
+            return _unrolled(start, stop, body, carry, unroll, graphs, t)
         for t in range(start, stop):
             carry = body(t, carry)
         return carry
@@ -70,6 +88,40 @@ def fori_loop(start, stop, body, carry):
     return pytree.tree_unflatten(list(out[1:]), spec)
 
 
+def _unrolled(start, stop, body, carry, k, graphs, t):
+    """fori_loop's graphed form: the steps in groups of k, then the
+    remainder, each group one call of graphs keyed (start, stop, size), t
+    the fixed counter, set to start here and advanced by each step."""
+    leaves = pytree.tree_leaves(carry)
+    t.fill_(start)
+
+    def group(n):
+        def run():
+            c = carry
+            for _ in range(n):
+                c = body(t, c)
+                t.add_(1)
+            for a, b in zip(leaves, pytree.tree_leaves(c), strict=True):
+                if b is not a:
+                    a.copy_(b)
+        return run
+
+    full, rest = divmod(stop - start, k)
+    for _ in range(full):
+        graphs((start, stop, k), group(k))
+    if rest:
+        graphs((start, stop, rest), group(rest))
+    return carry
+
+
+def take(x, t):
+    """x[t] along dim 0: x.select for an int t (a view), index_select for a
+    0-dim device tensor t (the same values, read without a host sync)."""
+    if isinstance(t, torch.Tensor):
+        return x.index_select(0, t.view(1)).squeeze(0)
+    return x.select(0, t)
+
+
 def pick(pred, a, other):
     """a if pred else other(), other a function giving a tensor of a's
     shape: a step's data-dependent choice (diffusion's first and last
@@ -95,6 +147,9 @@ def write(buf, index, value):
     as an indexed assignment does). index: an int, or a tuple of ints and
     slices over buf's leading dims. Eager: in place, returns buf. Under
     export: a new tensor, buf untouched."""
+    if isinstance(index, torch.Tensor):  # a device t: row t of dim 0
+        row = value.to(buf.dtype).expand(buf.shape[1:]).unsqueeze(0)
+        return buf.index_copy_(0, index.view(1), row)
     index = index if isinstance(index, tuple) else (index,)
     if not exporting():
         buf[index] = value
