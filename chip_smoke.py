@@ -313,6 +313,26 @@ failure exits non-zero before the result lines:
                 and collected during another capture, in two processes of
                 its own, without utils/graphs.py's collection before the
                 capture (the capture must fail) and with it (it must pass).
+                Then every sampler (samplers, SAMPLER_CASES: diffusion's
+                guided DDIM-250, and at 25 steps dpm2m, noisy, fused_cfg,
+                a distilled student, teacher_test, w8a8 and w8a16; made at
+                2048 and its w8a8 and w8a16; vqvae, rnn, wavenet, pixel_cnn,
+                gated_pixel_cnn, vae, gan): its serve_bs=64 request
+                through SampleServer graphed (models/base.py pass_graphs;
+                the warm-up captures) and per-step (graph_sampling off),
+                bitwise, every counter equal, one synchronizing call (the
+                batch's copy) in a graphed request; the graphed wall (the
+                median of 3) beside the per-step one, a graphed request
+                traced (device ms, kernels), the counters' total over
+                every pass of the case (warm to the traced request) held
+                to the passes times the per-step request's, and each
+                graph's replays traced as its capture counted (A, B, G,
+                I, J); the noisy sampler's own sample() three times
+                graphed from the model's generator, each batch and the
+                generator's state after it bitwise the per-step loop's.
+Every serving, sampling and eval_heavy phase above runs its samplers as
+CUDA graphs, the default: a server's warm() is two passes (the eager one
+and the capture), which the phases' launch counts include.
 Then the kernels line, the nvidia-smi line and, last, the device line.
 `--only=<phase>,...` runs the build and those phases alone (diff_quant
 after diff_train), for work on them: it prints no kernels or device line.
@@ -1545,7 +1565,8 @@ def phase_slice():
     launches = _read(counters)
     log(f'[slice] launches {launches}')
 
-    T, L, passes = model.block_size, int(G.n_layer), 5  # warm + 4 requests
+    # warm (the eager pass and the capture) + 4 requests
+    T, L, passes = model.block_size, int(G.n_layer), server.warm_passes + 4
     expected = {
         'ln_matmul': (L + 1) * T * passes,
         'block_tail': L * T * passes,
@@ -1792,7 +1813,8 @@ def phase_vq_serve():
     torch.cuda.synchronize()
     launches = _read(counters)
     log(f'[vq_serve] launches {launches}')
-    T, L, passes = server.model.n_codes, int(G.n_layer), 4  # warm + 3 requests
+    # warm (the eager pass and the capture) + 3 requests
+    T, L, passes = server.model.n_codes, int(G.n_layer), server.warm_passes + 3
     expected = {
         'ln_matmul': (L + 1) * T * passes, 'block_tail': L * T * passes,
         'causal_attention_fwd': 0, 'flash_bwd_dq': 0, 'flash_bwd_dkv': 0, 'vq_one_hot': 0,
@@ -1956,7 +1978,8 @@ def phase_made_serve():
     torch.cuda.synchronize()
     launches = _read(counters)
     log(f'[made_serve] launches {launches}')
-    nin, layers, passes = server.model.nin, server.model.net.n_layers, 4  # warm + 3 requests
+    # warm (the eager pass and the capture) + 3 requests
+    nin, layers, passes = server.model.nin, server.model.net.n_layers, server.warm_passes + 3
     expected = dict.fromkeys(launches, 0)
     expected['masked_matmul'] = nin * layers * passes
     if launches != expected:
@@ -3204,6 +3227,26 @@ def _kernel_function(event_name):
     return m.group(1) if m else event_name
 
 
+LEAD_NODES = 64  # the erfinv_ launches that lead each _count_launches trace
+LEAD = []  # the lead's graph and tensor, made at the first trace
+
+
+def _lead():
+    """A graph of LEAD_NODES erfinv_ kernels (an op no path of the port
+    runs), replayed at the start of each _count_launches trace and dropped
+    from its events: a trace loses its first few events now and then (a
+    pause before them did not stop it: made at 2048 lost 1-2 of its first
+    G launches in every retake within one process, of an eager step and of
+    a graph's replays), and then it loses these."""
+    if not LEAD:
+        from generative_models_tpu_torch.utils.graphs import CapturedGraph
+
+        x = torch.zeros(LEAD_NODES, device='cuda')
+        LEAD.append((CapturedGraph(lambda: [x[i:i + 1].erfinv_() for i in range(LEAD_NODES)]),
+                     x))
+    return LEAD[0][0]
+
+
 def _count_launches(label, fn):
     """The device kernels and copies of one call of fn, counted under
     torch.profiler's CUDA activity alone (no op events): for a whole
@@ -3211,16 +3254,19 @@ def _count_launches(label, fn):
     (KERNEL_FUNCTIONS) on the trace."""
     from torch.profiler import ProfilerActivity, profile
 
+    lead = _lead()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # a pause before the first launch: traces that launched at once now
-        # and then lost their first few launches
+        # a pause, then the lead's kernels, before the first launch: traces
+        # that launched at once now and then lost their first few launches
         time.sleep(0.05)
+        lead.replay()
+        torch.cuda.synchronize()
         t1 = time.time()
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t1
-    events = _raw_device_events(prof)
+    events = [(name, us) for name, us in _raw_device_events(prof) if 'erfinv' not in name]
     busy = sum(us for _, us in events) / 1e3
     kernels = {}
     for name, _ in events:
@@ -3988,7 +4034,7 @@ def phase_diff_quant():
         launches = _read(counters)
         per_pass = DIFF_QUANT_N * DPM2M_25_CALLS
         expected = dict.fromkeys(launches, 0)
-        expected[QUANT_KERNEL[mode]] = 2 * per_pass  # warm + the request
+        expected[QUANT_KERNEL[mode]] = (srv.warm_passes + 1) * per_pass  # warm + the request
         _check_samples(f'diff_quant {mode}', s, 64)
         if srv.quant_kernels != DIFF_QUANT_N or launches != expected:
             raise AssertionError(f'diff_quant {mode}: {srv.quant_kernels} quantized, launches '
@@ -4143,23 +4189,37 @@ def _op_dispatch_us(reps=5, calls=300):
     return out
 
 
-def _syncs(fn):
+def _syncs(fn, stacks=None):
     """(fn's result, where each synchronizing CUDA call it made was
     issued): each one warns
     under torch.cuda.set_sync_debug_mode('warn'), every device-to-host
     copy among them; the count costs a request nothing, where a profiler
-    trace of a 250-step guided request takes a minute to process."""
+    trace of a 250-step guided request takes a minute to process.
+    stacks: a list that takes each synchronizing call's Python stack. A
+    warning that the mode's switch itself raises (the first switch of a
+    process on the card raised one) is not fn's."""
+    import traceback
     import warnings
 
-    with warnings.catch_warnings(record=True) as caught:
+    caught, running = [], []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if running and 'synchronizing' in str(message):
+            caught.append(f'{Path(filename).name}:{lineno}')
+            if stacks is not None:
+                stacks.append(''.join(traceback.format_stack(limit=14)[:-1]))
+
+    with warnings.catch_warnings():
         warnings.simplefilter('always')
+        warnings.showwarning = show
         torch.cuda.set_sync_debug_mode('warn')
+        running.append(True)
         try:
             out = fn()
         finally:
+            running.clear()
             torch.cuda.set_sync_debug_mode(0)
-    return out, [f'{Path(w.filename).name}:{w.lineno}' for w in caught
-                 if 'synchronizing' in str(w.message)]
+    return out, caught
 
 
 # the artifacts whose request is traced with Python stacks for its
@@ -4973,8 +5033,8 @@ def _replays_as_counted(label, step_graphs, prepare, replays=3):
     for key, (graph, delta) in step_graphs.graphs.items():
         want = {c.__name__: n * replays for c, n in delta}
 
-        def run(key=key, graph=graph):
-            for _ in range(replays):
+        def run(key=key, graph=graph, times=replays):
+            for _ in range(times):
                 prepare(key)
                 graph.replay()
 
@@ -4982,7 +5042,9 @@ def _replays_as_counted(label, step_graphs, prepare, replays=3):
             traced = _count_launches(f'{label} graph {key} x{replays}', run)['kernels']
             if traced == want:
                 break
-            log(f'[graphs] {label} graph {key}: increments {want}, traced {traced} '
+            once = _count_launches(f'{label} graph {key} x1', lambda: run(times=1))
+            log(f'[graphs] {label} graph {key}: increments {want}, traced {traced}; one replay '
+                f'traced {once["kernels"]} of {once["launches"]} events '
                 f'({attempt + 1} of {TRACE_TRIES})')
         else:
             raise AssertionError(f'graphs {label} graph {key}: its replays launched {traced}, '
@@ -5030,8 +5092,9 @@ def _graph_requests(flags, train=False):
     """pixel_transformer's request at serve_bs=64, seed=7, through
     SampleServer at --decode_unroll 0 (the per-step loop), then each of
     GRAPH_UNROLLS: each batch bitwise the per-step loop's, every kernel
-    counter equal; each request's wall, the graphed ones twice (the first
-    captures), and a request of each mode traced. With train, one train step moves the weights and each mode
+    counter equal; each request's wall, the graphed ones three times (a
+    new unroll's first pass steps eagerly and its second captures,
+    utils/graphs.py PassGraphs), and a request of each mode traced. With train, one train step moves the weights and each mode
     serves again: bitwise again, and unlike the batch before."""
     from generative_models_tpu_torch.serve import load_server
 
@@ -5057,10 +5120,10 @@ def _graph_requests(flags, train=False):
         if moved and np.array_equal(ref, before):
             faults.append('the train step did not move the batch')
         res = dict(eager_sec=ref_sec, launches={k: v for k, v in ref_launches.items() if v},
-                   graphed_requests=2 * len(GRAPH_UNROLLS))
+                   graphed_requests=3 * len(GRAPH_UNROLLS))
         for k in GRAPH_UNROLLS:
             walls = []
-            for _ in range(2):
+            for _ in range(3):
                 batch, launches, sec = request(k)
                 walls.append(sec)
                 if not np.array_equal(batch, ref):
@@ -5079,9 +5142,9 @@ def _graph_requests(flags, train=False):
                 res[f'trace_unroll_{k}'] = _count_launches(f'{label} unroll {k}',
                                                            lambda k=k: request(k))
             res['replays'] = {
-                f'n={key[0]} unroll={key[3]}': _replays_as_counted(
+                f'n={bufs.prev.shape[0]} unroll={bufs.unroll}': _replays_as_counted(
                     label, bufs.graphs, lambda gkey, t=bufs.t: t.fill_(gkey[0]))
-                for key, bufs in server.model._decode_graphs.items()}
+                for bufs in server.model._pass_graphs.values()}
         before = ref
         out['after_train_step' if moved else 'fresh'] = res
     if faults:
@@ -5089,9 +5152,198 @@ def _graph_requests(flags, train=False):
     label = ' '.join(flags) or 'default'
     for key, res in out.items():
         log(f'[graphs] request ({label}, {key}): eager {res["eager_sec"]:.3f}s, '
-            + ', '.join(f'unroll {k} {res[f"unroll_{k}_sec"][0]:.3f}/{res[f"unroll_{k}_sec"][1]:.3f}s'
+            + ', '.join(f'unroll {k} ' + '/'.join(f'{w:.3f}' for w in res[f'unroll_{k}_sec']) + 's'
                         for k in GRAPH_UNROLLS) + f'; launches {res["launches"]} in each mode')
     return out
+
+
+SAMPLER_CASES = (  # (label, serving flags): every sampler at serve_bs=64, its default width
+    ('diffusion', DIFF_FLAGS),  # guided DDIM-250, two UNet calls a step
+    ('diffusion_dpm2m', DIFF_FLAGS + ['--sampler=dpm2m', '--sample_steps=25']),
+    ('diffusion_noisy', DIFF_FLAGS + ['--sampler=noisy', '--sample_steps=25']),
+    ('diffusion_fused_cfg', DIFF_FLAGS + ['--fused_cfg=1', '--sample_steps=25']),
+    ('diffusion_student', DIFF_FLAGS + ['--timesteps=128', '--sample_steps=25']),
+    ('diffusion_teacher_test', DIFF_FLAGS + ['--sampler=teacher_test', '--sample_steps=25']),
+    ('diffusion_w8a8', DIFF_FLAGS + ['--sampler=dpm2m', '--sample_steps=25', '--quantize=w8a8']),
+    ('diffusion_w8a16', DIFF_FLAGS + ['--sampler=dpm2m', '--sample_steps=25',
+                                      '--quantize=w8a16']),
+    ('made', MADE_FLAGS),  # Kernel G
+    ('made_w8a8', MADE_FLAGS + ['--quantize=w8a8']),  # Kernel I
+    ('made_w8a16', MADE_FLAGS + ['--quantize=w8a16']),  # Kernel J
+    ('vqvae', ['--model=vqvae']),  # Kernels A and B
+    ('rnn', ['--model=rnn']),
+    ('wavenet', ['--model=wavenet']),
+    ('pixel_cnn', ['--model=pixel_cnn']),
+    ('gated_pixel_cnn', ['--model=gated_pixel_cnn']),
+    ('vae', ['--model=vae']),
+    ('gan', ['--model=gan']),
+)
+SAMPLER_TEACHER = ('diffusion_student', 'diffusion_teacher_test')  # built on a teacher
+
+
+def _pass_replays(label, model):
+    """Each graph of the model's graphed sampling passes (its PassGraphs,
+    vqvae's DecodeGraphs) replayed under the trace: a graph whose capture
+    counted kernels three times alone (_replays_as_counted), its t set to
+    the first step of its group; the others once each, in one trace, in
+    which no counted kernel may run. Returns {pass key: {graph key: the
+    wrappers' launches a replay}}."""
+    import types
+
+    out = {}
+    for pkey, holder in model._pass_graphs.items():
+        # a group's t at its first step (a graph of a device t indexes its
+        # tables at t: past their end it would fault)
+        prepare = lambda gkey, t=holder.t: t.fill_(gkey[0]) if isinstance(gkey, tuple) else None
+        counted = {k: v for k, v in holder.graphs.graphs.items() if v[1]}
+        rest = {k: g for k, (g, delta) in holder.graphs.graphs.items() if not delta}
+        res = {}
+        if counted:
+            res = _replays_as_counted(f'{label} {pkey}', types.SimpleNamespace(graphs=counted),
+                                      prepare)
+        if rest:
+            traced = _count_launches(f'{label} {pkey}: {len(rest)} kernel-free graphs',
+                                     lambda: [(prepare(k), g.replay()) for k, g in rest.items()]
+                                     )['kernels']
+            if traced:
+                raise AssertionError(f'graphs {label} {pkey}: graphs that counted no kernel '
+                                     f'launched {traced}')
+        res['kernel_free_graphs'] = len(rest)
+        out[str(pkey)] = res
+    if not out:
+        raise AssertionError(f'graphs {label}: no sampling pass was graphed')
+    return out
+
+
+def _sampler_pair(label, flags, teacher):
+    """One sampler's request at serve_bs=64, seed=7, through SampleServer:
+    warm (the eager pass, then the capture), the graphed request three times
+    (wall: the median), once more with its synchronizing calls counted
+    (_syncs: the batch's copy to the host alone), and the per-step loop's once
+    (graph_sampling off): each batch bitwise the per-step loop's, every
+    kernel counter equal; then a graphed request traced (device ms,
+    kernels). The counters run from before warm to after the traced
+    request, unreset: their total (launches_total) must be the per-step
+    request's times the passes run. Then each graph's replays as its
+    capture counted (_pass_replays) and, for SAMPLER_STREAM, the model's
+    own sample() (_sample_stream)."""
+    from generative_models_tpu_torch.serve import load_server
+
+    if label in SAMPLER_TEACHER:
+        flags = flags + [f'--teacher_path={teacher}']
+    server, G = load_server(flags + ['--serve_bs=64'])
+    model, counters = server.model, _counters()
+    y = DIFF_LABELS if server.class_cond else None
+
+    def request(graphed):
+        model.graph_sampling = graphed
+        before = _read(counters)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        batch = server.sample(64, y=y, seed=7)
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        return batch, {k: v - before[k] for k, v in _read(counters).items()}, sec
+
+    _reset(counters)
+    warm = server.warm()
+    graphed = [request(True) for _ in range(3)]
+    stacks = []
+    synced, syncs = _syncs(lambda: server.sample(64, y=y, seed=7), stacks)
+    ref, ref_launches, eager_sec = request(False)
+    model.graph_sampling = True
+    faults = [f'request {i}: ' + ('the batch differs from the per-step loop'
+                                  if not np.array_equal(b, ref) else f'launches {n}')
+              for i, (b, n, _) in enumerate(graphed)
+              if not np.array_equal(b, ref) or n != ref_launches]
+    if not np.array_equal(synced, ref):
+        faults.append('the request counted for its syncs differs from the per-step loop')
+    if len(syncs) != 1:
+        faults.append(f'{len(syncs)} synchronizing calls in a graphed request ({syncs}), '
+                      'expected 1 (the batch\'s copy to the host)')
+        log(f'[graphs] sampler {label}: the synchronizing calls\' stacks:\n' + '\n'.join(stacks))
+    if faults:
+        raise AssertionError(f'graphs sampler {label}: {faults[:4]}; per-step launches '
+                             f'{ref_launches}')
+    _check_samples(f'graphs sampler {label}', ref, 64)
+    walls = sorted(sec for _, _, sec in graphed)
+    trace = _count_launches(f'graphs sampler {label} graphed request',
+                            lambda: server.sample(64, y=y, seed=7))
+    total = {k: v for k, v in _read(counters).items() if v}
+    passes = server.warm_passes + 3 + 1 + 1 + 1  # warm, graphed, synced, per-step, traced
+    want = {k: v * passes for k, v in ref_launches.items() if v}
+    if total != want:
+        raise AssertionError(f'graphs sampler {label}: {passes} passes counted {total}, '
+                             f'{passes} times the per-step request\'s is {want}')
+    out = dict(warm_sec=warm, eager_sec=eager_sec, graphed_sec=walls, graphed_median_sec=walls[1],
+               syncs=len(syncs), launches={k: v for k, v in ref_launches.items() if v},
+               passes=passes, launches_total=total,
+               trace=trace, replays=_pass_replays(f'graphs sampler {label}', model),
+               graphs=sum(len(h.graphs.graphs) for h in model._pass_graphs.values()))
+    if label in SAMPLER_STREAM:
+        out['sample_stream'] = _sample_stream(label, model)
+    log(f'[graphs] sampler {label}: bitwise the per-step loop; per-step {eager_sec:.3f}s, '
+        f'graphed {walls[1]:.3f}s (median of 3; warm {warm:.2f}s); device '
+        f'{trace["device_ms"]:.1f} ms, {trace["launches"]} kernels, busy '
+        f'{trace["busy_share"]:.3f}; {out["graphs"]} graphs; launches {out["launches"]} a '
+        f'request, {total} counted over its {passes} passes')
+    return out
+
+
+SAMPLER_STREAM = ('diffusion_noisy',)  # sample() drawing each step's normals inside its graphs
+
+
+def _sample_stream(label, model, calls=3):
+    """The model's own sample(64) from its sampling generator (the noisy
+    sampler draws each step's normals from it inside the graphs, the
+    generator registered with them), calls times per-step, then as many
+    times graphed from the same generator state (the first pass eager,
+    the second captured, the third replayed): each batch, the generator's
+    state after each call and each call's counters bitwise the per-step
+    loop's."""
+    gen, counters = model._sample_gen, _counters()
+
+    def run(graphed):
+        model.graph_sampling = graphed
+        out = []
+        for _ in range(calls):
+            _reset(counters)
+            batch = model.sample(64).cpu()
+            out.append((batch, gen.get_state(), _read(counters)))
+        return out
+
+    start = gen.get_state()
+    ref = run(False)
+    gen.set_state(start)
+    got = run(True)
+    model.graph_sampling = True
+    faults = [f'call {i}: ' + ', '.join(what for what, same in (
+        ('the batch', torch.equal(b, rb)), ('the generator state', torch.equal(g, rg)),
+        (f'launches {n} vs {rn}', n == rn)) if not same)
+        for i, ((b, g, n), (rb, rg, rn)) in enumerate(zip(got, ref))
+        if not (torch.equal(b, rb) and torch.equal(g, rg) and n == rn)]
+    if faults or torch.equal(ref[0][1], ref[1][1]):
+        raise AssertionError(f'graphs sampler {label} sample(): '
+                             f'{faults or "the generator did not move"}')
+    _check_samples(f'graphs sampler {label} sample()',
+                   model._serving_unit_range(ref[0][0]).numpy(), 64)
+    log(f'[graphs] sampler {label}: sample(64) x{calls} from the model\'s generator, graphed '
+        f'(eager, captured, replayed) bitwise the per-step loop, the generator\'s state '
+        f'after each call too')
+    return dict(calls=calls, bitwise=True, generator_state_equal=True)
+
+
+def phase_samplers(teacher=None):
+    """Every sampler as CUDA graphs (models/base.py pass_graphs), each case
+    of SAMPLER_CASES through _sampler_pair; teacher: the distilled
+    student's and teacher_test's teacher model.pt (made here if None)."""
+    if teacher is None:
+        from generative_models_tpu_torch.utils.config import parse_args
+
+        G, Model = parse_args(DIFF_FLAGS + ['--timesteps=256', '--bs=64'])
+        Model(G).save(GRAPHS_DIR / 'teacher')
+        teacher = GRAPHS_DIR / 'teacher' / 'model.pt'
+    return {label: _sampler_pair(label, flags, teacher) for label, flags in SAMPLER_CASES}
 
 
 def phase_graphs():
@@ -5122,6 +5374,7 @@ def phase_graphs():
     out['resume'] = _graph_resume()
     out['request'] = _graph_requests([], train=True)
     out['request_w8a16'] = _graph_requests(['--quantize=w8a16'])
+    out['samplers'] = phase_samplers(teacher)
     gc = {form: join_only(run, f'graph_gc_{form}', '[graph_gc]')[0]
           for form, run in gc_runs.items()}
     if gc['bare']['captured'] or not gc['collected']['captured']:
@@ -5203,6 +5456,7 @@ ONLY = {  # --only: these phases alone, in this order, after the build
     'made_cpu': lambda dev: phase_made_cpu(),  # the whole run's process for train_flags
     'train_flags': lambda dev: phase_train_flags(),
     'graphs': lambda dev: phase_graphs(),
+    'samplers': lambda dev: phase_samplers(),
     **{f'graph_gc_{form}': (lambda dev, form=form: phase_graph_gc(form))
        for form in GRAPH_GC_FORMS},
     **{name: (lambda dev, name=name: phase_raster_model(name)) for name in RASTER},
@@ -5340,6 +5594,8 @@ def main(argv=None):
                    'train_flags_made': tf['made']['launches'][name],
                    **{f'graphs_{label}': g['launches'].get(name, 0)
                       for label, g in gr.items() if 'launches' in g},
+                   **{f'graphs_sampler_{label}': r['launches_total'].get(name, 0)
+                      for label, r in gr['samplers'].items()},
                    **{f'graphs_{label}_{key}': r['launches'].get(name, 0) * r['graphed_requests']
                       for label, g in gr.items() if label.startswith('request')
                       for key, r in g.items()}}

@@ -50,6 +50,11 @@ make no device-to-host copy. An Arbiter saves and loads the JAX package's
 model.jit.pt payload instead (models/arbiters/).
 
 SAMPLE_RANGE is the range of a model's samples; serving maps it to [0, 1].
+Every sampling pass (the server's, sample, sample_images) runs as CUDA
+graphs on the card (pass_graphs, utils/graphs.py PassGraphs), as the JAX
+package jits its samplers, bitwise the per-step loop that graph_sampling =
+False selects (the tests' and chip_smoke.py's twin), which a pass under a
+process group or torch.export runs too.
 """
 
 import math
@@ -62,8 +67,11 @@ from generative_models_tpu_torch.ops.common import deterministic_convs, resolve_
 from generative_models_tpu_torch.parallel import mesh as pmesh
 from generative_models_tpu_torch.utils import dists
 from generative_models_tpu_torch.utils.config import AttrDict, dump_hps
+from generative_models_tpu_torch.utils.graphs import (
+    PASS_GRAPHS_KEPT, PassGraphs, StepGraphs, kept,
+)
 from generative_models_tpu_torch.utils.logger import write_grid, write_gridvid
-from generative_models_tpu_torch.utils.loop import write
+from generative_models_tpu_torch.utils.loop import exporting, take, write
 
 # an optimizer's param-group entries that are its form, not its state:
 # a checkpoint's param groups take this optimizer's (GM.adam)
@@ -227,6 +235,9 @@ class GM:
         self._graphs = None  # train_epoch's StepGraphs, made at its first call
         self._static_bufs = {}  # train_epoch's fixed input buffers
         self._row_keys = {}  # {graph key: its metric row's keys}
+        # sampling passes as CUDA graphs (pass_graphs); False: the per-step loop
+        self.graph_sampling = True
+        self._pass_graphs = {}  # pass_graphs' PassGraphs, the newest last
 
     def build(self):
         """Return the torch module."""
@@ -544,8 +555,6 @@ class GM:
         group (under one, NCCL's collectives stay eager), uncaptured
         elsewhere; the training draws' generator registered."""
         if self._graphs is None:
-            from generative_models_tpu_torch.utils.graphs import StepGraphs
-
             capture = self.device.type == 'cuda' and self.mesh.dm is None
             self._graphs = StepGraphs(capture, [self._gen])
         return self._graphs
@@ -831,6 +840,36 @@ class GM:
         """The modules a serving pass reads."""
         return [self.net]
 
+    def graphed_sampling(self):
+        """Whether a sampling pass runs graphed: graph_sampling on, and
+        neither a process group (NCCL's collectives stay out of graphs) nor
+        torch.export (its while_loop) at work."""
+        return self.graph_sampling and self.mesh.dm is None and not exporting()
+
+    def pass_graphs(self, key, refs=(), generators=(), make=None):
+        """The PassGraphs (utils/graphs.py) of a sampling pass keyed by key
+        and the ids of refs (what its graphs read beside the weights: a
+        quant table, a net, a generator; kept alive by it), made at its
+        first pass by make(refs) (a subclass's: pixel_transformer's
+        DecodeGraphs), the PASS_GRAPHS_KEPT last used kept; generators: the
+        ones its graphs draw from. None where the pass steps eagerly
+        (graphed_sampling)."""
+        if not self.graphed_sampling():
+            return None
+        make = make or (lambda refs: PassGraphs(self.device, generators, refs))
+        return kept(self._pass_graphs, (key, *map(id, refs)), lambda: make(refs),
+                    PASS_GRAPHS_KEPT)
+
+    def graphed_pass(self, key, fn, *inputs):
+        """fn(*inputs), a sampling pass without a loop (vae's, gan's), as
+        one CUDA graph of the PassGraphs of key, the inputs its fixed
+        buffers; eager where graphed_sampling says so."""
+        graphs = self.pass_graphs(key)
+        if graphs is None:
+            return fn(*inputs)
+        inputs = graphs.start(*inputs)
+        return graphs('pass', lambda: fn(*inputs)).clone()  # not the graph's output
+
     def _draw(self, n, generator, quant=None):
         """n samples (n, H, W, 1) in SAMPLE_RANGE and nothing else."""
         return self.sample_from_draws(n, dists.draw(self.draw_spec(n), generator, self.device),
@@ -938,12 +977,15 @@ class RasterAutoreg(Autoreg):
     def uniform_shape(self, n):
         return (self.canvas_size, n)
 
-    def decode_chain(self, n, next_pixel, state=(), quant=None):
+    def decode_chain(self, n, next_pixel, state=(), quant=None, graphs=None):
         """Run the T = canvas_size decode steps on a batch of n, one step a
         body of utils/loop.py fori_loop: step t computes the logits of
         pixel t (n,) and next_pixel(t, logits, state) returns the pixel (n,)
         that the chain reads from then on and the state; returns the last
-        state. quant: a QuantTable over self.net."""
+        state. quant: a QuantTable over self.net. graphs: a PassGraphs,
+        for the graphed form (fixed tensors in state): the first carry made
+        in one graph, the steps in graphs of k (a device t, or a host t
+        baked in where t moves views)."""
         raise NotImplementedError
 
     @torch.no_grad()
@@ -968,13 +1010,20 @@ class RasterAutoreg(Autoreg):
         T, side = self.canvas_size, self.side
         if uniforms is None:
             uniforms = torch.rand((T, n), generator=generator, device=self.device)
+        graphs = self.pass_graphs(('raster', n), refs=(quant,))
+        make = lambda: torch.empty((T, n), device=self.device)
+        if graphs is None:
+            pixels = make()
+        else:
+            (uniforms,) = graphs.start(uniforms)
+            pixels = graphs.fixed('pixels', make)
 
         def next_pixel(t, logit, pixels):
-            pixel = dists.Bernoulli(logits=logit).sample(uniforms=uniforms[t])
+            pixel = dists.Bernoulli(logits=logit).sample(uniforms=take(uniforms, t))
             return pixel, write(pixels, t, pixel)
 
-        pixels = self.decode_chain(n, next_pixel, torch.empty((T, n), device=self.device), quant)
-        flat = pixels.t()
+        pixels = self.decode_chain(n, next_pixel, pixels, quant, graphs)
+        flat = pixels.t() if graphs is None else pixels.t().clone()  # not the fixed buffer
         samples = flat.reshape(n, side, side, 1)
         if not with_frames:
             return samples

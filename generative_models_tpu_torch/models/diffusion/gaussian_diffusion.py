@@ -10,7 +10,11 @@ targets.
 The sampling chain is utils/loop.py fori_loop over its steps (a Python
 loop, or one while_loop in an exported program; the JAX package's
 lax.scan), the first and last steps' branches through pick; with
-return_history=False it keeps only the current state.
+return_history=False it keeps only the current state, and given a
+PassGraphs (utils/graphs.py) runs as CUDA graphs on the card: its tables
+and first carry one graph, then each step a graph replayed S times with
+the step k a device counter (take reads the tables' row k, pick is
+torch.where), bitwise the Python loop.
 Every random draw comes from an explicit torch.Generator or is passed in,
 so a test can hand the JAX package's draws to the port: the training eps,
 u (or i for step2) and w, the per-sample guidance weights w and the noisy
@@ -26,10 +30,15 @@ import torch.nn.functional as F
 
 from generative_models_tpu_torch.models.diffusion.schedules import get_logsnr_schedule
 from generative_models_tpu_torch.utils.dists import batch_draw
-from generative_models_tpu_torch.utils.loop import fori_loop, pick
+from generative_models_tpu_torch.utils.graphs import stage
+from generative_models_tpu_torch.utils.loop import fori_loop, pick, take
+
+SAMPLE_UNROLL = 1  # chain steps a CUDA graph of the graphed chain (~1450 launches a guided step)
 
 
 def _f32(x, like):
+    if isinstance(x, (int, float)):  # a fill, which a CUDA graph captures (no host copy)
+        return torch.full((), x, dtype=torch.float32, device=like.device)
     return torch.as_tensor(x, dtype=torch.float32, device=like.device)
 
 
@@ -270,7 +279,7 @@ class GaussianDiffusion:
         return z_s_dist['mean'] + z_s_dist['std'] * noise, x_pred_t, eps_pred_t
 
     def sample(self, *, net, init_x, generator=None, cond_w=None, teacher_net=None,
-               return_history=True, w=None, step_noise=None):
+               return_history=True, w=None, step_noise=None, graphs=None):
         """The reverse chain over t = S-1..0, S = sample_steps. Returns the
         stacked (z, x_hat, eps_hat) histories, each (S, *init_x.shape), or
         with return_history=False the final batch alone.
@@ -279,13 +288,33 @@ class GaussianDiffusion:
         per-sample weights 4 w, w uniform (drawn unless given), unless
         sample_cond_w (not -1) fixes the weight, as in the JAX package.
         step_noise (S, *init_x.shape) replaces the noisy sampler's per-step
-        normals, which are otherwise drawn from generator after w."""
+        normals, which are otherwise drawn from generator after w.
+
+        graphs: a PassGraphs whose fixed buffers init_x, w, step_noise
+        and the net's labels are (the graphed chain; not with
+        return_history): the tables, 4 w and the first carry in one graph,
+        then SAMPLE_UNROLL steps a graph, k a device counter; the noisy
+        sampler's draws from generator then come from inside the graphs,
+        which register it (PassGraphs' generators)."""
         dev, shape = init_x.device, init_x.shape
-        net_cond_w = None
-        if cond_w is not None:
-            if w is None:
-                w = torch.rand((shape[0],), generator=generator, device=dev)
-            net_cond_w = 4.0 * w
+        if graphs is not None and return_history:
+            raise ValueError('the graphed chain keeps no history')
+        if cond_w is not None and w is None:
+            w = torch.rand((shape[0],), generator=generator, device=dev)
+        S, guided = self.sample_steps, cond_w is not None
+
+        def first():
+            """The logSNR tables, 4 w and the first carry (dpm2m's x_prev and
+            h_prev stand in, unread: views, or copies in the graphed form's
+            fixed carry)."""
+            steps = torch.arange(S - 1, -1, -1, dtype=torch.float32, device=dev)
+            ts, ss = self.logsnr_schedule_fn((steps + 1.0) / S), self.logsnr_schedule_fn(steps / S)
+            carry = (init_x, init_x, ts[0]) if self.sampler == 'dpm2m' else (init_x,)
+            if graphs is not None:
+                carry = tuple(x.clone() for x in carry)
+            return ts, ss, 4.0 * w if guided else None, carry
+
+        logsnr_ts, logsnr_ss, net_cond_w, carry = stage(graphs, 'first', first)
         if self.has_teacher:
             # a distilled student conditions on w directly, no CF guidance
             net = partial(net, cond_w=net_cond_w)
@@ -305,17 +334,13 @@ class GaussianDiffusion:
         else:
             raise NotImplementedError(self.sampler)
 
-        S = self.sample_steps
-        steps = torch.arange(S - 1, -1, -1, dtype=torch.float32, device=dev)
-        logsnr_ts = self.logsnr_schedule_fn((steps + 1.0) / S)
-        logsnr_ss = self.logsnr_schedule_fn(steps / S)
         hist = ([], [], [])
 
         def step(k, carry):
             """Step k of the chain (t = S-1-k); carry (z,), or (z, x_prev,
             h_prev) for dpm2m (the first step reads neither)."""
             z = carry[0]
-            logsnr_t, logsnr_s = logsnr_ts[k], logsnr_ss[k]
+            logsnr_t, logsnr_s = take(logsnr_ts, k), take(logsnr_ss, k)
             if self.sampler == 'dpm2m':
                 # DPM-Solver++(2M) in half-logSNR time: D = x + (x - x_prev)
                 # / (2 r), r = h_prev / h; the first step (D = x) is DDIM's
@@ -329,7 +354,7 @@ class GaussianDiffusion:
                 z_s = sig_ratio * z - (alpha_s * torch.expm1(-h)) * D
                 rest = (x_pred, h)
             elif stochastic:
-                noise = (step_noise[k] if step_noise is not None
+                noise = (take(step_noise, k) if step_noise is not None
                          else torch.randn(shape, generator=generator, device=dev))
                 z_s, x_pred, eps_pred = self.reverse_dpm_step(
                     net=body_net, logsnr_t=logsnr_t, logsnr_s=logsnr_s, z_t=z, noise=noise,
@@ -346,9 +371,8 @@ class GaussianDiffusion:
                     acc.append(v)
             return (z, *rest)
 
-        # dpm2m's first carry: x_prev and h_prev stand in, unread (views)
-        first = (init_x, init_x, logsnr_ts[0]) if self.sampler == 'dpm2m' else (init_x,)
-        z = fori_loop(0, S, step, first)[0]
+        graphed = () if graphs is None else (SAMPLE_UNROLL, graphs, graphs.t)
+        z = fori_loop(0, S, step, carry, *graphed)[0]
         if not return_history:
-            return z
+            return z if graphs is None else z.clone()  # not the fixed carry
         return tuple(torch.stack(acc) for acc in hist)

@@ -276,17 +276,17 @@ class DiffusionModel(GM):
 
     @torch.no_grad()
     def sample_chain(self, noise, y, generator=None, cond_w=None, return_history=True,
-                     w=None, step_noise=None, diffusion=None, quant=None):
+                     w=None, step_noise=None, diffusion=None, quant=None, graphs=None):
         """The chain from noise (n, H, W, 1) under labels y (n,): see
         GaussianDiffusion.sample. quant: a QuantTable over the sampling
-        net (quant_net)."""
+        net (quant_net); graphs: the pass's PassGraphs (sample_fn)."""
         teacher = None
         if self.teacher_net is not None:
             teacher = self._make_net(self.teacher_net.eval(), y)
         return (diffusion or self.diffusion).sample(
             net=self._make_net(self._sample_net(), y, quant), init_x=noise, generator=generator,
             cond_w=cond_w, teacher_net=teacher, return_history=return_history, w=w,
-            step_noise=step_noise,
+            step_noise=step_noise, graphs=graphs,
         )
 
     def sample_fn(self, n, y=None, generator=None, noise=None, w=None, step_noise=None,
@@ -295,13 +295,29 @@ class DiffusionModel(GM):
         unconditional): noise from generator (unless given), then the
         guided chain. cond_w=0.5 is only the flag that turns guidance on:
         each sample's weight is 4 w, w uniform (the JAX package's quirk).
-        quant: a QuantTable over quant_net()."""
+        quant: a QuantTable over quant_net(). The chain runs graphed
+        (pass_graphs), one PassGraphs a batch size, chain (the serving or
+        the eval diffusion: sampler, steps, --fused_cfg), net read (the
+        EMA copy, a student, the teacher), quant table and, where the noisy
+        sampler draws its steps' normals from generator, that generator;
+        noise, w, the labels and step_noise are its fixed inputs."""
+        diffusion = diffusion or self.diffusion
         if noise is None:
             noise = torch.randn((n, self.size, self.size, 1), generator=generator,
                                 device=self.device)
-        return self.sample_chain(noise, self._labels(y, n), generator, cond_w=0.5,
-                                 return_history=False, w=w, step_noise=step_noise,
-                                 diffusion=diffusion, quant=quant)
+        y = self._labels(y, n)
+        gens = ()
+        if diffusion.sampler == 'noisy' and step_noise is None and generator is not None:
+            gens = (generator,)
+        graphs = self.pass_graphs(('chain', n), refs=(
+            diffusion, self._sample_net(), self.teacher_net, quant, *gens), generators=gens)
+        if graphs is not None:
+            if w is None:  # drawn here, where the eager chain draws it: after the noise
+                w = torch.rand((n,), generator=generator, device=self.device)
+            noise, w, y, step_noise = graphs.start(noise, w, y, step_noise)
+        return self.sample_chain(noise, y, generator, cond_w=0.5, return_history=False, w=w,
+                                 step_noise=step_noise, diffusion=diffusion, quant=quant,
+                                 graphs=graphs)
 
     @torch.no_grad()
     def sample(self, n, y=None):

@@ -307,12 +307,18 @@ class GAN(GM):
     def sample_fn(self, n, generator=None, noise=None, quant=None):
         """n samples (n, 28, 28, 1) in [-1, 1]: the generator in eval mode
         (running statistics) on N(0, 1) noise (or noise given), its deconvs
-        on cuDNN's deterministic algorithms."""
+        on cuDNN's deterministic algorithms; one CUDA graph a batch size
+        (graphed_pass)."""
         if noise is None:
             noise = torch.randn((n, int(self.G.noise_size)), generator=generator,
                                 device=self.device)
-        with deterministic_convs():
-            return self.net.gen(torch.as_tensor(noise, dtype=torch.float32).to(self.device), False)
+
+        def generate(noise):
+            with deterministic_convs():
+                return self.net.gen(noise, False)
+
+        return self.graphed_pass(('gan', n), generate,
+                                 torch.as_tensor(noise, dtype=torch.float32).to(self.device))
 
     @torch.no_grad()
     def evaluate(self, writer, x, y, epoch):

@@ -36,7 +36,10 @@ from generative_models_tpu_torch.ops.masked_dense import masked_dense, prefer_ke
 from generative_models_tpu_torch.parallel import mesh as pmesh
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
-from generative_models_tpu_torch.utils.loop import fori_loop, write
+from generative_models_tpu_torch.utils.graphs import stage
+from generative_models_tpu_torch.utils.loop import fori_loop, take, write
+
+SAMPLE_UNROLL = 8  # sampling steps (full forwards) a CUDA graph of the graphed pass
 
 
 def create_made_masks(nin, hidden_sizes, seed=42):
@@ -188,17 +191,26 @@ class MADE(Autoreg):
         set to u_i < sigmoid(logit_i). uniforms (nin, n), the draws of step
         i in row i, replace the generator's; quant: a QuantTable over
         self.net. Returns the samples (n, H, W, 1) and, with with_frames,
-        the (nin, n, H, W, 1) canvas after each step."""
+        the (nin, n, H, W, 1) canvas after each step. Graphed
+        (pass_graphs): SAMPLE_UNROLL steps a CUDA graph, i a device
+        counter."""
         side = math.isqrt(self.nin)
         if uniforms is None:
             uniforms = torch.rand((self.nin, n), generator=generator, device=self.device)
+        graphs = self.pass_graphs(('made', n), refs=(quant,))
+        if graphs is not None:
+            (uniforms,) = graphs.start(uniforms)
 
         def step(i, samples):
             logits = self.net(samples, quant=quant)
-            pixel = dists.Bernoulli(logits=logits.select(1, i)).sample(uniforms=uniforms[i])
+            pixel = dists.Bernoulli(logits=take(logits, i, 1)).sample(uniforms=take(uniforms, i))
             return write(samples, (slice(None), i), pixel)
 
-        samples = fori_loop(0, self.nin, step, torch.zeros((n, self.nin), device=self.device))
+        samples = stage(graphs, 'first', lambda: torch.zeros((n, self.nin), device=self.device))
+        graphed = () if graphs is None else (SAMPLE_UNROLL, graphs, graphs.t)
+        samples = fori_loop(0, self.nin, step, samples, *graphed)
+        if graphs is not None:
+            samples = samples.clone()  # not the pass's fixed tensor
         out = samples.reshape(n, side, side, 1)
         if not with_frames:
             return out

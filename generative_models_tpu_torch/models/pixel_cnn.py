@@ -36,6 +36,7 @@ from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.base import RasterAutoreg
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
+from generative_models_tpu_torch.utils.graphs import stage
 from generative_models_tpu_torch.utils.loop import fori_loop, write
 
 LN_EPS = 1e-6  # flax LayerNorm's epsilon
@@ -244,13 +245,15 @@ class PixelCNN(RasterAutoreg):
         loss = -dists.Bernoulli(logits=logits).log_prob(x).mean()
         return loss, {'nlogp': loss}
 
-    def decode_chain(self, n, next_pixel, state=(), quant=None):
+    def decode_chain(self, n, next_pixel, state=(), quant=None, graphs=None):
         """The wavefront decode, one net.step a step: pixel t is written
         into the input canvas. quant is unused: no layer is an nn.Linear,
         so --quantize has nothing to quantize and exits. Its callers turn
         autograd off: a no_grad region here would put grad-mode nodes
         around the gated row update's torch.cond in an exported program,
-        which torch.export's pass over them refuses."""
+        which torch.export's pass over them refuses. Graphed: a row of steps
+        a graph, r and c host ints baked in (the windows are views, and the
+        gated row update a Python if, as eager)."""
         net, side = self.net, self.side
 
         def step(t, carry):
@@ -260,4 +263,6 @@ class PixelCNN(RasterAutoreg):
             pix, state = next_pixel(t, logit, state)
             return net.write_input(canvases, r, c, pix), state
 
-        return fori_loop(0, self.canvas_size, step, (net.init_canvases(n, side), state))[1]
+        canvases = stage(graphs, 'first', lambda: net.init_canvases(n, side))
+        graphed = () if graphs is None else (side, graphs)
+        return fori_loop(0, self.canvas_size, step, (canvases, state), *graphed)[1]

@@ -82,8 +82,8 @@ from generative_models_tpu_torch.parallel.pipeline import (
 from generative_models_tpu_torch.parallel.ring_attention import ring_causal_attention
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
-from generative_models_tpu_torch.utils.graphs import StepGraphs
-from generative_models_tpu_torch.utils.loop import exporting, fori_loop, take, write
+from generative_models_tpu_torch.utils.graphs import PassGraphs
+from generative_models_tpu_torch.utils.loop import fori_loop, take, write
 
 
 def _kernel_weight(*layers, dtype):
@@ -91,9 +91,6 @@ def _kernel_weight(*layers, dtype):
     along out, in the kernels' operand dtype."""
     w = torch.cat([m.weight for m in layers], 0)
     return w.t().to(dtype).contiguous()
-
-
-DECODE_GRAPHS_KEPT = 4  # a model's DecodeGraphs kept (PixelTransformer.decode_graphs)
 
 
 # Megatron TP over the model axis (the JAX package's transformer_tp_rules,
@@ -454,33 +451,31 @@ def decode_loop(net, n, next_token, state=(), segments=1, quant=None, bufs=None)
     return carry[2]
 
 
-class DecodeGraphs:
-    """A graphed sampling pass's fixed tensors (--decode_unroll=unroll): the
-    decode params' operand copies, which each pass refills from the weights
-    (so a pass after a train step reads the moved weights), the positions,
-    the first token, the KV caches, the draws, the tokens and the device
-    counter t, and the StepGraphs of its segments' step groups (capturing on
-    the card). One a batch size, segments, unroll, quant table (which it
-    holds) and sampler: a graph records the sample_token it was captured
-    with and replays that one, so its caller keeps it for one sampler
-    (PixelTransformer.decode_graphs)."""
+class DecodeGraphs(PassGraphs):
+    """A graphed decode pass (--decode_unroll=unroll): a PassGraphs whose
+    fixed tensors are the decode params' operand copies, which each pass
+    refills from the weights (so a pass after a train step reads the moved
+    weights), the positions, the first token, the KV caches, the draws and
+    the tokens, its segments' step groups its graphs. One a batch size,
+    segments, unroll, quant table (which it holds) and sampler: a graph
+    records the sample_token it was captured with and replays that one, so
+    its caller keeps it for one sampler (PixelTransformer.decode_graphs;
+    vqvae's prior, whose Categorical sampler has its own)."""
 
-    def __init__(self, net, n, uniforms, quant, unroll):
+    def __init__(self, net, n, quant, unroll, refs=()):
         dev = net.pos_emb.device
+        super().__init__(dev, refs=refs)
         self.quant, self.unroll = quant, unroll
         self.params = None if quant is not None or net.module_step else net.decode_params()
         self.pos = torch.arange(net.block_size, device=dev)
         self.prev = torch.zeros((n, net.in_size), device=dev)
         self.caches = net.init_cache(n)
-        self.uniforms = torch.empty_like(uniforms)
         self.tokens = torch.empty((net.block_size, n, net.in_size), device=dev)
-        self.t = torch.zeros((), dtype=torch.int64, device=dev)
-        self.graphs = StepGraphs(capture=dev.type == 'cuda')
 
     def start(self, net, uniforms):
         """Set the buffers for a pass on uniforms: the params refilled from
         the weights, the first token and the caches zeroed, the draws
-        copied."""
+        copied into self.uniforms."""
         if self.params is not None:
             fresh = torch.utils._pytree.tree_leaves(net.decode_params())
             for buf, val in zip(torch.utils._pytree.tree_leaves(self.params), fresh, strict=True):
@@ -489,7 +484,7 @@ class DecodeGraphs:
         self.prev.zero_()
         for cache in self.caches:
             cache.zero_()
-        self.uniforms.copy_(uniforms)
+        (self.uniforms,) = super().start(uniforms)
 
 
 def transformer_sample_scan(net, n, sample_token, uniforms, segments=1, quant=None, bufs=None):
@@ -549,23 +544,19 @@ class PixelTransformer(Autoreg):
     def __init__(self, G):
         self.side = 32 if G.get('pad32', 0) else 28
         self.block_size = self.side * self.side
-        self._decode_graphs = {}  # decode_graphs' DecodeGraphs, the newest last
         super().__init__(G)
+
+    def graphed_sampling(self):
+        """GM's rule, and --decode_unroll >= 1 (0: the per-step loop)."""
+        return super().graphed_sampling() and int(self.G.get('decode_unroll', 1)) > 0
 
     def decode_graphs(self, n, uniforms, segments, unroll, quant):
         """sample_fn's DecodeGraphs (its Bernoulli sampler's) of a batch of n
-        at these segments, unroll and quant table (keyed by its id: the
-        DecodeGraphs holds the table, so the id is not reused), made at its
-        first pass; the DECODE_GRAPHS_KEPT last used are kept, their caches
-        and graphs' memory with them."""
-        key = (n, tuple(uniforms.shape), segments, unroll, id(quant))
-        bufs = self._decode_graphs.pop(key, None)
-        if bufs is None:
-            bufs = DecodeGraphs(self.net, n, uniforms, quant, unroll)
-        self._decode_graphs[key] = bufs
-        while len(self._decode_graphs) > DECODE_GRAPHS_KEPT:
-            self._decode_graphs.pop(next(iter(self._decode_graphs)))
-        return bufs
+        at these segments, unroll and quant table, one of the model's
+        pass_graphs; None where the pass steps eagerly."""
+        return self.pass_graphs(
+            ('decode', n, tuple(uniforms.shape), segments, unroll), refs=(quant,),
+            make=lambda refs: DecodeGraphs(self.net, n, quant, unroll, refs))
 
     def build(self):
         G = self.G
@@ -657,10 +648,8 @@ class PixelTransformer(Autoreg):
         sample_token = lambda logits, u: dists.Bernoulli(logits=logits).sample(uniforms=u)
         # under a process group the decode steps eagerly (NCCL's collectives
         # stay out of graphs), and under torch.export as a while_loop
-        unroll = int(self.G.get('decode_unroll', 1))
-        bufs = None
-        if unroll and self.mesh.dm is None and not exporting():
-            bufs = self.decode_graphs(n, uniforms, segments, unroll, quant)
+        bufs = self.decode_graphs(n, uniforms, segments, int(self.G.get('decode_unroll', 1)),
+                                  quant)
         tokens = transformer_sample_scan(self.net, n, sample_token, uniforms, segments, quant,
                                          bufs)
         samples = tokens.permute(1, 0, 2).reshape(n, self.side, self.side, 1)

@@ -34,7 +34,10 @@ from generative_models_tpu_torch.models.base import RasterAutoreg
 from generative_models_tpu_torch.ops.common import matmul_dtype
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
-from generative_models_tpu_torch.utils.loop import exporting, fori_loop
+from generative_models_tpu_torch.utils.graphs import stage
+from generative_models_tpu_torch.utils.loop import exporting, fori_loop, take
+
+SAMPLE_UNROLL = 8  # decode steps a CUDA graph of the graphed sampling pass
 
 
 def location_grid(side=28, device='cpu'):
@@ -58,7 +61,16 @@ def _location_grid(side, device):
 def sampling_locations(side=28, device='cpu'):
     """(side * side, 2): pixel i's ((i // side) / (side - 1), (i % side) /
     (side - 1)) as f32 divisions, the values the JAX package's rnn sampler
-    feeds after drawing pixel i."""
+    feeds after drawing pixel i. Made once a side and device, as
+    location_grid (a graphed pass reads it and copies nothing from the
+    host)."""
+    if exporting():
+        return _sampling_locations.__wrapped__(side, torch.device(device))
+    return _sampling_locations(side, torch.device(device))
+
+
+@functools.cache
+def _sampling_locations(side, device):
     i = np.arange(side * side)
     loc = np.stack([i // side, i % side], -1).astype(np.float32) / np.float32(side - 1)
     return torch.from_numpy(loc).to(device)
@@ -158,18 +170,25 @@ class RNN(RasterAutoreg):
         return loss, {'nlogp': loss}
 
     @torch.no_grad()
-    def decode_chain(self, n, next_pixel, state=(), quant=None):
-        """The LSTM chain: step t reads pixel t - 1 with its location."""
-        net, products = self.net, self.net.products(quant)
+    def decode_chain(self, n, next_pixel, state=(), quant=None, graphs=None):
+        """The LSTM chain: step t reads pixel t - 1 with its location.
+        Graphed: SAMPLE_UNROLL steps a graph, a device t."""
+        net = self.net
         locs = sampling_locations(self.side, self.device) if self.G.append_loc else None
+
+        def first():
+            zeros = lambda width: torch.zeros((n, width), device=self.device)
+            return net.products(quant), (zeros(net.hidden), zeros(net.hidden),
+                                         zeros(self.in_channels))
 
         def step(t, carry):
             h, c, x, state = carry
             h, c, logit = net.step(h, c, x, products)
             pix, state = next_pixel(t, logit, state)
-            x = pix[:, None] if locs is None else torch.cat([pix[:, None], locs[t].expand(n, 2)], 1)
-            return h, c, x, state
+            if locs is not None:
+                return h, c, torch.cat([pix[:, None], take(locs, t).expand(n, 2)], 1), state
+            return h, c, pix[:, None], state
 
-        zeros = lambda width: torch.zeros((n, width), device=self.device)
-        carry = (zeros(net.hidden), zeros(net.hidden), zeros(self.in_channels), state)
-        return fori_loop(0, self.canvas_size, step, carry)[3]
+        products, carry = stage(graphs, 'first', first)
+        graphed = () if graphs is None else (SAMPLE_UNROLL, graphs, graphs.t)
+        return fori_loop(0, self.canvas_size, step, (*carry, state), *graphed)[3]

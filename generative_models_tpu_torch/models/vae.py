@@ -158,12 +158,16 @@ class VAE(GM):
     def sample_fn(self, n, generator=None, z=None, quant=None):
         """n samples (n, H, W, 1) in {0, 1}: sigmoid(decode(z)) > 0.5, z
         from N(0, 1) (or given), the deconvs on cuDNN's deterministic
-        algorithms."""
+        algorithms; one CUDA graph a batch size (graphed_pass)."""
         if z is None:
             z = torch.randn((n, int(self.G.z_size)), generator=generator, device=self.device)
-        with deterministic_convs():
-            decoded = self.net.decode(torch.as_tensor(z, dtype=torch.float32).to(self.device))
-        return (torch.sigmoid(decoded) > 0.5).float()
+
+        def decode(z):
+            with deterministic_convs():
+                return (torch.sigmoid(self.net.decode(z)) > 0.5).float()
+
+        return self.graphed_pass(('vae', n), decode,
+                                 torch.as_tensor(z, dtype=torch.float32).to(self.device))
 
     @torch.no_grad()
     def evaluate(self, writer, x, y, epoch):

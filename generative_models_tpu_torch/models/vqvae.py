@@ -24,7 +24,7 @@ from torch import nn
 from generative_models_tpu_torch import convert
 from generative_models_tpu_torch.models.base import GM
 from generative_models_tpu_torch.models.pixel_transformer import (
-    TransformerNet, transformer_rules, transformer_sample_scan,
+    DecodeGraphs, TransformerNet, transformer_rules, transformer_sample_scan,
 )
 from generative_models_tpu_torch.parallel.mesh import MODEL_AXIS, get_mesh
 from generative_models_tpu_torch.ops.quantize import vq_quantize
@@ -32,6 +32,8 @@ from generative_models_tpu_torch.utils import (
     dists, grid_image, register, write_grid, write_image,
 )
 from generative_models_tpu_torch.utils.config import AttrDict
+
+SAMPLE_UNROLL = 7  # the prior's decode steps a CUDA graph of the graphed pass
 
 
 def same_pad(size, k, s):
@@ -216,16 +218,25 @@ class VQVAE(GM):
         under 'prior', keyed from the prior's own root, so every quantized
         Linear of the prior applies (the JAX package's table keeps the
         'prior' prefix that the prior's modules do not see, and so
-        quantizes none of them; ROADMAP.md queue 3)."""
+        quantizes none of them; ROADMAP.md queue 3). Graphed
+        (graphed_sampling): the prior's decode through a DecodeGraphs of
+        its own (SAMPLE_UNROLL steps a CUDA graph), then decode_codes as
+        one more graph."""
         T, K = self.n_codes, int(self.G.vqK)
         if uniforms is None:
             uniforms = torch.rand((T, n, K), generator=generator, device=self.device)
         sample_token = lambda logits, u: dists.Categorical(logits).sample(uniforms=u)
         prior_quant = quant.sub('prior') if quant is not None else None
-        tokens = transformer_sample_scan(self.net.prior, n, sample_token, uniforms,
-                                         quant=prior_quant)
-        decoded = self.net.ae.decode_codes(tokens.permute(1, 0, 2))
-        return (torch.sigmoid(decoded) > 0.5).float()
+        decode = lambda tokens: (torch.sigmoid(
+            self.net.ae.decode_codes(tokens.permute(1, 0, 2))) > 0.5).float()
+        bufs = self.pass_graphs(('prior', n), refs=(quant,), make=lambda refs: DecodeGraphs(
+            self.net.prior, n, prior_quant, SAMPLE_UNROLL, refs))
+        if bufs is None:
+            return decode(transformer_sample_scan(self.net.prior, n, sample_token, uniforms,
+                                                  quant=prior_quant))
+        transformer_sample_scan(self.net.prior, n, sample_token, uniforms, quant=bufs.quant,
+                                bufs=bufs)
+        return bufs('decode', lambda: decode(bufs.tokens)).clone()
 
     @torch.no_grad()
     def evaluate(self, writer, x, y, epoch):

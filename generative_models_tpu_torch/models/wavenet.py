@@ -37,6 +37,7 @@ from generative_models_tpu_torch.models.base import RasterAutoreg, _lecun_normal
 from generative_models_tpu_torch.models.rnn import append_location, location_grid
 from generative_models_tpu_torch.utils import dists, register
 from generative_models_tpu_torch.utils.config import AttrDict
+from generative_models_tpu_torch.utils.graphs import stage
 from generative_models_tpu_torch.utils.loop import fori_loop, write
 
 
@@ -185,9 +186,10 @@ class Wavenet(RasterAutoreg):
         return loss, {'nlogp': loss}
 
     @torch.no_grad()
-    def decode_chain(self, n, next_pixel, state=(), quant=None):
+    def decode_chain(self, n, next_pixel, state=(), quant=None, graphs=None):
         """The incremental decode: step t reads pixel t - 1 with its
-        location (location_grid's values)."""
+        location (location_grid's values). Graphed: a row of steps a graph,
+        t a host int baked in (its ring slots are views, as eager)."""
         locs = location_grid(self.side, self.device).reshape(self.canvas_size, 2)
 
         def step(t, carry):
@@ -196,5 +198,7 @@ class Wavenet(RasterAutoreg):
             pix, state = next_pixel(t, logit, state)
             return buffers, torch.cat([pix[:, None], locs[t].expand(n, 2)], 1), state
 
-        carry = (self.net.init_buffers(n), torch.zeros((n, 3), device=self.device), state)
-        return fori_loop(0, self.canvas_size, step, carry)[2]
+        buffers, s = stage(graphs, 'first', lambda: (
+            self.net.init_buffers(n), torch.zeros((n, 3), device=self.device)))
+        graphed = () if graphs is None else (self.side, graphs)
+        return fori_loop(0, self.canvas_size, step, (buffers, s, state), *graphed)[2]

@@ -1,8 +1,9 @@
 """The 64-image sampling latency of each progressive-distillation stage
 (the JAX system's scripts/distill_latency.py): each stage's model.pt
 under LOGROOT is loaded (its hps.yaml sets the stage's step count) and
-model.sample(64) with labels -1 is called once to warm, then --reps
-times, timed with the device synchronised around the loop. The curve from
+model.sample(64) with labels -1 is called to warm (on the card twice: the
+eager pass and the capture of its CUDA graphs, utils/graphs.py), then
+--reps times, timed with the device synchronised around the loop. The curve from
 the 256-step teacher down to the 1-step student is the chain's payoff; it
 goes into the JSON's sample_latency, the device (nvidia-smi's name and
 power limit on the card) into sample_latency_device:
@@ -24,6 +25,7 @@ import torch
 
 from generative_models_tpu_torch.scripts import CHAIN_STAGES, cli_argv, split_args
 from generative_models_tpu_torch.scripts.collect_distill import paths
+from generative_models_tpu_torch.utils.graphs import WARMUP
 
 N = 64
 
@@ -51,7 +53,8 @@ def time_stage(logdir, extra=(), reps=5):
         [f'--weights_from={logdir}/model.pt', '--eval_heavy=0', *extra])
     y = torch.full((N,), -1, dtype=torch.int32, device=model.device)
     sync = torch.cuda.synchronize if model.device.type == 'cuda' else (lambda: None)
-    model.sample(N, y)  # warm
+    for _ in range(WARMUP + 1):  # warm: the eager pass, then the capture
+        model.sample(N, y)
     sync()
     t0 = time.time()
     for _ in range(reps):

@@ -24,7 +24,9 @@ Counterpart of generative_models_tpu/serve.py:
 Serving shape, as in the JAX package:
   * requests are padded up to a fixed --serve_bs and sliced back down, so
     every request runs the same batch (the kernels see one shape);
-  * the server is warmed at startup (kernel build + one pass);
+  * the server is warmed at startup (kernel build, then the passes that
+    capture its CUDA graphs: every sampler runs as graphs on the card,
+    models/base.py pass_graphs, so request #1 replays them);
   * requests serialize through a lock (one card, one stream); the HTTP
     layer is stdlib ThreadingHTTPServer;
   * --coalesce_ms=W micro-batches concurrent unseeded requests into one
@@ -249,6 +251,7 @@ class _ServerBase:
         self._salt = int.from_bytes(os.urandom(4), 'little')
         self.latencies = []
         self.warm_sec = None
+        self.warm_passes = 1  # warm()'s passes
         self.coalesce_ms = 0.0
         # backstop so a dispatcher death can never hang requests forever
         self.coalesce_timeout_sec = 120.0
@@ -259,9 +262,12 @@ class _ServerBase:
         self._dispatcher = None
 
     def warm(self):
-        """Build the kernels and run one pass so request #1 is fast."""
+        """Build the kernels and run warm_passes passes so request #1 is
+        fast: one, or, where the pass is graphed, the eager pass and the
+        capture (utils/graphs.py WARMUP), so that request #1 replays."""
         t0 = time.time()
-        self._run(0, self._pad_y(None, self.serve_bs))
+        for _ in range(self.warm_passes):
+            self._run(0, self._pad_y(None, self.serve_bs))
         self.warm_sec = time.time() - t0
         return self.warm_sec
 
@@ -497,6 +503,10 @@ class SampleServer(_ServerBase):
         self.draw_spec = model.draw_spec(self.serve_bs)
         self.ranks = model.mesh.dm is not None  # serving over a process group's ranks
         if not self.ranks:
+            if model.graphed_sampling():
+                from generative_models_tpu_torch.utils.graphs import WARMUP
+
+                self.warm_passes = WARMUP + 1
             self.program = model.serving_program(self.serve_bs, quant=self.quant).eval()
             self._call = program_fn(self.program, self.draw_spec, model.device, self.serve_bs,
                                     self.class_cond, model.SERVE_DETERMINISTIC_CONVS)

@@ -18,7 +18,13 @@ one a batch shape and micro-step kind, replayed step after step
 (utils/graphs.py; eager under a process group, and on the CPU the same
 step uncaptured); 0 is the per-step loop. pixel_transformer's
 --decode_unroll=k runs each k decode steps of a sampling pass as one graph
-(0: the per-step loop). Both are bitwise their eager forms.
+(0: the per-step loop). Every other sampler (diffusion's chains, made,
+vqvae's prior and decoder, rnn, wavenet, the pixel CNNs, vae, gan) runs
+each pass as CUDA graphs on the card without a flag, as the JAX package
+jits it (models/base.py pass_graphs; eager under a process group, under
+torch.export and for diffusion's history chains; the per-step loop is the
+model's graph_sampling = False, for comparison). All are bitwise their
+eager forms.
 --compile_cache is accepted with no effect: graphs are captured in the
 process and not kept, and the kernels build once into the ignored build
 directory (ops/common.py).
@@ -102,7 +108,8 @@ def global_defaults():
 def check_ported(G):
     """Refuse what the port does not implement, by name: an axis no
     package has, and --ckpt=orbax. --jit_epoch and --decode_unroll run (as
-    CUDA graphs on the card); --compile_cache has no effect."""
+    CUDA graphs on the card, as every sampler does); --compile_cache has no
+    effect."""
     mesh = str(G.get('mesh', '') or '')
     if mesh:
         from generative_models_tpu_torch.parallel.mesh import AXES, parse_mesh_spec

@@ -11,7 +11,8 @@ held bitwise by chip_smoke.py's graphs phase):
   * pixel_transformer's decode with a device t at --decode_unroll 1, 3 and
     8 and --decode_segments 1 and 4, bitwise the per-step loop's tokens,
     the remainder's group reached where unroll does not divide a segment;
-  * the model keeps its DecodeGraphs a key, the DECODE_GRAPHS_KEPT last used;
+  * the model keeps its DecodeGraphs a key among its sampling passes'
+    holders, the PASS_GRAPHS_KEPT last used;
   * StepGraphs' launch-counter bookkeeping with the capture stubbed: every
     counter restored after a capture, its increments added once a replay;
   * main.train with --jit_epoch=1 against the JAX package's main.train on
@@ -151,17 +152,17 @@ def test_decode_with_a_device_t_is_bitwise_the_per_step_loop(pt_decode, monkeypa
 
 
 def test_decode_graphs_keep_the_last_used():
-    from generative_models_tpu_torch.models.pixel_transformer import DECODE_GRAPHS_KEPT
+    from generative_models_tpu_torch.utils.graphs import PASS_GRAPHS_KEPT
 
     model = _pt()
-    u = {n: torch.zeros((784, n, 1)) for n in range(1, DECODE_GRAPHS_KEPT + 2)}
+    u = {n: torch.zeros((784, n, 1)) for n in range(1, PASS_GRAPHS_KEPT + 2)}
     first = model.decode_graphs(1, u[1], 1, 8, None)
     assert model.decode_graphs(1, u[1], 1, 8, None) is first
     assert model.decode_graphs(1, u[1], 4, 8, None) is not first  # another key
-    for n in range(2, DECODE_GRAPHS_KEPT + 2):
+    for n in range(2, PASS_GRAPHS_KEPT + 2):
         bufs = model.decode_graphs(n, u[n], 1, 8, None)
         assert (bufs.unroll, bufs.prev.shape[0]) == (8, n)
-    assert len(model._decode_graphs) == DECODE_GRAPHS_KEPT
+    assert len(model._pass_graphs) == PASS_GRAPHS_KEPT
     assert model.decode_graphs(1, u[1], 1, 8, None) is not first  # the oldest went
 
 
